@@ -4,6 +4,12 @@ import sys
 # tests run against src/ without installation
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (skips without one)")
+
+
 # NOTE: do NOT set --xla_force_host_platform_device_count here — smoke
 # tests and benches must see the real single device; only the dry-run
 # subprocess uses 512 placeholder devices.
