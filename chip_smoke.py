@@ -11,18 +11,28 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
      version's time, one PyTorch call's time where one computes the same
      function, and the least time the card could take (bound);
   3. the full-width models on CPU (plain versions) and on the card
-     (kernels) agree on a small input;
+     (kernels) agree on a small input: BBEs, signatures, and the Stage-2
+     loss gradients of every parameter;
   4. the serving path at the paper's full width (default configs, k = 14,
      seeded untrained weights): 19 SPEC-like programs x 1,000 intervals,
      INORDER CPIs; ingest blocks, ingest 18 programs, build, attach_many
-     the 19th, estimate every program. Every kernel must have launched.
+     the 19th, estimate every program. Every kernel of the path must have
+     launched;
+  5. Stage-2 training at full width on the BBEs phase 4 made: 20 steps of
+     64 triplets (the paper's selection policy over the 18 ingested
+     programs), a checkpoint every 10 steps, then a fresh engine restored
+     from step 10 and run to step 20 must end with bitwise the same
+     weights (deterministic algorithms on). Both set-attention kernels
+     must have launched, the backward 9 times a step.
 The line before the last is the JSON kernel summary; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -33,12 +43,14 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): memory rate, and
-# fp32 outside the tensor cores (all four kernels compute in plain fp32).
+# fp32 outside the tensor cores (all five kernels compute in plain fp32).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
 
 SEED = 0
 N_INTERVALS = 1000        # per program, the paper's count
+TRAIN_STEPS = 20          # phase 5, with a checkpoint every 10 steps
+TRAIN_BATCH = 64          # triplets a step: 3 x 64 interval sets
 
 
 def log(msg: str) -> None:
@@ -187,6 +199,84 @@ def check_set_attention(dev, gen):
                 shape=f"B={B} H={H} N={N} M={M} dh={dh}")
 
 
+def check_set_attention_backward(dev, gen):
+    import torch.nn.functional as F
+    from repro_torch.kernels.set_attention import (
+        NEG_INF, set_attention_backward, set_attention_backward_reference,
+    )
+
+    def inputs(B, H, N, M, dh, weighted=True, masked=True, empty_rows=0):
+        q = torch.randn((B, H, N, dh), generator=gen, device=dev)
+        k = torch.randn((B, H, M, dh), generator=gen, device=dev)
+        v = torch.randn((B, H, M, dh), generator=gen, device=dev)
+        do = torch.randn((B, H, N, dh), generator=gen, device=dev)
+        bias = (torch.rand((B, M), generator=gen, device=dev)
+                if weighted else None)
+        mask = None
+        if masked:
+            mask = torch.rand((B, M), generator=gen, device=dev) < 0.45
+            mask[:, 0] = True
+            mask[B - empty_rows:] = False        # fully masked rows
+        return q, k, v, bias, mask, do
+
+    err = 0.0
+    # Stage-2 training's SAB and PMA (64 sets of one role), then M 13,
+    # dh 44, N 1, no bias, no mask; masks with holes, empty rows
+    for case in [(64, 4, 64, 64, 64, True, True, 2),
+                 (64, 4, 1, 64, 64, True, True, 2),
+                 (2, 2, 5, 13, 16, True, True, 1),
+                 (3, 2, 7, 13, 44, True, True, 1),
+                 (2, 3, 1, 33, 44, False, True, 1),
+                 (2, 2, 7, 130, 16, True, False, 0)]:
+        q, k, v, bias, mask, do = inputs(*case)
+        out = set_attention_backward(q, k, v, bias, mask, do)
+        ref = set_attention_backward_reference(q, k, v, bias, mask, do)
+        for name, a, b in zip(("dq", "dk", "dv", "db"), out, ref):
+            require(bool(torch.isfinite(a).all()),
+                    f"set_attention_backward {case}: non-finite {name}")
+            # the JAX suite's gradient bound (tests/test_kernels.py:247)
+            err = max(err, max_err(a, b, 1e-4, 1e-3,
+                                   f"set_attention_backward {name} {case}"))
+        if mask is not None:
+            # masked keys of rows with any valid key: exactly zero
+            dead = ~mask & mask.any(dim=1, keepdim=True)
+            for name, g in (("dk", out[1].permute(0, 2, 1, 3)),
+                            ("dv", out[2].permute(0, 2, 1, 3)),
+                            ("db", out[3].permute(0, 2, 1))):
+                require(bool((g[dead] == 0).all()),
+                        f"set_attention_backward {case}: {name} of a masked "
+                        "key is not exactly 0")
+        again = set_attention_backward(q, k, v, bias, mask, do)
+        require(all(torch.equal(a, b) for a, b in zip(out, again)),
+                f"set_attention_backward {case}: two runs are not bitwise "
+                "equal")
+
+    B, H, N, M, dh = 64, 4, 64, 64, 64
+    q, k, v, bias, mask, do = inputs(B, H, N, M, dh, True, True, 2)
+    ms = cuda_ms(lambda: set_attention_backward(q, k, v, bias, mask, do),
+                 reps=50)
+    plain_ms = cuda_ms(lambda: set_attention_backward_reference(
+        q, k, v, bias, mask, do), reps=20)
+    # yardstick: the backward of scaled_dot_product_attention with the same
+    # float mask (q, k, v gradients; the bias gradient is not asked for)
+    attn_mask = (bias + torch.where(mask, 0.0, NEG_INF))[:, None, None, :]
+    ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
+    library_ms = None
+    try:
+        o_lib = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=attn_mask)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(
+            o_lib, (ql, kl, vl), do, retain_graph=True), reps=50)
+    except RuntimeError as e:       # no SDPA backend takes this: print null
+        log(f"  scaled_dot_product_attention backward unavailable: {e}")
+    n_in = 2 * B * H * N * dh + 2 * B * H * M * dh            # q, dO, k, v
+    n_out = B * H * N * dh + 2 * B * H * M * dh + B * H * M   # dq, dk, dv, db
+    nbytes = 4 * (n_in + n_out + B * M) + B * M               # + bias, mask
+    flops = B * H * (10 * N * M * dh + 12 * N * M)   # five products + softmax
+    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound=bound(nbytes, flops),
+                shape=f"B={B} H={H} N={N} M={M} dh={dh}")
+
+
 def _clustered(n, d, k, gen, dev, spread=0.05):
     """Unit-norm rows around k random centres (nearest centre unambiguous),
     and centroids near those centres."""
@@ -306,6 +396,43 @@ def cross_check_full_width(programs, intervals):
     require(e_sig <= 1e-4, f"signature CPU vs card: {e_sig} > 1e-4")
 
 
+def cross_check_stage2_grads(programs, intervals, cpis):
+    """Stage-2 loss gradients of the full-width model (default
+    SignatureConfig) on the CPU (plain versions) and on the card (both
+    set-attention kernels), on one small triplet batch, every parameter
+    within the JAX suite's gradient bound."""
+    from repro_torch.core.pipeline import BBEIndex
+    from repro_torch.core.signature import (
+        SignatureConfig, SignatureModel, stage2_loss_from_rows,
+    )
+    from repro_torch.train import triplet_row_batch
+    cfg = SignatureConfig()
+    names = [p.name for p in programs[:-1]]
+    rng = np.random.RandomState(SEED)
+    table = {b.bid: rng.randn(cfg.bbe_dim).astype(np.float32)
+             for p in programs for b in p.unique_blocks}
+    index = BBEIndex(table)
+    sets, anchor_cpis = stage2_triplets(names, intervals, cpis,
+                                        _phases(names, intervals), 0, 8)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        model = SignatureModel(cfg, seed=SEED).to(dev)
+        batch = triplet_row_batch(sets, anchor_cpis, index, cfg.max_set,
+                                  device=dev)
+        loss, _ = stage2_loss_from_rows(
+            model, cfg, torch.from_numpy(index.ext).to(dev), batch)
+        named = dict(model.named_parameters())
+        gs = torch.autograd.grad(loss, list(named.values()),
+                                 allow_unused=True)
+        require(all(g is not None for g in gs),
+                f"{dev}: a parameter got no Stage-2 gradient")
+        grads[dev] = {n: g.cpu() for n, g in zip(named, gs)}
+    err = max(max_err(grads["cuda"][n], g, 1e-4, 1e-3, f"stage-2 grad {n}")
+              for n, g in grads["cpu"].items())
+    log(f"  full width, CPU plain vs card kernels: Stage-2 gradients max err "
+        f"{err:.3g} over {len(grads['cpu'])} parameters (8 triplets)")
+
+
 # ---------------------------------------------------------------- phase 4
 
 def make_world():
@@ -378,17 +505,142 @@ def main_path(programs, blocks, intervals, cpis):
         f"weights), held-out {held_out}: est {ests[held_out].est_cpi:.4f} "
         f"true {ests[held_out].true_cpi:.4f}, speedup "
         f"{ests[held_out].speedup:.1f}x")
-    return len(names[:-1]) * N_INTERVALS
+    return svc
+
+
+# ---------------------------------------------------------------- phase 5
+
+def _phases(names, intervals):
+    """{program: {phase_id: [interval index, ...]}} in first-seen order,
+    as `_stage2_triplets` builds it per draw."""
+    out = {}
+    for n in names:
+        phases = {}
+        for i, iv in enumerate(intervals[n]):
+            phases.setdefault(iv.phase_id, []).append(i)
+        out[n] = phases
+    return out
+
+
+def stage2_triplets(names, intervals, cpis, phases, step, batch):
+    """Copy of benchmarks/lab.py::_stage2_triplets (the paper's triplet
+    policy): anchor and positive from the same program and phase, the
+    negative from another program, seeded from the step."""
+    from repro_torch.data.isa import stable_hash
+    from repro_torch.data.perfmodel import INORDER_CPU
+    rng = np.random.RandomState(stable_hash("s2", INORDER_CPU.name, step))
+    sets = {k: [] for k in ("anchor", "positive", "negative")}
+    out_cpis = []
+    for _ in range(batch):
+        pa, pn = rng.choice(names, 2, replace=False)
+        ph = rng.choice(list(phases[pa]))
+        ia = int(rng.choice(phases[pa][ph]))
+        ip = int(rng.choice(phases[pa][ph]))
+        inn = int(rng.randint(len(intervals[pn])))
+        sets["anchor"].append(intervals[pa][ia])
+        sets["positive"].append(intervals[pa][ip])
+        sets["negative"].append(intervals[pn][inn])
+        out_cpis.append(cpis[pa][ia])
+    return sets, out_cpis
+
+
+def train_stage2(svc, programs, intervals, cpis):
+    """Stage-2 training on the card at full width; returns the set-attention
+    (forward, backward) launches of the phase."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.core.signature import stage2_loss_from_rows
+    from repro_torch.kernels.set_attention import (
+        masked_set_attention, set_attention_backward,
+    )
+    from repro_torch.train import Stage2Engine, triplet_row_batch
+    names = [p.name for p in programs[:-1]]       # the 18 ingested programs
+    pipe = svc.pipe
+    cfg = pipe.sig_cfg
+    index, matrix = pipe._table_index(svc.bbe_table)
+    phases = _phases(names, intervals)
+
+    def batch_fn(step):
+        sets, anchor_cpis = stage2_triplets(names, intervals, cpis, phases,
+                                            step, TRAIN_BATCH)
+        return triplet_row_batch(sets, anchor_cpis, index, cfg.max_set,
+                                 device=matrix.device)
+
+    ckdir = os.path.join(HERE, "build", "chip_smoke_stage2")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    tc = TrainConfig(learning_rate=1e-3, total_steps=TRAIN_STEPS,
+                     warmup_steps=2, checkpoint_every=10,
+                     checkpoint_dir=os.path.join(ckdir, "run"))
+
+    def loss_of(eng, batch):
+        with torch.no_grad():
+            return float(stage2_loss_from_rows(eng.model, cfg, eng.matrix,
+                                               batch)[0])
+
+    t_phase = time.perf_counter()
+    eng = Stage2Engine(cfg, pipe.sig_model, matrix, tc)
+    batch0 = batch_fn(0)
+    before = loss_of(eng, batch0)
+    bwd0 = set_attention_backward.launches
+    step_s = []
+    for step in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        m = eng.step(batch_fn(step))
+        eng.maybe_checkpoint()
+        step_s.append(time.perf_counter() - t)
+        require(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
+                f"step {step}: loss {m['loss']}, grad_norm {m['grad_norm']}")
+        log(f"  step {step:2d}: loss {m['loss']:.5f} grad_norm "
+            f"{m['grad_norm']:.4f} lr {m['lr']:.2e} wall "
+            f"{1e3 * step_s[-1]:.2f} ms")
+    require(set_attention_backward.launches - bwd0 == 9 * TRAIN_STEPS,
+            f"set_attention_backward launched "
+            f"{set_attention_backward.launches - bwd0} times in "
+            f"{TRAIN_STEPS} steps, not 9 a step")
+    after = loss_of(eng, batch0)
+    log(f"  loss of the step-0 batch: {before:.5f} before, {after:.5f} after "
+        f"{TRAIN_STEPS} steps")
+    require(after < before, "training did not lower the step-0 batch's loss")
+
+    # exact resume: a fresh engine from the same start, restored from the
+    # step-10 checkpoint, run to the end
+    resumed_dir = os.path.join(ckdir, "resumed")
+    os.makedirs(resumed_dir)
+    shutil.copytree(os.path.join(tc.checkpoint_dir, "step_0000000010"),
+                    os.path.join(resumed_dir, "step_0000000010"))
+    bwd0 = set_attention_backward.launches
+    eng_b = Stage2Engine(cfg, pipe.sig_model, matrix,
+                         dataclasses.replace(tc, checkpoint_dir=resumed_dir))
+    t = time.perf_counter()
+    eng_b.fit(batch_fn, TRAIN_STEPS, log_every=TRAIN_STEPS)
+    resume_s = time.perf_counter() - t
+    require(set_attention_backward.launches - bwd0 == 9 * (TRAIN_STEPS - 10),
+            "the resumed run did not take 10 steps through the kernels")
+    differ = [n for n, p in eng.params.items()
+              if not torch.equal(p, eng_b.params[n])]
+    require(not differ, f"resume from step 10 is not bitwise equal: {differ}")
+    total = time.perf_counter() - t_phase
+    log(f"  step wall time: median {1e3 * float(np.median(step_s)):.2f} ms, "
+        f"first {1e3 * step_s[0]:.2f} ms, sum {sum(step_s):.3f} s "
+        f"({TRAIN_STEPS} steps of {TRAIN_BATCH} triplets, checkpoints "
+        f"included); resume 10 steps {resume_s:.3f} s; bitwise equal "
+        f"({len(eng.params)} parameters)")
+    log(f"  stage-2 training phase: {total:.3f} s")
+    return masked_set_attention.launches, set_attention_backward.launches
 
 
 def main() -> int:
+    # cuBLAS takes its workspace layout when CUDA starts: the fixed one
+    # that deterministic algorithms (phase 5) need
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(HERE, "src"))
     from repro_torch.kernels import _lib
     from repro_torch.kernels.kmeans_assign import kmeans_assign, kmeans_update
-    from repro_torch.kernels.set_attention import masked_set_attention
+    from repro_torch.kernels.set_attention import (
+        masked_set_attention, set_attention_backward,
+    )
     from repro_torch.kernels.wkv import wkv
 
     # plain versions on the card must be true fp32 (no TF32)
@@ -418,12 +670,15 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     wrappers = {"wkv": wkv, "set_attention": masked_set_attention,
-                "kmeans_assign": kmeans_assign, "kmeans_update": kmeans_update}
+                "kmeans_assign": kmeans_assign, "kmeans_update": kmeans_update,
+                "set_attention_backward": set_attention_backward}
     checks = {
         "wkv": lambda: check_wkv(dev, gen),
         "set_attention": lambda: check_set_attention(dev, gen),
         "kmeans_assign": lambda: check_kmeans_assign(dev, gen),
         "kmeans_update": lambda: check_kmeans_update(dev, gen, n_valid_build),
+        "set_attention_backward": lambda: check_set_attention_backward(dev,
+                                                                       gen),
     }
     results = {}
     for name, fn in checks.items():
@@ -437,16 +692,33 @@ def main() -> int:
 
     # 3. full-width CPU vs card on a small input
     cross_check_full_width(programs, intervals)
+    cross_check_stage2_grads(programs, intervals, cpis)
 
-    # 4. the main path; only its launches count
+    # 4. the serving path; only its launches count
     for w in wrappers.values():
         w.launches = 0
     t = time.perf_counter()
-    main_path(programs, blocks, intervals, cpis)
+    svc = main_path(programs, blocks, intervals, cpis)
     log(f"main path: {time.perf_counter() - t:.3f} s")
     launches = {name: w.launches for name, w in wrappers.items()}
-    for name, n in launches.items():
-        require(n > 0, f"kernel {name} was not launched on the main path")
+    for name in ("wkv", "set_attention", "kmeans_assign", "kmeans_update"):
+        require(launches[name] > 0,
+                f"kernel {name} was not launched on the serving path")
+
+    # 5. Stage-2 training; only its launches count, under deterministic
+    # algorithms so that a library op that is not deterministic raises
+    for w in wrappers.values():
+        w.launches = 0
+    torch.use_deterministic_algorithms(True)
+    try:
+        fwd, bwd = train_stage2(svc, programs, intervals, cpis)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    log(f"stage-2 training launches: set_attention {fwd}, "
+        f"set_attention_backward {bwd}")
+    require(fwd > 0 and bwd == 9 * (TRAIN_STEPS + TRAIN_STEPS - 10),
+            "a set-attention kernel was not launched as expected in training")
+    launches["set_attention_backward"] = bwd
 
     meta = {
         "wkv": ("src/repro_torch/csrc/wkv.cu",
@@ -457,6 +729,9 @@ def main() -> int:
                           "src/repro/kernels/kmeans_assign/kmeans.py:32"),
         "kmeans_update": ("src/repro_torch/csrc/kmeans.cu",
                           "src/repro/kernels/kmeans_assign/kmeans.py:74"),
+        "set_attention_backward": (
+            "src/repro_torch/csrc/set_attention.cu",
+            "src/repro/kernels/set_attention/set_attn.py:76"),
     }
     kernels = [{
         "name": name, "route": "cuda", "source": meta[name][0],

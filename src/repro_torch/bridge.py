@@ -14,17 +14,33 @@ maps onto `state_dict` keys by path, with two layout changes:
 
 Loading is strict: a missing or extra leaf, or a shape that differs,
 raises. Nothing here imports jax.
+
+Checkpoint directories cross in both directions through the shared
+on-disk format (`repro_torch.train.checkpoint`): the key of a leaf is
+its `state_dict` name with "." -> "/", which is the JAX tree's path.
+  * JAX -> port: `signature_params_from_checkpoint` loads the Stage-2
+    weights of a directory written by `repro.train.checkpoint.
+    save_checkpoint`; `stage2_engine_from_checkpoint` restores a JAX
+    `Stage2Engine` checkpoint (params, AdamW state, step) into a port
+    engine.
+  * port -> JAX: `save_signature_checkpoint` (and the port Trainer's own
+    checkpoints) write directories that `repro.train.checkpoint.
+    restore_checkpoint` reads with a JAX template.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.core.bbe import BBEConfig, BBEEncoder
+from repro_torch.config import TrainConfig
 from repro_torch.core.signature import SignatureConfig, SignatureModel
+from repro_torch.device import Device, resolve_device
+from repro_torch.train import checkpoint
+from repro_torch.train.stage2 import Stage2Engine
 
 
 def _flatten(tree: Any, prefix: str = "") -> Iterator[Tuple[str, np.ndarray]]:
@@ -71,3 +87,45 @@ def signature_params_from_jax(tree: Dict[str, Any], cfg: SignatureConfig
                               ) -> SignatureModel:
     """Stage-2 model with the weights of a `signature_init` tree (CPU)."""
     return _load(SignatureModel(cfg), dict(_flatten(tree)))
+
+
+def _named(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The model's parameters under their checkpoint keys."""
+    return {k.replace(".", "/"): v for k, v in model.state_dict().items()}
+
+
+def signature_params_from_checkpoint(path: str, cfg: SignatureConfig
+                                     ) -> SignatureModel:
+    """Stage-2 model (CPU) with the "params/..." leaves of the checkpoint
+    directory `path` (a `step_*` directory of either package)."""
+    model = SignatureModel(cfg)
+    tree, _, _ = checkpoint.restore_checkpoint(path,
+                                               {"params": _named(model)})
+    model.load_state_dict({k.replace("/", "."): v
+                           for k, v in tree["params"].items()}, strict=True)
+    return model
+
+
+def stage2_engine_from_checkpoint(path: str, sig_cfg: SignatureConfig,
+                                  matrix, cfg: TrainConfig,
+                                  device: Device = "cuda") -> Stage2Engine:
+    """A port `Stage2Engine` on `device` in the state a JAX (or port)
+    `Stage2Engine` checkpoint holds: params, optimizer state and step."""
+    model = SignatureModel(sig_cfg).to(resolve_device(device))
+    engine = Stage2Engine(sig_cfg, model, matrix, cfg)
+    engine.trainer.load(path)
+    return engine
+
+
+def save_signature_checkpoint(model: SignatureModel, directory: str,
+                              step: int = 0, opt_state: Optional[Dict] = None,
+                              keep: int = 3) -> str:
+    """Writes the model's weights (and `opt_state` when given, in the
+    optimizer layout of `repro_torch.train.optimizer`) as checkpoint
+    `step` in `directory`, for `repro.train.checkpoint.restore_checkpoint`
+    with a {"params": signature_init tree[, "opt": ...]} template."""
+    tree: Dict[str, Any] = {"params": _named(model)}
+    if opt_state is not None:
+        tree["opt"] = opt_state
+    return checkpoint.save_checkpoint(directory, step, tree,
+                                      meta={"step": step}, keep=keep)

@@ -1,5 +1,6 @@
-"""Training objectives for both stages (paper §III-A-4, §III-B-3),
-forward only: the port's training slice adds their gradients.
+"""Stage-2 training objective (paper §III-B-3, Eq. 3), port of
+`repro.core.losses`. Plain tensor code: autograd differentiates it, and
+its gradients are held to `jax.grad` of the JAX package's losses.
 
 L_total = L_triplet + w_r · L_CPI_Huber + w_c · L_consistency
 """

@@ -2,17 +2,19 @@
 
 A frequency-weighted Set Transformer aggregates the BBEs of the blocks
 executed in an interval into one signature; a regression head predicts
-log1p(CPI). Port of `repro.core.signature` (inference; the Stage-2 losses
-and their set-attention backward kernel are the next slice).
+log1p(CPI). Port of `repro.core.signature`: inference, and the Stage-2
+training loss (`stage2_loss`, `stage2_loss_from_rows`), which autograd
+differentiates through the set-attention kernels in both directions.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Dict, Tuple
 
 import torch
 from torch import nn
 
-from repro_torch.core.losses import l2_normalize
+from repro_torch.core.losses import combined_stage2_loss, l2_normalize
 from repro_torch.models.layers import init_array, param
 from repro_torch.models.set_transformer import SetTransformer
 
@@ -76,3 +78,41 @@ def predict_cpi(model: SignatureModel, bbes, freqs, mask):
     """Inverse-transformed CPI prediction."""
     _, logcpi = model(bbes, freqs, mask)
     return torch.expm1(logcpi)
+
+
+def stage2_loss(model: SignatureModel, cfg: SignatureConfig,
+                batch: Dict[str, Any]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """batch: anchor/positive/negative interval sets + anchor CPI.
+
+    Each interval set: {bbes (B,N,D), freqs (B,N), mask (B,N)}; "cpi"
+    (B,). Returns (loss, {"triplet", "cpi_reg", "consistency"}), as
+    `repro.core.signature.stage2_loss`."""
+    sigs = {}
+    for role in ("anchor", "positive", "negative"):
+        s = batch[role]
+        sigs[role] = model(s["bbes"], s["freqs"], s["mask"])
+    return combined_stage2_loss(sigs["anchor"][0], sigs["positive"][0],
+                                sigs["negative"][0], sigs["anchor"][1],
+                                batch["cpi"], w_r=cfg.w_r, w_c=cfg.w_c)
+
+
+def stage2_loss_from_rows(model: SignatureModel, cfg: SignatureConfig,
+                          matrix: torch.Tensor, batch: Dict[str, Any]
+                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """`stage2_loss` over row-id triplet batches.
+
+    matrix: (V+1, bbe_dim) BBE matrix on the model's device whose last row
+    is the all-zero sentinel (`BBEIndex.ext`). batch[role] for role in
+    anchor/positive/negative: {"rows" (B,N) integer ids into `matrix`
+    (the sentinel in padded slots), "freqs" (B,N) f32, "mask" (B,N)
+    bool}; batch["cpi"] (B,). The three (B,N,D) gathers run on the
+    device, so a step ships only integer ids from the host."""
+    dense: Dict[str, Any] = {"cpi": batch["cpi"]}
+    for role in ("anchor", "positive", "negative"):
+        rows = batch[role]["rows"]
+        bbes = matrix.index_select(0, rows.reshape(-1)).reshape(
+            *rows.shape, matrix.shape[-1])
+        dense[role] = {"bbes": bbes, "freqs": batch[role]["freqs"],
+                       "mask": batch[role]["mask"]}
+    return stage2_loss(model, cfg, dense)

@@ -39,6 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _ENTRY_POINTS = {
     "rt_wkv_forward": "ppppppppiiiip",
     "rt_set_attention_forward": "ppppppiiiiifp",
+    "rt_set_attention_backward": "ppppppppppiiiiifp",
     "rt_kmeans_assign": "ppiiippp",
     "rt_kmeans_update": "pppiiippppppip",
 }

@@ -1,26 +1,32 @@
-"""Wrapper of the set-attention forward kernel: dispatch by device,
-checks, launch count.
+"""Wrappers of the set-attention kernels: dispatch by device, checks,
+launch counts, and the autograd Function that joins the two.
 
-Replaces `repro.kernels.set_attention.ops.masked_set_attention`. The CUDA
-kernel takes any N >= 1 and M >= 1 unpadded, so none of the TPU
-wrapper's tile padding is carried over."""
+Replaces `repro.kernels.set_attention.ops.masked_set_attention` and the
+custom VJP around it (`set_attn.py:154-171`). The CUDA kernels take any
+N >= 1 and M >= 1 unpadded, so none of the TPU wrapper's tile padding is
+carried over.
+
+`masked_set_attention` is differentiable on both devices: when a
+gradient is wanted it runs through `_SetAttention`, whose forward saves
+only its inputs and whose backward recomputes P (flash-style, as the JAX
+custom VJP does) through `set_attention_backward`: the backward kernel on
+CUDA tensors, the plain backward on CPU tensors. Without a gradient to
+take (inference, `torch.inference_mode`) the forward runs alone and
+nothing is saved."""
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import _lib
-from repro_torch.kernels.set_attention.ref import set_attention_reference
+from repro_torch.kernels.set_attention.ref import (
+    set_attention_backward_reference, set_attention_reference,
+)
 
 
-def masked_set_attention(q, k, v, key_bias=None, key_mask=None):
-    """q: (B,H,N,dh); k,v: (B,H,M,dh); key_bias: (B,M) additive bias;
-    key_mask: (B,M) valid flags. Returns (B,H,N,dh).
-
-    CPU tensors take the plain version; CUDA tensors (fp32, contiguous)
-    launch the kernel, which needs (N·dh + M·(2dh+1) + N·M)·4 bytes of
-    shared memory a block, at most 227 KB."""
-    if _lib.device_kind(q, k, v, key_bias, key_mask) == "cpu":
-        return set_attention_reference(q, k, v, key_bias, key_mask)
+def _cuda_inputs(q, k, v, key_bias, key_mask):
+    """Checks the CUDA kernels' inputs; returns (B, H, N, M, dh, mask as
+    uint8 or None)."""
     B, H, N, dh = q.shape
     M = k.shape[2]
     _lib.require(q, "q", (B, H, N, dh))
@@ -33,6 +39,13 @@ def masked_set_attention(q, k, v, key_bias=None, key_mask=None):
         _lib.require(key_mask, "key_mask", (B, M), torch.uint8)
     if M == 0:
         raise ValueError("masked_set_attention: needs at least one key")
+    return B, H, N, M, dh, key_mask
+
+
+def _forward(q, k, v, key_bias, key_mask):
+    if _lib.device_kind(q, k, v, key_bias, key_mask) == "cpu":
+        return set_attention_reference(q, k, v, key_bias, key_mask)
+    B, H, N, M, dh, key_mask = _cuda_inputs(q, k, v, key_bias, key_mask)
     o = torch.empty_like(q)
     lib = _lib.load_library()
     rc = lib.rt_set_attention_forward(
@@ -44,4 +57,69 @@ def masked_set_attention(q, k, v, key_bias=None, key_mask=None):
     return o
 
 
+def set_attention_backward(q, k, v, key_bias, key_mask, do):
+    """Cotangents of `masked_set_attention(q, k, v, key_bias, key_mask)`
+    for the output cotangent do: (B,H,N,dh). Returns (dq, dk, dv, db),
+    db (B,H,M) fp32 per head (not yet summed over heads).
+
+    CPU tensors take the plain backward; CUDA tensors (fp32, contiguous)
+    launch the backward kernel, which needs (2N·dh + 2M·(dh+1) + 2N·M)·4
+    bytes of shared memory a block, at most 227 KB."""
+    if _lib.device_kind(q, k, v, key_bias, key_mask, do) == "cpu":
+        return set_attention_backward_reference(q, k, v, key_bias, key_mask,
+                                                do)
+    B, H, N, M, dh, key_mask = _cuda_inputs(q, k, v, key_bias, key_mask)
+    _lib.require(do, "do", (B, H, N, dh))
+    if N == 0:
+        return (torch.empty_like(q), torch.zeros_like(k), torch.zeros_like(v),
+                torch.zeros((B, H, M), dtype=torch.float32, device=q.device))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    db = torch.empty((B, H, M), dtype=torch.float32, device=q.device)
+    lib = _lib.load_library()
+    rc = lib.rt_set_attention_backward(
+        _lib.ptr(q), _lib.ptr(k), _lib.ptr(v), _lib.ptr(key_bias),
+        _lib.ptr(key_mask), _lib.ptr(do), _lib.ptr(dq), _lib.ptr(dk),
+        _lib.ptr(dv), _lib.ptr(db), B, H, N, M, dh, dh ** -0.5,
+        _lib.stream())
+    _lib.check(rc, "set_attention_backward")
+    set_attention_backward.launches += 1
+    return dq, dk, dv, db
+
+
+class _SetAttention(torch.autograd.Function):
+    """Forward kernel (or plain forward) with the backward kernel (or
+    plain backward) as its gradient. Saves only (q, k, v, key_bias,
+    key_mask): P is recomputed in the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_bias, key_mask):
+        ctx.save_for_backward(q, k, v, key_bias, key_mask)
+        return _forward(q, k, v, key_bias, key_mask)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, key_bias, key_mask = ctx.saved_tensors
+        dq, dk, dv, db = set_attention_backward(q, k, v, key_bias, key_mask,
+                                                do.contiguous())
+        # the bias is shared by the heads: sum their gradients, in order
+        dbias = db.sum(dim=1) if ctx.needs_input_grad[3] else None
+        return dq, dk, dv, dbias, None
+
+
+def masked_set_attention(q, k, v, key_bias=None, key_mask=None):
+    """q: (B,H,N,dh); k,v: (B,H,M,dh); key_bias: (B,M) additive bias;
+    key_mask: (B,M) valid flags. Returns (B,H,N,dh).
+
+    CPU tensors take the plain version; CUDA tensors (fp32, contiguous)
+    launch the kernel, which needs (N·dh + M·(2dh+1) + N·M)·4 bytes of
+    shared memory a block, at most 227 KB. Differentiable in q, k, v and
+    key_bias (not in the mask)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k, v, key_bias)):
+        return _SetAttention.apply(q, k, v, key_bias, key_mask)
+    return _forward(q, k, v, key_bias, key_mask)
+
+
 masked_set_attention.launches = 0
+set_attention_backward.launches = 0

@@ -21,9 +21,18 @@ def wkv(r, k, v, w, beta, state: Optional[torch.Tensor] = None):
     r,k,v,w: (B,S,H,dh); beta: (B,S,H); state: (B,H,dh,dh) or None
     (zeros). Returns (y (B,S,H,dh) fp32, final_state (B,H,dh,dh) fp32).
     CPU tensors take the plain version; CUDA tensors (fp32, contiguous,
-    dh <= 128) launch the kernel."""
-    if _lib.device_kind(r, k, v, w, beta, state) == "cpu":
-        return wkv_reference(r, k, v, w, beta, state)
+    dh <= 128) launch the kernel. The kernel has no backward, as its JAX
+    twin `wkv_pallas` has no VJP: on CUDA, an input that requires a
+    gradient (with grad mode on) raises rather than give a result that
+    autograd would silently treat as a constant."""
+    inputs = (r, k, v, w, beta, state)
+    if _lib.device_kind(*inputs) == "cpu":
+        return wkv_reference(*inputs)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in inputs):
+        raise RuntimeError("wkv: the CUDA kernel has no gradient; run it "
+                           "under torch.no_grad() or torch.inference_mode()"
+                           " or on inputs that do not require grad")
     B, S, H, dh = r.shape
     for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
         _lib.require(t, name, (B, S, H, dh))

@@ -14,7 +14,8 @@ from repro_torch.kernels.kmeans_assign import (  # noqa: E402
     kmeans_update_reference,
 )
 from repro_torch.kernels.set_attention import (  # noqa: E402
-    masked_set_attention, set_attention_reference,
+    masked_set_attention, set_attention_backward,
+    set_attention_backward_reference, set_attention_reference,
 )
 from repro_torch.kernels.wkv import wkv, wkv_reference  # noqa: E402
 
@@ -72,6 +73,136 @@ def test_set_attention_kernel_matches_plain(cuda, B, H, N, M, dh, empty):
     torch.testing.assert_close(o, set_attention_reference(q, k, v, bias,
                                                           mask),
                                atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("B,H,N,M,dh,empty", [
+    (64, 4, 64, 64, 64, 2), (64, 4, 1, 64, 64, 2), (2, 2, 5, 13, 16, 1),
+    (3, 2, 7, 13, 44, 1), (2, 3, 1, 33, 44, 0), (2, 2, 7, 130, 16, 0)])
+def test_set_attention_backward_kernel_matches_plain(cuda, B, H, N, M, dh,
+                                                     empty):
+    """The backward kernel against the plain backward (atol 1e-4 + rtol
+    1e-3, the JAX suite's gradient bound); masked keys of rows with a
+    valid key get exactly 0; two launches give the same bits."""
+    g = _gen(cuda, 7 * N + M)
+    q = torch.randn((B, H, N, dh), generator=g, device=cuda)
+    k = torch.randn((B, H, M, dh), generator=g, device=cuda)
+    v = torch.randn((B, H, M, dh), generator=g, device=cuda)
+    do = torch.randn((B, H, N, dh), generator=g, device=cuda)
+    bias = torch.rand((B, M), generator=g, device=cuda)
+    mask = torch.rand((B, M), generator=g, device=cuda) < 0.5
+    mask[:, 0] = True
+    mask[B - empty:] = False
+    before = set_attention_backward.launches
+    out = set_attention_backward(q, k, v, bias, mask, do)
+    torch.cuda.synchronize()
+    assert set_attention_backward.launches == before + 1
+    ref = set_attention_backward_reference(q, k, v, bias, mask, do)
+    for name, a, b in zip(("dq", "dk", "dv", "db"), out, ref):
+        assert torch.isfinite(a).all(), name
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3, msg=name)
+    dead = ~mask & mask.any(dim=1, keepdim=True)       # (B, M)
+    assert (out[1].permute(0, 2, 1, 3)[dead] == 0).all()
+    assert (out[2].permute(0, 2, 1, 3)[dead] == 0).all()
+    assert (out[3].permute(0, 2, 1)[dead] == 0).all()
+    again = set_attention_backward(q, k, v, bias, mask, do)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+def test_set_attention_autograd_runs_the_backward_kernel(cuda):
+    """On CUDA inputs that require grad, `masked_set_attention` goes
+    through the autograd Function: one forward and one backward launch,
+    gradients for q, k, v and the bias (summed over heads) equal to the
+    plain backward's."""
+    g = _gen(cuda, 3)
+    B, H, N, M, dh = 4, 4, 9, 21, 32
+    q, k, v = (torch.randn((B, H, n, dh), generator=g, device=cuda,
+                           requires_grad=True) for n in (N, M, M))
+    bias = torch.rand((B, M), generator=g, device=cuda, requires_grad=True)
+    mask = torch.rand((B, M), generator=g, device=cuda) < 0.6
+    mask[:, 0] = True
+    do = torch.randn((B, H, N, dh), generator=g, device=cuda)
+    fwd, bwd = masked_set_attention.launches, set_attention_backward.launches
+    out = masked_set_attention(q, k, v, bias, mask)
+    assert out.grad_fn is not None
+    grads = torch.autograd.grad(out, (q, k, v, bias), do)
+    assert (masked_set_attention.launches, set_attention_backward.launches) \
+        == (fwd + 1, bwd + 1)
+    dq, dk, dv, db = set_attention_backward_reference(
+        q.detach(), k.detach(), v.detach(), bias.detach(), mask, do)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), grads,
+                          (dq, dk, dv, db.sum(1))):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3, msg=name)
+
+
+def test_wkv_raises_on_an_input_that_requires_grad(cuda):
+    g = _gen(cuda, 1)
+    B, S, H, dh = 1, 8, 2, 16
+    r, k, v = (torch.randn((B, S, H, dh), generator=g, device=cuda)
+               for _ in range(3))
+    w = torch.rand((B, S, H, dh), generator=g, device=cuda)
+    beta = torch.rand((B, S, H), generator=g, device=cuda)
+    r.requires_grad_(True)
+    before = wkv.launches
+    with pytest.raises(RuntimeError, match="no gradient"):
+        wkv(r, k, v, w, beta)
+    assert wkv.launches == before
+    with torch.no_grad():
+        y, _ = wkv(r, k, v, w, beta)
+    assert wkv.launches == before + 1 and torch.isfinite(y).all()
+
+
+def test_cuda_stage2_grads_match_cpu(cuda, tmp_path):
+    """Stage-2 loss gradients on the card (both set-attention kernels)
+    equal the CPU's (plain versions) on every parameter: no parameter is
+    left without a gradient. Then a CUDA Stage2Engine takes a step."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.core.signature import (
+        SignatureConfig, SignatureModel, stage2_loss_from_rows,
+    )
+    from repro_torch.train import Stage2Engine
+    cfg = SignatureConfig(bbe_dim=32, d_model=32, sig_dim=16, max_set=48,
+                          num_heads=2)
+    rng = np.random.RandomState(0)
+    V, B, N = 50, 6, cfg.max_set
+    matrix = np.concatenate([rng.randn(V, cfg.bbe_dim),
+                             np.zeros((1, cfg.bbe_dim))]).astype(np.float32)
+    batch = {"cpi": rng.uniform(0.5, 4.0, B).astype(np.float32)}
+    for role in ("anchor", "positive", "negative"):
+        mask = rng.rand(B, N) > 0.5
+        mask[:, 0] = True
+        batch[role] = {"rows": np.where(mask, rng.randint(V, size=(B, N)), V),
+                       "freqs": np.where(mask, rng.uniform(1, 500, (B, N)),
+                                         0).astype(np.float32),
+                       "mask": mask}
+
+    def on(dev):
+        def move(t):
+            return ({k: move(x) for k, x in t.items()} if isinstance(t, dict)
+                    else torch.from_numpy(np.asarray(t)).to(dev))
+        return move(batch)
+
+    grads = {}
+    for dev in ("cpu", cuda):
+        model = SignatureModel(cfg, seed=1).to(dev)
+        loss, _ = stage2_loss_from_rows(model, cfg,
+                                        torch.from_numpy(matrix).to(dev),
+                                        on(dev))
+        names = [n for n, _ in model.named_parameters()]
+        gs = torch.autograd.grad(loss, list(model.parameters()),
+                                 allow_unused=True)
+        assert all(x is not None for x in gs)
+        grads[str(dev)] = {n: x.cpu() for n, x in zip(names, gs)}
+    for n, want in grads["cpu"].items():
+        torch.testing.assert_close(grads["cuda"][n], want, atol=1e-4,
+                                   rtol=1e-3, msg=n)
+    eng = Stage2Engine(cfg, SignatureModel(cfg, seed=1).to(cuda), matrix,
+                       TrainConfig(learning_rate=1e-3, total_steps=2,
+                                   warmup_steps=1, checkpoint_every=0,
+                                   checkpoint_dir=str(tmp_path)))
+    before = set_attention_backward.launches
+    m = eng.step(on(cuda))
+    assert np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+    assert set_attention_backward.launches == before + 9
 
 
 @pytest.mark.parametrize("N,d,K", [(32768, 128, 14), (1000, 64, 14),

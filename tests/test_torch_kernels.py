@@ -26,7 +26,10 @@ from repro.kernels.wkv.ref import wkv_reference as jax_wkv_ref  # noqa: E402
 from repro_torch.kernels.kmeans_assign import (  # noqa: E402
     kmeans_assign, kmeans_update,
 )
-from repro_torch.kernels.set_attention import masked_set_attention  # noqa: E402
+from repro_torch.kernels.set_attention import (  # noqa: E402
+    masked_set_attention, set_attention_backward,
+    set_attention_backward_reference, set_attention_reference,
+)
 from repro_torch.kernels.wkv import wkv  # noqa: E402
 
 
@@ -188,6 +191,131 @@ def test_set_attention_padding_independence():
     mp = np.pad(mask, ((0, 0), (0, pad)))
     out_p = masked_set_attention(*map(_t, (q, kp, vp, bp, mp)))
     np.testing.assert_allclose(out_p.numpy(), out.numpy(), atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# set attention backward
+# ---------------------------------------------------------------------------
+
+SET_ATTN_GRAD_CASES = [
+    # (B, H, N, M, dh, weighted, masked): tests/test_kernels.py's fp32
+    # gradient cases, then dh 44, the PMA's N = 1 at dh 44, and M = 13
+    (1, 2, 16, 16, 16, False, False),
+    (2, 2, 1, 64, 32, True, True),
+    (2, 2, 5, 13, 16, True, True),
+    (1, 3, 17, 33, 8, False, True),
+    (2, 2, 7, 130, 16, True, False),
+    (2, 2, 9, 21, 44, True, True),
+    (3, 2, 1, 64, 44, True, True),
+    (2, 4, 64, 13, 64, True, True),
+]
+
+
+def _jax_set_attention_grads(q, k, v, bias, mask, ct):
+    """jax.grad through the JAX Pallas kernel's custom VJP (interpret
+    mode), for q, k, v and the bias."""
+    import jax
+
+    def scalar(q_, k_, v_, b_):
+        o = jax_set_attention(q_, k_, v_, b_, None if mask is None
+                              else jnp.asarray(mask), interpret=True)
+        return jnp.sum(o * ct)
+    return jax.grad(scalar, argnums=(0, 1, 2, 3))(
+        *map(jnp.asarray, (q, k, v, bias)))
+
+
+@pytest.mark.parametrize("B,H,N,M,dh,weighted,masked", SET_ATTN_GRAD_CASES)
+def test_set_attention_backward_plain_matches_jax(B, H, N, M, dh, weighted,
+                                                  masked):
+    """The plain backward against (a) torch autograd through the plain
+    forward and (b) jax.grad through the JAX kernel; and
+    `masked_set_attention`'s autograd Function gives the same grads with
+    the bias gradient summed over heads."""
+    rng = np.random.RandomState(7 * N + M)
+    q, k, v, bias, mask = _set_attn_inputs(rng, B, H, N, M, dh, True, masked)
+    if not weighted:
+        bias = np.zeros_like(bias)       # keep it differentiable, no signal
+    ct = rng.randn(B, H, N, dh).astype(np.float32)
+    tq, tk, tv, tb, tm = map(_t, (q, k, v, bias, mask))
+    dq, dk, dv, db = set_attention_backward_reference(tq, tk, tv, tb, tm,
+                                                      _t(ct))
+    assert db.shape == (B, H, M) and db.dtype == torch.float32
+    got = (dq, dk, dv, db.sum(1))
+    leaves = [x.clone().requires_grad_(True) for x in (tq, tk, tv, tb)]
+    auto = torch.autograd.grad(
+        (set_attention_reference(*leaves, tm) * _t(ct)).sum(), leaves)
+    fn_leaves = [x.clone().requires_grad_(True) for x in (tq, tk, tv, tb)]
+    via_fn = torch.autograd.grad(
+        (masked_set_attention(*fn_leaves, tm) * _t(ct)).sum(), fn_leaves)
+    jgrads = _jax_set_attention_grads(q, k, v, bias, mask, ct)
+    for name, g, a, f, j in zip(("dq", "dk", "dv", "dbias"), got, auto,
+                                via_fn, jgrads):
+        np.testing.assert_allclose(g.numpy(), a.numpy(), atol=1e-4,
+                                   rtol=1e-3, err_msg=f"{name} vs autograd")
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), atol=1e-4,
+                                   rtol=1e-3, err_msg=f"{name} vs jax")
+        assert torch.equal(f, g), name
+
+
+def test_set_attention_masked_key_grads_exactly_zero():
+    """tests/test_kernels.py's case: masked keys of rows with a valid key
+    get exactly zero dk, dv and db, through the autograd Function."""
+    rng = np.random.RandomState(11)
+    B, H, N, M, dh = 2, 2, 9, 21, 16
+    q, k, v, bias, _ = _set_attn_inputs(rng, B, H, N, M, dh, True, False)
+    m = rng.rand(B, M) > 0.4
+    m[:, 0] = True
+    leaves = [_t(x).requires_grad_(True) for x in (q, k, v, bias)]
+    out = masked_set_attention(*leaves, _t(m))
+    _, dk, dv, db = torch.autograd.grad((out ** 2).sum(), leaves)
+    dead = torch.from_numpy(~m)
+    assert (dk.permute(0, 2, 1, 3)[dead] == 0).all()
+    assert (dv.permute(0, 2, 1, 3)[dead] == 0).all()
+    assert (db[dead] == 0).all()
+    assert (dk.permute(0, 2, 1, 3)[~dead] != 0).any()
+
+
+def test_set_attention_backward_fully_masked_rows_match_jax():
+    """A batch row with no valid key keeps its uniform P, so its grads
+    are not zero; they equal the JAX kernel's."""
+    rng = np.random.RandomState(3)
+    q, k, v, bias, _ = _set_attn_inputs(rng, 3, 2, 8, 21, 16, True, False)
+    mask = rng.rand(3, 21) > 0.3
+    mask[1, :] = False
+    ct = rng.randn(3, 2, 8, 16).astype(np.float32)
+    dq, dk, dv, db = set_attention_backward_reference(
+        *map(_t, (q, k, v, bias, mask, ct)))
+    assert (dk[1] != 0).any() and (dv[1] != 0).any()
+    for name, g, j in zip(("dq", "dk", "dv", "dbias"),
+                          (dq, dk, dv, db.sum(1)),
+                          _jax_set_attention_grads(q, k, v, bias, mask, ct)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), atol=1e-4,
+                                   rtol=1e-3, err_msg=name)
+
+
+def test_set_attention_function_wiring():
+    """No gradient wanted (inference mode, no_grad, plain inputs): the
+    forward runs alone and the output has no graph. A bias that does not
+    require grad gets None; the mask never gets one. On the CPU neither
+    launch counter moves."""
+    rng = np.random.RandomState(5)
+    q, k, v, bias, mask = map(_t, _set_attn_inputs(rng, 2, 2, 5, 13, 16,
+                                                   True, True))
+    before = (masked_set_attention.launches, set_attention_backward.launches)
+    qg = q.clone().requires_grad_(True)
+    with torch.inference_mode():
+        assert masked_set_attention(qg, k, v, bias, mask).grad_fn is None
+    with torch.no_grad():
+        assert masked_set_attention(qg, k, v, bias, mask).grad_fn is None
+    assert masked_set_attention(q, k, v, bias, mask).grad_fn is None
+    out = masked_set_attention(qg, k, v, bias, mask)
+    assert type(out.grad_fn).__name__ == "_SetAttentionBackward"
+    dq, = torch.autograd.grad(out.sum(), [qg])
+    want = set_attention_backward_reference(q, k, v, bias, mask,
+                                            torch.ones_like(q))[0]
+    assert torch.equal(dq, want)
+    assert (masked_set_attention.launches,
+            set_attention_backward.launches) == before
 
 
 # ---------------------------------------------------------------------------

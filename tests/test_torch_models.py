@@ -23,7 +23,8 @@ from repro_torch import bridge  # noqa: E402
 from repro_torch.core import losses  # noqa: E402
 from repro_torch.core.bbe import BBEConfig, BBEEncoder, encode_bbe  # noqa: E402
 from repro_torch.core.signature import (  # noqa: E402
-    SignatureConfig, predict_cpi, signature_apply,
+    SignatureConfig, predict_cpi, signature_apply, stage2_loss,
+    stage2_loss_from_rows,
 )
 from repro_torch.core.tokenizer import default_tokenizer  # noqa: E402
 from repro_torch.data.asmgen import spec_programs  # noqa: E402
@@ -32,6 +33,9 @@ from repro_torch.models.layers import layernorm, rmsnorm  # noqa: E402
 TINY_BBE = dict(dim_embeds=(48, 8, 8, 8, 8, 8), num_layers=2, num_heads=2,
                 bbe_dim=32, max_len=64)
 TINY_SIG = dict(bbe_dim=32, d_model=32, sig_dim=16, max_set=48, num_heads=2)
+# benchmarks/lab.py's SIG_CFG
+LAB_SIG = dict(bbe_dim=96, d_model=96, sig_dim=64, max_set=48, num_heads=4,
+               w_r=1.0, w_c=0.5)
 
 
 def _np_tree(tree):
@@ -198,6 +202,108 @@ def test_signature_default_width_matches_jax():
         sig, _ = signature_apply(model, *map(torch.from_numpy,
                                              (bbes, freqs, mask)))
     np.testing.assert_allclose(sig.numpy(), np.asarray(sig_j), atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Stage-2 loss gradients
+# ---------------------------------------------------------------------------
+
+def _stage2_batch(rng, B, N, bbe_dim, weighted, masked):
+    """tests/test_kernels.py's stage2 gradient batch (numpy)."""
+    def one_set():
+        m = rng.rand(B, N) > (0.3 if masked else -1.0)
+        m[:, 0] = True
+        return {"bbes": rng.randn(B, N, bbe_dim).astype(np.float32),
+                "freqs": (rng.uniform(1, 500, (B, N)) if weighted
+                          else np.ones((B, N))).astype(np.float32),
+                "mask": m}
+    batch = {r: one_set() for r in ("anchor", "positive", "negative")}
+    batch["cpi"] = rng.uniform(0.5, 4.0, (B,)).astype(np.float32)
+    return batch
+
+
+_JAX_VALUE_AND_GRAD = {}
+
+
+def _jax_value_and_grad(loss_fn, key, params, *args):
+    """(loss, {"/"-joined path: grad}) of loss_fn(params, *args) under one
+    jit per `key`, so the cases of one shape compile once."""
+    if key not in _JAX_VALUE_AND_GRAD:
+        _JAX_VALUE_AND_GRAD[key] = jax.jit(jax.value_and_grad(loss_fn))
+    loss, g = _JAX_VALUE_AND_GRAD[key](params, *args)
+    return float(loss), {
+        "/".join(str(getattr(p, "key", getattr(p, "idx", p))) for p in path):
+        np.asarray(v) for path, v in jax.tree_util.tree_leaves_with_path(g)}
+
+
+def _port_grads(model, loss):
+    named = {k.replace(".", "/"): p for k, p in model.named_parameters()}
+    grads = torch.autograd.grad(loss, list(named.values()))
+    return {k: g.numpy() for k, g in zip(named, grads)}
+
+
+def _assert_grads_close(got, want):
+    assert sorted(got) == sorted(want)
+    for key, g in want.items():
+        np.testing.assert_allclose(got[key], g, atol=1e-4, rtol=1e-3,
+                                   err_msg=key)
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas_interpret"])
+@pytest.mark.parametrize("weighted,masked", [(True, True), (False, True),
+                                             (True, False), (False, False)])
+@pytest.mark.parametrize("cfg_kwargs", [TINY_SIG, LAB_SIG],
+                         ids=["verify-tiny", "lab"])
+def test_stage2_loss_grads_match_jax(cfg_kwargs, weighted, masked, impl):
+    """torch autograd of `stage2_loss` (through the set-attention
+    Function and its plain backward) against jax.grad of the JAX loss,
+    on every parameter, from bridged weights."""
+    jcfg = jsig.SignatureConfig(**cfg_kwargs)
+    params, _ = jsig.signature_init(jax.random.PRNGKey(2), jcfg)
+    model = bridge.signature_params_from_jax(_np_tree(params),
+                                             SignatureConfig(**cfg_kwargs))
+    batch = _stage2_batch(np.random.RandomState(5), 3, jcfg.max_set,
+                          jcfg.bbe_dim, weighted, masked)
+    jbatch = jax.tree_util.tree_map(jnp.asarray, batch)
+    tbatch = jax.tree_util.tree_map(torch.from_numpy, batch)
+    j_loss, want = _jax_value_and_grad(
+        lambda p, b: jsig.stage2_loss(p, jcfg, b, impl)[0],
+        ("stage2_loss", jcfg, impl), params, jbatch)
+    loss, _ = stage2_loss(model, model.cfg, tbatch)
+    np.testing.assert_allclose(float(loss.detach()), j_loss, rtol=1e-5)
+    _assert_grads_close(_port_grads(model, loss), want)
+
+
+@pytest.mark.parametrize("cfg_kwargs", [TINY_SIG, LAB_SIG],
+                         ids=["verify-tiny", "lab"])
+def test_stage2_loss_from_rows_grads_match_jax(cfg_kwargs):
+    """The row-id loss (device-side gathers, sentinel rows in padded
+    slots) differentiates as JAX's does."""
+    jcfg = jsig.SignatureConfig(**cfg_kwargs)
+    params, _ = jsig.signature_init(jax.random.PRNGKey(3), jcfg)
+    model = bridge.signature_params_from_jax(_np_tree(params),
+                                             SignatureConfig(**cfg_kwargs))
+    rng = np.random.RandomState(8)
+    V, B, N = 40, 4, jcfg.max_set
+    matrix = np.concatenate([rng.randn(V, jcfg.bbe_dim),
+                             np.zeros((1, jcfg.bbe_dim))]).astype(np.float32)
+    batch = {"cpi": rng.uniform(0.5, 4.0, (B,)).astype(np.float32)}
+    for role in ("anchor", "positive", "negative"):
+        mask = rng.rand(B, N) > 0.5
+        mask[:, 0] = True
+        rows = np.where(mask, rng.randint(V, size=(B, N)), V)
+        batch[role] = {"rows": rows.astype(np.int32),
+                       "freqs": np.where(mask, rng.uniform(1, 500, (B, N)),
+                                         0).astype(np.float32),
+                       "mask": mask}
+    jbatch = jax.tree_util.tree_map(jnp.asarray, batch)
+    tbatch = jax.tree_util.tree_map(torch.from_numpy, batch)
+    _, want = _jax_value_and_grad(
+        lambda p, m, b: jsig.stage2_loss_from_rows(p, jcfg, m, b)[0],
+        ("stage2_loss_from_rows", jcfg), params, jnp.asarray(matrix), jbatch)
+    loss, _ = stage2_loss_from_rows(model, model.cfg,
+                                    torch.from_numpy(matrix), tbatch)
+    _assert_grads_close(_port_grads(model, loss), want)
 
 
 # ---------------------------------------------------------------------------
