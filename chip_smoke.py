@@ -23,7 +23,16 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
      programs), a checkpoint every 10 steps, then a fresh engine restored
      from step 10 and run to step 20 must end with bitwise the same
      weights (deterministic algorithms on). Both set-attention kernels
-     must have launched, the backward 9 times a step.
+     must have launched, the backward 9 times a step;
+  6. the LM zoo's dense serving path (smollm-135m at full width and
+     depth, seeded untrained weights): (a) the flash-attention kernel
+     against its plain version at the head dims of every zoo config (64,
+     128, 256; causal, windowed, non-causal S != T, ragged fp32), timed at
+     smollm's prefill shape beside scaled_dot_product_attention; (b) fp32
+     on the CPU against the card: hidden states of a 256-token prefill and
+     16 greedy tokens; (c) bf16 on the card: `Model.prefill` of 8 x 2048
+     tokens (30 flash launches a call), then a ServeEngine with 8 slots
+     answering 24 requests twice with the same tokens.
 The line before the last is the JSON kernel summary; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
@@ -42,15 +51,29 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# Published peaks of one H100 SXM (NVIDIA data sheet): memory rate, and
-# fp32 outside the tensor cores (all five kernels compute in plain fp32).
+# Published peaks of one H100 SXM (NVIDIA data sheet): memory rate, fp32
+# outside the tensor cores (the rate of the work the Stage-1/2 kernels do,
+# all in fp32) and bf16 on the tensor cores (the least time of the zoo's
+# bf16 attention, whatever units a kernel uses).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12
 
 SEED = 0
 N_INTERVALS = 1000        # per program, the paper's count
 TRAIN_STEPS = 20          # phase 5, with a checkpoint every 10 steps
 TRAIN_BATCH = 64          # triplets a step: 3 x 64 interval sets
+ZOO_ARCH = "smollm_135m"  # phase 6: the zoo model the repo's serve demo runs
+PREFILL_BATCH, PREFILL_LEN = 8, 2048
+SERVE_REQUESTS, SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_MAX_NEW = 24, 8, 1024, 64
+FLASH_CASES = [   # (B, S, T, H, K, D, causal, window, fp32); the first timed
+    (4, 2048, 2048, 9, 3, 64, True, 0, False),     # smollm's prefill
+    (1, 4096, 4096, 32, 8, 128, True, 0, False),   # qwen3-4b's heads
+    (2, 2048, 2048, 9, 3, 64, True, 512, False),   # a window of 512
+    (2, 448, 1500, 6, 6, 64, False, 0, False),     # whisper's cross shape
+    (2, 512, 512, 8, 1, 256, False, 0, False),     # paligemma's heads
+    (2, 1000, 1000, 9, 3, 64, True, 0, True),      # ragged tile, fp32
+]
 
 
 def log(msg: str) -> None:
@@ -73,11 +96,11 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak: float = PEAK_FP32_FLOP_PER_S):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    fp32 operations over the fp32 rate."""
+    operations over `peak` (fp32 unless given)."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -628,6 +651,186 @@ def train_stage2(svc, programs, intervals, cpis):
     return masked_set_attention.launches, set_attention_backward.launches
 
 
+# ---------------------------------------------------------------- phase 6
+
+def _visible_pairs(S: int, T: int, causal: bool, window: int) -> int:
+    """Unmasked (q, k) pairs of one head, positions from 0 for both."""
+    q = np.arange(S)[:, None]
+    k = np.arange(T)[None, :]
+    vis = np.ones((S, T), bool)
+    if causal:
+        vis = k <= q
+    if window > 0:
+        vis = vis & (q - k < window)
+    return int(vis.sum())
+
+
+def check_flash(dev, gen):
+    """(6a) The flash kernel against its plain version at the zoo's head
+    dims, then timed at smollm-135m's prefill shape."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        attention_reference, flash_attention,
+    )
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def inputs(B, S, T, H, K, D, dtype):
+        return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
+                     for shape in ((B, S, H, D), (B, T, K, D), (B, T, K, D)))
+
+    err = 0.0
+    for B, S, T, H, K, D, causal, window, fp32 in FLASH_CASES:
+        dtype = f32 if fp32 else bf16
+        q, k, v = inputs(B, S, T, H, K, D, dtype)
+        o = flash_attention(q, k, v, causal=causal, window=window)
+        ref = attention_reference(q, k, v, causal=causal, window=window)
+        require(o.dtype == dtype and bool(torch.isfinite(o).all()),
+                f"flash {B, S, T, H, K, D}: dtype {o.dtype} or non-finite")
+        # the JAX suite's bounds (tests/test_kernels.py): bf16 3e-2, fp32
+        # 2e-5, both rtol 1e-2
+        atol = 3e-2 if dtype == bf16 else 2e-5
+        case = (B, S, T, H, K, D, causal, window, str(dtype))
+        err = max(err, max_err(o.float(), ref.float(), atol, 1e-2,
+                               f"flash {case}"))
+        del q, k, v, o, ref
+
+    B, S, _, H, K, D = FLASH_CASES[0][:6]
+    q, k, v = inputs(B, S, S, H, K, D, bf16)
+    ms = cuda_ms(lambda: flash_attention(q, k, v), reps=20)
+    plain_ms = cuda_ms(lambda: attention_reference(q, k, v), reps=5)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    e_lib = (sdpa().transpose(1, 2).float()
+             - flash_attention(q, k, v).float()).abs().max()
+    log(f"  flash_attention vs scaled_dot_product_attention: max abs diff "
+        f"{e_lib.item():.3g} (yardstick only)")
+    library_ms = cuda_ms(sdpa, reps=20)
+    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * K * D)     # q, o; k, v
+    flops = 4 * D * B * H * _visible_pairs(S, S, True, 0)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound=bound(nbytes, flops, PEAK_BF16_FLOP_PER_S),
+                shape=f"B={B} S={S} H={H} K={K} D={D} bf16 causal")
+
+
+def sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _serve(model, params, prompts, dev, max_new, slots, max_seq):
+    """Token lists, decode-step calls and wall seconds of one ServeEngine
+    run over `prompts`."""
+    from repro_torch.serve import Request, ServeEngine
+    eng = ServeEngine(model, params, num_slots=slots, max_seq=max_seq,
+                      device=dev)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=list(p), max_new=max_new))
+    t = time.perf_counter()
+    done = eng.run()
+    sync(dev)
+    return ({r: q.out for r, q in done.items()}, eng.decode_steps,
+            time.perf_counter() - t)
+
+
+def cross_check_zoo(dev):
+    """(6b) smollm-135m at full width in fp32 from one seed on the CPU
+    (plain versions) and on the card (kernels): hidden states of a
+    256-token prefill, and 16 greedy tokens from the ServeEngine."""
+    from repro_torch.config import get_arch
+    from repro_torch.models.model_zoo import build_model
+    cfg = dataclasses.replace(get_arch(ZOO_ARCH), dtype="float32",
+                              param_dtype="float32")
+    model = build_model(cfg)
+    tokens = np.random.RandomState(SEED).randint(0, cfg.vocab_size, (1, 256))
+    out = []
+    for d in ("cpu", dev):
+        t = time.perf_counter()
+        params = model.init(SEED, device=d)
+        hidden, _ = model.prefill(params, {"tokens": tokens})
+        toks, _, _ = _serve(model, params, [tokens[0]], d, 16, 1, 512)
+        out.append((hidden.cpu(), toks[0]))
+        log(f"  {d}: prefill + 16 greedy tokens in "
+            f"{time.perf_counter() - t:.1f} s")
+        del params, hidden
+    (h_cpu, t_cpu), (h_dev, t_dev) = out
+    require(tuple(h_dev.shape) == (1, 256, cfg.d_model),
+            f"hidden shape {tuple(h_dev.shape)}")
+    err = max_err(h_dev, h_cpu, 1e-4, 1e-3,
+                  "smollm fp32 hidden states, CPU vs card")
+    require(t_dev == t_cpu and len(t_cpu) == 16,
+            f"greedy tokens differ: CPU {t_cpu}, card {t_dev}")
+    log(f"  full width fp32, CPU plain vs card kernels: hidden max err "
+        f"{err:.3g} (1 x 256 tokens), 16 greedy tokens equal")
+
+
+def zoo_path(dev):
+    """(6c) smollm-135m in bf16 on the card: Model.prefill of 8 x 2048
+    tokens, then the ServeEngine answering 24 requests twice."""
+    from repro_torch.config import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.model_zoo import build_model
+    cfg = get_arch(ZOO_ARCH)
+    model = build_model(cfg)
+    V = cfg.vocab_size
+    t = time.perf_counter()
+    params = model.init(SEED, device=dev)
+    sync(dev)
+    log(f"  {cfg.name}: {model.param_count()} parameters ({cfg.param_dtype})"
+        f", {cfg.num_layers} layers, drawn and moved in "
+        f"{time.perf_counter() - t:.1f} s")
+    rng = np.random.RandomState(SEED)
+    tokens = torch.from_numpy(rng.randint(0, V, (PREFILL_BATCH, PREFILL_LEN))
+                              ).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for call in range(3):
+        before = flash_attention.launches
+        t = time.perf_counter()
+        hidden, aux = model.prefill(params, {"tokens": tokens})
+        sync(dev)
+        walls.append(time.perf_counter() - t)
+        require(flash_attention.launches - before == cfg.num_layers,
+                f"prefill call {call}: {flash_attention.launches - before} "
+                f"flash launches, not {cfg.num_layers}")
+    require(tuple(hidden.shape) == (PREFILL_BATCH, PREFILL_LEN, cfg.d_model)
+            and hidden.dtype == torch.bfloat16
+            and bool(torch.isfinite(hidden).all()) and float(aux) == 0.0,
+            f"prefill hidden {tuple(hidden.shape)} {hidden.dtype}")
+    prefill_peak = torch.cuda.max_memory_allocated()
+    wall = float(np.median(walls[1:]))
+    n_tok = PREFILL_BATCH * PREFILL_LEN
+    log(f"  prefill {PREFILL_BATCH} x {PREFILL_LEN}: wall {1e3 * wall:.2f} "
+        f"ms (median of calls 2-3; first {1e3 * walls[0]:.2f} ms), "
+        f"{n_tok / wall:.0f} tokens/s, peak device memory "
+        f"{prefill_peak / 2**30:.3f} GiB")
+    del hidden
+
+    lens = rng.randint(16, 257, size=SERVE_REQUESTS)
+    prompts = [rng.randint(0, V, n).tolist() for n in lens]
+    torch.cuda.reset_peak_memory_stats()
+    runs = [_serve(model, params, prompts, dev, SERVE_MAX_NEW,
+                   SERVE_SLOTS, SERVE_MAX_SEQ) for _ in range(2)]
+    outs, steps, serve_s = runs[0]
+    require(sorted(outs) == list(range(SERVE_REQUESTS)),
+            f"{len(outs)} of {SERVE_REQUESTS} requests completed")
+    for r, out in outs.items():
+        require(len(out) == SERVE_MAX_NEW and all(0 <= x < V for x in out),
+                f"request {r}: {len(out)} tokens, or out of vocab")
+    require(runs[1][0] == outs, "the repeated run gave other tokens")
+    log(f"  serve: {SERVE_REQUESTS} requests (prompts {lens.min()}-"
+        f"{lens.max()} tokens, {SERVE_MAX_NEW} new each) on {SERVE_SLOTS} "
+        f"slots, max_seq {SERVE_MAX_SEQ}: {steps} decode steps (prefill "
+        f"steps included) in {serve_s:.3f} s and {runs[1][2]:.3f} s, "
+        f"{steps / serve_s:.1f} and {runs[1][1] / runs[1][2]:.1f} steps/s, "
+        f"{SERVE_REQUESTS * SERVE_MAX_NEW / serve_s:.1f} new tokens/s; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+        f"GiB; the repeat gave the same tokens")
+
+
 def main() -> int:
     # cuBLAS takes its workspace layout when CUDA starts: the fixed one
     # that deterministic algorithms (phase 5) need
@@ -637,6 +840,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(HERE, "src"))
     from repro_torch.kernels import _lib
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.kmeans_assign import kmeans_assign, kmeans_update
     from repro_torch.kernels.set_attention import (
         masked_set_attention, set_attention_backward,
@@ -671,7 +875,8 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     wrappers = {"wkv": wkv, "set_attention": masked_set_attention,
                 "kmeans_assign": kmeans_assign, "kmeans_update": kmeans_update,
-                "set_attention_backward": set_attention_backward}
+                "set_attention_backward": set_attention_backward,
+                "flash_attention": flash_attention}
     checks = {
         "wkv": lambda: check_wkv(dev, gen),
         "set_attention": lambda: check_set_attention(dev, gen),
@@ -720,6 +925,23 @@ def main() -> int:
             "a set-attention kernel was not launched as expected in training")
     launches["set_attention_backward"] = bwd
 
+    # 6. the LM zoo: (a) the flash kernel, (b) CPU vs card at full width,
+    # (c) the dense serving path; only (c)'s launches count
+    t = time.perf_counter()
+    results["flash_attention"] = r = check_flash(dev, gen)
+    log(f"kernel flash_attention [{r['shape']}]: max_abs_err {r['err']:.3g}, "
+        f"ms {r['ms']:.4f}, plain_ms {r['plain_ms']:.4f}, library_ms "
+        f"{r['library_ms']:.4f}, bound_ms {r['bound'][0]:.4f} "
+        f"({r['bound'][1]})")
+    cross_check_zoo(dev)
+    for w in wrappers.values():
+        w.launches = 0
+    zoo_path(dev)
+    launches["flash_attention"] = flash_attention.launches
+    require(launches["flash_attention"] > 0,
+            "flash_attention was not launched on the zoo path")
+    log(f"zoo phase: {time.perf_counter() - t:.3f} s")
+
     meta = {
         "wkv": ("src/repro_torch/csrc/wkv.cu",
                 "src/repro/kernels/wkv/wkv.py:28"),
@@ -732,6 +954,8 @@ def main() -> int:
         "set_attention_backward": (
             "src/repro_torch/csrc/set_attention.cu",
             "src/repro/kernels/set_attention/set_attn.py:76"),
+        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/flash.py:29"),
     }
     kernels = [{
         "name": name, "route": "cuda", "source": meta[name][0],

@@ -12,6 +12,12 @@ maps onto `state_dict` keys by path, with two layout changes:
     `blocks` ModuleList, one layer per index;
   * lists (`embeds`, the Stage-2 `sabs`) become numbered entries.
 
+`lm_params_from_jax` loads an LM of the zoo (`repro.models.transformer.
+lm_init`): its `layers/p<pos>/...` leaves carry a leading `n_periods`
+axis (the `jax.vmap` init), split so that layer n * period + pos gets
+index n; the LM keeps the leaves' dtype, and bf16 leaves (numpy's
+`ml_dtypes.bfloat16`) cross as their bits, never through float.
+
 Loading is strict: a missing or extra leaf, or a shape that differs,
 raises. Nothing here imports jax.
 
@@ -36,9 +42,10 @@ import torch
 from torch import nn
 
 from repro_torch.core.bbe import BBEConfig, BBEEncoder
-from repro_torch.config import TrainConfig
+from repro_torch.config import ModelConfig, TrainConfig
 from repro_torch.core.signature import SignatureConfig, SignatureModel
 from repro_torch.device import Device, resolve_device
+from repro_torch.models.transformer import LM, period_of
 from repro_torch.train import checkpoint
 from repro_torch.train.stage2 import Stage2Engine
 
@@ -87,6 +94,53 @@ def signature_params_from_jax(tree: Dict[str, Any], cfg: SignatureConfig
                               ) -> SignatureModel:
     """Stage-2 model with the weights of a `signature_init` tree (CPU)."""
     return _load(SignatureModel(cfg), dict(_flatten(tree)))
+
+
+def _leaf_tensor(value: np.ndarray) -> torch.Tensor:
+    """numpy leaf -> CPU tensor of the same dtype; bf16 by its bits."""
+    if value.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(value).view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    return torch.from_numpy(np.array(value))
+
+
+def lm_params_from_jax(tree: Dict[str, Any], cfg: ModelConfig) -> LM:
+    """An LM of the zoo (CPU) with the weights of a `lm_init` tree.
+
+    Strict on names and shapes like `_load`; each leaf must have the
+    dtype of the module's parameter (the config's `param_dtype`)."""
+    period = period_of(cfg)
+    n_periods = cfg.num_layers // period
+    flat = dict(_flatten({k: v for k, v in tree.items() if k != "layers"}))
+    for pos_key, sub in tree["layers"].items():
+        pos = int(pos_key[1:])                  # "p<pos>"
+        for key, stacked in _flatten(sub):
+            if stacked.shape[0] != n_periods:
+                raise ValueError(f"layers.{pos_key}.{key}: leading axis "
+                                 f"{stacked.shape[0]} != n_periods "
+                                 f"{n_periods}")
+            for n in range(n_periods):
+                flat[f"layers.{n * period + pos}.{key}"] = stacked[n]
+    model = LM(cfg)
+    state = model.state_dict()
+    missing = sorted(set(state) - set(flat))
+    extra = sorted(set(flat) - set(state))
+    if missing or extra:
+        raise KeyError(f"parameter tree does not match the model: missing "
+                       f"{missing[:5]}, unexpected {extra[:5]}")
+    loaded = {}
+    for key, value in flat.items():
+        t = _leaf_tensor(value)
+        if tuple(t.shape) != tuple(state[key].shape):
+            raise ValueError(f"{key}: tree shape {tuple(t.shape)} vs module "
+                             f"shape {tuple(state[key].shape)}")
+        if t.dtype != state[key].dtype:
+            raise TypeError(f"{key}: tree dtype {t.dtype} vs module dtype "
+                            f"{state[key].dtype} (param_dtype "
+                            f"{cfg.param_dtype})")
+        loaded[key] = t
+    model.load_state_dict(loaded, strict=True)
+    return model
 
 
 def _named(model: nn.Module) -> Dict[str, torch.Tensor]:

@@ -42,6 +42,9 @@ _ENTRY_POINTS = {
     "rt_set_attention_backward": "ppppppppppiiiiifp",
     "rt_kmeans_assign": "ppiiippp",
     "rt_kmeans_update": "pppiiippppppip",
+    # q k v o, B S T H K D, the (b, seq, head) strides of q, k and v,
+    # causal window bf16, scale, stream
+    "rt_flash_attention_forward": "pppp" + "i" * 18 + "fp",
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

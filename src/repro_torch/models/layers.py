@@ -1,6 +1,9 @@
-"""Core layers as `nn.Module`s, fp32.
+"""Core layers as `nn.Module`s.
 
-Weights keep the JAX package's layout: a dense weight is stored
+The Stage-1/2 modules (`Dense`, `RMSNorm`, `LayerNorm` by default) hold
+fp32 parameters; the LM zoo's (`Embed`, `MLP`, `RMSNorm(dtype=...)`) hold
+them in the config's `param_dtype` (bf16 for the real configs) and
+follow the JAX code's dtype promotions. Weights keep the JAX package's layout: a dense weight is stored
 (d_in, d_out) and applied as `x @ w`, and parameter names follow the keys
 of the JAX parameter trees, so `repro_torch.bridge` maps a tree onto a
 module by name alone. Initial values are drawn from a CPU
@@ -25,8 +28,9 @@ def init_array(gen: torch.Generator, shape: Sequence[int],
     return torch.randn(tuple(shape), generator=gen) * scale
 
 
-def param(value: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(value.float())
+def param(value: torch.Tensor,
+          dtype: torch.dtype = torch.float32) -> nn.Parameter:
+    return nn.Parameter(value.to(dtype))
 
 
 class Dense(nn.Module):
@@ -60,12 +64,14 @@ def layernorm(x, scale, bias, eps: float = 1e-6):
 
 
 class RMSNorm(nn.Module):
-    def __init__(self, d: int):
+    def __init__(self, d: int, dtype: torch.dtype = torch.float32,
+                 eps: float = 1e-6):
         super().__init__()
-        self.scale = param(torch.ones(d))
+        self.scale = param(torch.ones(d), dtype)
+        self.eps = eps
 
     def forward(self, x):
-        return rmsnorm(x, self.scale)
+        return rmsnorm(x, self.scale, self.eps)
 
 
 class LayerNorm(nn.Module):
@@ -76,3 +82,71 @@ class LayerNorm(nn.Module):
 
     def forward(self, x):
         return layernorm(x, self.scale, self.bias)
+
+
+# ----------------------------------------------------------------------------
+# LM zoo: embeddings, rotary positions, MLP (params in the config's dtype)
+# ----------------------------------------------------------------------------
+
+class Embed(nn.Module):
+    """(vocab, d) table, N(0, 0.02^2) as `repro.models.layers.embed_init`;
+    the input embedding and (tied or not) the LM head."""
+
+    def __init__(self, gen: torch.Generator, vocab: int, d: int,
+                 dtype: torch.dtype):
+        super().__init__()
+        self.table = param(init_array(gen, (vocab, d), scale=0.02), dtype)
+
+
+def embed(table, ids):
+    """Rows of `table` for `ids`, clamped into range as
+    `jnp.take(..., mode="clip")` does."""
+    return table[ids.clamp(0, table.shape[0] - 1)]
+
+
+def unembed(table, x):
+    """Logits projection x @ table^T, in x's dtype."""
+    return x @ table.to(x.dtype).T
+
+
+def rope(x, positions, theta: float = 10000.0):
+    """x: (..., seq, heads, head_dim), positions: broadcastable to
+    (..., seq). Angles in fp32; x1 * cos etc. promote to fp32 as in JAX,
+    and the result is cast back to x's dtype."""
+    half = x.shape[-1] // 2
+    freqs = torch.exp(-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device)
+                      * (math.log(theta) / half))
+    angles = positions[..., None].float() * freqs   # (..., seq, half)
+    cos = torch.cos(angles)[..., None, :]            # (..., seq, 1, half)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+class MLP(nn.Module):
+    """SwiGLU (gated) or GELU MLP, as `repro.models.layers.mlp_apply`;
+    weights (d_in, d_out) cast to x's dtype."""
+
+    def __init__(self, gen: torch.Generator, d_model: int, d_ff: int,
+                 dtype: torch.dtype, gated: bool = True):
+        super().__init__()
+        self.gated = gated
+        self.wi = param(init_array(gen, (d_model, d_ff)), dtype)
+        if gated:
+            self.wg = param(init_array(gen, (d_model, d_ff)), dtype)
+        self.wo = param(init_array(gen, (d_ff, d_model)), dtype)
+        if not gated:
+            self.bi = param(torch.zeros(d_ff), dtype)
+            self.bo = param(torch.zeros(d_model), dtype)
+
+    def forward(self, x):
+        dt = x.dtype
+        if self.gated:
+            g = x @ self.wg.to(dt)
+            h = (g * torch.sigmoid(g)) * (x @ self.wi.to(dt))  # silu(g) * up
+            return h @ self.wo.to(dt)
+        h = torch.nn.functional.gelu(x @ self.wi.to(dt) + self.bi.to(dt),
+                                     approximate="tanh")
+        return h @ self.wo.to(dt) + self.bo.to(dt)

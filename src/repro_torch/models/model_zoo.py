@@ -1,0 +1,80 @@
+"""Public model API of the port's LM zoo: build a `Model` from a
+ModelConfig (port of `repro.models.model_zoo`, inference part).
+
+    model = build_model(get_arch("smollm_135m"))
+    params = model.init(seed=0)                      # on "cuda"
+    hidden, aux = model.prefill(params, {"tokens": tokens})
+
+`params` is the `transformer.LM` module (weights in the config's
+`param_dtype`), on the device `init` was given. `prefill` and
+`decode_step` run under `torch.inference_mode()`; on CUDA, `prefill`
+runs its attention through the flash-attention kernel (one launch a
+layer). `loss`, `input_specs`, `param_specs` and `cache_specs` wait for
+the training and distributed slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.device import Device, resolve_device
+from repro_torch.models import transformer as tfm
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+
+    # -------------------------------------------------------------- params
+    def init(self, seed: int = 0, device: Device = "cuda") -> tfm.LM:
+        """The model's parameters, drawn on the CPU from
+        `torch.Generator(seed)` (so one seed gives the same weights on
+        every device) and moved to `device`."""
+        return tfm.LM(self.cfg, seed).to(resolve_device(device))
+
+    # --------------------------------------------------------------- serve
+    def init_cache(self, batch: int, max_seq: int,
+                   dtype: torch.dtype = torch.bfloat16,
+                   device: Device = "cuda") -> Dict[str, Any]:
+        """Zeroed KV cache (no specs: they come with the distributed
+        slice)."""
+        return tfm.init_cache(self.cfg, batch, max_seq, dtype,
+                              resolve_device(device))
+
+    def decode_step(self, params: tfm.LM, cache, tokens, pos,
+                    write: Optional[torch.Tensor] = None):
+        """(logits (B,1,V) fp32, cache): one token per row; the cache is
+        updated in place (see `transformer.lm_decode_step`)."""
+        with torch.inference_mode():
+            tokens = torch.as_tensor(tokens, device=_device(params))
+            return tfm.lm_decode_step(params, self.cfg, cache, tokens, pos,
+                                      write)
+
+    def prefill(self, params: tfm.LM, batch: Dict[str, Any]):
+        """Full-sequence forward returning (hidden (B,S,d), aux)."""
+        if "frames" in batch or "patches" in batch:
+            raise NotImplementedError("frames / patches inputs wait for the "
+                                      "encoder-decoder and VLM slices")
+        with torch.inference_mode():
+            tokens = torch.as_tensor(batch["tokens"], device=_device(params))
+            return tfm.lm_apply(params, self.cfg, tokens, return_hidden=True)
+
+    # ------------------------------------------------------------ analytics
+    def param_count(self) -> int:
+        """Number of parameters, counted from the shapes alone (the meta
+        device allocates nothing)."""
+        with torch.device("meta"):
+            lm = tfm.LM(self.cfg)
+        return sum(p.numel() for p in lm.parameters())
+
+
+def _device(params: tfm.LM) -> torch.device:
+    return params.embed.table.device
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    tfm.check_supported(cfg)
+    return Model(cfg)

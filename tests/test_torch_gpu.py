@@ -9,6 +9,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    attention_reference, flash_attention,
+)
 from repro_torch.kernels.kmeans_assign import (  # noqa: E402
     kmeans_assign, kmeans_assign_reference, kmeans_update,
     kmeans_update_reference,
@@ -275,3 +278,92 @@ def test_service_on_card_matches_cpu(cuda):
     for n in ivs:
         np.testing.assert_allclose(runs["cuda"][1][n], runs["cpu"][1][n],
                                    rtol=1e-3)
+
+
+@pytest.mark.parametrize("B,S,T,H,K,D,causal,window,dtype", [
+    (2, 130, 130, 4, 2, 64, True, 0, "float32"),
+    (1, 200, 300, 4, 2, 100, False, 0, "float32"),
+    (1, 1000, 1000, 4, 1, 64, True, 0, "float32"),
+    (1, 80, 48, 2, 2, 16, True, 40, "float32"),
+    (1, 512, 512, 9, 3, 64, True, 128, "bfloat16"),
+    (1, 448, 1500, 6, 6, 64, False, 0, "bfloat16"),
+    (1, 256, 256, 32, 8, 128, True, 0, "bfloat16"),
+    (1, 300, 300, 8, 1, 256, False, 0, "bfloat16")])
+def test_flash_kernel_matches_plain(cuda, B, S, T, H, K, D, causal, window,
+                                    dtype):
+    g = _gen(cuda, S + T)
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, S, H, D), generator=g, device=cuda).to(dt)
+    k = torch.randn((B, T, K, D), generator=g, device=cuda).to(dt)
+    v = torch.randn((B, T, K, D), generator=g, device=cuda).to(dt)
+    before = flash_attention.launches
+    o = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert o.dtype == dt and o.shape == q.shape
+    atol = 2e-5 if dtype == "float32" else 3e-2     # the JAX suite's bounds
+    torch.testing.assert_close(o.float(), attention_reference(
+        q, k, v, causal=causal, window=window).float(), atol=atol, rtol=1e-2)
+
+
+def test_flash_kernel_reads_strides_in_place(cuda):
+    """q, k, v as views of one fused projection (head and sequence strides
+    that are not the contiguous ones) give the contiguous copies' result."""
+    g = _gen(cuda, 5)
+    B, S, H, K, D = 2, 100, 4, 2, 32
+    qkv = torch.randn((B, S, (H + 2 * K) * D), generator=g, device=cuda)
+    q = qkv[..., :H * D].view(B, S, H, D)
+    k = qkv[..., H * D:(H + K) * D].view(B, S, K, D)
+    v = qkv[..., (H + K) * D:].view(B, S, K, D)
+    assert not q.is_contiguous()
+    o = flash_attention(q, k, v)
+    torch.testing.assert_close(o, flash_attention(
+        q.contiguous(), k.contiguous(), v.contiguous()), atol=0, rtol=0)
+    torch.testing.assert_close(o, attention_reference(q, k, v), atol=2e-5,
+                               rtol=1e-2)
+
+
+def test_flash_raises_on_grad_fp16_and_wide_heads(cuda):
+    q = torch.randn((1, 8, 2, 16), device=cuda, requires_grad=True)
+    kv = torch.randn((1, 8, 1, 16), device=cuda)
+    with pytest.raises(RuntimeError, match="gradient"):
+        flash_attention(q, kv, kv)
+    with torch.no_grad():
+        flash_attention(q, kv, kv)
+    h = torch.zeros((1, 8, 2, 16), device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        flash_attention(h, h[:, :, :1], h[:, :, :1])
+    w = torch.zeros((1, 8, 2, 264), device=cuda)
+    with pytest.raises(ValueError):
+        flash_attention(w, w[:, :, :1], w[:, :, :1])
+    with pytest.raises(ValueError):
+        flash_attention(q.detach()[:, :, :, :8].transpose(2, 3), kv, kv)
+
+
+def test_zoo_on_card_matches_cpu(cuda):
+    """A small dense decoder (fp32) on the card and on the CPU from one
+    seed: the same hidden states (one flash launch a layer), and the same
+    greedy tokens from the ServeEngine."""
+    from repro_torch.config import get_arch, scaled_down
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serve import Request, ServeEngine
+    cfg = scaled_down(get_arch("qwen3_4b"), num_layers=3, d_model=128,
+                      num_heads=4, num_kv_heads=2, d_ff=256, vocab_size=512)
+    model = build_model(cfg)
+    tokens = np.random.RandomState(0).randint(0, 512, (2, 150))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        params = model.init(0, device=dev)
+        before = flash_attention.launches
+        hidden, _ = model.prefill(params, {"tokens": tokens})
+        launches = flash_attention.launches - before
+        eng = ServeEngine(model, params, num_slots=2, max_seq=64, device=dev)
+        for i in range(3):
+            eng.submit(Request(rid=i, prompt=list(tokens[0, :5 + 7 * i]),
+                               max_new=8))
+        runs[dev] = (hidden.cpu(), launches,
+                     {r: q.out for r, q in eng.run().items()})
+    assert runs["cpu"][1] == 0 and runs["cuda"][1] == cfg.num_layers
+    torch.testing.assert_close(runs["cuda"][0], runs["cpu"][0], atol=1e-4,
+                               rtol=1e-3)
+    assert runs["cuda"][2] == runs["cpu"][2]

@@ -8,6 +8,12 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from repro.kernels.flash_attention.ops import (  # noqa: E402
+    flash_attention as jax_flash,
+)
+from repro.kernels.flash_attention.ref import (  # noqa: E402
+    attention_reference as jax_flash_ref,
+)
 from repro.kernels.kmeans_assign.ops import (  # noqa: E402
     kmeans_assign as jax_kmeans_assign, kmeans_update as jax_kmeans_update,
 )
@@ -23,6 +29,7 @@ from repro.kernels.set_attention.ref import (  # noqa: E402
 )
 from repro.kernels.wkv.ops import wkv_chunked as jax_wkv  # noqa: E402
 from repro.kernels.wkv.ref import wkv_reference as jax_wkv_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.kmeans_assign import (  # noqa: E402
     kmeans_assign, kmeans_update,
 )
@@ -416,6 +423,63 @@ def test_kmeans_update_holes_in_valid_mask():
     np.testing.assert_array_equal(n.numpy(), np.asarray(n_j))
     np.testing.assert_allclose(s.numpy(), np.asarray(s_j), rtol=1e-4,
                                atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [
+    # (B, S, T, H, K, D, causal, window, bq, bk, dtype): tests/
+    # test_kernels.py's (S == T), then ragged lengths (blocks that divide
+    # them on the JAX side; the port has no block), S != T both ways, and
+    # the head dims 128 and 256
+    (1, 64, 64, 2, 2, 16, True, 0, 16, 16, "float32"),
+    (2, 64, 64, 4, 2, 32, True, 0, 32, 32, "float32"),
+    (1, 128, 128, 6, 6, 16, False, 0, 32, 64, "float32"),
+    (2, 64, 64, 4, 1, 32, True, 32, 32, 32, "float32"),
+    (1, 128, 128, 8, 2, 64, True, 0, 64, 32, "float32"),
+    (2, 64, 64, 4, 4, 32, True, 0, 32, 32, "bfloat16"),
+    (1, 100, 100, 4, 2, 16, True, 0, 20, 25, "float32"),
+    (1, 90, 90, 2, 1, 24, True, 30, 30, 45, "float32"),
+    (2, 48, 80, 4, 2, 16, False, 0, 16, 16, "float32"),
+    (1, 48, 80, 2, 1, 16, True, 0, 16, 40, "float32"),
+    (1, 80, 48, 2, 2, 16, True, 40, 40, 16, "float32"),
+    (1, 64, 64, 4, 1, 128, True, 0, 32, 32, "bfloat16"),
+    (1, 32, 64, 2, 1, 256, False, 0, 32, 32, "float32"),
+]
+
+
+@pytest.mark.parametrize("B,S,T,H,K,D,causal,window,bq,bk,dtype",
+                         FLASH_CASES)
+def test_flash_plain_matches_jax(B, S, T, H, K, D, causal, window, bq, bk,
+                                 dtype):
+    """The CPU path of the port's `flash_attention` (its plain version)
+    against the Pallas kernel (interpret mode) and the jnp oracle, at the
+    JAX suite's bounds (tests/test_kernels.py)."""
+    jd = getattr(jnp, dtype)
+    rng = np.random.RandomState(S + T + H)
+    q, k, v = (_as_dtype(rng.randn(*shape).astype(np.float32), jd)
+               for shape in ((B, S, H, D), (B, T, K, D), (B, T, K, D)))
+    td = getattr(torch, dtype)
+    out = flash_attention(*(_t(a).to(td) for a in (q, k, v)), causal=causal,
+                          window=window)
+    assert out.dtype == td and tuple(out.shape) == (B, S, H, D)
+    jargs = [jnp.asarray(a, jd) for a in (q, k, v)]
+    atol = 2e-5 if dtype == "float32" else 3e-2
+    for want in (jax_flash(*jargs, causal=causal, window=window, block_q=bq,
+                           block_k=bk, interpret=True),
+                 jax_flash_ref(*jargs, causal=causal, window=window)):
+        np.testing.assert_allclose(out.float().numpy(),
+                                   np.asarray(want, np.float32), atol=atol,
+                                   rtol=1e-2)
+
+
+def test_flash_cpu_launches_no_kernel():
+    before = flash_attention.launches
+    x = torch.randn(1, 8, 2, 16)
+    flash_attention(x, x[:, :, :1], x[:, :, :1])
+    assert flash_attention.launches == before == 0
 
 
 # ---------------------------------------------------------------------------
