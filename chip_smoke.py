@@ -9,7 +9,9 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
   2. each kernel against its plain PyTorch version on the card, at the
      main path's shapes and at awkward ones, with its time, the plain
      version's time, one PyTorch call's time where one computes the same
-     function, and the least time the card could take (bound);
+     function, and the least time the card could take (bound); the
+     set-attention forward is timed at the SAB and at the PMA shape, and
+     its registers, shared memory and spills are printed;
   3. the full-width models on CPU (plain versions) and on the card
      (kernels) agree on a small input: BBEs, signatures, and the Stage-2
      loss gradients of every parameter;
@@ -25,10 +27,15 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
      weights (deterministic algorithms on). Both set-attention kernels
      must have launched, the backward 9 times a step;
   6. the LM zoo's dense serving path (smollm-135m at full width and
-     depth, seeded untrained weights): (a) the flash-attention kernel
-     against its plain version at the head dims of every zoo config (64,
-     128, 256; causal, windowed, non-causal S != T, ragged fp32), timed at
-     smollm's prefill shape beside scaled_dot_product_attention; (b) fp32
+     depth, seeded untrained weights): (a) the flash-attention kernels
+     against their plain version at the head dims of every zoo config (64,
+     128, 256; causal, windowed, non-causal S != T, ragged fp32) and at D
+     80, q/k/v as views of a fused projection (16-byte loads) and at an
+     odd offset (element loads), bit for bit equal to contiguous copies;
+     two launches give the same bits; registers, shared memory and spills
+     of each bf16 instance; the HGMMA instructions in the bf16 kernel's
+     SASS (cuobjdump, where the toolkit has it); timed at smollm's prefill
+     shape beside scaled_dot_product_attention; (b) fp32
      on the CPU against the card: hidden states of a 256-token prefill and
      16 greedy tokens; (c) bf16 on the card: `Model.prefill` of 8 x 2048
      tokens (30 flash launches a call), then a ServeEngine with 8 slots
@@ -73,7 +80,9 @@ FLASH_CASES = [   # (B, S, T, H, K, D, causal, window, fp32); the first timed
     (2, 448, 1500, 6, 6, 64, False, 0, False),     # whisper's cross shape
     (2, 512, 512, 8, 1, 256, False, 0, False),     # paligemma's heads
     (2, 1000, 1000, 9, 3, 64, True, 0, True),      # ragged tile, fp32
+    (2, 1000, 1000, 8, 2, 80, True, 0, False),     # D 80: padded to 128
 ]
+FLASH_VIEW_SHAPE = (4, 1024, 9, 3, 64)   # (B, S, H, K, D) of the views
 
 
 def log(msg: str) -> None:
@@ -117,6 +126,30 @@ def max_err(got, want, atol: float, rtol: float, what: str) -> float:
             f"{what}: max abs err {diff.max().item():.3g} beyond atol "
             f"{atol} rtol {rtol}")
     return diff.max().item()
+
+
+def describe(a: dict) -> str:
+    return (f"{a['registers']} registers a thread, shared "
+            f"{a['static_smem']} B static + {a['dynamic_smem']} B dynamic a "
+            f"block, {a['local_bytes']} B local (spills) a thread")
+
+
+def hgmma_count(lib_path: str, function: str):
+    """HGMMA instructions in the SASS of the kernels whose name holds
+    `function`, or None where the toolkit has no cuobjdump."""
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    tool = shutil.which("cuobjdump") or os.path.join(home, "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    count, inside = 0, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = function in line
+        elif inside and "HGMMA" in line:
+            count += 1
+    return count
 
 
 # ---------------------------------------------------------------- phase 2
@@ -203,6 +236,23 @@ def check_set_attention(dev, gen):
         # fp32 throughout, sums in another order: 1e-5 absolute
         err = max(err, max_err(o, o_ref, 1e-5, 0.0, f"set_attention {case}"))
 
+    # the PMA (one seed query): its own kernel, timed beside the SAB's
+    pma = inputs(512, 4, 1, 64, 64, True, True, 24)
+    pma_ms = cuda_ms(lambda: masked_set_attention(*pma), reps=50)
+    pma_plain_ms = cuda_ms(lambda: set_attention_reference(*pma), reps=20)
+    pma_bound = bound(4 * (2 * 512 * 4 * 64 + 2 * 512 * 4 * 64 * 64
+                           + 512 * 64) + 512 * 64,
+                      512 * 4 * (4 * 64 * 64 + 5 * 64))
+    log(f"  set_attention PMA [B=512 H=4 N=1 M=64 dh=64]: ms {pma_ms:.4f}, "
+        f"plain_ms {pma_plain_ms:.4f}, bound_ms {pma_bound[0]:.4f} "
+        f"({pma_bound[1]})")
+    from repro_torch.kernels import _lib
+    attrs = {}
+    for what, shape in (("SAB", (64, 64, 64)), ("PMA", (1, 64, 64))):
+        attrs[what] = a = _lib.kernel_attributes(
+            "rt_set_attention_forward_attributes", *shape)
+        log(f"  set_attention {what} kernel: {describe(a)}")
+
     B, H, N, M, dh = 512, 4, 64, 64, 64
     q, k, v, bias, mask = inputs(B, H, N, M, dh, True, True, 24)
     ms = cuda_ms(lambda: masked_set_attention(q, k, v, bias, mask), reps=50)
@@ -219,7 +269,13 @@ def check_set_attention(dev, gen):
     flops = B * H * (4 * N * M * dh + 5 * N * M)
     return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound=bound(nbytes, flops),
-                shape=f"B={B} H={H} N={N} M={M} dh={dh}")
+                shape=f"B={B} H={H} N={N} M={M} dh={dh}",
+                extra=dict(pma_ms=pma_ms, pma_plain_ms=pma_plain_ms,
+                           pma_bound_ms=pma_bound[0],
+                           registers=attrs["SAB"]["registers"],
+                           local_bytes=attrs["SAB"]["local_bytes"],
+                           pma_registers=attrs["PMA"]["registers"],
+                           pma_local_bytes=attrs["PMA"]["local_bytes"]))
 
 
 def check_set_attention_backward(dev, gen):
@@ -694,8 +750,25 @@ def check_flash(dev, gen):
                                f"flash {case}"))
         del q, k, v, o, ref
 
+    err = max(err, check_flash_layouts(dev, gen))
+    from repro_torch.kernels import _lib
+    attrs = {}
+    for D in (64, 128, 256):
+        attrs[D] = a = _lib.kernel_attributes("rt_flash_attention_attributes",
+                                              1, D)
+        log(f"  flash_attention bf16 (wgmma) instance for D <= {D}: "
+            f"{describe(a)}")
+    hgmma = hgmma_count(str(_lib.build_library()), "flash_wgmma_kernel")
+    if hgmma is None:
+        log("  HGMMA in the bf16 kernel's SASS: not checked (no cuobjdump)")
+    else:
+        log(f"  HGMMA in the bf16 kernel's SASS: {hgmma} instructions")
+        require(hgmma > 0, "the bf16 flash kernel has no HGMMA instruction")
+
     B, S, _, H, K, D = FLASH_CASES[0][:6]
     q, k, v = inputs(B, S, S, H, K, D, bf16)
+    require(torch.equal(flash_attention(q, k, v), flash_attention(q, k, v)),
+            "flash bf16: two launches are not bitwise equal")
     ms = cuda_ms(lambda: flash_attention(q, k, v), reps=20)
     plain_ms = cuda_ms(lambda: attention_reference(q, k, v), reps=5)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -713,7 +786,45 @@ def check_flash(dev, gen):
     flops = 4 * D * B * H * _visible_pairs(S, S, True, 0)
     return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound=bound(nbytes, flops, PEAK_BF16_FLOP_PER_S),
-                shape=f"B={B} S={S} H={H} K={K} D={D} bf16 causal")
+                shape=f"B={B} S={S} H={H} K={K} D={D} bf16 causal",
+                extra=dict(registers=attrs[64]["registers"],
+                           local_bytes=attrs[64]["local_bytes"],
+                           hgmma=hgmma))
+
+
+def check_flash_layouts(dev, gen):
+    """(6a) bf16 q, k, v as views of one fused projection (16-byte
+    loads through the strides) and q at an odd element offset (element
+    loads): both bit for bit the result of contiguous copies, and within
+    the bf16 bound of the plain version."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.flash_attention import (
+        attention_reference, flash_attention,
+    )
+    B, S, H, K, D = FLASH_VIEW_SHAPE
+    qkv = torch.randn((B, S, (H + 2 * K) * D), generator=gen,
+                      device=dev).bfloat16()
+    q = qkv[..., :H * D].view(B, S, H, D)
+    k = qkv[..., H * D:(H + K) * D].view(B, S, K, D)
+    v = qkv[..., (H + K) * D:].view(B, S, K, D)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)
+    q_odd = buf[1:].view(q.shape)
+    q_odd.copy_(q)
+    require(_lib.rows_aligned_16(q, k, v)
+            and not _lib.rows_aligned_16(q_odd, k, v),
+            "flash views: the load routes are not the ones meant")
+    want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    err = 0.0
+    for name, args in (("fused-projection views", (q, k, v)),
+                       ("odd offset (element loads)", (q_odd, k, v))):
+        o = flash_attention(*args)
+        require(torch.equal(o, want), f"flash {name}: not bit for bit the "
+                "contiguous copies' result")
+        err = max(err, max_err(o.float(), attention_reference(*args).float(),
+                               3e-2, 1e-2, f"flash {name}"))
+    log(f"  flash bf16 views of a fused projection and an odd offset: bit "
+        f"for bit the contiguous result, max abs err {err:.3g}")
+    return err
 
 
 def sync(dev) -> None:
@@ -962,7 +1073,8 @@ def main() -> int:
         "replaces": meta[name][1], "launches": launches[name],
         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-        "library_ms": r["library_ms"]} for name, r in results.items()]
+        "library_ms": r["library_ms"], **r.get("extra", {})}
+        for name, r in results.items()]
     log("kernels: " + " ".join(f"{k['name']}={k['launches']}"
                                for k in kernels))
     log(card)

@@ -5,52 +5,97 @@
 // and from the models through models/attention.py::attn_apply). Per batch
 // row b, head h and query position i:
 //     o[b,i,h] = softmax_j(scale q[b,i,h] . k[b,j,h/g] + mask(i,j)) v[b,j,h/g]
-// with g = H/K, scale = D^-0.5 applied to q in fp32 before the product,
-// masked scores set to NEG_INF = -2^30 (not -inf), the causal rule j <= i and
-// the window rule i - j < window on absolute positions counted from 0 for both
-// q and k (also when S != T), a running max m, a running denominator l and an
-// fp32 accumulator, and the output acc / max(l, 1e-30) cast to q's dtype.
+// with g = H/K, scale = D^-0.5, masked scores set to NEG_INF = -2^30 (not
+// -inf), the causal rule j <= i and the window rule i - j < window on
+// absolute positions counted from 0 for both q and k (also when S != T), a
+// running max m, a running denominator l and an fp32 accumulator, and the
+// output acc / max(l, 1e-30) cast to q's dtype.
 //
+// Two hand-written kernels, chosen by dtype in the wrapper
+// (kernels/flash_attention/ops.py); a failed build or launch of either raises.
+//
+// bf16: rt_flash_attention_forward_bf16, on the tensor cores (wgmma, sm_90a).
 // What bounds it on the H100: at smollm-135m's prefill (B 4, S 2048, H 9,
-// K 3, D 64, bf16, causal) it must move 25 MB (q, k, v read once, o written
-// once: 7.5 us at 3.35 TB/s) and do 4 D = 256 FLOPs per unmasked (q, k) pair,
+// K 3, D 64, causal) it must move 25 MB (q, k, v read once, o written once:
+// 7.5 us at 3.35 TB/s) and do 4 D = 256 FLOPs per unmasked (q, k) pair,
 // 19 GFLOP: 20 us at the bf16 tensor-core rate. So the operations bound it,
-// and only a kernel on the tensor cores (wgmma, a later PR) can approach the
-// bound. This first kernel does the same work in plain fp32 FMAs, whose peak
-// (67 TFLOP/s) already puts it at 0.29 ms or more: right and simple first.
-// The design keeps every intermediate on chip, as the TPU kernel kept it in
-// VMEM, and reads q once and each k/v tile once a query tile:
-//   * one block of 256 threads (16 x 16) per (64-query tile, head, batch row);
-//     the block loops over 64-key tiles of its kv head h / g (GQA in the
-//     index, no repeated heads), as the TPU kernel's sequential kv grid axis;
+// and the design feeds the tensor cores and keeps every intermediate on
+// chip, as the TPU kernel kept it in VMEM:
+//   * one block per (128-query tile, head, batch row): two consumer
+//     warpgroups of 64 query rows each (one of 64 at D > 128, where the O
+//     accumulator takes 128 registers a thread). The block loops over
+//     64-key tiles of kv head h / g (GQA in the index);
+//   * S = Q K^T by wgmma m64n64k16, Q and K both K-major in shared memory in
+//     the 128-byte swizzled layout the descriptors read, all D / 16 steps
+//     issued as one batch; O += P V by wgmma m64n64k16 per 64 output
+//     columns, P the register A operand (the fp32 accumulator fragment
+//     converted to bf16 in place: its layout is the A fragment's), V an
+//     MN-major B operand read through the descriptor's transpose bit;
+//   * the softmax works on the raw fp32 scores: the row max over them, then
+//     p = 2^(s scale log2(e) - m scale log2(e)) in one FMA and one MUFU.EX2
+//     a score, so the scale is applied in fp32 after the product and q is
+//     never rounded after scaling. Masked scores are NEG_INF before the
+//     scale (the plain version masks after it): either way exp underflows
+//     to exactly 0 beside a visible key, and a row with none so far weighs
+//     its masked keys equally;
+//   * P in bf16 is a rounding the TPU kernel does not make (it multiplies
+//     fp32 P by fp32 v); l sums the fp32 P. The JAX suite's bf16 bound (atol
+//     3e-2, rtol 1e-2) holds;
+//   * the O accumulator (64 rows x D fp32 a warpgroup) stays in registers;
+//     row max and sum are reduced over the accumulator's lane quad by
+//     shuffles, and l is kept per thread until the end;
+//   * K/V go through a ring of two stages of two 64-key tiles each (one at
+//     D > 128): the next stage's loads are in flight while the current one
+//     is multiplied, with one block barrier a stage. The loads are 16-byte
+//     cp.async (not TMA): the zoo hands q, k, v as strided views of fused
+//     projections, one cp.async per 16 bytes takes any such view whose rows
+//     are 16-byte aligned with no tensor map to encode on the host per call,
+//     zero-fills rows past S or T and head-dim columns up to the padded width
+//     by its source size, and writes the same swizzled layout a TMA load
+//     would. Rows that are not 16-byte aligned (D % 8 != 0, odd strides or
+//     offsets; the wrapper decides from the pointers and strides) are copied
+//     element by element by the same kernel into the same layout;
+//   * tiles that the causal rule or the window mask for every row of a
+//     warpgroup are skipped (the pl.when(run) bounds of the TPU kernel, at
+//     64 rows x 64 keys); only tiles that straddle the diagonal, the window
+//     edge or T apply the rule to the score fragment, the rest run unmasked;
+//   * under the causal rule blockIdx.y runs from the last query tile (the
+//     most key tiles) to the first, so the heavy tiles start first;
+//   * no atomics: two runs give the same bits.
+// Head dims: D up to 256, padded to 64, 128 or 256 columns (zero-filled).
+// Tried on the H100 and dropped (no gain at smollm's shape): three stages
+// with two tiles of prefetch, one warpgroup a block, and issuing the P V
+// product of the previous tile behind Q K^T of the current one (the
+// compiler serialised the wgmma across the branch that skips tiles).
+//
+// fp32: rt_flash_attention_forward_f32, the first design of this kernel, in plain
+// fp32 FMAs, kept for fp32 inputs: tensor cores would need TF32, which
+// breaks the 2e-5 fp32 bound. Its bound at the same shape is the fp32 peak
+// (67 TFLOP/s), 0.29 ms or more:
+//   * one block of 256 threads (16 x 16) per (64-query tile, head, batch
+//     row), looping over 64-key tiles of kv head h / g;
 //   * key tiles that the causal rule or the window mask out for every row of
 //     the query tile are never loaded (the loop bounds), as pl.when(run)
-//     skipped them. A row whose first visible key lies in a later tile
-//     carries m = NEG_INF and the l and acc of the masked keys of earlier
-//     computed tiles until its first real score, where the correction
-//     exp(m_prev - m_new) underflows to 0 and clears them, as in the TPU
-//     kernel;
+//     skipped them;
 //   * q (pre-scaled, fp32) and the k tile sit transposed in shared memory
-//     with a padded row, v row-major, the P tile with a padded row, so every
-//     warp reads distinct banks or one broadcast address. Each thread
-//     computes a 4 x 4 block of scores (rows ty + 16 i, keys tx + 16 j) from
-//     registers; the row max and sum are reduced over the 16 lanes of a half
-//     warp with shuffles; each thread keeps 4 rows x D/16 columns of the fp32
-//     accumulator in registers;
-//   * any S and T: rows past S are computed on zeros and not stored; keys past
-//     T get p = 0 (they do not exist, unlike masked keys, which get NEG_INF);
-//     any head dim up to 256, the accumulator's columns rounded up to 16
-//     (instantiations for D <= 64, 128 and 256; 210 KB of shared memory at
-//     D = 256); bf16 or fp32 inputs, the output in the input's dtype;
-//   * the model layout (B, S, H, D) / (B, T, K, D) is read in place through
-//     its strides, with unit stride over D; o is written contiguous;
-//   * plain fp32 FMAs, fp32 accumulation, no TF32; no atomics, so two runs
-//     give the same bits.
-// One difference from the plain version (kernels/flash_attention/ref.py),
-// shared with the TPU kernel: a row with no visible key at all (only
-// possible without the causal rule, with a window, when S > T + window - 1)
-// gets the mean of v over the computed tiles' keys, or 0 when every tile was
-// skipped, where the plain version averages all T keys.
+//     with a padded row, v row-major, the P tile with a padded row. Each
+//     thread computes a 4 x 4 block of scores from registers; the row max and
+//     sum are reduced over the 16 lanes of a half warp with shuffles; each
+//     thread keeps 4 rows x D/16 columns of the fp32 accumulator;
+//   * plain fp32 FMAs, fp32 accumulation, no TF32, no atomics.
+//
+// Common to both: a row whose first visible key lies in a later tile carries
+// m = NEG_INF and the l and acc of the masked keys of earlier computed tiles
+// until its first real score, where the correction exp(m_prev - m_new)
+// underflows to 0 and clears them, as in the TPU kernel. Any S and T: rows
+// past S are computed on zeros and not stored; keys past T get p = 0 (they do
+// not exist, unlike masked keys, which get NEG_INF). The model layout
+// (B, S, H, D) / (B, T, K, D) is read in place through its strides, with
+// unit stride over D; o is written contiguous. One difference from the plain
+// version (kernels/flash_attention/ref.py), shared with the TPU kernel: a row
+// with no visible key at all (only possible with a window, when S > T +
+// window - 1) gets the mean of v over the computed tiles' keys, or 0 when
+// every tile was skipped, where the plain version averages all T keys.
 #include <cuda_bf16.h>
 
 #include <cmath>
@@ -61,6 +106,9 @@
 namespace {
 
 constexpr float kNegInf = -1073741824.0f;  // -2^30
+
+namespace simt {
+
 constexpr int kBQ = 64;                     // queries a block
 constexpr int kBK = 64;                     // keys a tile
 constexpr int kThreads = 256;               // 16 x 16
@@ -70,32 +118,11 @@ constexpr int kLdQ = kBQ + 1;               // padded rows of sQ, sK, sP
 constexpr int kLdK = kBK + 1;
 constexpr int kLdP = kBK + 1;
 
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);  // round to nearest even, as torch's cast
-}
-
-// Reductions over the 16 lanes of a half warp (lanes that share ty).
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
 // ND = accumulator columns a thread (head dim rounded up to 16, over 16).
-template <typename T, int ND>
+template <int ND>
 __global__ void __launch_bounds__(kThreads)
-flash_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int S, int Tk, int H,
+flash_forward_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o, int S, int Tk, int H,
                      int G, int D, int qsb, int qss, int qsh, int ksb, int kss, int ksh,
                      int vsb, int vss, int vsh, int causal, int window, float scale) {
   constexpr int DP = ND * 16;  // row stride of sV; columns D..DP-1 are 0
@@ -111,15 +138,15 @@ flash_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const T* qb = q + static_cast<int64_t>(b) * qsb + static_cast<int64_t>(h) * qsh;
-  const T* kb = k + static_cast<int64_t>(b) * ksb + static_cast<int64_t>(h / G) * ksh;
-  const T* vb = v + static_cast<int64_t>(b) * vsb + static_cast<int64_t>(h / G) * vsh;
+  const float* qb = q + static_cast<int64_t>(b) * qsb + static_cast<int64_t>(h) * qsh;
+  const float* kb = k + static_cast<int64_t>(b) * ksb + static_cast<int64_t>(h / G) * ksh;
+  const float* vb = v + static_cast<int64_t>(b) * vsb + static_cast<int64_t>(h / G) * vsh;
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D;
     const int d = i - r * D;
     const int pos = q0 + r;
-    sQ[d * kLdQ + r] = pos < S ? load_f(qb + static_cast<int64_t>(pos) * qss + d) * scale : 0.f;
+    sQ[d * kLdQ + r] = pos < S ? qb[static_cast<int64_t>(pos) * qss + d] * scale : 0.f;
   }
 
   // key tiles with any visible key for some row of this query tile
@@ -150,8 +177,8 @@ flash_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float kv = 0.f;
       float vv = 0.f;
       if (c < nk && d < D) {
-        kv = load_f(kb + static_cast<int64_t>(k0 + c) * kss + d);
-        vv = load_f(vb + static_cast<int64_t>(k0 + c) * vss + d);
+        kv = kb[static_cast<int64_t>(k0 + c) * kss + d];
+        vv = vb[static_cast<int64_t>(k0 + c) * vss + d];
       }
       if (d < D) sK[d * kLdK + c] = kv;
       sV[c * DP + d] = vv;
@@ -191,7 +218,7 @@ flash_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (c >= nk) s[i][j] = -INFINITY;  // no such key: p = 0 below
         mt = fmaxf(mt, s[i][j]);
       }
-      mt = half_warp_max(mt);
+      mt = rt::half_warp_max(mt);
       const float m_new = fmaxf(m[i], mt);  // >= NEG_INF: finite
       float ls = 0.f;
 #pragma unroll
@@ -200,7 +227,7 @@ flash_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
         sP[(ty + 16 * i) * kLdP + tx + 16 * j] = p;
         ls += p;
       }
-      ls = half_warp_sum(ls);
+      ls = rt::half_warp_sum(ls);
       corr[i] = expf(m[i] - m_new);
       l[i] = l[i] * corr[i] + ls;
       m[i] = m_new;
@@ -229,66 +256,517 @@ flash_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qpos = q0 + ty + 16 * i;
     if (qpos >= S) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    T* orow = o + ((static_cast<int64_t>(b) * S + qpos) * H + h) * D;
+    float* orow = o + ((static_cast<int64_t>(b) * S + qpos) * H + h) * D;
 #pragma unroll
     for (int j = 0; j < ND; ++j) {
       const int d = tx + 16 * j;
-      if (d < D) store_f(orow + d, acc[i][j] / den);
+      if (d < D) orow[d] = acc[i][j] / den;
     }
   }
 }
 
-template <typename T, int ND>
+// q^T, k^T (padded rows), v (columns rounded up to 16) and the P tile
+inline size_t smem_bytes(int D, int nd) {
+  return sizeof(float) * (static_cast<size_t>(D) * (kLdQ + kLdK) +
+                          static_cast<size_t>(kBK) * nd * 16 + static_cast<size_t>(kBQ) * kLdP);
+}
+
+template <int ND>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int Tk,
                    int H, int K, int D, int qsb, int qss, int qsh, int ksb, int kss, int ksh,
                    int vsb, int vss, int vsh, int causal, int window, float scale,
                    cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (static_cast<size_t>(D) * (kLdQ + kLdK) +
-                                       static_cast<size_t>(kBK) * ND * 16 +
-                                       static_cast<size_t>(kBQ) * kLdP);
-  auto kernel = flash_forward_kernel<T, ND>;
+  const size_t smem = smem_bytes(D, ND);
+  auto kernel = flash_forward_kernel<ND>;
   cudaError_t err = rt::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, Tk, H, H / K, D, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh,
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), S, Tk, H, H / K, D, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh,
       causal, window, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B, int S, int Tk,
                      int H, int K, int D, int qsb, int qss, int qsh, int ksb, int kss, int ksh,
                      int vsb, int vss, int vsh, int causal, int window, float scale,
                      cudaStream_t stream) {
   if (D <= 64)
-    return launch<T, 4>(q, k, v, o, B, S, Tk, H, K, D, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
-                        vsh, causal, window, scale, stream);
+    return launch<4>(q, k, v, o, B, S, Tk, H, K, D, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
+                     vsh, causal, window, scale, stream);
   if (D <= 128)
-    return launch<T, 8>(q, k, v, o, B, S, Tk, H, K, D, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
-                        vsh, causal, window, scale, stream);
-  return launch<T, 16>(q, k, v, o, B, S, Tk, H, K, D, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
-                       vsh, causal, window, scale, stream);
+    return launch<8>(q, k, v, o, B, S, Tk, H, K, D, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
+                     vsh, causal, window, scale, stream);
+  return launch<16>(q, k, v, o, B, S, Tk, H, K, D, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
+                    vsh, causal, window, scale, stream);
 }
+
+}  // namespace simt
+
+namespace wg {
+
+constexpr int kBK = 64;        // keys a tile
+constexpr int kRowBytes = 128;  // one swizzled row: 64 bf16
+constexpr int kAtomBytes = 1024;  // 8 rows of 128 B, the swizzle's period
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of 16-byte chunk c8 of row r in a tile of R rows whose columns
+// come in blocks of 64 (one 128-byte row each): block-major, rows of 128 B,
+// chunks XOR-swizzled by r % 8 (CU_TENSOR_MAP_SWIZZLE_128B's layout).
+template <int R>
+__device__ __forceinline__ uint32_t swizzled(int r, int c8) {
+  return (c8 >> 3) * (R * kRowBytes) + r * kRowBytes + (((c8 & 7) ^ (r & 7)) << 4);
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// byte offset 16 B (unused: one swizzle atom spans each operand's 64-wide
+// contiguous extent), stride byte offset 1024 B (the next 8 rows).
+__device__ __forceinline__ uint64_t descriptor(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(kAtomBytes >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// generic-proxy writes to shared memory, made visible to wgmma's async proxy
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from touching accumulator registers across a wgmma
+// that is still in flight.
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A B, A (64 x 16) and B (16 x 64) both K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d += A B, A (64 x 16) in registers, B (16 x 64) MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// 2^x (MUFU.EX2, flush to zero): the softmax's exponential, in base 2
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Copies rows r0 .. r0 + R - 1 (those below nrows; the rest, and columns
+// D .. DP - 1, as zeros) of a (rows, D) bf16 view with row stride rs into
+// the swizzled tile at dst: by 16-byte cp.async when vec, else element by
+// element with plain loads and stores.
+template <int R, int DP, int NT>
+__device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src, int r0,
+                                          int nrows, int rs, int D, int vec, int tid) {
+  constexpr int C8 = DP / 8;  // 16-byte chunks a row
+  for (int i = tid; i < R * C8; i += NT) {
+    const int r = i / C8;
+    const int c8 = i - r * C8;
+    const int row = r0 + r;
+    const uint32_t at = dst + swizzled<R>(r, c8);
+    if (vec) {
+      const bool ok = row < nrows && c8 * 8 < D;
+      const __nv_bfloat16* p = ok ? src + static_cast<int64_t>(row) * rs + c8 * 8 : src;
+      cp_async16(at, p, ok ? 16 : 0);
+    } else {
+      uint32_t w[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t pair = 0;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = c8 * 8 + 2 * j + e;
+          if (row < nrows && col < D)
+            pair |= static_cast<uint32_t>(__bfloat16_as_ushort(
+                        src[static_cast<int64_t>(row) * rs + col]))
+                    << (16 * e);
+        }
+        w[j] = pair;
+      }
+      asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(at), "r"(w[0]), "r"(w[1]),
+                   "r"(w[2]), "r"(w[3])
+                   : "memory");
+    }
+  }
+}
+
+// The Q tile, two stages of (K, V) of SUB key tiles each, and slack to
+// align to the swizzle atom.
+template <int DP, int NWG, int SUB>
+constexpr size_t smem_bytes() {
+  return static_cast<size_t>(64 * NWG * DP * 2) + 4 * static_cast<size_t>(SUB * kBK * DP * 2) +
+         kAtomBytes;
+}
+
+// S = Q K^T of one warpgroup: sQw its 64 rows of the Q tile (column blocks
+// BQ rows apart), sK the key tile (column blocks KR rows apart). All DP / 16
+// steps of 16 run: the columns past D are zeros.
+template <int DP, int BQ, int KR>
+__device__ __forceinline__ void issue_qk(float (&s)[32], uint32_t sQw, uint32_t sK) {
+  const uint64_t dq = descriptor(sQw);
+  const uint64_t dk = descriptor(sK);
+#pragma unroll
+  for (int ks = 0; ks < DP / 16; ++ks) {
+    const uint32_t off = (ks % 4) * 32;  // 16 columns = 32 B into the row
+    wgmma_ss(s, dq + (((ks / 4) * (BQ * kRowBytes) + off) >> 4),
+             dk + (((ks / 4) * (KR * kRowBytes) + off) >> 4), ks > 0);
+  }
+}
+
+// O += P V: P the A fragments of four steps of 16 keys, sV the value tile
+// (column blocks KR rows apart).
+template <int DC, int KR>
+__device__ __forceinline__ void issue_pv(float (&acc)[DC][32], const uint32_t (&pa)[4][4],
+                                         uint32_t sV) {
+  const uint64_t dv = descriptor(sV);
+#pragma unroll
+  for (int c = 0; c < DC; ++c)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc[c], pa[kk], dv + ((c * (KR * kRowBytes) + kk * 16 * kRowBytes) >> 4));
+}
+
+// The online softmax of one score tile of a warpgroup (the thread's rows
+// qrow, qrow + 8; keys k0 + column): the mask where need_mask, the new row
+// max m, the correction corr of the old O and l, P in bf16 as the A
+// fragments of four k16 steps (the accumulator's columns 16 kk .. 16 kk + 15
+// are exactly A's k range of step kk), and l += the rounded P.
+__device__ __forceinline__ void softmax_tile(float (&s)[32], uint32_t (&pa)[4][4], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2], bool need_mask,
+                                             int qrow, int k0, int lane, int Tk, int causal,
+                                             int window, float scale_log2) {
+  float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int x = 0; x < 32; ++x) {
+    const int i = (x >> 1) & 1;
+    if (need_mask) {
+      const int qpos = qrow + 8 * i;
+      const int kpos = k0 + (x >> 2) * 8 + (lane & 3) * 2 + (x & 1);
+      bool visible = true;
+      if (causal) visible = kpos <= qpos;
+      if (window > 0) visible = visible && (qpos - kpos < window);
+      if (!visible) s[x] = kNegInf;
+      if (kpos >= Tk) s[x] = -INFINITY;  // no such key: p = 0 below
+    }
+    mt[i] = fmaxf(mt[i], s[x]);
+  }
+  float ms[2];  // the new max, scaled
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
+    mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
+    const float m_new = fmaxf(m[i], mt[i]);  // >= NEG_INF: finite
+    corr[i] = ex2((m[i] - m_new) * scale_log2);
+    m[i] = m_new;
+    ms[i] = m_new * scale_log2;
+    l[i] *= corr[i];
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int x = 8 * kk + 2 * r;  // r = 0, 2: row qrow; 1, 3: qrow + 8
+      const int i = r & 1;
+      const float p0 = ex2(fmaf(s[x], scale_log2, -ms[i]));
+      const float p1 = ex2(fmaf(s[x + 1], scale_log2, -ms[i]));
+      l[i] += p0 + p1;
+      const __nv_bfloat162 p = __floats2bfloat162_rn(p0, p1);  // .x in the low half
+      pa[kk][r] = *reinterpret_cast<const uint32_t*>(&p);
+    }
+}
+
+template <int DC>
+__device__ __forceinline__ void rescale(float (&acc)[DC][32], const float (&corr)[2]) {
+#pragma unroll
+  for (int c = 0; c < DC; ++c) {
+    fence_regs(acc[c]);
+#pragma unroll
+    for (int x = 0; x < 32; ++x) acc[c][x] *= corr[(x >> 1) & 1];
+  }
+}
+
+// DP: padded head dim (64, 128, 256); NWG: consumer warpgroups of 64 rows;
+// SUB: 64-key tiles a load stage holds (2 halves the block barriers; 1 at
+// D > 128, where two stages of 128 keys would not fit).
+template <int DP, int NWG, int MINB, int SUB>
+__global__ void __launch_bounds__(NWG * 128, MINB)
+flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int S,
+                   int Tk, int H, int G, int D, int qsb, int qss, int qsh, int ksb, int kss,
+                   int ksh, int vsb, int vss, int vsh, int causal, int window, int vec,
+                   float scale_log2) {
+  constexpr int BQ = 64 * NWG;
+  constexpr int NT = 128 * NWG;
+  constexpr int DC = DP / 64;    // 64-column blocks of the head dim
+  constexpr int KR = SUB * kBK;  // key rows a stage
+  constexpr uint32_t kQBytes = BQ * DP * 2;
+  constexpr uint32_t kStageBytes = KR * DP * 2;  // K or V of one stage
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + kAtomBytes - 1) & ~(kAtomBytes - 1u);
+  // stage st: K at sKV + 2 st kStageBytes, V right after it
+  const uint32_t sKV = sQ + kQBytes;
+
+  const int tid = threadIdx.x;
+  const int wgi = tid / 128;  // this thread's warpgroup
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int h = blockIdx.x % H;
+  const int b = blockIdx.x / H;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;  // heavy tiles first
+  const int q0 = qt * BQ;
+  const int qw0 = q0 + 64 * wgi;  // first row of this warpgroup
+  const uint32_t sQw = sQ + wgi * 64 * kRowBytes;
+  const int qrow = qw0 + warp * 16 + lane / 4;  // this thread's rows: qrow, qrow + 8
+  const __nv_bfloat16* qb = q + static_cast<int64_t>(b) * qsb + static_cast<int64_t>(h) * qsh;
+  const __nv_bfloat16* kb = k + static_cast<int64_t>(b) * ksb + static_cast<int64_t>(h / G) * ksh;
+  const __nv_bfloat16* vb = v + static_cast<int64_t>(b) * vsb + static_cast<int64_t>(h / G) * vsh;
+
+  // key tiles with any visible key for some row of this block
+  int k_end = Tk;
+  if (causal) k_end = min(k_end, min(S, q0 + BQ));
+  int k_begin = 0;
+  if (window > 0) {
+    const int lo = q0 - window + 1;  // first key row q0 can see
+    if (lo > 0) k_begin = (lo / kBK) * kBK;
+  }
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + kBK - 1) / kBK : 0;
+  const int n_stages = (n_tiles + SUB - 1) / SUB;
+  // the rows of this warpgroup, as a 64-row TPU block would bound them
+  const int w_last = min(S, qw0 + 64) - 1;
+  const int w_first_key = qw0 - window + 1;
+
+  load_tile<BQ, DP, NT>(sQ, qb, q0, S, qss, D, vec, tid);
+  if (n_stages > 0) {
+    load_tile<KR, DP, NT>(sKV, kb, k_begin, Tk, kss, D, vec, tid);
+    load_tile<KR, DP, NT>(sKV + kStageBytes, vb, k_begin, Tk, vss, D, vec, tid);
+  }
+  cp_async_commit();
+
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+  float acc[DC][32];
+#pragma unroll
+  for (int c = 0; c < DC; ++c)
+#pragma unroll
+    for (int x = 0; x < 32; ++x) acc[c][x] = 0.f;
+
+  for (int u = 0; u < n_stages; ++u) {
+    const uint32_t sK0 = sKV + (u & 1) * 2 * kStageBytes;
+    const uint32_t sV0 = sK0 + kStageBytes;
+    cp_async_wait_all();  // Q and this stage have landed (this thread's part)
+    fence_async_shared();
+    // every thread's part has landed, and every warpgroup is done with the
+    // previous stage, which the next stage's loads now refill
+    __syncthreads();
+    if (u + 1 < n_stages) {
+      const uint32_t nK = sKV + ((u + 1) & 1) * 2 * kStageBytes;
+      const int r0 = k_begin + (u + 1) * KR;
+      load_tile<KR, DP, NT>(nK, kb, r0, Tk, kss, D, vec, tid);
+      load_tile<KR, DP, NT>(nK + kStageBytes, vb, r0, Tk, vss, D, vec, tid);
+      cp_async_commit();
+    }
+#pragma unroll
+    for (int sub = 0; sub < SUB; ++sub) {
+      const int k0 = k_begin + (u * SUB + sub) * kBK;
+      const bool run = k0 < k_end && qw0 < S && (!causal || k0 <= w_last) &&
+                       (window <= 0 || k0 + kBK - 1 >= w_first_key);
+      if (!run) continue;
+      const bool need_mask = k0 + kBK > Tk || (causal && k0 + kBK - 1 > qw0) ||
+                             (window > 0 && qw0 + 63 - k0 >= window);
+      float s[32];
+      float corr[2];
+      uint32_t pa[4][4];
+      fence_regs(s);
+      wgmma_fence();
+      issue_qk<DP, BQ, KR>(s, sQw, sK0 + sub * kBK * kRowBytes);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+      softmax_tile(s, pa, m, l, corr, need_mask, qrow, k0, lane, Tk, causal, window,
+                   scale_log2);
+      rescale<DC>(acc, corr);
+      wgmma_fence();
+      issue_pv<DC, KR>(acc, pa, sV0 + sub * kBK * kRowBytes);
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int c = 0; c < DC; ++c) fence_regs(acc[c]);
+    }
+  }
+
+  if (qw0 >= S) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qpos = qrow + 8 * i;
+    if (qpos >= S) continue;
+    const float den = fmaxf(l[i], 1e-30f);
+    __nv_bfloat16* orow = o + ((static_cast<int64_t>(b) * S + qpos) * H + h) * D;
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+        const int col = c * 64 + nb * 8 + (lane & 3) * 2;
+        const float lo = acc[c][nb * 4 + 2 * i] / den;
+        const float hi = acc[c][nb * 4 + 2 * i + 1] / den;
+        if (col + 1 < D && (D & 1) == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(lo, hi);
+        } else {
+          if (col < D) orow[col] = __float2bfloat16(lo);
+          if (col + 1 < D) orow[col + 1] = __float2bfloat16(hi);
+        }
+      }
+  }
+}
+
+template <int DP, int NWG, int MINB, int SUB>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int Tk,
+                   int H, int K, int D, int qsb, int qss, int qsh, int ksb, int kss, int ksh,
+                   int vsb, int vss, int vsh, int causal, int window, int vec, float scale,
+                   cudaStream_t stream) {
+  constexpr int BQ = 64 * NWG;
+  constexpr size_t smem = smem_bytes<DP, NWG, SUB>();
+  const int n_q = (S + BQ - 1) / BQ;
+  if (n_q > 65535 || static_cast<int64_t>(B) * H > 0x7fffffff) return cudaErrorInvalidValue;
+  auto kernel = flash_wgmma_kernel<DP, NWG, MINB, SUB>;
+  cudaError_t err = rt::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, n_q);
+  kernel<<<grid, 128 * NWG, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, Tk, H, H / K, D,
+      qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, causal, window, vec,
+      scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
 
 }  // namespace
 
 // q: (B, S, H, D) with strides (qsb, qss, qsh, 1); k, v: (B, T, K, D) with
 // strides (ksb, kss, ksh, 1) and (vsb, vss, vsh, 1); o: (B, S, H, D)
-// contiguous. All bf16 (bf16 != 0) or all fp32. H % K == 0, 1 <= D <= 256.
-extern "C" int rt_flash_attention_forward(const void* q, const void* k, const void* v, void* o,
-                                          int B, int S, int T, int H, int K, int D, int qsb,
-                                          int qss, int qsh, int ksb, int kss, int ksh, int vsb,
-                                          int vss, int vsh, int causal, int window, int bf16,
-                                          float scale, cudaStream_t stream) {
+// contiguous; H % K == 0, 1 <= D <= 256. fp32 on the FMA kernel.
+extern "C" int rt_flash_attention_forward_f32(const void* q, const void* k, const void* v,
+                                              void* o, int B, int S, int T, int H, int K, int D,
+                                              int qsb, int qss, int qsh, int ksb, int kss,
+                                              int ksh, int vsb, int vss, int vsh, int causal,
+                                              int window, float scale, cudaStream_t stream) {
   if (B == 0 || S == 0 || H == 0) return cudaSuccess;
   if (K <= 0 || H % K != 0 || D <= 0 || D > 256 || T < 0 || window < 0 || B > 65535 ||
       H > 65535)
     return cudaErrorInvalidValue;
-  if (bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, o, B, S, T, H, K, D, qsb, qss, qsh, ksb, kss, ksh,
-                                   vsb, vss, vsh, causal, window, scale, stream);
-  return dispatch<float>(q, k, v, o, B, S, T, H, K, D, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
-                         vsh, causal, window, scale, stream);
+  return simt::dispatch(q, k, v, o, B, S, T, H, K, D, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh,
+                       causal, window, scale, stream);
+}
+
+// As above, bf16 on the wgmma kernel. vec != 0: every row of q, k and v
+// starts 16-byte aligned (D % 8 == 0, pointers and strides likewise), so
+// tiles load by 16-byte cp.async; else element by element.
+extern "C" int rt_flash_attention_forward_bf16(const void* q, const void* k, const void* v,
+                                               void* o, int B, int S, int T, int H, int K, int D,
+                                               int qsb, int qss, int qsh, int ksb, int kss,
+                                               int ksh, int vsb, int vss, int vsh, int causal,
+                                               int window, int vec, float scale,
+                                               cudaStream_t stream) {
+  if (B == 0 || S == 0 || H == 0) return cudaSuccess;
+  if (K <= 0 || H % K != 0 || D <= 0 || D > 256 || T < 0 || window < 0)
+    return cudaErrorInvalidValue;
+  if (D <= 64)
+    return wg::launch<64, 2, 2, 2>(q, k, v, o, B, S, T, H, K, D, qsb, qss, qsh, ksb, kss, ksh, vsb,
+                                vss, vsh, causal, window, vec, scale, stream);
+  if (D <= 128)
+    return wg::launch<128, 2, 1, 2>(q, k, v, o, B, S, T, H, K, D, qsb, qss, qsh, ksb, kss, ksh, vsb,
+                                 vss, vsh, causal, window, vec, scale, stream);
+  return wg::launch<256, 1, 1, 1>(q, k, v, o, B, S, T, H, K, D, qsb, qss, qsh, ksb, kss, ksh, vsb,
+                               vss, vsh, causal, window, vec, scale, stream);
+}
+
+namespace {
+
+template <typename Kernel>
+int attributes(Kernel kernel, size_t dynamic_smem, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return err;
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.sharedSizeBytes);
+  out[2] = static_cast<int>(dynamic_smem);
+  out[3] = static_cast<int>(a.localSizeBytes);
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// The kernel a launch at head dim D takes (bf16 != 0: the wgmma kernel):
+// out = {registers a thread, static shared bytes, dynamic shared bytes a
+// block, local (spill) bytes a thread}.
+extern "C" int rt_flash_attention_attributes(int bf16, int D, int* out) {
+  if (D <= 0 || D > 256) return cudaErrorInvalidValue;
+  if (bf16) {
+    if (D <= 64) return attributes(wg::flash_wgmma_kernel<64, 2, 2, 2>, wg::smem_bytes<64, 2, 2>(), out);
+    if (D <= 128)
+      return attributes(wg::flash_wgmma_kernel<128, 2, 1, 2>, wg::smem_bytes<128, 2, 2>(), out);
+    return attributes(wg::flash_wgmma_kernel<256, 1, 1, 1>, wg::smem_bytes<256, 1, 1>(), out);
+  }
+  const int nd = D <= 64 ? 4 : D <= 128 ? 8 : 16;
+  const size_t smem = simt::smem_bytes(D, nd);
+  if (nd == 4) return attributes(simt::flash_forward_kernel<4>, smem, out);
+  if (nd == 8) return attributes(simt::flash_forward_kernel<8>, smem, out);
+  return attributes(simt::flash_forward_kernel<16>, smem, out);
 }

@@ -14,18 +14,35 @@
 // (B = 512, H = 4, N = M = 64, dh = 64) the kernel must move 0.13 GB (q, k, v
 // read once, o written once) and do 2.1 GFLOP of fp32 work; at 3.35 TB/s
 // and 67 TFLOP/s the bytes weigh slightly more, and for the PMA (N = 1) they
-// are all of it. So the design reads each input once and keeps every
-// intermediate on chip, as the TPU kernel kept it in VMEM:
-//   * one block per (b, h); q, k, v and the whole (N, M) score matrix live in
-//     shared memory (66 KB at 64 x 64 x 64), so the scores and probabilities
-//     never touch device memory;
-//   * k is stored with a row stride of dh + 1, so the threads of a warp that
-//     compute neighbouring scores of one query read distinct banks;
-//   * the softmax is one warp per query row (max, exp, sum, divide);
-//   * no padding: any N >= 1 (the PMA's one seed query) and M >= 1 work, and
-//     so does any dh (44 in the smallest configuration), within 227 KB.
-// The scores use plain fp32 FMAs in the order q[0]k[0] + q[1]k[1] + ...; no
-// TF32 tensor cores, whose 10-bit mantissa would break the 1e-5 tolerance.
+// are all of it. So the design reads each input once, keeps every
+// intermediate on chip, as the TPU kernel kept it in VMEM, and feeds the
+// FMA units from registers:
+//   * N > 4 (the SABs): one block of 256 threads (16 x 16) per (b, h). Per
+//     tile of 64 queries x 64 keys each thread computes a 4 x 4 block of
+//     scores (rows 4 ty .., keys 4 tx ..) from registers, reading 4 q and 4
+//     k values as float4 from transposed (d-major) shared copies: 16 FMAs
+//     per two loads. The softmax stays in registers, reduced over the 16
+//     lanes that share a row with shuffles; P is written to shared memory
+//     once, over the space of k^T, for O = P V, which is tiled the same way
+//     (4 rows x 4 columns a thread, float4 loads of P and V). 51 KB of
+//     shared memory a block at 64 x 64 x 64, so 4 blocks sit on an SM;
+//   * N <= 4 (the PMA's one seed query): a register tile would leave 255 of
+//     256 threads idle, so each warp takes one (b, h) and a block up to 8:
+//     each lane computes the scores of keys lane, lane + 32, ... (float4
+//     loads of its k rows), the warp reduces the softmax with shuffles, and
+//     each lane sums P v over its head-dim columns, reading v coalesced;
+//   * each score is the FMA chain over d ascending, then * scale, + bias,
+//     + mask (masked_score, shared with the backward), so a masked key of a
+//     row with any valid key gets P exactly 0, which the backward relies on;
+//   * M past one 64-key tile: a running max over key tiles (flash style),
+//     with the output divided by the row sum at the end;
+//   * float4 global loads and stores where dh % 4 == 0 and the rows are
+//     16-byte aligned (the wrapper decides), scalar otherwise; any N >= 1,
+//     M >= 1 and dh <= 256 (44 in the smallest configuration). Keys and
+//     rows that pad a tile are zero-filled and get p = 0, so the output does
+//     not depend on padding.
+// Plain fp32 FMAs, no TF32 tensor cores, whose 10-bit mantissa would break
+// the 1e-5 tolerance.
 //
 // The backward replaces set_attn.py::_set_attn_bwd_kernel (reached through
 // _bwd_call and the custom VJP _set_attention_bwd). It recomputes P from
@@ -42,10 +59,17 @@
 //     dh + 1 row stride) and the (N, M) matrices P and dP/dS in shared
 //     memory, 97 KB at 64 x 64 x 64, so two blocks fit on an SM;
 //   * the scores are recomputed with the forward's exact arithmetic and
-//     order (bias, then the additive mask), so P is the forward's P and a
-//     masked key of a row with any valid key has P exactly 0: its dK, dV
-//     and db come out exactly 0. A fully masked row keeps its uniform P and
-//     its (non-zero) gradients, as in the plain version;
+//     order (the FMA chain over d ascending, then masked_score: * scale,
+//     + bias, + the additive mask), so they are bitwise the forward's, and
+//     so are the row max and each exp(s - max) when M <= 64. P = exp / sum
+//     may still differ from the forward's by a rounding of the row sum: the
+//     backward sums a row over a warp (lanes m, m + 32, then a butterfly),
+//     the forward over the 16 lanes of a half warp (or one warp for N <= 4)
+//     and divides the output, not P, by the sum; for M > 64 the forward's
+//     running max also rescales the partial sums. A masked key of a row
+//     with any valid key has exp exactly 0 in both, so P is exactly 0 and
+//     its dK, dV and db come out exactly 0. A fully masked row keeps its
+//     uniform P and its (non-zero) gradients, as in the plain version;
 //   * each block writes only its own dq/dk/dv tiles and its per-head db row:
 //     no atomics, so two runs give the same bits (the training resume relies
 //     on it);
@@ -59,56 +83,342 @@
 namespace {
 
 constexpr float kNegInf = -1073741824.0f;  // -2^30
-constexpr int kThreads = 128;
 constexpr int kBwdThreads = 256;
 
-__global__ void __launch_bounds__(kThreads)
-set_attention_forward_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                             const float* __restrict__ v, const float* __restrict__ bias,
-                             const uint8_t* __restrict__ mask, float* __restrict__ o,
-                             int H, int N, int M, int dh, float scale) {
-  extern __shared__ float smem[];
-  const int ldk = dh + 1;
-  float* sq = smem;            // (N, dh)
-  float* sk = sq + N * dh;     // (M, dh + 1)
-  float* sv = sk + M * ldk;    // (M, dh)
-  float* sp = sv + M * dh;     // (N, M) scores, then probabilities
+// One score: the dot product (an FMA chain over d ascending), * scale,
+// + key bias, + the additive mask, each rounded on its own (no contraction),
+// as the forward and the backward both compute it.
+__device__ __forceinline__ float masked_score(float dot, float scale, const float* bp,
+                                              const uint8_t* mp, int m) {
+  float s = __fmul_rn(dot, scale);
+  if (bp) s = __fadd_rn(s, bp[m]);
+  if (mp) s = __fadd_rn(s, mp[m] ? 0.f : kNegInf);
+  return s;
+}
 
+namespace fwd {
+
+constexpr int kThreads = 256;   // 16 x 16
+constexpr int kTile = 64;       // queries and keys a tile
+constexpr int kLd = kTile + 4;  // row of q^T, k^T and P: float4-aligned, two rows 4 apart on other banks
+constexpr int kSmallN = 4;      // N up to this: one warp per (b, h)
+constexpr int kWarps = kThreads / 32;
+
+// dst[d * kLd + r] = src[r * dh + d] for r < rows, 0 for rows <= r < kTile
+// (scalar loads: rows that are not 16-byte aligned).
+__device__ __forceinline__ void load_transposed(float* dst, const float* __restrict__ src,
+                                                int rows, int dh) {
+  for (int i = threadIdx.x; i < kTile * dh; i += kThreads) {
+    const int r = i / dh;
+    const int d = i - r * dh;
+    dst[d * kLd + r] = r < rows ? src[r * dh + d] : 0.f;
+  }
+}
+
+// dst[r * ldv + d] = src[r * dh + d] for r < rows, 0 for rows <= r < kTile
+// (scalar loads).
+__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, int rows,
+                                          int dh, int ldv) {
+  for (int i = threadIdx.x; i < kTile * dh; i += kThreads) {
+    const int r = i / dh;
+    const int d = i - r * dh;
+    dst[r * ldv + d] = r < rows ? src[r * dh + d] : 0.f;
+  }
+}
+
+// The same loads by 16 bytes (dh % 4 == 0, aligned rows) for a key tile
+// (and, when sQt is given, the query tile): q, k and v of two chunks a
+// thread are all in flight before the first store (four spill at 3 blocks
+// an SM).
+__device__ __forceinline__ void load_tiles_vec(float* sQt, const float* __restrict__ qs,
+                                               int q_rows, float* sKt,
+                                               const float* __restrict__ ks, float* sV,
+                                               const float* __restrict__ vs, int kv_rows, int dh,
+                                               int ldv) {
+  const int d4n = dh / 4;
+  const int total = kTile * d4n;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int base = threadIdx.x; base < total; base += 2 * kThreads) {
+    float4 xq[2], xk[2], xv[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int i = base + u * kThreads;
+      const int r = i / d4n;
+      const int off = r * dh + 4 * (i - r * d4n);
+      const bool in = i < total;
+      xq[u] = sQt && in && r < q_rows ? __ldg(reinterpret_cast<const float4*>(qs + off)) : zero;
+      xk[u] = in && r < kv_rows ? __ldg(reinterpret_cast<const float4*>(ks + off)) : zero;
+      xv[u] = in && r < kv_rows ? __ldg(reinterpret_cast<const float4*>(vs + off)) : zero;
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int i = base + u * kThreads;
+      if (i >= total) break;
+      const int r = i / d4n;
+      const int d = 4 * (i - r * d4n);
+      if (sQt) {
+        sQt[d * kLd + r] = xq[u].x;
+        sQt[(d + 1) * kLd + r] = xq[u].y;
+        sQt[(d + 2) * kLd + r] = xq[u].z;
+        sQt[(d + 3) * kLd + r] = xq[u].w;
+      }
+      sKt[d * kLd + r] = xk[u].x;
+      sKt[(d + 1) * kLd + r] = xk[u].y;
+      sKt[(d + 2) * kLd + r] = xk[u].z;
+      sKt[(d + 3) * kLd + r] = xk[u].w;
+      *reinterpret_cast<float4*>(sV + r * ldv + d) = xv[u];
+    }
+  }
+}
+
+// Shared floats of the tiled kernel: q^T, k^T then P, v.
+inline size_t tiled_floats(int dh) {
+  const int ldv = (dh + 3) & ~3;
+  return static_cast<size_t>(dh) * kLd + static_cast<size_t>(dh > kTile ? dh : kTile) * kLd +
+         static_cast<size_t>(kTile) * ldv;
+}
+
+// DC: blocks of 64 head-dim columns (dh <= 64 DC); MINB: blocks an SM.
+template <int DC, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ bias,
+             const uint8_t* __restrict__ mask, float* __restrict__ o, int H, int N, int M,
+             int dh, float scale, int vec) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int ldv = (dh + 3) & ~3;
+  float* sQt = smem;                              // (dh, kLd)
+  float* sKP = sQt + dh * kLd;                    // (dh, kLd) k^T, then (kTile, kLd) P
+  float* sV = sKP + (dh > kTile ? dh : kTile) * kLd;  // (kTile, ldv)
+
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
   const int bh = blockIdx.x;
   const int b = bh / H;
   const float* qp = q + static_cast<size_t>(bh) * N * dh;
   const float* kp = k + static_cast<size_t>(bh) * M * dh;
   const float* vp = v + static_cast<size_t>(bh) * M * dh;
+  float* op = o + static_cast<size_t>(bh) * N * dh;
   const float* bp = bias ? bias + static_cast<size_t>(b) * M : nullptr;
   const uint8_t* mp = mask ? mask + static_cast<size_t>(b) * M : nullptr;
 
-  for (int i = threadIdx.x; i < N * dh; i += blockDim.x) sq[i] = qp[i];
-  for (int i = threadIdx.x; i < M * dh; i += blockDim.x) {
-    sk[(i / dh) * ldk + i % dh] = kp[i];
-    sv[i] = vp[i];
-  }
-  __syncthreads();
+  for (int n0 = 0; n0 < N; n0 += kTile) {
+    float m[4], l[4], acc[4][4 * DC];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      m[i] = -INFINITY;
+      l[i] = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4 * DC; ++c) acc[i][c] = 0.f;
+    }
+    for (int m0 = 0; m0 < M; m0 += kTile) {
+      const int mm = min(kTile, M - m0);
+      // the previous key tile's P and v (and, with a new query tile, the
+      // previous q^T) are read
+      __syncthreads();
+      const float* qs = qp + static_cast<size_t>(n0) * dh;
+      const float* ks = kp + static_cast<size_t>(m0) * dh;
+      const float* vs = vp + static_cast<size_t>(m0) * dh;
+      if (vec) {
+        load_tiles_vec(m0 == 0 ? sQt : nullptr, qs, min(kTile, N - n0), sKP, ks, sV, vs, mm, dh,
+                       ldv);
+      } else {
+        if (m0 == 0) load_transposed(sQt, qs, min(kTile, N - n0), dh);
+        load_transposed(sKP, ks, mm, dh);
+        load_rows(sV, vs, mm, dh, ldv);
+      }
+      __syncthreads();
 
-  for (int i = threadIdx.x; i < N * M; i += blockDim.x) {
-    const int n = i / M;
-    const int m = i % M;
-    const float* qr = sq + n * dh;
-    const float* kr = sk + m * ldk;
-    float acc = 0.f;
-    for (int d = 0; d < dh; ++d) acc = fmaf(qr[d], kr[d], acc);
-    float s = acc * scale;
-    if (bp) s += bp[m];
-    if (mp) s += mp[m] ? 0.f : kNegInf;
-    sp[i] = s;
-  }
-  __syncthreads();
+      float s[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      for (int d = 0; d < dh; ++d) {
+        const float4 a = *reinterpret_cast<const float4*>(sQt + d * kLd + 4 * ty);
+        const float4 c = *reinterpret_cast<const float4*>(sKP + d * kLd + 4 * tx);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+        const float cv[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], cv[j], s[i][j]);
+      }
 
+      float corr[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float mt = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int key = m0 + 4 * tx + j;
+          // keys past M do not exist: p = 0
+          s[i][j] = key < M ? masked_score(s[i][j], scale, bp, mp, key) : -INFINITY;
+          mt = fmaxf(mt, s[i][j]);
+        }
+        const float m_new = fmaxf(m[i], rt::half_warp_max(mt));  // finite: key m0 exists
+        corr[i] = expf(m[i] - m_new);
+        m[i] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = expf(s[i][j] - m_new);
+          sum += s[i][j];
+        }
+        l[i] = l[i] * corr[i] + rt::half_warp_sum(sum);
+      }
+      __syncthreads();  // every thread is done with k^T: P takes its place
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        *reinterpret_cast<float4*>(sKP + (4 * ty + i) * kLd + 4 * tx) =
+            make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+      __syncthreads();
+
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4 * DC; ++c) acc[i][c] *= corr[i];
+      for (int mk = 0; mk < mm; mk += 4) {  // P and v are 0 past mm
+        float p[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4 x = *reinterpret_cast<const float4*>(sKP + (4 * ty + i) * kLd + mk);
+          p[i][0] = x.x;
+          p[i][1] = x.y;
+          p[i][2] = x.z;
+          p[i][3] = x.w;
+        }
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+          const int col = 64 * c + 4 * tx;
+          if (col >= dh) continue;
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float4 x = *reinterpret_cast<const float4*>(sV + (mk + r) * ldv + col);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              acc[i][4 * c] = fmaf(p[i][r], x.x, acc[i][4 * c]);
+              acc[i][4 * c + 1] = fmaf(p[i][r], x.y, acc[i][4 * c + 1]);
+              acc[i][4 * c + 2] = fmaf(p[i][r], x.z, acc[i][4 * c + 2]);
+              acc[i][4 * c + 3] = fmaf(p[i][r], x.w, acc[i][4 * c + 3]);
+            }
+          }
+        }
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int n = n0 + 4 * ty + i;
+      if (n >= N) continue;
+      float* orow = op + static_cast<size_t>(n) * dh;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        const int col = 64 * c + 4 * tx;
+        if (col >= dh) continue;
+        float r[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) r[e] = acc[i][4 * c + e] / l[i];
+        if (vec) {
+          *reinterpret_cast<float4*>(orow + col) = make_float4(r[0], r[1], r[2], r[3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (col + e < dh) orow[col + e] = r[e];
+        }
+      }
+    }
+  }
+}
+
+// Shared floats of one warp of small_n_kernel: 32 rows of k (row stride
+// dh + 4), q and the scores, rounded up to keep the next warp's rows
+// 16-byte aligned.
+__host__ __device__ __forceinline__ size_t small_n_warp_floats(int N, int M, int dh) {
+  return (32 * static_cast<size_t>(dh + 4) + static_cast<size_t>(N) * (dh + M) + 3) & ~size_t{3};
+}
+
+// N <= kSmallN: one warp per (b, h), kWarps of them a block. With vec,
+// k comes through shared memory 32 rows at a time (coalesced 16-byte
+// loads; a row stride of dh + 4 keeps a lane's float4 reads of its own row
+// off its neighbours' banks) and the lanes split P v by (key parity group,
+// float4 column), reading v coalesced; the groups' partial sums are added
+// in group order.
+__global__ void __launch_bounds__(kThreads)
+small_n_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ bias,
+               const uint8_t* __restrict__ mask, float* __restrict__ o, int BH, int H, int N,
+               int M, int dh, float scale, int vec) {
+  extern __shared__ float4 smem4[];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int nwarps = blockDim.x / 32;
-  for (int n = warp; n < N; n += nwarps) {
+  const int bh = blockIdx.x * (blockDim.x / 32) + warp;
+  if (bh >= BH) return;  // no block-wide barrier below
+  const int ldk = dh + 4;
+  float* sk = reinterpret_cast<float*>(smem4) +
+              static_cast<size_t>(warp) * small_n_warp_floats(N, M, dh);  // (32, ldk)
+  float* sq = sk + 32 * ldk;                                        // (N, dh)
+  float* sp = sq + N * dh;                                          // (N, M)
+  const int b = bh / H;
+  const float* qp = q + static_cast<size_t>(bh) * N * dh;
+  const float* kp = k + static_cast<size_t>(bh) * M * dh;
+  const float* vp = v + static_cast<size_t>(bh) * M * dh;
+  float* op = o + static_cast<size_t>(bh) * N * dh;
+  const float* bp = bias ? bias + static_cast<size_t>(b) * M : nullptr;
+  const uint8_t* mp = mask ? mask + static_cast<size_t>(b) * M : nullptr;
+
+  for (int i = lane; i < N * dh; i += 32) sq[i] = qp[i];
+  for (int m0 = 0; m0 < M; m0 += 32) {
+    const int m = m0 + lane;
+    float acc[kSmallN] = {0.f, 0.f, 0.f, 0.f};
+    if (vec) {
+      const int d4n = dh / 4;
+      __syncwarp();  // the previous chunk's rows are read
+      for (int i = lane; i < 32 * d4n; i += 32) {
+        const int r = i / d4n;
+        const int d = 4 * (i - r * d4n);
+        *reinterpret_cast<float4*>(sk + r * ldk + d) =
+            m0 + r < M ? __ldg(reinterpret_cast<const float4*>(kp + (m0 + r) * dh + d))
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      __syncwarp();
+      for (int d = 0; d < dh; d += 4) {
+        const float4 x = *reinterpret_cast<const float4*>(sk + lane * ldk + d);
+#pragma unroll
+        for (int n = 0; n < kSmallN; ++n) {
+          if (n >= N) break;
+          const float4 y = *reinterpret_cast<const float4*>(sq + n * dh + d);
+          acc[n] = fmaf(y.x, x.x, acc[n]);
+          acc[n] = fmaf(y.y, x.y, acc[n]);
+          acc[n] = fmaf(y.z, x.z, acc[n]);
+          acc[n] = fmaf(y.w, x.w, acc[n]);
+        }
+      }
+    } else {
+      __syncwarp();  // sq is written
+      if (m < M)
+        for (int d = 0; d < dh; ++d) {
+          const float x = kp[static_cast<size_t>(m) * dh + d];
+#pragma unroll
+          for (int n = 0; n < kSmallN; ++n)
+            if (n < N) acc[n] = fmaf(sq[n * dh + d], x, acc[n]);
+        }
+    }
+    if (m < M) {
+#pragma unroll
+      for (int n = 0; n < kSmallN; ++n)
+        if (n < N) sp[n * M + m] = masked_score(acc[n], scale, bp, mp, m);
+    }
+  }
+  __syncwarp();
+  float l[kSmallN];
+#pragma unroll
+  for (int n = 0; n < kSmallN; ++n) {
+    l[n] = 1.f;
+    if (n >= N) continue;
     float* row = sp + n * M;
-    float mx = -FLT_MAX;
+    float mx = -INFINITY;
     for (int m = lane; m < M; m += 32) mx = fmaxf(mx, row[m]);
     mx = rt::warp_max(mx);
     float sum = 0.f;
@@ -117,21 +427,81 @@ set_attention_forward_kernel(const float* __restrict__ q, const float* __restric
       row[m] = e;
       sum += e;
     }
-    sum = rt::warp_sum(sum);
-    for (int m = lane; m < M; m += 32) row[m] = row[m] / sum;
+    l[n] = rt::warp_sum(sum);
   }
-  __syncthreads();
-
-  float* op = o + static_cast<size_t>(bh) * N * dh;
-  for (int i = threadIdx.x; i < N * dh; i += blockDim.x) {
-    const int n = i / dh;
-    const int d = i % dh;
-    const float* pr = sp + n * M;
-    float acc = 0.f;
-    for (int m = 0; m < M; ++m) acc = fmaf(pr[m], sv[m * dh + d], acc);
-    op[i] = acc;
+  __syncwarp();
+  if (!vec) {
+    for (int d = lane; d < dh; d += 32) {
+      float acc[kSmallN] = {0.f, 0.f, 0.f, 0.f};
+      for (int m = 0; m < M; ++m) {
+        const float x = vp[static_cast<size_t>(m) * dh + d];
+#pragma unroll
+        for (int n = 0; n < kSmallN; ++n)
+          if (n < N) acc[n] = fmaf(sp[n * M + m], x, acc[n]);
+      }
+#pragma unroll
+      for (int n = 0; n < kSmallN; ++n)
+        if (n < N) op[n * dh + d] = acc[n] / l[n];
+    }
+    return;
+  }
+  // lane = (group g, float4 column c4): group g sums keys m = g mod groups
+  const int d4n = dh / 4;
+  const int cols = d4n < 32 ? d4n : 32;  // float4 columns a pass
+  const int groups = 32 / cols;
+  const int g = lane / cols;
+  const int c4 = lane - g * cols;
+  for (int col0 = 0; col0 < d4n; col0 += cols) {
+    const int col = col0 + c4;
+    const bool active = g < groups && col < d4n;
+    float4 acc[kSmallN];
+#pragma unroll
+    for (int n = 0; n < kSmallN; ++n) acc[n] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (active) {
+#pragma unroll 4
+      for (int m = g; m < M; m += groups) {
+        const float4 x = __ldg(reinterpret_cast<const float4*>(vp + static_cast<size_t>(m) * dh) + col);
+#pragma unroll
+        for (int n = 0; n < kSmallN; ++n) {
+          if (n >= N) break;
+          const float p = sp[n * M + m];
+          acc[n].x = fmaf(p, x.x, acc[n].x);
+          acc[n].y = fmaf(p, x.y, acc[n].y);
+          acc[n].z = fmaf(p, x.z, acc[n].z);
+          acc[n].w = fmaf(p, x.w, acc[n].w);
+        }
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kSmallN; ++n) {
+      if (n >= N) break;
+      float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int gg = 0; gg < groups; ++gg) {  // the groups' sums, in group order
+        const int src = gg * cols + c4;
+        t.x += __shfl_sync(0xffffffffu, acc[n].x, src);
+        t.y += __shfl_sync(0xffffffffu, acc[n].y, src);
+        t.z += __shfl_sync(0xffffffffu, acc[n].z, src);
+        t.w += __shfl_sync(0xffffffffu, acc[n].w, src);
+      }
+      if (g == 0 && col < d4n)
+        reinterpret_cast<float4*>(op + n * dh)[col] =
+            make_float4(t.x / l[n], t.y / l[n], t.z / l[n], t.w / l[n]);
+    }
   }
 }
+
+// Warps a block of small_n_kernel (up to kWarps, as many as 227 KB of
+// shared memory hold; 0 if not one), and their shared bytes.
+inline int small_n_warps(int N, int M, int dh) {
+  const size_t per_warp = sizeof(float) * small_n_warp_floats(N, M, dh);
+  const size_t fit = 232448 / per_warp;
+  return static_cast<int>(fit < static_cast<size_t>(kWarps) ? fit : kWarps);
+}
+inline size_t small_n_bytes(int N, int M, int dh) {
+  return sizeof(float) * small_n_warps(N, M, dh) * small_n_warp_floats(N, M, dh);
+}
+
+}  // namespace fwd
 
 __global__ void __launch_bounds__(kBwdThreads)
 set_attention_backward_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -167,7 +537,7 @@ set_attention_backward_kernel(const float* __restrict__ q, const float* __restri
   }
   __syncthreads();
 
-  // scores, with the forward kernel's arithmetic in the same order
+  // scores, with the forward kernels' arithmetic in the same order
   for (int i = threadIdx.x; i < N * M; i += blockDim.x) {
     const int n = i / M;
     const int m = i % M;
@@ -175,10 +545,7 @@ set_attention_backward_kernel(const float* __restrict__ q, const float* __restri
     const float* kr = sk + m * ld;
     float acc = 0.f;
     for (int d = 0; d < dh; ++d) acc = fmaf(qr[d], kr[d], acc);
-    float s = acc * scale;
-    if (bp) s += bp[m];
-    if (mp) s += mp[m] ? 0.f : kNegInf;
-    sp[i] = s;
+    sp[i] = masked_score(acc, scale, bp, mp, m);
   }
   __syncthreads();
 
@@ -256,23 +623,77 @@ set_attention_backward_kernel(const float* __restrict__ q, const float* __restri
 
 }  // namespace
 
+namespace {
+
+template <typename Kernel>
+cudaError_t launch_tiled(Kernel kernel, const float* q, const float* k, const float* v,
+                         const float* bias, const uint8_t* mask, float* o, int B, int H, int N,
+                         int M, int dh, float scale, int vec, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * fwd::tiled_floats(dh);
+  cudaError_t err = rt::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<B * H, fwd::kThreads, smem, stream>>>(q, k, v, bias, mask, o, H, N, M, dh, scale,
+                                                 vec);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
 // q, o: (B, H, N, dh); k, v: (B, H, M, dh); bias: (B, M) fp32 or null;
-// mask: (B, M) uint8 (nonzero = valid key) or null. fp32, contiguous.
+// mask: (B, M) uint8 (nonzero = valid key) or null. fp32, contiguous;
+// dh <= 256. vec != 0: dh % 4 == 0 and q, k, v, o 16-byte aligned.
 extern "C" int rt_set_attention_forward(const float* q, const float* k, const float* v,
                                         const float* bias, const uint8_t* mask, float* o,
-                                        int B, int H, int N, int M, int dh, float scale,
+                                        int B, int H, int N, int M, int dh, int vec, float scale,
                                         cudaStream_t stream) {
   if (B * H == 0 || N == 0) return cudaSuccess;
-  if (M <= 0 || dh <= 0) return cudaErrorInvalidValue;
-  // q, k (padded rows), v and the scores; a launch above 227 KB is refused
-  const size_t smem = sizeof(float) * (static_cast<size_t>(N) * dh +
-                                       static_cast<size_t>(M) * (dh + 1) +
-                                       static_cast<size_t>(M) * dh + static_cast<size_t>(N) * M);
-  cudaError_t err = rt::allow_smem(set_attention_forward_kernel, smem);
+  if (M <= 0 || dh <= 0 || dh > 256) return cudaErrorInvalidValue;
+  if (N <= fwd::kSmallN) {
+    // k rows, q and the scores of each warp, as many warps as fit
+    const int warps = fwd::small_n_warps(N, M, dh);
+    if (warps == 0) return cudaErrorInvalidValue;
+    const size_t smem = fwd::small_n_bytes(N, M, dh);
+    cudaError_t err = rt::allow_smem(fwd::small_n_kernel, smem);
+    if (err != cudaSuccess) return err;
+    const int blocks = (B * H + warps - 1) / warps;
+    fwd::small_n_kernel<<<blocks, 32 * warps, smem, stream>>>(q, k, v, bias, mask, o, B * H, H,
+                                                              N, M, dh, scale, vec);
+    return cudaGetLastError();
+  }
+  if (dh <= 64)
+    return launch_tiled(fwd::tiled_kernel<1, 3>, q, k, v, bias, mask, o, B, H, N, M, dh, scale,
+                        vec, stream);
+  if (dh <= 128)
+    return launch_tiled(fwd::tiled_kernel<2, 2>, q, k, v, bias, mask, o, B, H, N, M, dh, scale,
+                        vec, stream);
+  return launch_tiled(fwd::tiled_kernel<4, 1>, q, k, v, bias, mask, o, B, H, N, M, dh, scale,
+                      vec, stream);
+}
+
+// The kernel a forward launch at (N, M, dh) takes: out = {registers a
+// thread, static shared bytes, dynamic shared bytes a block, local (spill)
+// bytes a thread}.
+extern "C" int rt_set_attention_forward_attributes(int N, int M, int dh, int* out) {
+  if (N <= 0 || M <= 0 || dh <= 0 || dh > 256) return cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  cudaError_t err;
+  size_t smem = sizeof(float) * fwd::tiled_floats(dh);
+  if (N <= fwd::kSmallN) {
+    err = cudaFuncGetAttributes(&a, fwd::small_n_kernel);
+    smem = fwd::small_n_bytes(N, M, dh);
+  } else if (dh <= 64) {
+    err = cudaFuncGetAttributes(&a, fwd::tiled_kernel<1, 3>);
+  } else if (dh <= 128) {
+    err = cudaFuncGetAttributes(&a, fwd::tiled_kernel<2, 2>);
+  } else {
+    err = cudaFuncGetAttributes(&a, fwd::tiled_kernel<4, 1>);
+  }
   if (err != cudaSuccess) return err;
-  set_attention_forward_kernel<<<B * H, kThreads, smem, stream>>>(q, k, v, bias, mask, o, H, N,
-                                                                  M, dh, scale);
-  return cudaGetLastError();
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.sharedSizeBytes);
+  out[2] = static_cast<int>(smem);
+  out[3] = static_cast<int>(a.localSizeBytes);
+  return cudaSuccess;
 }
 
 // Inputs as the forward's, plus dout: (B, H, N, dh). Outputs dq: (B, H, N, dh);

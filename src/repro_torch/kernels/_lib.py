@@ -38,13 +38,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # "i" int, "f" float. Each returns the cudaError_t of its launch.
 _ENTRY_POINTS = {
     "rt_wkv_forward": "ppppppppiiiip",
-    "rt_set_attention_forward": "ppppppiiiiifp",
+    "rt_set_attention_forward": "ppppppiiiiiifp",
     "rt_set_attention_backward": "ppppppppppiiiiifp",
     "rt_kmeans_assign": "ppiiippp",
     "rt_kmeans_update": "pppiiippppppip",
     # q k v o, B S T H K D, the (b, seq, head) strides of q, k and v,
-    # causal window bf16, scale, stream
-    "rt_flash_attention_forward": "pppp" + "i" * 18 + "fp",
+    # causal window, scale, stream; bf16 also takes vec before the scale
+    "rt_flash_attention_forward_f32": "pppp" + "i" * 17 + "fp",
+    "rt_flash_attention_forward_bf16": "pppp" + "i" * 18 + "fp",
+    # (bf16, D, out[4]) and (N, M, dh, out[4]): the attributes of the
+    # kernel a launch takes, see kernel_attributes
+    "rt_flash_attention_attributes": "iip",
+    "rt_set_attention_forward_attributes": "iiip",
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
@@ -141,12 +146,38 @@ def require(t: torch.Tensor, name: str, shape: Sequence[int],
         raise ValueError(f"{name}: must be contiguous")
 
 
+def rows_aligned_16(*tensors: torch.Tensor) -> bool:
+    """True when every row (last dim) of every tensor starts on a 16-byte
+    boundary: the data pointer, the row length and the strides of the
+    leading dims (those of size > 1) are multiples of 16 bytes. The
+    kernels then load and store rows by 16-byte vectors."""
+    for t in tensors:
+        es = t.element_size()
+        if t.data_ptr() % 16 or (t.shape[-1] * es) % 16:
+            return False
+        if any((st * es) % 16 for n, st in zip(t.shape[:-1], t.stride()[:-1])
+               if n > 1):
+            return False
+    return True
+
+
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
 def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+def kernel_attributes(entry: str, *args: int) -> dict:
+    """Registers a thread, static and dynamic shared bytes a block, and
+    local (spill) bytes a thread of the kernel that a launch with these
+    arguments takes (`cudaFuncGetAttributes` through `entry`)."""
+    out = (ctypes.c_int * 4)()
+    check(getattr(load_library(), entry)(*args, ctypes.addressof(out)),
+          entry)
+    return dict(zip(("registers", "static_smem", "dynamic_smem",
+                     "local_bytes"), out))
 
 
 def check(rc: int, name: str) -> None:

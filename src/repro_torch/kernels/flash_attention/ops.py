@@ -1,11 +1,18 @@
-"""Wrapper of the flash-attention kernel: dispatch by device, checks,
-launch count.
+"""Wrapper of the flash-attention kernels: dispatch by device and dtype,
+checks, launch count.
 
 Replaces `repro.kernels.flash_attention.ops.flash_attention` (the Pallas
 `_flash_kernel`). Takes the model layout q (B,S,H,D), k/v (B,T,K,D) as it
-is: the CUDA kernel reads the strides in place, no transpose. There are
-no block arguments: the kernel takes any S and T (it masks the ragged
-tile) and any head dim up to 256."""
+is: the CUDA kernels read the strides in place, no transpose. There are
+no block arguments: the kernels take any S and T (they mask the ragged
+tile) and any head dim up to 256.
+
+Two hand-written kernels in `csrc/flash_attention.cu`, chosen by dtype:
+bf16 runs on the tensor cores (`wgmma`), fp32 on plain fp32 FMAs (tensor
+cores would need TF32, which breaks the fp32 bound). The bf16 kernel
+loads its tiles by 16-byte copies when every row of q, k and v starts
+16-byte aligned, and element by element otherwise
+(`_lib.rows_aligned_16`)."""
 from __future__ import annotations
 
 import torch
@@ -14,8 +21,17 @@ from repro_torch.kernels import _lib
 from repro_torch.kernels.flash_attention.ref import attention_reference
 
 MAX_HEAD_DIM = 256
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ENTRY_POINTS = {torch.float32: "rt_flash_attention_forward_f32",
+                 torch.bfloat16: "rt_flash_attention_forward_bf16"}
 _INT_MAX = 2 ** 31 - 1
+
+
+def kernel_for(dtype: torch.dtype) -> str:
+    """The C entry point that takes inputs of this dtype."""
+    if dtype not in _ENTRY_POINTS:
+        raise TypeError(f"flash_attention: no kernel for {dtype}; q, k, v "
+                        f"must be bfloat16 or float32")
+    return _ENTRY_POINTS[dtype]
 
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0):
@@ -46,7 +62,8 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0):
     if K == 0 or H % K:
         raise ValueError(f"flash_attention: {H} heads are no multiple of "
                          f"{K} kv heads")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _ENTRY_POINTS or k.dtype != q.dtype or \
+            v.dtype != q.dtype:
         raise TypeError(f"flash_attention: q, k, v must share one dtype, "
                         f"bfloat16 or float32; got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
@@ -64,11 +81,13 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0):
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     if o.numel() == 0:
         return o
-    lib = _lib.load_library()
-    rc = lib.rt_flash_attention_forward(
-        _lib.ptr(q), _lib.ptr(k), _lib.ptr(v), _lib.ptr(o), B, S, T, H, K, D,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(causal),
-        int(window), _DTYPES[q.dtype], D ** -0.5, _lib.stream())
+    fn = getattr(_lib.load_library(), kernel_for(q.dtype))
+    args = [_lib.ptr(q), _lib.ptr(k), _lib.ptr(v), _lib.ptr(o), B, S, T, H,
+            K, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            int(causal), int(window)]
+    if q.dtype == torch.bfloat16:
+        args.append(int(_lib.rows_aligned_16(q, k, v)))
+    rc = fn(*args, D ** -0.5, _lib.stream())
     _lib.check(rc, "flash_attention")
     flash_attention.launches += 1
     return o

@@ -35,23 +35,32 @@ def _cuda_inputs(q, k, v, key_bias, key_mask):
     if key_bias is not None:
         _lib.require(key_bias, "key_bias", (B, M))
     if key_mask is not None:
-        key_mask = key_mask.to(torch.uint8)
+        # a bool mask is its own uint8 bytes (0 / 1): no conversion launch
+        key_mask = (key_mask.view(torch.uint8) if key_mask.dtype == torch.bool
+                    else key_mask.to(torch.uint8))
         _lib.require(key_mask, "key_mask", (B, M), torch.uint8)
     if M == 0:
         raise ValueError("masked_set_attention: needs at least one key")
     return B, H, N, M, dh, key_mask
 
 
+# head dims the forward kernel takes
+MAX_HEAD_DIM = 256
+
+
 def _forward(q, k, v, key_bias, key_mask):
     if _lib.device_kind(q, k, v, key_bias, key_mask) == "cpu":
         return set_attention_reference(q, k, v, key_bias, key_mask)
     B, H, N, M, dh, key_mask = _cuda_inputs(q, k, v, key_bias, key_mask)
+    if dh > MAX_HEAD_DIM:
+        raise ValueError(f"masked_set_attention: head dim {dh} > "
+                         f"{MAX_HEAD_DIM}")
     o = torch.empty_like(q)
     lib = _lib.load_library()
     rc = lib.rt_set_attention_forward(
         _lib.ptr(q), _lib.ptr(k), _lib.ptr(v), _lib.ptr(key_bias),
-        _lib.ptr(key_mask), _lib.ptr(o), B, H, N, M, dh, dh ** -0.5,
-        _lib.stream())
+        _lib.ptr(key_mask), _lib.ptr(o), B, H, N, M, dh,
+        int(_lib.rows_aligned_16(q, k, v, o)), dh ** -0.5, _lib.stream())
     _lib.check(rc, "set_attention")
     masked_set_attention.launches += 1
     return o
@@ -111,10 +120,12 @@ def masked_set_attention(q, k, v, key_bias=None, key_mask=None):
     """q: (B,H,N,dh); k,v: (B,H,M,dh); key_bias: (B,M) additive bias;
     key_mask: (B,M) valid flags. Returns (B,H,N,dh).
 
-    CPU tensors take the plain version; CUDA tensors (fp32, contiguous)
-    launch the kernel, which needs (N·dh + M·(2dh+1) + N·M)·4 bytes of
-    shared memory a block, at most 227 KB. Differentiable in q, k, v and
-    key_bias (not in the mask)."""
+    CPU tensors take the plain version; CUDA tensors (fp32, contiguous,
+    dh <= 256) launch the forward kernel: a register-tiled block per
+    (b, h) for N > 4 (4·(68·(dh + max(dh, 64)) + 64·dh) bytes of shared
+    memory, 51 KB at dh 64), a warp per (b, h) for N <= 4 (the PMA;
+    4·(32·(dh + 4) + N·(dh + M)) bytes a warp, which must fit in 227 KB).
+    Differentiable in q, k, v and key_bias (not in the mask)."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (q, k, v, key_bias)):
         return _SetAttention.apply(q, k, v, key_bias, key_mask)

@@ -367,3 +367,93 @@ def test_zoo_on_card_matches_cpu(cuda):
     torch.testing.assert_close(runs["cuda"][0], runs["cpu"][0], atol=1e-4,
                                rtol=1e-3)
     assert runs["cuda"][2] == runs["cpu"][2]
+
+
+@pytest.mark.parametrize("B,H,N,M,dh,empty", [
+    (3, 3, 1, 130, 64, 1),     # the PMA's one query, past one key tile
+    (5, 3, 2, 40, 64, 1),      # 15 (b, h): a block of 8 warps half full
+    (3, 3, 4, 13, 44, 0),      # the largest N of the warp-per-(b, h) kernel
+    (2, 2, 70, 150, 64, 1),    # two query tiles, three key tiles
+    (2, 2, 9, 21, 128, 1),     # dh 128 and 200: two and four column blocks
+    (2, 2, 5, 13, 200, 1),
+    (2, 2, 3, 13, 7, 1)])      # dh % 4 != 0: scalar loads
+def test_set_attention_forward_kernels_match_plain(cuda, B, H, N, M, dh,
+                                                   empty):
+    """Both forward kernels (register tiles for N > 4, a warp per (b, h)
+    for N <= 4) against the plain version at 1e-5; two launches give the
+    same bits."""
+    g = _gen(cuda, 3 * N + M + dh)
+    q = torch.randn((B, H, N, dh), generator=g, device=cuda)
+    k = torch.randn((B, H, M, dh), generator=g, device=cuda)
+    v = torch.randn((B, H, M, dh), generator=g, device=cuda)
+    bias = torch.rand((B, M), generator=g, device=cuda)
+    mask = torch.rand((B, M), generator=g, device=cuda) < 0.5
+    mask[:, 0] = True
+    mask[B - empty:] = False
+    before = masked_set_attention.launches
+    o = masked_set_attention(q, k, v, bias, mask)
+    torch.cuda.synchronize()
+    assert masked_set_attention.launches == before + 1
+    assert torch.isfinite(o).all()
+    torch.testing.assert_close(o, set_attention_reference(q, k, v, bias,
+                                                          mask),
+                               atol=1e-5, rtol=0)
+    assert torch.equal(o, masked_set_attention(q, k, v, bias, mask))
+
+
+def test_set_attention_forward_unaligned_rows(cuda):
+    """q at an odd element offset takes the scalar loads and gives the
+    bits of the aligned copy."""
+    g = _gen(cuda, 11)
+    B, H, N, M, dh = 4, 2, 64, 64, 64
+    q, k, v = (torch.randn((B, H, n, dh), generator=g, device=cuda)
+               for n in (N, M, M))
+    bias = torch.rand((B, M), generator=g, device=cuda)
+    buf = torch.empty(q.numel() + 1, device=cuda)
+    q_odd = buf[1:].view(q.shape)
+    q_odd.copy_(q)
+    assert q_odd.is_contiguous() and q_odd.data_ptr() % 16
+    assert torch.equal(masked_set_attention(q_odd, k, v, bias),
+                       masked_set_attention(q, k, v, bias))
+
+
+@pytest.mark.parametrize("B,S,T,H,K,D,causal,window", [
+    (2, 300, 300, 4, 2, 64, True, 0),
+    (1, 200, 333, 4, 4, 80, False, 0),     # D 80, S != T, ragged T
+    (1, 257, 257, 8, 2, 128, True, 96),    # windowed, ragged
+    (1, 130, 190, 4, 1, 256, True, 0),     # D 256: one warpgroup a block
+    (1, 64, 64, 2, 1, 16, True, 0),
+    (1, 90, 90, 2, 1, 36, True, 0)])       # D % 8 != 0: element loads
+def test_flash_bf16_wgmma_kernel_matches_plain(cuda, B, S, T, H, K, D,
+                                               causal, window):
+    """The bf16 (wgmma) kernel against the plain version at the JAX
+    suite's bf16 bound; two launches give the same bits."""
+    g = _gen(cuda, S + T + D)
+    q = torch.randn((B, S, H, D), generator=g, device=cuda).bfloat16()
+    k = torch.randn((B, T, K, D), generator=g, device=cuda).bfloat16()
+    v = torch.randn((B, T, K, D), generator=g, device=cuda).bfloat16()
+    before = flash_attention.launches
+    o = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert o.dtype == torch.bfloat16 and o.shape == q.shape
+    torch.testing.assert_close(o.float(), attention_reference(
+        q, k, v, causal=causal, window=window).float(), atol=3e-2, rtol=1e-2)
+    assert torch.equal(o, flash_attention(q, k, v, causal=causal,
+                                          window=window))
+
+
+def test_flash_bf16_fused_projection_view_is_bitwise(cuda):
+    """bf16 q, k, v as views of one fused projection (16-byte loads
+    through the strides) give the contiguous copies' bits."""
+    from repro_torch.kernels._lib import rows_aligned_16
+    g = _gen(cuda, 9)
+    B, S, H, K, D = 2, 333, 9, 3, 64
+    qkv = torch.randn((B, S, (H + 2 * K) * D), generator=g,
+                      device=cuda).bfloat16()
+    q = qkv[..., :H * D].view(B, S, H, D)
+    k = qkv[..., H * D:(H + K) * D].view(B, S, K, D)
+    v = qkv[..., (H + K) * D:].view(B, S, K, D)
+    assert rows_aligned_16(q, k, v) and not q.is_contiguous()
+    assert torch.equal(flash_attention(q, k, v), flash_attention(
+        q.contiguous(), k.contiguous(), v.contiguous()))

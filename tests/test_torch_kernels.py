@@ -490,3 +490,78 @@ def test_wrappers_reject_mixed_devices():
     x = torch.zeros((4, 2))
     with pytest.raises(ValueError):
         kmeans_assign(x, torch.zeros((2, 2), device="meta"))
+
+
+def test_flash_kernel_chosen_by_dtype():
+    """bf16 goes to the wgmma kernel, fp32 to the FMA kernel; any other
+    dtype has no kernel."""
+    from repro_torch.kernels.flash_attention.ops import kernel_for
+    assert kernel_for(torch.bfloat16) == "rt_flash_attention_forward_bf16"
+    assert kernel_for(torch.float32) == "rt_flash_attention_forward_f32"
+    with pytest.raises(TypeError):
+        kernel_for(torch.float16)
+
+
+@pytest.mark.parametrize("shape,dtype,offset,want", [
+    ((2, 100, 4, 64), torch.bfloat16, 0, True),     # smollm's heads
+    ((2, 100, 4, 80), torch.bfloat16, 0, True),     # 160-byte rows
+    ((2, 100, 4, 100), torch.bfloat16, 0, False),   # 200-byte rows
+    ((2, 100, 4, 24), torch.bfloat16, 0, True),
+    ((2, 100, 4, 12), torch.bfloat16, 0, False),    # D % 8 != 0
+    ((2, 100, 4, 64), torch.bfloat16, 1, False),    # odd storage offset
+    ((2, 100, 4, 64), torch.bfloat16, 8, True),     # 16-byte offset
+    ((4, 2, 7, 44), torch.float32, 0, True),        # the tiny config's dh
+    ((4, 2, 7, 7), torch.float32, 0, False),
+    ((4, 2, 7, 16), torch.float32, 2, False),       # 8-byte offset
+])
+def test_rows_aligned_16_picks_the_load_route(shape, dtype, offset, want):
+    """The check that picks 16-byte vector loads (else element by
+    element) looks at the pointer, the row length and the strides."""
+    from repro_torch.kernels._lib import rows_aligned_16
+    n = int(np.prod(shape))
+    t = torch.zeros(n + offset, dtype=dtype)[offset:].view(shape)
+    assert rows_aligned_16(t) is want
+
+
+def test_rows_aligned_16_on_views_of_a_fused_projection():
+    """The zoo's q, k, v are views of one (B, S, (H + 2K) D) projection:
+    16-byte rows when D is a multiple of 8 (bf16), whatever the head
+    offsets; strides of size-1 dims do not count."""
+    from repro_torch.kernels._lib import rows_aligned_16
+    for D, want in ((64, True), (80, True), (36, False)):
+        B, S, H, K = 2, 10, 4, 2
+        qkv = torch.zeros((B, S, (H + 2 * K) * D), dtype=torch.bfloat16)
+        q = qkv[..., :H * D].view(B, S, H, D)
+        k = qkv[..., H * D:(H + K) * D].view(B, S, K, D)
+        v = qkv[..., (H + K) * D:].view(B, S, K, D)
+        assert rows_aligned_16(q, k, v) is want
+    x = torch.zeros((1, 3, 8), dtype=torch.float32)
+    assert rows_aligned_16(x.as_strided((1, 3, 8), (5, 8, 1)))
+    assert not rows_aligned_16(x.as_strided((2, 1, 8), (5, 8, 1)))
+
+
+def test_entry_point_signatures_match_the_c_sources():
+    """Every C entry point that `_lib` declares exists in csrc/ with as
+    many arguments, of the same kinds (pointer or stream, int, float):
+    ctypes would otherwise pass a launch garbage without a word."""
+    import re
+    from repro_torch.kernels import _lib
+    found = {}
+    for path in _lib.CSRC.glob("*.cu"):
+        text = path.read_text()
+        for m in re.finditer(r'extern "C" \w+\s*\*?\s*(rt_\w+)\(([^)]*)\)',
+                             text):
+            kinds = ""
+            for arg in m.group(2).split(","):
+                arg = " ".join(arg.split())
+                if "*" in arg or arg.startswith("cudaStream_t"):
+                    kinds += "p"
+                elif arg.startswith("int "):
+                    kinds += "i"
+                elif arg.startswith("float "):
+                    kinds += "f"
+                else:
+                    raise AssertionError(f"{m.group(1)}: argument {arg!r}")
+            found[m.group(1)] = kinds
+    for name, kinds in _lib._ENTRY_POINTS.items():
+        assert found.get(name) == kinds, (name, found.get(name), kinds)
