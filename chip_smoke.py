@@ -42,6 +42,15 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
      answering 24 requests twice with the same tokens.
 The line before the last is the JSON kernel summary; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
+
+    python3 chip_smoke.py --versus OTHER_CHECKOUT
+
+runs none of that: it times wkv and the set-attention backward (SAB and
+PMA shapes; device time through a CUDA graph and back-to-back wrapper
+calls), and counts the shared loads and FMAs in their SASS, of the port
+under OTHER_CHECKOUT/src and of this one, in turns
+(other, this, this, other), each in a process of its own, on one card:
+a before/after comparison of two commits on the same card.
 """
 from __future__ import annotations
 
@@ -83,6 +92,9 @@ FLASH_CASES = [   # (B, S, T, H, K, D, causal, window, fp32); the first timed
     (2, 1000, 1000, 8, 2, 80, True, 0, False),     # D 80: padded to 128
 ]
 FLASH_VIEW_SHAPE = (4, 1024, 9, 3, 64)   # (B, S, H, K, D) of the views
+# SASS opcodes counted in the register-tiled kernels: 4- and 16-byte
+# shared loads against the FMAs they feed
+SASS_OPS = ("LDS", "LDS.128", "FFMA", "FMUL", "SHFL*")
 
 
 def log(msg: str) -> None:
@@ -103,6 +115,41 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Device time of one fn() call without the host's: `calls` calls
+    captured in one CUDA graph, replayed `reps` times after a warm-up
+    replay (CUDA events around the replays)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (reps * calls)
+    del graph
+    return ms
+
+
+def kernel_ms(fn, reps: int):
+    """(device ms, wrapper ms) of a kernel wrapper's call: its device time
+    (`device_ms`), and the mean of `reps` back-to-back calls from the host
+    (`cuda_ms`), which also counts the wrapper's host work when that is
+    the longer."""
+    return device_ms(fn), cuda_ms(fn, reps)
 
 
 def bound(nbytes: float, flops: float, peak: float = PEAK_FP32_FLOP_PER_S):
@@ -134,22 +181,33 @@ def describe(a: dict) -> str:
             f"block, {a['local_bytes']} B local (spills) a thread")
 
 
-def hgmma_count(lib_path: str, function: str):
-    """HGMMA instructions in the SASS of the kernels whose name holds
-    `function`, or None where the toolkit has no cuobjdump."""
+def sass_counts(lib_path: str, function: str, ops=("HGMMA*",)):
+    """Counts of the given opcodes in the SASS of the kernels whose name
+    holds `function`, or None where the toolkit has no cuobjdump. An op
+    matches exactly ("LDS" is the 4-byte shared load, "LDS.128" the
+    16-byte one), or by prefix when it ends in "*"; never-executed `@!PT`
+    placeholders are skipped."""
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     tool = shutil.which("cuobjdump") or os.path.join(home, "bin", "cuobjdump")
     if not os.path.exists(tool):
         return None
     sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    count, inside = 0, False
+    counts, inside = dict.fromkeys(ops, 0), False
     for line in sass.splitlines():
         if "Function :" in line:
             inside = function in line
-        elif inside and "HGMMA" in line:
-            count += 1
-    return count
+        elif inside and "@!PT" not in line:
+            fields = line.split("*/")
+            words = fields[1].split() if len(fields) > 1 else []
+            if words and words[0].startswith("@"):   # a predicate
+                words = words[1:]
+            op = words[0] if words else ""
+            for key in counts:
+                if op == key or (key.endswith("*")
+                                 and op.startswith(key[:-1])):
+                    counts[key] += 1
+    return counts
 
 
 # ---------------------------------------------------------------- phase 2
@@ -168,9 +226,12 @@ def check_wkv(dev, gen):
         return r, k, v, w, beta, s0
 
     err = 0.0
-    # (B, S, H, dh): the encoder's shape, then dh 44 / 16 / 8 and odd S
+    # (B, S, H, dh): the encoder's shape, then dh 44 / 16 / 8 and odd S;
+    # dh 128 (the third kernel instance), S 1, 129 and 200 (partial stages)
     for B, S, H, dh, st in [(256, 128, 6, 64, False), (3, 37, 2, 44, True),
-                            (2, 64, 3, 16, True), (1, 5, 1, 8, False)]:
+                            (2, 64, 3, 16, True), (1, 5, 1, 8, False),
+                            (2, 129, 2, 128, True), (2, 1, 3, 64, True),
+                            (3, 200, 2, 64, True), (2, 129, 2, 44, False)]:
         args = inputs(B, S, H, dh, st)
         y, sf = wkv(*args)
         y_ref, sf_ref = wkv_reference(*args)
@@ -188,16 +249,31 @@ def check_wkv(dev, gen):
     max_err(torch.cat([y1, y2], 1), y_full, 1e-4, 1e-3, "wkv chained y")
     max_err(s2, s_full, 1e-4, 1e-3, "wkv chained state")
 
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.wkv.ops import kernel_plan
+    attrs = {}
+    for d in (32, 64, 128):
+        attrs[d] = a = _lib.kernel_attributes("rt_wkv_attributes", d)
+        log(f"  wkv kernel, dh <= {d}: {describe(a)}")
+        require(a["static_smem"] == kernel_plan(d)["shared_bytes"],
+                f"wkv dh {d}: shared bytes differ from kernel_plan's")
+    sass = sass_counts(str(_lib.build_library()), "wkv_forward_kernel",
+                       SASS_OPS)
+    log(f"  wkv SASS (3 instances): {sass}")
+
     B, S, H, dh = 256, 128, 6, 64
     args = inputs(B, S, H, dh)
-    ms = cuda_ms(lambda: wkv(*args), reps=20)
+    ms, wrapper_ms = kernel_ms(lambda: wkv(*args), reps=20)
     plain_ms = cuda_ms(lambda: wkv_reference(*args), reps=3, warmup=1)
     n_seq = 4 * B * S * H * dh + B * S * H            # r k v w, beta
     nbytes = 4 * (n_seq + B * S * H * dh + B * H * dh * dh)   # + y, S_f
     flops = 7 * B * H * S * dh * dh
-    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+    return dict(err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                library_ms=None,
                 bound=bound(nbytes, flops),
-                shape=f"B={B} S={S} H={H} dh={dh}")
+                shape=f"B={B} S={S} H={H} dh={dh}",
+                extra=dict(registers=attrs[64]["registers"],
+                           local_bytes=attrs[64]["local_bytes"], sass=sass))
 
 
 def check_set_attention(dev, gen):
@@ -238,12 +314,14 @@ def check_set_attention(dev, gen):
 
     # the PMA (one seed query): its own kernel, timed beside the SAB's
     pma = inputs(512, 4, 1, 64, 64, True, True, 24)
-    pma_ms = cuda_ms(lambda: masked_set_attention(*pma), reps=50)
+    pma_ms, pma_wrapper_ms = kernel_ms(lambda: masked_set_attention(*pma),
+                                       reps=50)
     pma_plain_ms = cuda_ms(lambda: set_attention_reference(*pma), reps=20)
     pma_bound = bound(4 * (2 * 512 * 4 * 64 + 2 * 512 * 4 * 64 * 64
                            + 512 * 64) + 512 * 64,
                       512 * 4 * (4 * 64 * 64 + 5 * 64))
-    log(f"  set_attention PMA [B=512 H=4 N=1 M=64 dh=64]: ms {pma_ms:.4f}, "
+    log(f"  set_attention PMA [B=512 H=4 N=1 M=64 dh=64]: ms {pma_ms:.4f} "
+        f"(wrapper {pma_wrapper_ms:.4f}), "
         f"plain_ms {pma_plain_ms:.4f}, bound_ms {pma_bound[0]:.4f} "
         f"({pma_bound[1]})")
     from repro_torch.kernels import _lib
@@ -255,7 +333,8 @@ def check_set_attention(dev, gen):
 
     B, H, N, M, dh = 512, 4, 64, 64, 64
     q, k, v, bias, mask = inputs(B, H, N, M, dh, True, True, 24)
-    ms = cuda_ms(lambda: masked_set_attention(q, k, v, bias, mask), reps=50)
+    ms, wrapper_ms = kernel_ms(
+        lambda: masked_set_attention(q, k, v, bias, mask), reps=50)
     plain_ms = cuda_ms(lambda: set_attention_reference(q, k, v, bias, mask),
                        reps=20)
     attn_mask = (bias + torch.where(mask, 0.0, NEG_INF))[:, None, None, :]
@@ -267,10 +346,12 @@ def check_set_attention(dev, gen):
         q, k, v, attn_mask=attn_mask), reps=50)
     nbytes = 4 * (2 * B * H * N * dh + 2 * B * H * M * dh + B * M) + B * M
     flops = B * H * (4 * N * M * dh + 5 * N * M)
-    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+    return dict(err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                library_ms=library_ms,
                 bound=bound(nbytes, flops),
                 shape=f"B={B} H={H} N={N} M={M} dh={dh}",
-                extra=dict(pma_ms=pma_ms, pma_plain_ms=pma_plain_ms,
+                extra=dict(pma_ms=pma_ms, pma_wrapper_ms=pma_wrapper_ms,
+                           pma_plain_ms=pma_plain_ms,
                            pma_bound_ms=pma_bound[0],
                            registers=attrs["SAB"]["registers"],
                            local_bytes=attrs["SAB"]["local_bytes"],
@@ -300,13 +381,24 @@ def check_set_attention_backward(dev, gen):
 
     err = 0.0
     # Stage-2 training's SAB and PMA (64 sets of one role), then M 13,
-    # dh 44, N 1, no bias, no mask; masks with holes, empty rows
+    # dh 44, N 1, no bias, no mask; masks with holes, empty rows; then the
+    # routes' edges: N 4 (last of the PMA kernel) and 5, N and M 65 and
+    # 130 (several tiles, running max over key tiles), dh 8, 44 and 128
+    # (two head-dim chunks), and a PMA whose k rows span several chunks
     for case in [(64, 4, 64, 64, 64, True, True, 2),
                  (64, 4, 1, 64, 64, True, True, 2),
                  (2, 2, 5, 13, 16, True, True, 1),
                  (3, 2, 7, 13, 44, True, True, 1),
                  (2, 3, 1, 33, 44, False, True, 1),
-                 (2, 2, 7, 130, 16, True, False, 0)]:
+                 (2, 2, 7, 130, 16, True, False, 0),
+                 (3, 2, 4, 64, 64, True, True, 1),
+                 (3, 2, 5, 64, 64, True, True, 1),
+                 (2, 2, 65, 65, 64, True, True, 1),
+                 (2, 2, 130, 130, 44, True, True, 1),
+                 (2, 2, 9, 21, 8, True, True, 1),
+                 (2, 2, 70, 13, 128, True, True, 1),
+                 (2, 2, 3, 130, 128, False, True, 1),
+                 (2, 2, 1, 300, 44, True, True, 1)]:
         q, k, v, bias, mask, do = inputs(*case)
         out = set_attention_backward(q, k, v, bias, mask, do)
         ref = set_attention_backward_reference(q, k, v, bias, mask, do)
@@ -330,10 +422,49 @@ def check_set_attention_backward(dev, gen):
                 f"set_attention_backward {case}: two runs are not bitwise "
                 "equal")
 
+    def cost(B, H, N, M, dh):
+        """(bytes, flops) the backward must move and do."""
+        n_in = 2 * B * H * N * dh + 2 * B * H * M * dh          # q, dO, k, v
+        n_out = B * H * N * dh + 2 * B * H * M * dh + B * H * M  # dq dk dv db
+        return (4 * (n_in + n_out + B * M) + B * M,             # + bias, mask
+                B * H * (10 * N * M * dh + 12 * N * M))  # products + softmax
+
+    # resources of both routes, against backward_plan's shared bytes, and
+    # the shared loads and FMAs of their SASS
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.set_attention.ops import backward_plan
+    attrs = {}
+    for what, shape in (("SAB", (64, 64, 64)), ("PMA", (1, 64, 64))):
+        attrs[what] = a = _lib.kernel_attributes(
+            "rt_set_attention_backward_attributes", *shape)
+        log(f"  set_attention_backward {what} kernel "
+            f"({backward_plan(*shape)['route']}): {describe(a)}")
+        require(a["dynamic_smem"] == backward_plan(*shape)["shared_bytes"],
+                f"set_attention_backward {what}: shared bytes differ from "
+                "backward_plan's")
+    sass = {}
+    for what, fn in (("SAB", "bwd12tiled_kernel"),
+                     ("PMA", "bwd14small_n_kernel")):
+        sass[what] = sass_counts(str(_lib.build_library()), fn, SASS_OPS)
+        log(f"  set_attention_backward {what} SASS: {sass[what]}")
+
+    # the PMA (one seed query): its own kernel, timed against its own bound
+    pma_shape = (64, 4, 1, 64, 64)
+    pma = inputs(*pma_shape, True, True, 2)
+    pma_ms, pma_wrapper_ms = kernel_ms(lambda: set_attention_backward(*pma),
+                                       reps=100)
+    pma_plain_ms = cuda_ms(lambda: set_attention_backward_reference(*pma),
+                           reps=20)
+    pma_bound = bound(*cost(*pma_shape))
+    log(f"  set_attention_backward PMA [B=64 H=4 N=1 M=64 dh=64]: ms "
+        f"{pma_ms:.4f} (wrapper {pma_wrapper_ms:.4f}), plain_ms "
+        f"{pma_plain_ms:.4f}, bound_ms "
+        f"{pma_bound[0]:.4f} ({pma_bound[1]})")
+
     B, H, N, M, dh = 64, 4, 64, 64, 64
     q, k, v, bias, mask, do = inputs(B, H, N, M, dh, True, True, 2)
-    ms = cuda_ms(lambda: set_attention_backward(q, k, v, bias, mask, do),
-                 reps=50)
+    ms, wrapper_ms = kernel_ms(
+        lambda: set_attention_backward(q, k, v, bias, mask, do), reps=100)
     plain_ms = cuda_ms(lambda: set_attention_backward_reference(
         q, k, v, bias, mask, do), reps=20)
     # yardstick: the backward of scaled_dot_product_attention with the same
@@ -347,13 +478,18 @@ def check_set_attention_backward(dev, gen):
             o_lib, (ql, kl, vl), do, retain_graph=True), reps=50)
     except RuntimeError as e:       # no SDPA backend takes this: print null
         log(f"  scaled_dot_product_attention backward unavailable: {e}")
-    n_in = 2 * B * H * N * dh + 2 * B * H * M * dh            # q, dO, k, v
-    n_out = B * H * N * dh + 2 * B * H * M * dh + B * H * M   # dq, dk, dv, db
-    nbytes = 4 * (n_in + n_out + B * M) + B * M               # + bias, mask
-    flops = B * H * (10 * N * M * dh + 12 * N * M)   # five products + softmax
-    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound=bound(nbytes, flops),
-                shape=f"B={B} H={H} N={N} M={M} dh={dh}")
+    return dict(err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                library_ms=library_ms,
+                bound=bound(*cost(B, H, N, M, dh)),
+                shape=f"B={B} H={H} N={N} M={M} dh={dh}",
+                extra=dict(pma_ms=pma_ms, pma_wrapper_ms=pma_wrapper_ms,
+                           pma_plain_ms=pma_plain_ms,
+                           pma_bound_ms=pma_bound[0],
+                           registers=attrs["SAB"]["registers"],
+                           local_bytes=attrs["SAB"]["local_bytes"],
+                           pma_registers=attrs["PMA"]["registers"],
+                           pma_local_bytes=attrs["PMA"]["local_bytes"],
+                           sass=sass))
 
 
 def _clustered(n, d, k, gen, dev, spread=0.05):
@@ -398,11 +534,12 @@ def check_kmeans_assign(dev, gen):
                                f"kmeans_assign d2 {n, d, k}"))
     n, d, k = 32768, 128, 14
     x, c = _clustered(n, d, k, gen, dev)
-    ms = cuda_ms(lambda: kmeans_assign(x, c), reps=100)
+    ms, wrapper_ms = kernel_ms(lambda: kmeans_assign(x, c), reps=100)
     plain_ms = cuda_ms(lambda: kmeans_assign_reference(x, c), reps=100)
     nbytes = 4 * (n * d + k * d) + 8 * n
     flops = n * (2 * k * d + 2 * d + 3 * k)
-    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+    return dict(err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                library_ms=None,
                 bound=bound(nbytes, flops), shape=f"N={n} d={d} K={k}")
 
 
@@ -437,12 +574,13 @@ def check_kmeans_update(dev, gen, n_valid_main: int):
     n, d, k = 32768, 128, 14
     x, c = _clustered(n, d, k, gen, dev)
     valid = (torch.arange(n, device=dev) < n_valid_main).float()
-    ms = cuda_ms(lambda: kmeans_update(x, c, valid), reps=100)
+    ms, wrapper_ms = kernel_ms(lambda: kmeans_update(x, c, valid), reps=100)
     plain_ms = cuda_ms(lambda: kmeans_update_reference(x, c, valid), reps=100)
     nv = n_valid_main       # only the live rows matter to the result
     nbytes = 4 * (nv * d + n + k * d) + 4 * (k * d + k + 1)
     flops = nv * (2 * k * d + 2 * d + 3 * k + d)
-    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+    return dict(err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                library_ms=None,
                 bound=bound(nbytes, flops),
                 shape=f"N={n} (valid {nv}) d={d} K={k}")
 
@@ -758,7 +896,8 @@ def check_flash(dev, gen):
                                               1, D)
         log(f"  flash_attention bf16 (wgmma) instance for D <= {D}: "
             f"{describe(a)}")
-    hgmma = hgmma_count(str(_lib.build_library()), "flash_wgmma_kernel")
+    sass = sass_counts(str(_lib.build_library()), "flash_wgmma_kernel")
+    hgmma = None if sass is None else sass["HGMMA*"]
     if hgmma is None:
         log("  HGMMA in the bf16 kernel's SASS: not checked (no cuobjdump)")
     else:
@@ -769,7 +908,7 @@ def check_flash(dev, gen):
     q, k, v = inputs(B, S, S, H, K, D, bf16)
     require(torch.equal(flash_attention(q, k, v), flash_attention(q, k, v)),
             "flash bf16: two launches are not bitwise equal")
-    ms = cuda_ms(lambda: flash_attention(q, k, v), reps=20)
+    ms, wrapper_ms = kernel_ms(lambda: flash_attention(q, k, v), reps=20)
     plain_ms = cuda_ms(lambda: attention_reference(q, k, v), reps=5)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
@@ -784,7 +923,8 @@ def check_flash(dev, gen):
     library_ms = cuda_ms(sdpa, reps=20)
     nbytes = 2 * (2 * B * S * H * D + 2 * B * S * K * D)     # q, o; k, v
     flops = 4 * D * B * H * _visible_pairs(S, S, True, 0)
-    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+    return dict(err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                library_ms=library_ms,
                 bound=bound(nbytes, flops, PEAK_BF16_FLOP_PER_S),
                 shape=f"B={B} S={S} H={H} K={K} D={D} bf16 causal",
                 extra=dict(registers=attrs[64]["registers"],
@@ -942,7 +1082,79 @@ def zoo_path(dev):
         f"GiB; the repeat gave the same tokens")
 
 
+def time_kernels(root: str) -> dict:
+    """Device and wrapper ms of wkv (the encoder's shape) and of the
+    set-attention backward (Stage-2 training's SAB and PMA shapes) of the
+    port under root/src, on inputs drawn from SEED."""
+    sys.path.insert(0, os.path.join(root, "src"))
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.set_attention import set_attention_backward
+    from repro_torch.kernels.wkv import wkv
+    _lib.load_library()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    B, S, H, dh = 256, 128, 6, 64
+    r, k, v = (torch.randn((B, S, H, dh), generator=gen, device=dev)
+               for _ in range(3))
+    k = k / k.norm(dim=-1, keepdim=True)
+    w = 0.7 + 0.3 * torch.rand((B, S, H, dh), generator=gen, device=dev)
+    beta = torch.rand((B, S, H), generator=gen, device=dev)
+    out = {"wkv": kernel_ms(lambda: wkv(r, k, v, w, beta), reps=20)}
+    for name, N in (("backward_sab", 64), ("backward_pma", 1)):
+        B, H, M, dh = 64, 4, 64, 64
+        q, do = (torch.randn((B, H, N, dh), generator=gen, device=dev)
+                 for _ in range(2))
+        kk, vv = (torch.randn((B, H, M, dh), generator=gen, device=dev)
+                  for _ in range(2))
+        bias = torch.rand((B, M), generator=gen, device=dev)
+        mask = torch.rand((B, M), generator=gen, device=dev) < 0.45
+        mask[:, 0] = True
+        out[name] = kernel_ms(lambda: set_attention_backward(
+            q, kk, vv, bias, mask, do), reps=100)
+    # shared loads and FMAs of the kernels' SASS (the backward's kernels by
+    # their names before and since the redesign)
+    lib = str(_lib.build_library())
+    out["sass"] = {name: sass_counts(lib, fn, SASS_OPS) for name, fn in (
+        ("wkv", "wkv_forward_kernel"),
+        ("backward", "set_attention_backward_kernel"),
+        ("backward_sab", "bwd12tiled_kernel"),
+        ("backward_pma", "bwd14small_n_kernel"))}
+    return out
+
+
+def versus(other: str) -> int:
+    """`time_kernels` of the checkout at `other` and of this one, in turns,
+    each in its own process."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    log(smi.splitlines()[0])
+    for tag, root in (("other", other), ("this", HERE), ("this", HERE),
+                      ("other", other)):
+        run = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--time-kernels", os.path.abspath(root)],
+                             capture_output=True, text=True, timeout=900)
+        if run.returncode:
+            print(run.stdout + run.stderr, file=sys.stderr)
+            return 1
+        times = json.loads(run.stdout.strip().splitlines()[-1])
+        sass = times.pop("sass")
+        log(f"{tag} ({root}): " + ", ".join(
+            f"{name} ms {t[0]:.4f} (wrapper {t[1]:.4f})"
+            for name, t in times.items()))
+        log(f"  SASS: {sass}")
+    return 0
+
+
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] in ("--versus", "--time-kernels"):
+        if not torch.cuda.is_available():
+            print("chip_smoke: CUDA is not available", file=sys.stderr)
+            return 2
+        if sys.argv[1] == "--versus":
+            return versus(sys.argv[2])
+        print(json.dumps(time_kernels(sys.argv[2])), flush=True)
+        return 0
     # cuBLAS takes its workspace layout when CUDA starts: the fixed one
     # that deterministic algorithms (phase 5) need
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -1003,7 +1215,8 @@ def main() -> int:
         lib_ms = ("null" if r["library_ms"] is None
                   else f"{r['library_ms']:.4f}")
         log(f"kernel {name} [{r['shape']}]: max_abs_err {r['err']:.3g}, "
-            f"ms {r['ms']:.4f}, plain_ms {r['plain_ms']:.4f}, library_ms "
+            f"ms {r['ms']:.4f} (wrapper {r['wrapper_ms']:.4f}), plain_ms "
+            f"{r['plain_ms']:.4f}, library_ms "
             f"{lib_ms}, bound_ms {r['bound'][0]:.4f} ({r['bound'][1]})")
 
     # 3. full-width CPU vs card on a small input
@@ -1041,7 +1254,8 @@ def main() -> int:
     t = time.perf_counter()
     results["flash_attention"] = r = check_flash(dev, gen)
     log(f"kernel flash_attention [{r['shape']}]: max_abs_err {r['err']:.3g}, "
-        f"ms {r['ms']:.4f}, plain_ms {r['plain_ms']:.4f}, library_ms "
+        f"ms {r['ms']:.4f} (wrapper {r['wrapper_ms']:.4f}), plain_ms "
+        f"{r['plain_ms']:.4f}, library_ms "
         f"{r['library_ms']:.4f}, bound_ms {r['bound'][0]:.4f} "
         f"({r['bound'][1]})")
     cross_check_zoo(dev)
@@ -1071,7 +1285,8 @@ def main() -> int:
     kernels = [{
         "name": name, "route": "cuda", "source": meta[name][0],
         "replaces": meta[name][1], "launches": launches[name],
-        "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "max_abs_err": r["err"], "ms": r["ms"], "wrapper_ms": r["wrapper_ms"],
+        "plain_ms": r["plain_ms"],
         "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
         "library_ms": r["library_ms"], **r.get("extra", {})}
         for name, r in results.items()]

@@ -3,6 +3,8 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace rt {
 
 // Butterfly sum over the 32 lanes of a warp. Every lane ends with the
@@ -30,6 +32,28 @@ __device__ __forceinline__ float half_warp_max(float v) {
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
+}
+
+// Asynchronous copies from global to shared memory (cp.async): 16 bytes,
+// of which the first src_bytes are read and the rest zero-filled; or 4
+// bytes. They land after cp_async_wait<n> (at most n later groups still in
+// flight) and a barrier.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes = 16) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
 }
 
 // Lets a kernel take more than the default 48 KB of dynamic shared memory.

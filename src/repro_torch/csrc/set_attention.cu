@@ -54,18 +54,42 @@
 // What bounds it: at Stage-2 training's shape (B = 64 sets, H = 4,
 // N = M = dh = 64) it moves 29 MB (q, k, v, dO in; dq, dk, dv out) and does
 // five (N, M, dh) products, 0.67 GFLOP: the fp32 operations weigh slightly
-// more than the bytes. The design keeps everything of one (b, h) on chip:
-//   * one block per (b, h), 256 threads; q, dO, k, v (k and v with the
-//     dh + 1 row stride) and the (N, M) matrices P and dP/dS in shared
-//     memory, 97 KB at 64 x 64 x 64, so two blocks fit on an SM;
+// more than the bytes, so the design feeds the FMA units from registers,
+// as the forward does:
+//   * N > 4 (the SABs), bwd::tiled_kernel: one block of 256 threads
+//     (16 x 16) per (b, h), tiles of 64 queries x 64 keys x 64 head-dim
+//     columns. q, dO, k and v are kept row-major (row stride 68 floats, so
+//     the same float4 of eight adjacent rows lies on eight distinct bank
+//     quads), so each of the five products
+//     is a 4 x 4 register tile fed by 16-byte loads, 16 FMAs per two loads:
+//     the scores and dP a thread holds are rows 4 ty + i and keys tx + 16 j
+//     (8 adjacent key rows a quarter warp: no bank conflict); the row
+//     softmax and delta are reduced over the 16 lanes of a half warp with
+//     shuffles; P and dS go to shared memory once, row-major, and dQ (rows
+//     4 ty + i, columns 4 tx + e), dK and dV (keys 4 ty + i, columns 4 tx + e)
+//     are accumulated in registers from float4 reads of them. 104 KB of
+//     shared memory at any dh (head-dim chunks of 64 are loaded in turn),
+//     so two blocks sit on an SM and B H = 256 blocks make one wave;
+//   * M > 64: the row max and sum, then delta, are taken over the key
+//     tiles first (the scores recomputed each time); N > 64 or M > 64: dQ,
+//     dK, dV and db are summed over tiles in place in global memory, each
+//     element always by the same thread of the one block of its (b, h);
+//   * N <= 4 (the PMA), bwd::small_n_kernel: at N = 1, dK and dV are outer
+//     products and the kernel is bound by bytes, so it is built to keep
+//     many loads in flight: one block of 128 threads per (b, h) stages 64
+//     rows each of k and v by 16-byte cp.async, all in flight at once;
+//     threads 0-63 compute the scores and 64-127 dP, a key a thread (float4
+//     reads of its own row, stride dh + 4: no bank conflict); warp n reduces
+//     row n's softmax and delta with shuffles; dK, dV (float4 columns) and
+//     db are written coalesced, and dQ is summed over the keys in order.
+//     Taken while 64 rows of k and v, q, dO, P and dS fit in 227 KB, else
+//     the tiled kernel takes the shape;
 //   * the scores are recomputed with the forward's exact arithmetic and
 //     order (the FMA chain over d ascending, then masked_score: * scale,
 //     + bias, + the additive mask), so they are bitwise the forward's, and
 //     so are the row max and each exp(s - max) when M <= 64. P = exp / sum
 //     may still differ from the forward's by a rounding of the row sum: the
-//     backward sums a row over a warp (lanes m, m + 32, then a butterfly),
-//     the forward over the 16 lanes of a half warp (or one warp for N <= 4)
-//     and divides the output, not P, by the sum; for M > 64 the forward's
+//     forward divides the output, not P, by the sum, and for M > 64 its
 //     running max also rescales the partial sums. A masked key of a row
 //     with any valid key has exp exactly 0 in both, so P is exactly 0 and
 //     its dK, dV and db come out exactly 0. A fully masked row keeps its
@@ -73,9 +97,8 @@
 //   * each block writes only its own dq/dk/dv tiles and its per-head db row:
 //     no atomics, so two runs give the same bits (the training resume relies
 //     on it);
-//   * plain fp32 FMAs, fp32 accumulation, no TF32; any N, M >= 1 and any dh
-//     within 227 KB of shared memory.
-#include <cfloat>
+//   * plain fp32 FMAs, fp32 accumulation, no TF32; any N, M >= 1 and
+//     dh <= 256, as the forward.
 #include <cstdint>
 
 #include "common.cuh"
@@ -83,7 +106,6 @@
 namespace {
 
 constexpr float kNegInf = -1073741824.0f;  // -2^30
-constexpr int kBwdThreads = 256;
 
 // One score: the dot product (an FMA chain over d ascending), * scale,
 // + key bias, + the additive mask, each rounded on its own (no contraction),
@@ -503,58 +525,472 @@ inline size_t small_n_bytes(int N, int M, int dh) {
 
 }  // namespace fwd
 
-__global__ void __launch_bounds__(kBwdThreads)
-set_attention_backward_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                              const float* __restrict__ v, const float* __restrict__ bias,
-                              const uint8_t* __restrict__ mask, const float* __restrict__ dout,
-                              float* __restrict__ dq, float* __restrict__ dk,
-                              float* __restrict__ dv, float* __restrict__ db, int H, int N,
-                              int M, int dh, float scale) {
-  extern __shared__ float smem[];
-  const int ld = dh + 1;
-  float* sq = smem;            // (N, dh)
-  float* sdo = sq + N * dh;    // (N, dh)
-  float* sk = sdo + N * dh;    // (M, dh + 1)
-  float* sv = sk + M * ld;     // (M, dh + 1)
-  float* sp = sv + M * ld;     // (N, M) scores, then probabilities
-  float* sds = sp + N * M;     // (N, M) dP, then dS
+namespace bwd {
 
+constexpr int kThreads = 256;               // 16 x 16
+constexpr int kTile = 64;                   // queries, keys and head-dim columns a tile
+constexpr int kLd = kTile + 4;              // row stride: 17 float4s
+constexpr int kTileFloats = kTile * kLd;
+constexpr int kSmallN = 4;                  // N up to this: small_n_kernel
+constexpr int kSmallThreads = 128;          // threads a block of small_n_kernel
+constexpr int kMaxHeadDim = 256;
+
+// Shared bytes of tiled_kernel: chunks of q, dO, k, v, then P and dS.
+constexpr size_t kTiledBytes = sizeof(float) * 6 * kTileFloats;
+constexpr size_t kMaxSmem = 232448;         // 227 KB, a block's most
+
+// Loads head-dim columns c0 .. c0 + 63 of tiles t0 .. t1 - 1 of four
+// (rows x dh) row-major tiles into (kTile, kLd) shared tiles, zero past
+// rows[t] and past dh: by 16-byte cp.async when vec (dh % 4 == 0, aligned
+// rows), all of a thread's copies in flight at once and committed as one
+// group, which the caller waits for; else element by element. The
+// caller's barrier publishes them.
+__device__ __forceinline__ void load_chunks(float* const (&dst)[4], const float* const (&src)[4],
+                                            const int (&rows)[4], int t0, int t1, int dh,
+                                            int c0, int vec) {
+  const int w = min(kTile, dh - c0);
+  if (vec) {
+#pragma unroll
+    for (int u = 0; u < kTile * kTile / 4 / kThreads; ++u) {
+      const int i = threadIdx.x + u * kThreads;
+      const int r = i >> 4;
+      const int c = 4 * (i & 15);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        if (t < t0 || t >= t1) continue;
+        const bool in = r < rows[t] && c < w;
+        rt::cp_async16(dst[t] + r * kLd + c,
+                       in ? src[t] + static_cast<size_t>(r) * dh + c0 + c : src[t], in ? 16 : 0);
+      }
+    }
+    rt::cp_async_commit();
+  } else {
+    for (int i = threadIdx.x; i < kTile * kTile; i += kThreads) {
+      const int r = i >> 6;
+      const int c = i & 63;
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        if (t >= t0 && t < t1)
+          dst[t][r * kLd + c] =
+              r < rows[t] && c < w ? src[t][static_cast<size_t>(r) * dh + c0 + c] : 0.f;
+    }
+  }
+}
+
+// s[i][j] += a[4 ty + i][d] b[tx + 16 j][d] for d < w4, d ascending: one FMA
+// chain a score, as the forward's.
+__device__ __forceinline__ void tile_dots(float (&s)[4][4], const float* a, const float* b,
+                                          int w4, int tx, int ty) {
+  for (int d = 0; d < w4; d += 4) {
+    float av[4][4], bv[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 x = *reinterpret_cast<const float4*>(a + (4 * ty + i) * kLd + d);
+      av[i][0] = x.x;
+      av[i][1] = x.y;
+      av[i][2] = x.z;
+      av[i][3] = x.w;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 x = *reinterpret_cast<const float4*>(b + (tx + 16 * j) * kLd + d);
+      bv[j][0] = x.x;
+      bv[j][1] = x.y;
+      bv[j][2] = x.z;
+      bv[j][3] = x.w;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i][e], bv[j][e], s[i][j]);
+  }
+}
+
+// Stores four values of a row at column col (< dh), adding what is there
+// when accumulate: by 16 bytes when vec.
+__device__ __forceinline__ void put4(float* p, int col, int dh, const float (&x)[4], int vec,
+                                     bool accumulate) {
+  if (vec) {
+    float4* p4 = reinterpret_cast<float4*>(p + col);
+    float4 o = make_float4(x[0], x[1], x[2], x[3]);
+    if (accumulate) {
+      const float4 old = *p4;
+      o.x += old.x;
+      o.y += old.y;
+      o.z += old.z;
+      o.w += old.w;
+    }
+    *p4 = o;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (col + e < dh) p[col + e] = accumulate ? p[col + e] + x[e] : x[e];
+  }
+}
+
+// N > kSmallN (and the rest): see the note at the top of the file.
+__global__ void __launch_bounds__(kThreads, 2)
+tiled_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+             const float* __restrict__ bias, const uint8_t* __restrict__ mask,
+             const float* __restrict__ dout, float* dq, float* dk, float* dv, float* db, int H,
+             int N, int M, int dh, float scale, int vec) {
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);
+  float* sDO = sQ + kTileFloats;
+  float* sK = sDO + kTileFloats;
+  float* sV = sK + kTileFloats;
+  float* sP = sV + kTileFloats;
+  float* sDS = sP + kTileFloats;
+
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
   const int bh = blockIdx.x;
   const int b = bh / H;
-  const size_t q_off = static_cast<size_t>(bh) * N * dh;
-  const size_t k_off = static_cast<size_t>(bh) * M * dh;
+  const float* qp = q + static_cast<size_t>(bh) * N * dh;
+  const float* dop = dout + static_cast<size_t>(bh) * N * dh;
+  const float* kp = k + static_cast<size_t>(bh) * M * dh;
+  const float* vp = v + static_cast<size_t>(bh) * M * dh;
+  float* dqp = dq + static_cast<size_t>(bh) * N * dh;
+  float* dkp = dk + static_cast<size_t>(bh) * M * dh;
+  float* dvp = dv + static_cast<size_t>(bh) * M * dh;
+  float* dbp = db + static_cast<size_t>(bh) * M;
   const float* bp = bias ? bias + static_cast<size_t>(b) * M : nullptr;
   const uint8_t* mp = mask ? mask + static_cast<size_t>(b) * M : nullptr;
+  const int nkt = (M + kTile - 1) / kTile;
+  const int ndc = (dh + kTile - 1) / kTile;
 
-  for (int i = threadIdx.x; i < N * dh; i += blockDim.x) {
-    sq[i] = q[q_off + i];
-    sdo[i] = dout[q_off + i];
+  // Scores (and dP) of a query and a key tile over every head-dim chunk,
+  // masked: keys past M get -inf. Leaves the last chunk of q, k (dO, v) in
+  // shared memory.
+  auto products = [&](int n0, int m0, bool with_dp, float (&s)[4][4], float (&dp)[4][4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    float* const dst[4] = {sQ, sK, sDO, sV};
+    const int rows[4] = {min(kTile, N - n0), min(kTile, M - m0), min(kTile, N - n0),
+                         min(kTile, M - m0)};
+    const float* const src[4] = {qp + static_cast<size_t>(n0) * dh,
+                                 kp + static_cast<size_t>(m0) * dh,
+                                 dop + static_cast<size_t>(n0) * dh,
+                                 vp + static_cast<size_t>(m0) * dh};
+    for (int c0 = 0; c0 < dh; c0 += kTile) {
+      __syncthreads();  // every thread is done with the previous chunks
+      load_chunks(dst, src, rows, 0, 2, dh, c0, vec);  // q, k
+      if (with_dp) {
+        load_chunks(dst, src, rows, 2, 4, dh, c0, vec);  // dO, v: land under the scores
+        rt::cp_async_wait<1>();
+      } else {
+        rt::cp_async_wait<0>();
+      }
+      __syncthreads();
+      const int w4 = (min(kTile, dh - c0) + 3) & ~3;
+      tile_dots(s, sQ, sK, w4, tx, ty);
+      if (with_dp) {
+        rt::cp_async_wait<0>();
+        __syncthreads();
+        tile_dots(dp, sDO, sV, w4, tx, ty);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = m0 + tx + 16 * j;
+        s[i][j] = key < M ? masked_score(s[i][j], scale, bp, mp, key) : -INFINITY;
+      }
+  };
+
+  for (int n0 = 0; n0 < N; n0 += kTile) {
+    const int nn = min(kTile, N - n0);
+    float s[4][4], dp[4][4];
+    float mrow[4], lrow[4], delta[4];
+    if (nkt > 1) {
+      // the rows' max and sum over every key tile, then delta
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        mrow[i] = -INFINITY;
+        lrow[i] = 0.f;
+        delta[i] = 0.f;
+      }
+      for (int m0 = 0; m0 < M; m0 += kTile) {
+        products(n0, m0, false, s, dp);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float mt = -INFINITY;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mt = fmaxf(mt, s[i][j]);
+          const float m_new = fmaxf(mrow[i], rt::half_warp_max(mt));  // key m0 exists
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) sum += expf(s[i][j] - m_new);
+          lrow[i] = lrow[i] * expf(mrow[i] - m_new) + rt::half_warp_sum(sum);
+          mrow[i] = m_new;
+        }
+      }
+      for (int m0 = 0; m0 < M; m0 += kTile) {
+        products(n0, m0, true, s, dp);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float part = 0.f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) part = fmaf(dp[i][j], expf(s[i][j] - mrow[i]) / lrow[i], part);
+          delta[i] += rt::half_warp_sum(part);
+        }
+      }
+    }
+
+    for (int m0 = 0; m0 < M; m0 += kTile) {
+      const int mm = min(kTile, M - m0);
+      products(n0, m0, true, s, dp);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (nkt == 1) {
+          float mt = -INFINITY;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mt = fmaxf(mt, s[i][j]);
+          mrow[i] = rt::half_warp_max(mt);
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) sum += expf(s[i][j] - mrow[i]);
+          lrow[i] = rt::half_warp_sum(sum);
+        }
+        const bool row = n0 + 4 * ty + i < N;
+        float part = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = row ? expf(s[i][j] - mrow[i]) / lrow[i] : 0.f;  // P
+          part = fmaf(dp[i][j], s[i][j], part);
+        }
+        if (nkt == 1) delta[i] = rt::half_warp_sum(part);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          dp[i][j] = s[i][j] * (dp[i][j] - delta[i]);  // dS
+          sP[(4 * ty + i) * kLd + tx + 16 * j] = s[i][j];
+          sDS[(4 * ty + i) * kLd + tx + 16 * j] = dp[i][j];
+        }
+      }
+      __syncthreads();
+
+      // db: column sums of dS, rows in order
+      if (threadIdx.x < mm) {
+        float acc = 0.f;
+        for (int n = 0; n < nn; ++n) acc += sDS[n * kLd + threadIdx.x];
+        float* p = dbp + m0 + threadIdx.x;
+        *p = n0 > 0 ? *p + acc : acc;
+      }
+
+      for (int c0 = 0; c0 < dh; c0 += kTile) {
+        if (ndc > 1) {
+          float* const dst[4] = {sQ, sDO, sK, sV};
+          const float* const src[4] = {qp + static_cast<size_t>(n0) * dh,
+                                       dop + static_cast<size_t>(n0) * dh,
+                                       kp + static_cast<size_t>(m0) * dh, nullptr};
+          const int rows[4] = {nn, nn, mm, 0};
+          __syncthreads();
+          load_chunks(dst, src, rows, 0, 3, dh, c0, vec);
+          rt::cp_async_wait<0>();
+          __syncthreads();
+        }
+        const int col = c0 + 4 * tx;
+        const int mm4 = (mm + 3) & ~3;  // P, dS and k rows are 0 past mm
+
+        // dQ = scale dS K: rows 4 ty + i, columns col ..
+        float acc[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+        for (int mk = 0; mk < mm4; mk += 4) {
+          float ds[4][4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float4 x = *reinterpret_cast<const float4*>(sDS + (4 * ty + i) * kLd + mk);
+            ds[i][0] = x.x;
+            ds[i][1] = x.y;
+            ds[i][2] = x.z;
+            ds[i][3] = x.w;
+          }
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float4 x = *reinterpret_cast<const float4*>(sK + (mk + r) * kLd + 4 * tx);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              acc[i][0] = fmaf(ds[i][r], x.x, acc[i][0]);
+              acc[i][1] = fmaf(ds[i][r], x.y, acc[i][1]);
+              acc[i][2] = fmaf(ds[i][r], x.z, acc[i][2]);
+              acc[i][3] = fmaf(ds[i][r], x.w, acc[i][3]);
+            }
+          }
+        }
+        if (col < dh) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int n = n0 + 4 * ty + i;
+            if (n >= N) continue;
+            const float x[4] = {acc[i][0] * scale, acc[i][1] * scale, acc[i][2] * scale,
+                                acc[i][3] * scale};
+            put4(dqp + static_cast<size_t>(n) * dh, col, dh, x, vec, m0 > 0);
+          }
+        }
+
+        // dK = scale dS^T Q and dV = P^T dO: keys 4 ty + i, columns col ..
+        float ak[4][4], av[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) ak[i][e] = av[i][e] = 0.f;
+        for (int n = 0; n < nn; ++n) {
+          const float4 d4 = *reinterpret_cast<const float4*>(sDS + n * kLd + 4 * ty);
+          const float4 p4 = *reinterpret_cast<const float4*>(sP + n * kLd + 4 * ty);
+          const float4 q4 = *reinterpret_cast<const float4*>(sQ + n * kLd + 4 * tx);
+          const float4 o4 = *reinterpret_cast<const float4*>(sDO + n * kLd + 4 * tx);
+          const float dsv[4] = {d4.x, d4.y, d4.z, d4.w};
+          const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            ak[i][0] = fmaf(dsv[i], q4.x, ak[i][0]);
+            ak[i][1] = fmaf(dsv[i], q4.y, ak[i][1]);
+            ak[i][2] = fmaf(dsv[i], q4.z, ak[i][2]);
+            ak[i][3] = fmaf(dsv[i], q4.w, ak[i][3]);
+            av[i][0] = fmaf(pv[i], o4.x, av[i][0]);
+            av[i][1] = fmaf(pv[i], o4.y, av[i][1]);
+            av[i][2] = fmaf(pv[i], o4.z, av[i][2]);
+            av[i][3] = fmaf(pv[i], o4.w, av[i][3]);
+          }
+        }
+        if (col < dh) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int m = m0 + 4 * ty + i;
+            if (m >= M) continue;
+            const float xk[4] = {ak[i][0] * scale, ak[i][1] * scale, ak[i][2] * scale,
+                                 ak[i][3] * scale};
+            put4(dkp + static_cast<size_t>(m) * dh, col, dh, xk, vec, n0 > 0);
+            put4(dvp + static_cast<size_t>(m) * dh, col, dh, av[i], vec, n0 > 0);
+          }
+        }
+      }
+    }
   }
-  for (int i = threadIdx.x; i < M * dh; i += blockDim.x) {
-    const int r = (i / dh) * ld + i % dh;
-    sk[r] = k[k_off + i];
-    sv[r] = v[k_off + i];
+}
+
+// Shared floats of small_n_kernel: 64 rows each of k and v (row stride
+// dh + 4), q and dO, then the scores / P and dP / dS of the N rows.
+__host__ __device__ __forceinline__ size_t small_n_floats(int N, int M, int dh) {
+  return 2 * static_cast<size_t>(kTile) * (dh + 4) + 2 * static_cast<size_t>(N) * (dh + M);
+}
+
+// N <= kSmallN while small_n_floats fit in 227 KB: one block of
+// kSmallThreads per (b, h), see the note at the top of the file.
+__global__ void __launch_bounds__(kSmallThreads)
+small_n_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ bias,
+               const uint8_t* __restrict__ mask, const float* __restrict__ dout,
+               float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
+               float* __restrict__ db, int H, int N, int M, int dh, float scale, int vec) {
+  extern __shared__ float4 smem4[];
+  const int ldk = dh + 4;
+  float* sk = reinterpret_cast<float*>(smem4);  // (kTile, ldk)
+  float* sv = sk + kTile * ldk;                 // (kTile, ldk)
+  float* sq = sv + kTile * ldk;                 // (N, dh)
+  float* sdo = sq + N * dh;                     // (N, dh)
+  float* sp = sdo + N * dh;                     // (N, M) scores, then P
+  float* sds = sp + N * M;                      // (N, M) dP, then dS
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const float* qp = q + static_cast<size_t>(bh) * N * dh;
+  const float* dop = dout + static_cast<size_t>(bh) * N * dh;
+  const float* kp = k + static_cast<size_t>(bh) * M * dh;
+  const float* vp = v + static_cast<size_t>(bh) * M * dh;
+  float* dqp = dq + static_cast<size_t>(bh) * N * dh;
+  float* dkp = dk + static_cast<size_t>(bh) * M * dh;
+  float* dvp = dv + static_cast<size_t>(bh) * M * dh;
+  const float* bp = bias ? bias + static_cast<size_t>(b) * M : nullptr;
+  const uint8_t* mp = mask ? mask + static_cast<size_t>(b) * M : nullptr;
+  const int d4n = dh / 4;
+
+  // rows m0 .. m0 + 63 of k (and v) into sk (sv), zero past M
+  auto stage = [&](int m0, bool with_v) {
+    if (vec) {
+      for (int i = tid; i < kTile * d4n; i += kSmallThreads) {
+        const int r = i / d4n;
+        const int d = 4 * (i - r * d4n);
+        const bool in = m0 + r < M;
+        const size_t off = in ? static_cast<size_t>(m0 + r) * dh + d : 0;
+        rt::cp_async16(sk + r * ldk + d, kp + off, in ? 16 : 0);
+        if (with_v) rt::cp_async16(sv + r * ldk + d, vp + off, in ? 16 : 0);
+      }
+      rt::cp_async_commit();
+      rt::cp_async_wait<0>();
+    } else {
+      for (int i = tid; i < kTile * dh; i += kSmallThreads) {
+        const int r = i / dh;
+        const int d = i - r * dh;
+        const bool in = m0 + r < M;
+        sk[r * ldk + d] = in ? kp[static_cast<size_t>(m0 + r) * dh + d] : 0.f;
+        if (with_v) sv[r * ldk + d] = in ? vp[static_cast<size_t>(m0 + r) * dh + d] : 0.f;
+      }
+    }
+  };
+
+  for (int i = tid; i < N * dh; i += kSmallThreads) {
+    sq[i] = qp[i];
+    sdo[i] = dop[i];
+  }
+  // scores (threads 0-63) and dP (threads 64-127), a thread a key
+  const int key = tid & (kTile - 1);
+  const bool is_dp = tid >= kTile;
+  const float* rows = is_dp ? sv : sk;
+  const float* vecs = is_dp ? sdo : sq;
+  for (int m0 = 0; m0 < M; m0 += kTile) {
+    __syncthreads();  // the previous chunk's rows are read
+    stage(m0, true);
+    __syncthreads();
+    const int m = m0 + key;
+    if (m >= M) continue;
+    float acc[kSmallN] = {0.f, 0.f, 0.f, 0.f};
+    if (vec) {
+      for (int d = 0; d < dh; d += 4) {
+        const float4 x = *reinterpret_cast<const float4*>(rows + key * ldk + d);
+#pragma unroll
+        for (int n = 0; n < kSmallN; ++n) {
+          if (n >= N) break;
+          const float4 a = *reinterpret_cast<const float4*>(vecs + n * dh + d);
+          acc[n] = fmaf(a.x, x.x, acc[n]);
+          acc[n] = fmaf(a.y, x.y, acc[n]);
+          acc[n] = fmaf(a.z, x.z, acc[n]);
+          acc[n] = fmaf(a.w, x.w, acc[n]);
+        }
+      }
+    } else {
+      for (int d = 0; d < dh; ++d) {
+        const float x = rows[key * ldk + d];
+#pragma unroll
+        for (int n = 0; n < kSmallN; ++n)
+          if (n < N) acc[n] = fmaf(vecs[n * dh + d], x, acc[n]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kSmallN; ++n)
+      if (n < N) {
+        if (is_dp)
+          sds[n * M + m] = acc[n];
+        else
+          sp[n * M + m] = masked_score(acc[n], scale, bp, mp, m);
+      }
   }
   __syncthreads();
-
-  // scores, with the forward kernels' arithmetic in the same order
-  for (int i = threadIdx.x; i < N * M; i += blockDim.x) {
-    const int n = i / M;
-    const int m = i % M;
-    const float* qr = sq + n * dh;
-    const float* kr = sk + m * ld;
-    float acc = 0.f;
-    for (int d = 0; d < dh; ++d) acc = fmaf(qr[d], kr[d], acc);
-    sp[i] = masked_score(acc, scale, bp, mp, m);
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int nwarps = blockDim.x / 32;
-  for (int n = warp; n < N; n += nwarps) {
-    float* row = sp + n * M;
-    float mx = -FLT_MAX;
+  // softmax, delta = rowsum(dP P) and dS: warp n takes row n
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  if (warp < N) {
+    float* row = sp + warp * M;
+    float* drow = sds + warp * M;
+    float mx = -INFINITY;
     for (int m = lane; m < M; m += 32) mx = fmaxf(mx, row[m]);
     mx = rt::warp_max(mx);
     float sum = 0.f;
@@ -564,62 +1000,116 @@ set_attention_backward_kernel(const float* __restrict__ q, const float* __restri
       sum += e;
     }
     sum = rt::warp_sum(sum);
-    for (int m = lane; m < M; m += 32) row[m] = row[m] / sum;
-  }
-
-  // dP = dO V^T: reads neither P nor the scores, so it needs no barrier
-  // after the softmax
-  for (int i = threadIdx.x; i < N * M; i += blockDim.x) {
-    const int n = i / M;
-    const int m = i % M;
-    const float* dor = sdo + n * dh;
-    const float* vr = sv + m * ld;
-    float acc = 0.f;
-    for (int d = 0; d < dh; ++d) acc = fmaf(dor[d], vr[d], acc);
-    sds[i] = acc;
-  }
-  __syncthreads();
-
-  // delta = rowsum(dP * P), dS = P * (dP - delta): one warp per query row
-  for (int n = warp; n < N; n += nwarps) {
-    const float* pr = sp + n * M;
-    float* dr = sds + n * M;
     float dot = 0.f;
-    for (int m = lane; m < M; m += 32) dot = fmaf(dr[m], pr[m], dot);
+    for (int m = lane; m < M; m += 32) {
+      const float p = row[m] / sum;
+      row[m] = p;
+      dot = fmaf(drow[m], p, dot);
+    }
     dot = rt::warp_sum(dot);
-    for (int m = lane; m < M; m += 32) dr[m] = pr[m] * (dr[m] - dot);
+    for (int m = lane; m < M; m += 32) drow[m] = row[m] * (drow[m] - dot);
   }
   __syncthreads();
 
-  // dQ = scale dS K
-  for (int i = threadIdx.x; i < N * dh; i += blockDim.x) {
-    const int n = i / dh;
-    const int d = i % dh;
-    const float* dsr = sds + n * M;
-    float acc = 0.f;
-    for (int m = 0; m < M; ++m) acc = fmaf(dsr[m], sk[m * ld + d], acc);
-    dq[q_off + i] = acc * scale;
-  }
-  // dK = scale dS^T Q and dV = P^T dO
-  for (int i = threadIdx.x; i < M * dh; i += blockDim.x) {
-    const int m = i / dh;
-    const int d = i % dh;
-    float acc_k = 0.f;
-    float acc_v = 0.f;
-    for (int n = 0; n < N; ++n) {
-      acc_k = fmaf(sds[n * M + m], sq[n * dh + d], acc_k);
-      acc_v = fmaf(sp[n * M + m], sdo[n * dh + d], acc_v);
-    }
-    dk[k_off + i] = acc_k * scale;
-    dv[k_off + i] = acc_v;
-  }
-  // db for this head: column sums of dS
-  for (int m = threadIdx.x; m < M; m += blockDim.x) {
+  // db, and the outer products dK = scale dS^T q, dV = P^T dO, coalesced
+  for (int m = tid; m < M; m += kSmallThreads) {
     float acc = 0.f;
     for (int n = 0; n < N; ++n) acc += sds[n * M + m];
     db[static_cast<size_t>(bh) * M + m] = acc;
   }
+  if (vec) {
+    for (int i = tid; i < M * d4n; i += kSmallThreads) {
+      const int m = i / d4n;
+      const int c = i - m * d4n;
+      float4 ak = make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 av = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int n = 0; n < kSmallN; ++n) {
+        if (n >= N) break;
+        const float ds = sds[n * M + m];
+        const float p = sp[n * M + m];
+        const float4 a = reinterpret_cast<const float4*>(sq + n * dh)[c];
+        const float4 o = reinterpret_cast<const float4*>(sdo + n * dh)[c];
+        ak.x = fmaf(ds, a.x, ak.x);
+        ak.y = fmaf(ds, a.y, ak.y);
+        ak.z = fmaf(ds, a.z, ak.z);
+        ak.w = fmaf(ds, a.w, ak.w);
+        av.x = fmaf(p, o.x, av.x);
+        av.y = fmaf(p, o.y, av.y);
+        av.z = fmaf(p, o.z, av.z);
+        av.w = fmaf(p, o.w, av.w);
+      }
+      reinterpret_cast<float4*>(dkp + static_cast<size_t>(m) * dh)[c] =
+          make_float4(ak.x * scale, ak.y * scale, ak.z * scale, ak.w * scale);
+      reinterpret_cast<float4*>(dvp + static_cast<size_t>(m) * dh)[c] = av;
+    }
+  } else {
+    for (int i = tid; i < M * dh; i += kSmallThreads) {
+      const int m = i / dh;
+      const int d = i - m * dh;
+      float ak = 0.f, av = 0.f;
+#pragma unroll
+      for (int n = 0; n < kSmallN; ++n)
+        if (n < N) {
+          ak = fmaf(sds[n * M + m], sq[n * dh + d], ak);
+          av = fmaf(sp[n * M + m], sdo[n * dh + d], av);
+        }
+      dkp[static_cast<size_t>(m) * dh + d] = ak * scale;
+      dvp[static_cast<size_t>(m) * dh + d] = av;
+    }
+  }
+
+  // dQ = scale dS K: a thread per (n, float4 column) (per (n, d) without
+  // vec), keys in order; k comes back through shared memory when M spans
+  // more than one chunk
+  constexpr int kPer = kSmallN * kMaxHeadDim / kSmallThreads;  // outputs a thread at most
+  const int nout = vec ? N * d4n : N * dh;
+  const int per_row = vec ? d4n : dh;
+  float aq[kPer][4];
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) aq[u][0] = aq[u][1] = aq[u][2] = aq[u][3] = 0.f;
+  const int nkc = (M + kTile - 1) / kTile;
+  for (int m0 = 0; m0 < M; m0 += kTile) {
+    if (nkc > 1) {
+      __syncthreads();  // the previous chunk's rows are read
+      stage(m0, false);
+      __syncthreads();
+    }
+    const int mm = min(kTile, M - m0);
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int i = tid + u * kSmallThreads;
+      if (i >= nout) break;
+      const int n = i / per_row;
+      const int c = i - n * per_row;
+      const float* dsr = sds + n * M + m0;
+      if (vec) {
+        for (int m = 0; m < mm; ++m) {
+          const float ds = dsr[m];
+          const float4 x = *reinterpret_cast<const float4*>(sk + m * ldk + 4 * c);
+          aq[u][0] = fmaf(ds, x.x, aq[u][0]);
+          aq[u][1] = fmaf(ds, x.y, aq[u][1]);
+          aq[u][2] = fmaf(ds, x.z, aq[u][2]);
+          aq[u][3] = fmaf(ds, x.w, aq[u][3]);
+        }
+      } else {
+        for (int m = 0; m < mm; ++m) aq[u][0] = fmaf(dsr[m], sk[m * ldk + c], aq[u][0]);
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int i = tid + u * kSmallThreads;
+    if (i >= nout) break;
+    if (vec)
+      reinterpret_cast<float4*>(dqp)[i] =
+          make_float4(aq[u][0] * scale, aq[u][1] * scale, aq[u][2] * scale, aq[u][3] * scale);
+    else
+      dqp[i] = aq[u][0] * scale;
+  }
 }
+
+}  // namespace bwd
 
 }  // namespace
 
@@ -698,20 +1188,47 @@ extern "C" int rt_set_attention_forward_attributes(int N, int M, int dh, int* ou
 
 // Inputs as the forward's, plus dout: (B, H, N, dh). Outputs dq: (B, H, N, dh);
 // dk, dv: (B, H, M, dh); db: (B, H, M), the key-bias gradient of each head.
+// dh <= 256. vec != 0: dh % 4 == 0 and q, k, v, dout, dq, dk, dv 16-byte
+// aligned. N <= 4 takes small_n_kernel while its shared memory fits in
+// 227 KB, everything else the tiled kernel.
 extern "C" int rt_set_attention_backward(const float* q, const float* k, const float* v,
                                          const float* bias, const uint8_t* mask,
                                          const float* dout, float* dq, float* dk, float* dv,
-                                         float* db, int B, int H, int N, int M, int dh,
+                                         float* db, int B, int H, int N, int M, int dh, int vec,
                                          float scale, cudaStream_t stream) {
   if (B * H == 0 || N == 0) return cudaSuccess;
-  if (M <= 0 || dh <= 0) return cudaErrorInvalidValue;
-  // q, dO, k and v (padded rows), P and dS; a launch above 227 KB is refused
-  const size_t smem = sizeof(float) * (2 * static_cast<size_t>(N) * dh +
-                                       2 * static_cast<size_t>(M) * (dh + 1) +
-                                       2 * static_cast<size_t>(N) * M);
-  cudaError_t err = rt::allow_smem(set_attention_backward_kernel, smem);
+  if (M <= 0 || dh <= 0 || dh > bwd::kMaxHeadDim) return cudaErrorInvalidValue;
+  const size_t small = sizeof(float) * bwd::small_n_floats(N, M, dh);
+  if (N <= bwd::kSmallN && small <= bwd::kMaxSmem) {
+    cudaError_t err = rt::allow_smem(bwd::small_n_kernel, small);
+    if (err != cudaSuccess) return err;
+    bwd::small_n_kernel<<<B * H, bwd::kSmallThreads, small, stream>>>(
+        q, k, v, bias, mask, dout, dq, dk, dv, db, H, N, M, dh, scale, vec);
+    return cudaGetLastError();
+  }
+  cudaError_t err = rt::allow_smem(bwd::tiled_kernel, bwd::kTiledBytes);
   if (err != cudaSuccess) return err;
-  set_attention_backward_kernel<<<B * H, kBwdThreads, smem, stream>>>(
-      q, k, v, bias, mask, dout, dq, dk, dv, db, H, N, M, dh, scale);
+  bwd::tiled_kernel<<<B * H, bwd::kThreads, bwd::kTiledBytes, stream>>>(
+      q, k, v, bias, mask, dout, dq, dk, dv, db, H, N, M, dh, scale, vec);
   return cudaGetLastError();
+}
+
+// The kernel a backward launch at (N, M, dh) takes: out as the forward's.
+extern "C" int rt_set_attention_backward_attributes(int N, int M, int dh, int* out) {
+  if (N <= 0 || M <= 0 || dh <= 0 || dh > bwd::kMaxHeadDim) return cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  cudaError_t err;
+  size_t smem = sizeof(float) * bwd::small_n_floats(N, M, dh);
+  if (N <= bwd::kSmallN && smem <= bwd::kMaxSmem) {
+    err = cudaFuncGetAttributes(&a, bwd::small_n_kernel);
+  } else {
+    smem = bwd::kTiledBytes;
+    err = cudaFuncGetAttributes(&a, bwd::tiled_kernel);
+  }
+  if (err != cudaSuccess) return err;
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.sharedSizeBytes);
+  out[2] = static_cast<int>(smem);
+  out[3] = static_cast<int>(a.localSizeBytes);
+  return cudaSuccess;
 }

@@ -44,8 +44,28 @@ def _cuda_inputs(q, k, v, key_bias, key_mask):
     return B, H, N, M, dh, key_mask
 
 
-# head dims the forward kernel takes
+# head dims the forward and backward kernels take
 MAX_HEAD_DIM = 256
+# the backward's routes (csrc/set_attention.cu, namespace bwd)
+SMALL_N = 4                      # N up to this: a block of 128 per (b, h)
+TILED_SHARED_BYTES = 4 * 6 * 64 * 68   # q, dO, k, v chunks, P and dS
+SHARED_LIMIT = 232448            # 227 KB a block
+
+
+def backward_plan(N: int, M: int, dh: int) -> dict:
+    """The backward kernel that a launch at (N, M, dh) takes, as
+    `rt_set_attention_backward` chooses it: "small_n" (128 threads per
+    (b, h)) for N <= 4 while 64 rows each of k and v, q, dO, P and dS fit
+    in 227 KB, else "tiled" (256 threads per (b, h), 104,448 bytes at any
+    N, M and dh); with its threads and dynamic shared bytes a block.
+    Raises for a shape no kernel takes."""
+    if N <= 0 or M <= 0 or not 0 < dh <= MAX_HEAD_DIM:
+        raise ValueError(f"set_attention_backward: no kernel takes N {N}, "
+                         f"M {M}, head dim {dh} (1..{MAX_HEAD_DIM})")
+    small = 4 * (2 * 64 * (dh + 4) + 2 * N * (dh + M))
+    if N <= SMALL_N and small <= SHARED_LIMIT:
+        return dict(route="small_n", threads=128, shared_bytes=small)
+    return dict(route="tiled", threads=256, shared_bytes=TILED_SHARED_BYTES)
 
 
 def _forward(q, k, v, key_bias, key_mask):
@@ -71,9 +91,9 @@ def set_attention_backward(q, k, v, key_bias, key_mask, do):
     for the output cotangent do: (B,H,N,dh). Returns (dq, dk, dv, db),
     db (B,H,M) fp32 per head (not yet summed over heads).
 
-    CPU tensors take the plain backward; CUDA tensors (fp32, contiguous)
-    launch the backward kernel, which needs (2N·dh + 2M·(dh+1) + 2N·M)·4
-    bytes of shared memory a block, at most 227 KB."""
+    CPU tensors take the plain backward; CUDA tensors (fp32, contiguous,
+    dh <= 256) launch the backward kernel that `backward_plan` names, with
+    16-byte loads and stores when every row is 16-byte aligned."""
     if _lib.device_kind(q, k, v, key_bias, key_mask, do) == "cpu":
         return set_attention_backward_reference(q, k, v, key_bias, key_mask,
                                                 do)
@@ -82,13 +102,17 @@ def set_attention_backward(q, k, v, key_bias, key_mask, do):
     if N == 0:
         return (torch.empty_like(q), torch.zeros_like(k), torch.zeros_like(v),
                 torch.zeros((B, H, M), dtype=torch.float32, device=q.device))
+    backward_plan(N, M, dh)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     db = torch.empty((B, H, M), dtype=torch.float32, device=q.device)
+    # contiguous inputs, fresh outputs: rows are 16-byte aligned when the
+    # inputs' data is and a row is whole float4s
+    vec = dh % 4 == 0 and not any(t.data_ptr() % 16 for t in (q, k, v, do))
     lib = _lib.load_library()
     rc = lib.rt_set_attention_backward(
         _lib.ptr(q), _lib.ptr(k), _lib.ptr(v), _lib.ptr(key_bias),
         _lib.ptr(key_mask), _lib.ptr(do), _lib.ptr(dq), _lib.ptr(dk),
-        _lib.ptr(dv), _lib.ptr(db), B, H, N, M, dh, dh ** -0.5,
+        _lib.ptr(dv), _lib.ptr(db), B, H, N, M, dh, int(vec), dh ** -0.5,
         _lib.stream())
     _lib.check(rc, "set_attention_backward")
     set_attention_backward.launches += 1

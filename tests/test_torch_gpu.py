@@ -41,7 +41,9 @@ def _gen(dev, seed=0):
 
 
 @pytest.mark.parametrize("B,S,H,dh", [(2, 64, 3, 16), (3, 37, 2, 44),
-                                      (4, 128, 6, 64), (1, 5, 1, 8)])
+                                      (4, 128, 6, 64), (1, 5, 1, 8),
+                                      (2, 129, 2, 128), (2, 1, 3, 64),
+                                      (3, 200, 2, 64), (2, 17, 2, 7)])
 def test_wkv_kernel_matches_plain(cuda, B, S, H, dh):
     g = _gen(cuda, S)
     r, k, v = (torch.randn((B, S, H, dh), generator=g, device=cuda)
@@ -80,7 +82,11 @@ def test_set_attention_kernel_matches_plain(cuda, B, H, N, M, dh, empty):
 
 @pytest.mark.parametrize("B,H,N,M,dh,empty", [
     (64, 4, 64, 64, 64, 2), (64, 4, 1, 64, 64, 2), (2, 2, 5, 13, 16, 1),
-    (3, 2, 7, 13, 44, 1), (2, 3, 1, 33, 44, 0), (2, 2, 7, 130, 16, 0)])
+    (3, 2, 7, 13, 44, 1), (2, 3, 1, 33, 44, 0), (2, 2, 7, 130, 16, 0),
+    (3, 2, 4, 64, 64, 1), (3, 2, 5, 64, 64, 1), (2, 2, 65, 65, 64, 1),
+    (2, 2, 130, 130, 44, 1), (2, 2, 9, 21, 8, 1), (2, 2, 70, 13, 128, 1),
+    (2, 2, 3, 130, 128, 1), (2, 2, 1, 300, 44, 1), (2, 2, 9, 30, 256, 1),
+    (2, 2, 9, 21, 7, 1)])
 def test_set_attention_backward_kernel_matches_plain(cuda, B, H, N, M, dh,
                                                      empty):
     """The backward kernel against the plain backward (atol 1e-4 + rtol
@@ -109,6 +115,35 @@ def test_set_attention_backward_kernel_matches_plain(cuda, B, H, N, M, dh,
     assert (out[3].permute(0, 2, 1)[dead] == 0).all()
     again = set_attention_backward(q, k, v, bias, mask, do)
     assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.parametrize("N", [1, 2, 4])
+def test_set_attention_backward_routes_agree(cuda, N):
+    """At N <= 4 the small-N kernel against the tiled one: the tiled
+    kernel takes the same rows padded to 5 with rows whose output
+    cotangent is 0, which add exactly nothing to dk, dv and db (its dS row is 0)
+    and leaves the other rows' dq as they are; within the gradient
+    bound."""
+    from repro_torch.kernels.set_attention.ops import backward_plan
+    B, H, M, dh = 8, 4, 64, 64
+    assert backward_plan(N, M, dh)["route"] == "small_n"
+    assert backward_plan(5, M, dh)["route"] == "tiled"
+    g = _gen(cuda, 11 * N)
+    q = torch.randn((B, H, 5, dh), generator=g, device=cuda)
+    k = torch.randn((B, H, M, dh), generator=g, device=cuda)
+    v = torch.randn((B, H, M, dh), generator=g, device=cuda)
+    do = torch.randn((B, H, 5, dh), generator=g, device=cuda)
+    do[:, :, N:] = 0
+    bias = torch.rand((B, M), generator=g, device=cuda)
+    mask = torch.rand((B, M), generator=g, device=cuda) < 0.5
+    mask[:, 0] = True
+    small = set_attention_backward(q[:, :, :N].contiguous(), k, v, bias, mask,
+                                   do[:, :, :N].contiguous())
+    tiled = set_attention_backward(q, k, v, bias, mask, do)
+    torch.testing.assert_close(small[0], tiled[0][:, :, :N], atol=1e-4,
+                               rtol=1e-3)
+    for name, a, b in zip(("dk", "dv", "db"), small[1:], tiled[1:]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3, msg=name)
 
 
 def test_set_attention_autograd_runs_the_backward_kernel(cuda):

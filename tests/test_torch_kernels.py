@@ -112,6 +112,102 @@ def test_wkv_state_chaining():
                                rtol=1e-3)
 
 
+@pytest.mark.parametrize("dh,padded,groups,threads", [
+    (1, 32, 4, 32), (8, 32, 4, 32), (32, 32, 4, 32), (33, 64, 4, 64),
+    (44, 64, 4, 64), (64, 64, 4, 64), (65, 128, 8, 256), (128, 128, 8, 256)])
+def test_wkv_kernel_plan(dh, padded, groups, threads):
+    """The instance `csrc/wkv.cu` launches for a head dim: rows a thread a
+    multiple of 4 (float4 broadcasts), whole warps, two stages of 8 tokens
+    under the 48 KB of static shared memory."""
+    from repro_torch.kernels.wkv.ops import kernel_plan
+    plan = kernel_plan(dh)
+    assert (plan["padded"], plan["row_groups"], plan["threads"]) == (
+        padded, groups, threads)
+    assert plan["rows"] % 4 == 0 and plan["threads"] % 32 == 0
+    assert plan["rows"] * plan["row_groups"] == padded
+    assert plan["shared_bytes"] == 4 * 2 * (4 * 8 * padded + 8) <= 48 * 1024
+
+
+@pytest.mark.parametrize("dh", [0, 129, 256])
+def test_wkv_kernel_plan_refuses_a_head_dim(dh):
+    from repro_torch.kernels.wkv.ops import kernel_plan
+    with pytest.raises(ValueError):
+        kernel_plan(dh)
+
+
+def _butterfly(parts):
+    """Sums a list of per-lane partials as the kernels' shfl.xor steps
+    do: at each step lane g adds lane g ^ off's value to its own."""
+    off = 1
+    while off < len(parts):
+        parts = [parts[g] + parts[g ^ off] for g in range(len(parts))]
+        off <<= 1
+    return parts[0]
+
+
+def _wkv_tile_model(r, k, v, w, beta, s0):
+    """numpy fp32 model of the wkv kernel's arithmetic order: the state
+    zero-padded to the plan's head dim, row group g holding rows
+    4 (g + G q) + e; per token the decay and each group's partial
+    (S^T k)_j summed over its rows in order, the butterfly over the G
+    groups, the rank-1 update, then (S^T r)_j the same way."""
+    from repro_torch.kernels.wkv.ops import kernel_plan
+    B, S, H, dh = r.shape
+    plan = kernel_plan(dh)
+    P, G = plan["padded"], plan["row_groups"]
+
+    def pad(a):
+        return np.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, P - dh)])
+    r_, k_, v_, w_ = map(pad, (r, k, v, w))
+    st = np.zeros((B, H, P, P), np.float32)
+    if s0 is not None:
+        st[:, :, :dh, :dh] = s0
+    rows = [[4 * (g + G * q) + e for q in range(P // G // 4)
+             for e in range(4)] for g in range(G)]
+    y = np.zeros((B, S, H, P), np.float32)
+    for t in range(S):
+        wt, kt, rt, vt = w_[:, t], k_[:, t], r_[:, t], v_[:, t]
+        st = st * wt[..., :, None]
+        parts = []
+        for g in range(G):
+            a = np.zeros((B, H, P), np.float32)
+            for i in rows[g]:
+                a = a + st[:, :, i, :] * kt[..., i, None]
+            parts.append(a)
+        bd = beta[:, t][..., None] * (vt - _butterfly(parts))
+        st = st + kt[..., :, None] * bd[..., None, :]
+        parts = []
+        for g in range(G):
+            a = np.zeros((B, H, P), np.float32)
+            for i in rows[g]:
+                a = a + st[:, :, i, :] * rt[..., i, None]
+            parts.append(a)
+        y[:, t] = _butterfly(parts)
+    return y[..., :dh], st[:, :, :dh, :dh]
+
+
+@pytest.mark.parametrize("B,S,H,dh", [(1, 5, 1, 8), (2, 37, 2, 44),
+                                      (1, 17, 2, 64), (1, 9, 1, 100)])
+def test_wkv_tile_model_matches_plain_and_jax(B, S, H, dh):
+    """The CUDA kernel's tiling and summation order, modelled in numpy,
+    against the plain version and the JAX twin (kernel in interpret mode
+    and its oracle) at the JAX suite's tolerance, with a state in."""
+    rng = np.random.RandomState(dh + S)
+    args = _wkv_inputs(rng, B, S, H, dh, "float32")
+    s0 = (0.1 * rng.randn(B, H, dh, dh)).astype(np.float32)
+    y_m, s_m = _wkv_tile_model(*args, s0)
+    y_p, s_p = wkv(*map(_t, args), state=_t(s0))
+    jargs = [jnp.asarray(a) for a in args]
+    for y_w, s_w in ((y_p.numpy(), s_p.numpy()),
+                     jax_wkv_ref(*jargs, state=jnp.asarray(s0)),
+                     jax_wkv(*jargs, chunk=S, state=jnp.asarray(s0),
+                             interpret=True)):
+        np.testing.assert_allclose(y_m, np.asarray(y_w), atol=1e-4,
+                                   rtol=1e-3)
+        np.testing.assert_allclose(s_m, np.asarray(s_w), atol=1e-4,
+                                   rtol=1e-3)
+
+
 # ---------------------------------------------------------------------------
 # set attention
 # ---------------------------------------------------------------------------
@@ -323,6 +419,122 @@ def test_set_attention_function_wiring():
     assert torch.equal(dq, want)
     assert (masked_set_attention.launches,
             set_attention_backward.launches) == before
+
+
+@pytest.mark.parametrize("N,M,dh,route,shared", [
+    (1, 64, 64, "small_n", 4 * (128 * 68 + 2 * 128)),   # Stage 2's PMA
+    (4, 64, 64, "small_n", 4 * (128 * 68 + 8 * 128)),
+    (5, 64, 64, "tiled", 104448),
+    (64, 64, 64, "tiled", 104448),                       # Stage 2's SAB
+    (1, 20000, 256, "tiled", 104448),                    # P, dS too long
+    (130, 130, 256, "tiled", 104448),
+    (2, 13, 7, "small_n", 4 * (128 * 11 + 4 * 20)),
+])
+def test_set_attention_backward_plan(N, M, dh, route, shared):
+    """The backward's route by N and its shared bytes, which stay under
+    a block's 227 KB, and half of an SM's for the tiled kernel (two
+    blocks an SM)."""
+    from repro_torch.kernels.set_attention.ops import backward_plan
+    plan = backward_plan(N, M, dh)
+    assert (plan["route"], plan["shared_bytes"]) == (route, shared)
+    assert plan["shared_bytes"] <= 232448
+    if route == "tiled":
+        assert 2 * plan["shared_bytes"] + 2 * 1024 <= 228 * 1024
+
+
+@pytest.mark.parametrize("N,M,dh", [(0, 4, 8), (4, 0, 8), (4, 4, 0),
+                                    (4, 4, 257)])
+def test_set_attention_backward_plan_refuses_a_shape(N, M, dh):
+    from repro_torch.kernels.set_attention.ops import backward_plan
+    with pytest.raises(ValueError):
+        backward_plan(N, M, dh)
+
+
+def _bwd_tile_model(q, k, v, bias, mask, do, tile=64):
+    """numpy fp32 model of the tiled backward kernel's algorithm: query
+    tiles of 64 rows; with more than one key tile, the row max and sum by
+    a running max over the key tiles, then delta over them (scores
+    recomputed), before the gradient pass; P zero on rows past N; dQ
+    summed over key tiles and dK, dV and db over query tiles in order,
+    as the kernel sums them in place."""
+    B, H, N, dh = q.shape
+    M = k.shape[2]
+    scale = np.float32(dh ** -0.5)
+    add = np.zeros((B, M), np.float32) if bias is None else bias
+    madd = (np.zeros((B, M), np.float32) if mask is None else
+            np.where(mask, np.float32(0), np.float32(-2.0 ** 30)))
+    dq = np.zeros_like(q)
+    dk, dv = np.zeros_like(k), np.zeros_like(v)
+    db = np.zeros((B, H, M), np.float32)
+    nkt = -(-M // tile)
+
+    def scores(n0, m0):
+        s = np.einsum("bhnd,bhmd->bhnm", q[:, :, n0:n0 + tile],
+                      k[:, :, m0:m0 + tile]).astype(np.float32) * scale
+        s = s + add[:, None, None, m0:m0 + tile]
+        return s + madd[:, None, None, m0:m0 + tile]
+
+    def dprob(n0, m0):
+        return np.einsum("bhnd,bhmd->bhnm", do[:, :, n0:n0 + tile],
+                         v[:, :, m0:m0 + tile]).astype(np.float32)
+
+    for n0 in range(0, N, tile):
+        if nkt > 1:
+            m = np.full(q[:, :, n0:n0 + tile, 0].shape, -np.inf, np.float32)
+            lsum = np.zeros_like(m)
+            for m0 in range(0, M, tile):
+                s = scores(n0, m0)
+                m_new = np.maximum(m, s.max(-1))
+                lsum = (lsum * np.exp(m - m_new) +
+                        np.exp(s - m_new[..., None]).sum(-1))
+                m = m_new
+            delta = np.zeros_like(m)
+            for m0 in range(0, M, tile):
+                p = np.exp(scores(n0, m0) - m[..., None]) / lsum[..., None]
+                delta = delta + (dprob(n0, m0) * p).sum(-1)
+        for m0 in range(0, M, tile):
+            s, dp = scores(n0, m0), dprob(n0, m0)
+            if nkt == 1:
+                m = s.max(-1)
+                lsum = np.exp(s - m[..., None]).sum(-1)
+            p = np.exp(s - m[..., None]) / lsum[..., None]
+            if nkt == 1:
+                delta = (dp * p).sum(-1)
+            ds = p * (dp - delta[..., None])
+            db[:, :, m0:m0 + tile] += ds.sum(2)
+            dq[:, :, n0:n0 + tile] += np.einsum(
+                "bhnm,bhmd->bhnd", ds, k[:, :, m0:m0 + tile]) * scale
+            dk[:, :, m0:m0 + tile] += np.einsum(
+                "bhnm,bhnd->bhmd", ds, q[:, :, n0:n0 + tile]) * scale
+            dv[:, :, m0:m0 + tile] += np.einsum(
+                "bhnm,bhnd->bhmd", p, do[:, :, n0:n0 + tile])
+    return dq, dk, dv, db
+
+
+@pytest.mark.parametrize("B,H,N,M,dh,empty", [
+    (2, 2, 9, 21, 44, 0), (2, 2, 70, 13, 16, 1), (1, 2, 9, 130, 8, 1),
+    (2, 2, 130, 70, 16, 1)])
+def test_set_attention_backward_tile_model_matches_plain_and_jax(B, H, N, M,
+                                                                 dh, empty):
+    """The tiled backward kernel's tile loop, running max over key tiles
+    and sums over tiles, modelled in numpy, against the plain backward and
+    jax.grad through the JAX kernel (interpret mode) at the gradient bound
+    of tests/test_kernels.py, fully masked rows included."""
+    rng = np.random.RandomState(N * M + dh)
+    q, k, v, bias, mask = _set_attn_inputs(rng, B, H, N, M, dh, True, True)
+    mask[B - empty:] = False
+    ct = rng.randn(B, H, N, dh).astype(np.float32)
+    got = _bwd_tile_model(q, k, v, bias, mask, ct)
+    plain = set_attention_backward_reference(*map(_t, (q, k, v, bias, mask,
+                                                       ct)))
+    jgrads = _jax_set_attention_grads(q, k, v, bias, mask, ct)
+    for name, g, want, j in zip(("dq", "dk", "dv", "db"), got, plain,
+                                jgrads):
+        np.testing.assert_allclose(g, want.numpy(), atol=1e-4, rtol=1e-3,
+                                   err_msg=f"{name} vs plain")
+        np.testing.assert_allclose(g.sum(1) if name == "db" else g,
+                                   np.asarray(j), atol=1e-4, rtol=1e-3,
+                                   err_msg=f"{name} vs jax")
 
 
 # ---------------------------------------------------------------------------
