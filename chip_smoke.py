@@ -11,7 +11,10 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
      version's time, one PyTorch call's time where one computes the same
      function, and the least time the card could take (bound); the
      set-attention forward is timed at the SAB and at the PMA shape, and
-     its registers, shared memory and spills are printed;
+     its registers, shared memory and spills are printed; kmeans_update
+     at the build's shape is bitwise equal on a second call, with other
+     values in its dead rows and at twice the capacity, and both k-means
+     kernels print their registers, shared memory and spills;
   3. the full-width models on CPU (plain versions) and on the card
      (kernels) agree on a small input: BBEs, signatures, and the Stage-2
      loss gradients of every parameter;
@@ -19,7 +22,8 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
      seeded untrained weights): 19 SPEC-like programs x 1,000 intervals,
      INORDER CPIs; ingest blocks, ingest 18 programs, build, attach_many
      the 19th, estimate every program. Every kernel of the path must have
-     launched;
+     launched. Then 5 more build(k=14) calls on the same store: their
+     median wall time and k-means launches a build;
   5. Stage-2 training at full width on the BBEs phase 4 made: 20 steps of
      64 triplets (the paper's selection policy over the 18 ingested
      programs), a checkpoint every 10 steps, then a fresh engine restored
@@ -45,9 +49,11 @@ The line before the last is the JSON kernel summary; the last line is
 
     python3 chip_smoke.py --versus OTHER_CHECKOUT
 
-runs none of that: it times wkv and the set-attention backward (SAB and
-PMA shapes; device time through a CUDA graph and back-to-back wrapper
-calls), and counts the shared loads and FMAs in their SASS, of the port
+runs none of that: it times wkv, the set-attention backward (SAB and
+PMA shapes) and the two k-means kernels (the build's shape; device time
+through a CUDA graph and back-to-back wrapper calls), and counts the
+shared loads and FMAs in their SASS (by the kernels' names before and
+since their redesigns), of the port
 under OTHER_CHECKOUT/src and of this one, in turns
 (other, this, this, other), each in a process of its own, on one card:
 a before/after comparison of two commits on the same card.
@@ -504,15 +510,31 @@ def _clustered(n, d, k, gen, dev, spread=0.05):
     return x.contiguous(), c.contiguous()
 
 
+def kmeans_resources(name: str, d: int = 128, k: int = 14) -> dict:
+    """Registers, shared bytes and spills of the k-means kernel `name`
+    ("assign" or "update") at (d, k), its shared bytes held to
+    `kmeans_plan`'s."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.kmeans_assign.ops import kmeans_plan
+    a = _lib.kernel_attributes(f"rt_kmeans_{name}_attributes", d, k)
+    log(f"  kmeans_{name} kernel (d={d} K={k}): {describe(a)}")
+    require(a["static_smem"] + a["dynamic_smem"]
+            == kmeans_plan(1, d, k)["shared_bytes"],
+            f"kmeans_{name}: shared bytes differ from kmeans_plan's")
+    return a
+
+
 def check_kmeans_assign(dev, gen):
     from repro_torch.kernels.kmeans_assign import (
         kmeans_assign, kmeans_assign_reference,
     )
     err = 0.0
-    # store capacity x 128 (clustered and uniform), then odd sizes
+    # store capacity x 128 (clustered and uniform), then odd sizes: K 30 at
+    # d 200 (two K tiles), d 7 (element loads)
     for n, d, k, clustered in [(32768, 128, 14, True), (32768, 128, 14, False),
                                (1000, 64, 14, False), (513, 32, 30, False),
-                               (100, 8, 4, False), (77, 200, 5, False)]:
+                               (100, 8, 4, False), (77, 200, 5, False),
+                               (77, 200, 30, True), (300, 7, 9, False)]:
         if clustered:
             x, c = _clustered(n, d, k, gen, dev)
         else:
@@ -532,6 +554,7 @@ def check_kmeans_assign(dev, gen):
                 f"kmeans_assign {n, d, k}: a differing label is no tie")
         err = max(err, max_err(d2, d2_ref, 1e-3, 0.0,
                                f"kmeans_assign d2 {n, d, k}"))
+    attrs = kmeans_resources("assign")
     n, d, k = 32768, 128, 14
     x, c = _clustered(n, d, k, gen, dev)
     ms, wrapper_ms = kernel_ms(lambda: kmeans_assign(x, c), reps=100)
@@ -540,7 +563,9 @@ def check_kmeans_assign(dev, gen):
     flops = n * (2 * k * d + 2 * d + 3 * k)
     return dict(err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                 library_ms=None,
-                bound=bound(nbytes, flops), shape=f"N={n} d={d} K={k}")
+                bound=bound(nbytes, flops), shape=f"N={n} d={d} K={k}",
+                extra=dict(registers=attrs["registers"],
+                           local_bytes=attrs["local_bytes"]))
 
 
 def check_kmeans_update(dev, gen, n_valid_main: int):
@@ -548,9 +573,12 @@ def check_kmeans_update(dev, gen, n_valid_main: int):
         kmeans_update, kmeans_update_reference,
     )
     err = 0.0
+    # the build's shape (a prefix mask) and a mask with holes, then odd
+    # sizes: K 30 at d 200 and N 77 with a prefix, d 7 (element loads)
     for n, d, k, holes in [(32768, 128, 14, False), (32768, 128, 14, True),
                            (1000, 64, 14, True), (513, 32, 30, False),
-                           (100, 8, 4, True)]:
+                           (100, 8, 4, True), (77, 200, 30, False),
+                           (300, 7, 9, True)]:
         x, c = _clustered(n, d, k, gen, dev)
         if holes:
             valid = (torch.rand((n,), generator=gen, device=dev) < 0.7).float()
@@ -574,6 +602,25 @@ def check_kmeans_update(dev, gen, n_valid_main: int):
     n, d, k = 32768, 128, 14
     x, c = _clustered(n, d, k, gen, dev)
     valid = (torch.arange(n, device=dev) < n_valid_main).float()
+    want = kmeans_update(x, c, valid)
+    # bitwise repeat, and blind to dead rows: other finite values in them,
+    # and twice the capacity (the new rows dead) give the same bits
+    dead = valid == 0
+    x_other = x.clone()
+    x_other[dead] = 10.0 * torch.randn((int(dead.sum()), d), generator=gen,
+                                       device=dev)
+    x_big = torch.cat([x, torch.randn((n, d), generator=gen, device=dev)])
+    v_big = torch.cat([valid, torch.zeros((n,), device=dev)])
+    for what, args in (("a second call", (x, c, valid)),
+                       ("other dead rows", (x_other, c, valid)),
+                       (f"capacity {2 * n}", (x_big, c, v_big))):
+        got = kmeans_update(*args)
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"kmeans_update at the build's shape: {what} is not "
+                "bitwise equal")
+    log(f"  kmeans_update [N={n} valid {n_valid_main}]: bitwise equal on a "
+        f"second call, with other dead rows and at capacity {2 * n}")
+    attrs = kmeans_resources("update")
     ms, wrapper_ms = kernel_ms(lambda: kmeans_update(x, c, valid), reps=100)
     plain_ms = cuda_ms(lambda: kmeans_update_reference(x, c, valid), reps=100)
     nv = n_valid_main       # only the live rows matter to the result
@@ -582,7 +629,9 @@ def check_kmeans_update(dev, gen, n_valid_main: int):
     return dict(err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                 library_ms=None,
                 bound=bound(nbytes, flops),
-                shape=f"N={n} (valid {nv}) d={d} K={k}")
+                shape=f"N={n} (valid {nv}) d={d} K={k}",
+                extra=dict(registers=attrs["registers"],
+                           local_bytes=attrs["local_bytes"]))
 
 
 # ---------------------------------------------------------------- phase 3
@@ -723,6 +772,28 @@ def main_path(programs, blocks, intervals, cpis):
         f"true {ests[held_out].true_cpi:.4f}, speedup "
         f"{ests[held_out].speedup:.1f}x")
     return svc
+
+
+def repeated_builds(svc, n: int = 5) -> None:
+    """Median wall seconds of `n` more `build(k=14)` calls on the service's
+    store (host clock around a call that ends in a synchronise), with the
+    k-means launches of each."""
+    from repro_torch.kernels.kmeans_assign import kmeans_assign, kmeans_update
+    walls, counts = [], set()
+    for _ in range(n):
+        u0, a0 = kmeans_update.launches, kmeans_assign.launches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        svc.build(k=14)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        counts.add((kmeans_update.launches - u0, kmeans_assign.launches - a0))
+    require(len(counts) == 1, f"builds launched the kernels unevenly: {counts}")
+    (n_update, n_assign), = counts
+    log(f"  build(k=14) x {n} more on the same store: median "
+        f"{1e3 * float(np.median(walls)):.3f} ms (min {1e3 * min(walls):.3f}"
+        f", max {1e3 * max(walls):.3f}); a build launches kmeans_update "
+        f"{n_update} and kmeans_assign {n_assign} times")
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1083,11 +1154,14 @@ def zoo_path(dev):
 
 
 def time_kernels(root: str) -> dict:
-    """Device and wrapper ms of wkv (the encoder's shape) and of the
-    set-attention backward (Stage-2 training's SAB and PMA shapes) of the
-    port under root/src, on inputs drawn from SEED."""
+    """Device and wrapper ms of wkv (the encoder's shape), of the
+    set-attention backward (Stage-2 training's SAB and PMA shapes) and of
+    both k-means kernels (the build's shape: 32,768 store rows, 18,000 of
+    them live, d 128, K 14) of the port under root/src, on inputs drawn
+    from SEED."""
     sys.path.insert(0, os.path.join(root, "src"))
     from repro_torch.kernels import _lib
+    from repro_torch.kernels.kmeans_assign import kmeans_assign, kmeans_update
     from repro_torch.kernels.set_attention import set_attention_backward
     from repro_torch.kernels.wkv import wkv
     _lib.load_library()
@@ -1111,14 +1185,25 @@ def time_kernels(root: str) -> dict:
         mask[:, 0] = True
         out[name] = kernel_ms(lambda: set_attention_backward(
             q, kk, vv, bias, mask, do), reps=100)
-    # shared loads and FMAs of the kernels' SASS (the backward's kernels by
-    # their names before and since the redesign)
+    x, c = _clustered(32768, 128, 14, gen, dev)
+    valid = (torch.arange(32768, device=dev) < 18 * N_INTERVALS).float()
+    out["kmeans_update"] = kernel_ms(lambda: kmeans_update(x, c, valid),
+                                     reps=100)
+    out["kmeans_assign"] = kernel_ms(lambda: kmeans_assign(x, c), reps=100)
+    # shared loads and FMAs of the kernels' SASS (the backward's and the
+    # k-means kernels by their names before and since their redesigns)
     lib = str(_lib.build_library())
     out["sass"] = {name: sass_counts(lib, fn, SASS_OPS) for name, fn in (
         ("wkv", "wkv_forward_kernel"),
         ("backward", "set_attention_backward_kernel"),
         ("backward_sab", "bwd12tiled_kernel"),
-        ("backward_pma", "bwd14small_n_kernel"))}
+        ("backward_pma", "bwd14small_n_kernel"),
+        ("kmeans_assign_kernel", "kmeans_assign_kernel"),
+        ("kmeans_update_partial_kernel", "kmeans_update_partial_kernel"),
+        ("kmeans_update_reduce_kernel", "kmeans_update_reduce_kernel"),
+        ("assign_rows_kernel", "assign_rows_kernel"),
+        ("update_rows_kernel", "update_rows_kernel"),
+        ("update_join_kernel", "update_join_kernel"))}
     return out
 
 
@@ -1233,6 +1318,7 @@ def main() -> int:
     for name in ("wkv", "set_attention", "kmeans_assign", "kmeans_update"):
         require(launches[name] > 0,
                 f"kernel {name} was not launched on the serving path")
+    repeated_builds(svc)
 
     # 5. Stage-2 training; only its launches count, under deterministic
     # algorithms so that a library op that is not deterministic raises

@@ -19,7 +19,9 @@ index n; the LM keeps the leaves' dtype, and bf16 leaves (numpy's
 `ml_dtypes.bfloat16`) cross as their bits, never through float.
 
 Loading is strict: a missing or extra leaf, or a shape that differs,
-raises. Nothing here imports jax.
+raises. The Stage-1/2 loaders take float32 leaves only: a bf16 tree (a
+config with dtype "bfloat16") raises NotImplementedError, as the modules
+do, and any other dtype TypeError. Nothing here imports jax.
 
 Checkpoint directories cross in both directions through the shared
 on-disk format (`repro_torch.train.checkpoint`): the key of a leaf is
@@ -45,6 +47,7 @@ from repro_torch.core.bbe import BBEConfig, BBEEncoder
 from repro_torch.config import ModelConfig, TrainConfig
 from repro_torch.core.signature import SignatureConfig, SignatureModel
 from repro_torch.device import Device, resolve_device
+from repro_torch.models.layers import require_float32
 from repro_torch.models.transformer import LM, period_of
 from repro_torch.train import checkpoint
 from repro_torch.train.stage2 import Stage2Engine
@@ -72,8 +75,13 @@ def _load(module: nn.Module, flat: Dict[str, np.ndarray]) -> nn.Module:
         if tuple(value.shape) != tuple(state[key].shape):
             raise ValueError(f"{key}: tree shape {value.shape} vs module "
                              f"shape {tuple(state[key].shape)}")
+        if value.dtype != np.float32:
+            if value.dtype.name == "bfloat16":
+                require_float32(f"leaf {key} dtype", "bfloat16")
+            raise TypeError(f"{key}: tree dtype {value.dtype}, the module "
+                            f"holds float32")
     module.load_state_dict(
-        {k: torch.from_numpy(np.array(v, np.float32)) for k, v in flat.items()},
+        {k: torch.from_numpy(np.array(v)) for k, v in flat.items()},
         strict=True)
     return module
 

@@ -16,7 +16,9 @@ from torch import nn
 
 from repro_torch.core.losses import l2_normalize
 from repro_torch.core.tokenizer import MultiDimTokenizer, default_tokenizer
-from repro_torch.models.layers import RMSNorm, init_array, param
+from repro_torch.models.layers import (
+    RMSNorm, init_array, param, require_float32,
+)
 from repro_torch.models.rwkv import RWKVBlock
 
 
@@ -29,7 +31,7 @@ class BBEConfig:
     bbe_dim: int = 256          # final embedding size
     nip_horizon: int = 8
     max_len: int = 128
-    dtype: str = "float32"
+    dtype: str = "float32"      # only "float32" is ported (else raises)
 
     @property
     def d_model(self) -> int:
@@ -68,6 +70,7 @@ class BBEEncoder(nn.Module):
     def __init__(self, cfg: BBEConfig, seed: int = 0,
                  tok: Optional[MultiDimTokenizer] = None):
         super().__init__()
+        require_float32("BBEConfig.dtype", cfg.dtype)
         tok = tok or default_tokenizer()
         sizes = tok.spec.dim_sizes
         if len(sizes) != len(cfg.dim_embeds):

@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.losses import combined_stage2_loss, l2_normalize
-from repro_torch.models.layers import init_array, param
+from repro_torch.models.layers import init_array, param, require_float32
 from repro_torch.models.set_transformer import SetTransformer
 
 
@@ -30,7 +30,7 @@ class SignatureConfig:
     max_set: int = 64            # max distinct blocks per interval batch row
     w_r: float = 1.0             # CPI regression weight
     w_c: float = 0.5             # consistency weight
-    dtype: str = "float32"
+    dtype: str = "float32"       # only "float32" is ported (else raises)
 
 
 class CPIHead(nn.Module):
@@ -52,6 +52,7 @@ class SignatureModel(nn.Module):
 
     def __init__(self, cfg: SignatureConfig, seed: int = 0):
         super().__init__()
+        require_float32("SignatureConfig.dtype", cfg.dtype)
         self.cfg = cfg
         gen = torch.Generator().manual_seed(seed)
         self.set_transformer = SetTransformer(

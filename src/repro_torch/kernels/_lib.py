@@ -40,18 +40,21 @@ _ENTRY_POINTS = {
     "rt_wkv_forward": "ppppppppiiiiip",
     "rt_set_attention_forward": "ppppppiiiiiifp",
     "rt_set_attention_backward": "ppppppppppiiiiiifp",
-    "rt_kmeans_assign": "ppiiippp",
-    "rt_kmeans_update": "pppiiippppppip",
+    "rt_kmeans_assign": "ppiiiippp",
+    "rt_kmeans_update": "pppiiiipppp",
     # q k v o, B S T H K D, the (b, seq, head) strides of q, k and v,
     # causal window, scale, stream; bf16 also takes vec before the scale
     "rt_flash_attention_forward_f32": "pppp" + "i" * 17 + "fp",
     "rt_flash_attention_forward_bf16": "pppp" + "i" * 18 + "fp",
-    # (bf16, D, out[4]), (N, M, dh, out[4]) and (dh, out[4]): the
-    # attributes of the kernel a launch takes, see kernel_attributes
+    # (bf16, D, out[4]), (N, M, dh, out[4]), (dh, out[4]) and (d, K,
+    # out[4]): the attributes of the kernel a launch takes, see
+    # kernel_attributes
     "rt_flash_attention_attributes": "iip",
     "rt_set_attention_forward_attributes": "iiip",
     "rt_set_attention_backward_attributes": "iiip",
     "rt_wkv_attributes": "ip",
+    "rt_kmeans_assign_attributes": "iip",
+    "rt_kmeans_update_attributes": "iip",
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

@@ -15,7 +15,33 @@ from repro_torch.kernels.kmeans_assign.ref import (
 )
 
 MAX_DIM = 256
-ROWS_PER_BLOCK = 256   # rows one block of the update kernel reduces
+ROWS_PER_BLOCK = 64    # rows a block of both kernels (128 threads)
+JOIN_WARPS = 32        # warps a block of the update's join kernel
+
+
+def kmeans_plan(N: int, d: int, K: int) -> dict:
+    """The launch `csrc/kmeans.cu` makes for N rows of width d and K
+    centroids: rows a block and blocks; the K tile (the centroids a block
+    holds at once, split in quarters over the four lanes of a pair of
+    rows; K > 16 loops over tiles of 16); the row tile's stride and the
+    centroid quarters' stride in float4s (odd, and 1 mod 8: no bank
+    conflicts); the dynamic shared bytes a block of either kernel takes;
+    and the update's `outputs` = K d + K + 1 partials a block, joined in
+    chains over blocks by the `join_warps` warps of a join block. Raises
+    for a shape the kernels do not take."""
+    if N < 1 or K < 1 or not 0 < d <= MAX_DIM:
+        raise ValueError(f"k-means kernels take N >= 1, K >= 1 and "
+                         f"1 <= d <= {MAX_DIM}, got N={N}, d={d}, K={K}")
+    k_tile = 4 if K <= 4 else 8 if K <= 8 else 16
+    stride4 = -(-d // 4) | 1
+    quarter4 = k_tile // 4 * stride4
+    quarter4 += (9 - quarter4 % 8) % 8
+    floats = (4 * stride4 * ROWS_PER_BLOCK + 16 * quarter4 + k_tile
+              + 3 * ROWS_PER_BLOCK + 2 * (k_tile + 1) + 4 * ROWS_PER_BLOCK)
+    return dict(rows_per_block=ROWS_PER_BLOCK,
+                blocks=-(-N // ROWS_PER_BLOCK), k_tile=k_tile,
+                stride4=stride4, quarter4=quarter4, shared_bytes=4 * floats,
+                outputs=K * d + K + 1, join_warps=JOIN_WARPS)
 
 
 def _check_inputs(x, centroids):
@@ -29,6 +55,13 @@ def _check_inputs(x, centroids):
     return N, d, K
 
 
+def _vec(x, centroids) -> int:
+    """1 when rows are whole float4s and x and the centroids start on 16
+    bytes: both are then copied by 16-byte cp.async, else by element."""
+    return int(x.shape[1] % 4 == 0 and x.data_ptr() % 16 == 0
+               and centroids.data_ptr() % 16 == 0)
+
+
 def kmeans_assign(x, centroids):
     """x: (N,d); centroids: (K,d) -> (assign (N,) int32, dist2 (N,) f32),
     in the x²−2xc+c² form, ties to the lowest index."""
@@ -39,8 +72,8 @@ def kmeans_assign(x, centroids):
     dist2 = torch.empty((N,), dtype=torch.float32, device=x.device)
     lib = _lib.load_library()
     rc = lib.rt_kmeans_assign(_lib.ptr(x), _lib.ptr(centroids), N, d, K,
-                              _lib.ptr(assign), _lib.ptr(dist2),
-                              _lib.stream())
+                              _vec(x, centroids), _lib.ptr(assign),
+                              _lib.ptr(dist2), _lib.stream())
     _lib.check(rc, "kmeans_assign")
     kmeans_assign.launches += 1
     return assign, dist2
@@ -54,35 +87,33 @@ def kmeans_update(x, centroids, valid: Optional[torch.Tensor] = None):
 
     x: (N,d); centroids: (K,d); valid: optional (N,) weights (None = all
     rows count). Returns (sums (K,d), counts (K,), inertia scalar), fp32.
-    The CUDA path is deterministic: partials per row block, then a sum in
-    block order, with no float atomics."""
-    if valid is None:
-        valid = torch.ones((x.shape[0],), dtype=torch.float32,
-                           device=x.device)
+    The CUDA path (`kmeans_plan`) reads only rows with valid != 0 and is
+    deterministic: partials per block of 64 rows, joined in a fixed order,
+    no float atomics; its results depend only on the live rows and their
+    row indices. It makes one allocation a call: the outputs are views of
+    it, in front of the partials' scratch."""
     if _lib.device_kind(x, centroids, valid) == "cpu":
+        if valid is None:
+            valid = torch.ones((x.shape[0],), dtype=torch.float32)
         sums, counts, inertia = kmeans_update_reference(x, centroids, valid)
         return sums, counts, inertia[0]
     N, d, K = _check_inputs(x, centroids)
-    _lib.require(valid, "valid", (N,))
+    if valid is not None:
+        _lib.require(valid, "valid", (N,))
     if N == 0:
         raise ValueError("kmeans_update: needs at least one row")
-    nblocks = -(-N // ROWS_PER_BLOCK)
-    dev = x.device
-    part_sums = torch.empty((nblocks, K, d), dtype=torch.float32, device=dev)
-    part_counts = torch.empty((nblocks, K), dtype=torch.float32, device=dev)
-    part_inertia = torch.empty((nblocks,), dtype=torch.float32, device=dev)
-    sums = torch.empty((K, d), dtype=torch.float32, device=dev)
-    counts = torch.empty((K,), dtype=torch.float32, device=dev)
-    inertia = torch.empty((1,), dtype=torch.float32, device=dev)
+    plan = kmeans_plan(N, d, K)
+    O, nb = plan["outputs"], plan["blocks"]
+    buf = torch.empty((O + nb * O + nb,), dtype=torch.float32,
+                      device=x.device)
     lib = _lib.load_library()
     rc = lib.rt_kmeans_update(
         _lib.ptr(x), _lib.ptr(centroids), _lib.ptr(valid), N, d, K,
-        _lib.ptr(part_sums), _lib.ptr(part_counts), _lib.ptr(part_inertia),
-        _lib.ptr(sums), _lib.ptr(counts), _lib.ptr(inertia), ROWS_PER_BLOCK,
-        _lib.stream())
+        _vec(x, centroids), buf.data_ptr() + 4 * O,
+        buf.data_ptr() + 4 * (O + nb * O), buf.data_ptr(), _lib.stream())
     _lib.check(rc, "kmeans_update")
     kmeans_update.launches += 1
-    return sums, counts, inertia[0]
+    return buf[:K * d].view(K, d), buf[K * d:K * d + K], buf[K * d + K]
 
 
 kmeans_update.launches = 0

@@ -28,6 +28,16 @@ def init_array(gen: torch.Generator, shape: Sequence[int],
     return torch.randn(tuple(shape), generator=gen) * scale
 
 
+def require_float32(field: str, dtype: str) -> None:
+    """Raises NotImplementedError unless `dtype` is "float32". The Stage-1
+    and Stage-2 modules hold fp32 parameters and their CUDA kernels take
+    fp32 only: bf16 Stage 1 / Stage 2 is not ported yet."""
+    if dtype != "float32":
+        raise NotImplementedError(
+            f"{field} = {dtype!r}: bf16 Stage 1 / Stage 2 is not ported "
+            f"yet; only \"float32\" is")
+
+
 def param(value: torch.Tensor,
           dtype: torch.dtype = torch.float32) -> nn.Parameter:
     return nn.Parameter(value.to(dtype))

@@ -243,20 +243,33 @@ def test_cuda_stage2_grads_match_cpu(cuda, tmp_path):
     assert set_attention_backward.launches == before + 9
 
 
-@pytest.mark.parametrize("N,d,K", [(32768, 128, 14), (1000, 64, 14),
-                                   (513, 32, 30), (77, 200, 5)])
-def test_kmeans_kernels_match_plain(cuda, N, d, K):
-    g = _gen(cuda, N)
-    centres = torch.randn((K, d), generator=g, device=cuda)
-    x = centres[torch.randint(K, (N,), generator=g, device=cuda)]
-    x = (x + 0.05 * torch.randn((N, d), generator=g, device=cuda)).contiguous()
+def _km_clustered(dev, g, N, d, K):
+    centres = torch.randn((K, d), generator=g, device=dev)
+    x = centres[torch.randint(K, (N,), generator=g, device=dev)]
+    x = (x + 0.05 * torch.randn((N, d), generator=g, device=dev)).contiguous()
     c = (centres + 0.01 * torch.randn((K, d), generator=g,
-                                      device=cuda)).contiguous()
+                                      device=dev)).contiguous()
+    return x, c
+
+
+def _km_valid(dev, g, N, mask):
+    if mask == "prefix":
+        return (torch.arange(N, device=dev) < (3 * N) // 4 + 1).float()
+    return (torch.rand((N,), generator=g, device=dev) < 0.7).float()
+
+
+@pytest.mark.parametrize("mask", ["holes", "prefix"])
+@pytest.mark.parametrize("N,d,K", [(32768, 128, 14), (1000, 64, 14),
+                                   (513, 32, 30), (77, 200, 5),
+                                   (77, 200, 30), (300, 7, 9)])
+def test_kmeans_kernels_match_plain(cuda, N, d, K, mask):
+    g = _gen(cuda, N)
+    x, c = _km_clustered(cuda, g, N, d, K)
     a, d2 = kmeans_assign(x, c)
     a_ref, d2_ref = kmeans_assign_reference(x, c)
     assert torch.equal(a, a_ref)
     torch.testing.assert_close(d2, d2_ref, atol=1e-3, rtol=0)
-    valid = (torch.rand((N,), generator=g, device=cuda) < 0.7).float()
+    valid = _km_valid(cuda, g, N, mask)
     out = kmeans_update(x, c, valid)
     s_ref, n_ref, i_ref = kmeans_update_reference(x, c, valid)
     assert torch.equal(out[1], n_ref)
@@ -264,6 +277,49 @@ def test_kmeans_kernels_match_plain(cuda, N, d, K):
     torch.testing.assert_close(out[2], i_ref[0], atol=1e-3, rtol=1e-4)
     again = kmeans_update(x, c, valid)
     assert all(torch.equal(p, q) for p, q in zip(out, again))
+    # valid=None (no weights read): every row weighs 1
+    s1, n1, i1 = kmeans_update(x, c)
+    s_ref, n_ref, i_ref = kmeans_update_reference(
+        x, c, torch.ones((N,), device=cuda))
+    assert torch.equal(n1, n_ref)
+    torch.testing.assert_close(s1, s_ref, atol=1e-3, rtol=1e-4)
+    torch.testing.assert_close(i1, i_ref[0], atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("mask", ["holes", "prefix"])
+def test_kmeans_update_is_blind_to_dead_rows(cuda, mask):
+    """Sums, counts and inertia depend only on the live rows and their
+    indices, bit for bit: other finite values in the dead rows, and the
+    capacity doubled (32,768 -> 65,536 rows, the new ones dead)."""
+    N, d, K = 32768, 128, 14
+    g = _gen(cuda, 5)
+    x, c = _km_clustered(cuda, g, N, d, K)
+    valid = (_km_valid(cuda, g, N, "holes") if mask == "holes" else
+             (torch.arange(N, device=cuda) < 18000).float())
+    want = kmeans_update(x, c, valid)
+    dead = valid == 0
+    x_other = x.clone()
+    x_other[dead] = 10.0 * torch.randn((int(dead.sum()), d), generator=g,
+                                       device=cuda)
+    x_big = torch.cat([x, torch.randn((N, d), generator=g, device=cuda)])
+    v_big = torch.cat([valid, torch.zeros((N,), device=cuda)])
+    for args in ((x_other, c, valid), (x_big, c, v_big)):
+        got = kmeans_update(*args)
+        assert all(torch.equal(p, q) for p, q in zip(got, want))
+
+
+@pytest.mark.parametrize("d,K", [(128, 14), (200, 30), (8, 4), (64, 8),
+                                 (7, 5), (256, 9)])
+def test_kmeans_plan_matches_the_kernels(cuda, d, K):
+    """kmeans_plan's shared bytes are what each kernel's launch asks for
+    (cudaFuncGetAttributes through rt_kmeans_*_attributes)."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.kmeans_assign.ops import kmeans_plan
+    for entry in ("rt_kmeans_assign_attributes",
+                  "rt_kmeans_update_attributes"):
+        a = _lib.kernel_attributes(entry, d, K)
+        assert a["static_smem"] == 0, entry
+        assert a["dynamic_smem"] == kmeans_plan(1, d, K)["shared_bytes"]
 
 
 def test_wrappers_check_their_inputs(cuda):

@@ -637,6 +637,211 @@ def test_kmeans_update_holes_in_valid_mask():
                                atol=1e-3)
 
 
+@pytest.mark.parametrize("N,d,K,blocks,k_tile,stride4,quarter4,shared", [
+    # the build's shape; d 200 and K 30 (two K tiles); d 8 and K 4; d 7
+    # (rows of 2 float4s: stride made odd); one row at d 256. Shared: the
+    # row tile, four centroid quarters, c2, three row arrays, two warps'
+    # counts and inertia, four warps' row lists
+    (32768, 128, 14, 512, 16, 33, 137,
+     4 * (4 * 33 * 64 + 16 * 137 + 16 + 192 + 34 + 256)),
+    (1000, 200, 30, 16, 16, 51, 209,
+     4 * (4 * 51 * 64 + 16 * 209 + 16 + 192 + 34 + 256)),
+    (77, 8, 4, 2, 4, 3, 9, 4 * (4 * 3 * 64 + 16 * 9 + 4 + 192 + 10 + 256)),
+    (513, 7, 5, 9, 8, 3, 9, 4 * (4 * 3 * 64 + 16 * 9 + 8 + 192 + 18 + 256)),
+    (1, 256, 9, 1, 16, 65, 265,
+     4 * (4 * 65 * 64 + 16 * 265 + 16 + 192 + 34 + 256)),
+])
+def test_kmeans_plan(N, d, K, blocks, k_tile, stride4, quarter4, shared):
+    from repro_torch.kernels.kmeans_assign.ops import kmeans_plan
+    plan = kmeans_plan(N, d, K)
+    assert plan["rows_per_block"] == 64 and plan["blocks"] == blocks
+    assert plan["k_tile"] == k_tile and plan["stride4"] == stride4
+    # odd row stride, quarters 1 mod 8 apart: no shared bank conflicts
+    assert plan["quarter4"] == quarter4 and quarter4 % 8 == 1
+    assert plan["shared_bytes"] == shared
+    assert plan["outputs"] == K * d + K + 1
+    # 64 live rows a block: two blocks an SM of the H100's 132 at the
+    # build's 18,000 live rows
+    assert kmeans_plan(18000, 128, 14)["blocks"] == 282 >= 2 * 132
+
+
+@pytest.mark.parametrize("N,d,K", [(0, 8, 4), (8, 0, 4), (8, 257, 4),
+                                   (8, 8, 0)])
+def test_kmeans_plan_refuses_a_shape(N, d, K):
+    from repro_torch.kernels.kmeans_assign.ops import kmeans_plan
+    with pytest.raises(ValueError):
+        kmeans_plan(N, d, K)
+
+
+def _fma32(a, b, c):
+    """fp32 fmaf(a, b, c): the exact product (float64 holds it) plus c,
+    rounded to fp32 (once, but for a rare double rounding)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _warp_sum(v):
+    """Lane 0 of the kernels' butterfly warp sum over the last axis (32
+    lanes): offsets 16, 8, 4, 2, 1, each lane adding its partner's
+    value."""
+    lanes = np.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        v = v + v[..., lanes ^ off]
+    return v[..., 0]
+
+
+def _kmeans_tile_model(x, c, valid=None):
+    """numpy fp32 model of csrc/kmeans.cu's arithmetic order, on the blocks
+    of `kmeans_plan`. Rows and centroids zero-padded to whole float4s; x2
+    and c2 as four float4-lane partials, then (x + y) + (z + w); each dot
+    product over the columns in order; d2 = (x2 - 2 xc) + c2, the first
+    minimum. Per block of 64 rows: sums of w x over the live rows in row
+    order, counts and w d2 as butterfly warp sums (lane = row mod 32) then
+    warp 0 + warp 1; the join: warp j of `join_warps` adds the live blocks
+    j, j + join_warps, ... in order, then the warps in order. Returns (assign, dist2) of every
+    row (dead rows too) and (sums, counts, inertia) of the update."""
+    from repro_torch.kernels.kmeans_assign.ops import kmeans_plan
+    N, d = x.shape
+    K = c.shape[0]
+    plan = kmeans_plan(N, d, K)
+    R, nb = plan["rows_per_block"], plan["blocks"]
+    d4 = -(-d // 4)
+    xp = np.zeros((nb * R, 4 * d4), np.float32)
+    xp[:N, :d] = x
+    cp = np.zeros((K, 4 * d4), np.float32)
+    cp[:, :d] = c
+    w = np.zeros(nb * R, np.float32)
+    w[:N] = 1.0 if valid is None else valid
+
+    def sq_norm(a):
+        part = np.zeros((a.shape[0], 4), np.float32)
+        for j in range(d4):
+            part = _fma32(a[:, 4 * j:4 * j + 4], a[:, 4 * j:4 * j + 4], part)
+        return (part[:, 0] + part[:, 1]) + (part[:, 2] + part[:, 3])
+
+    dot = np.zeros((nb * R, K), np.float32)
+    for f in range(4 * d4):
+        dot = _fma32(xp[:, f:f + 1], cp[None, :, f], dot)
+    d2 = (sq_norm(xp)[:, None] - np.float32(2.0) * dot) + sq_norm(cp)[None]
+    a = np.argmin(d2, axis=1).astype(np.int32)
+    m = d2[np.arange(nb * R), a]
+    live = w != 0
+    a_live = np.where(live, a, 0).reshape(nb, R)
+    wb = w.reshape(nb, R)
+    xb = xp.reshape(nb, R, -1)
+    sums = np.zeros((nb, K, 4 * d4), np.float32)
+    for r in range(R):
+        wk = np.where(a_live[:, r, None] == np.arange(K), wb[:, r, None],
+                      np.float32(0.0)).astype(np.float32)
+        sums = _fma32(wk[:, :, None], xb[:, r, None, :], sums)
+    onehot = np.where(a_live[..., None] == np.arange(K), wb[..., None],
+                      np.float32(0.0)).astype(np.float32)        # (nb, R, K)
+    md = np.where(live, w * m, np.float32(0.0)).astype(np.float32)
+
+    def block_sum(v):               # (nb, R, ...) -> (nb, ...)
+        lanes = np.moveaxis(v.reshape(nb, R // 32, 32, *v.shape[2:]), 2, -1)
+        per_warp = _warp_sum(lanes)
+        out = per_warp[:, 0]
+        for ww in range(1, R // 32):
+            out = out + per_warp[:, ww]
+        return out
+
+    part = np.concatenate([sums[:, :, :d].reshape(nb, -1),
+                           block_sum(onehot),
+                           block_sum(md.reshape(nb, R))[:, None]], axis=1)
+    live_blocks = live.reshape(nb, R).any(axis=1)
+    W = plan["join_warps"]
+    chains = np.zeros((W, part.shape[1]), np.float32)
+    for b in np.nonzero(live_blocks)[0]:
+        chains[b % W] = chains[b % W] + part[b]
+    out = chains[0]
+    for j in range(1, W):
+        out = out + chains[j]
+    return (a[:N], m[:N], out[:K * d].reshape(K, d), out[K * d:K * d + K],
+            out[K * d + K])
+
+
+def _unit_rows(rng, n, d):
+    """Rows on the unit sphere, as the store's signatures are: d2 <= 4,
+    so fp32 orders differ by far less than the 1e-5 tie band."""
+    x = rng.randn(n, d)
+    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+
+def _km_mask(rng, N, kind):
+    if kind == "prefix":
+        return (np.arange(N) < (3 * N) // 4 + 1).astype(np.float32)
+    return (rng.rand(N) < 0.6).astype(np.float32)
+
+
+def _labels_agree(got, want, x, c, what):
+    """Labels equal on rows whose best two centroids are more than 1e-5
+    apart (float64 distances); elsewhere a label within 1e-5 of the
+    best."""
+    full = ((x.astype(np.float64)[:, None, :] - c[None]) ** 2).sum(-1)
+    two = np.sort(full, axis=1)[:, :2]
+    decisive = (two[:, 1] - two[:, 0] > 1e-5) if c.shape[0] > 1 else \
+        np.ones(len(x), bool)
+    got, want = np.asarray(got), np.asarray(want)
+    differ = got != want
+    assert not (differ & decisive).any(), f"{what}: labels differ"
+    gap = full[np.arange(len(x)), got] - two[:, 0]
+    assert (gap[differ] <= 1e-5).all(), f"{what}: a differing label is no tie"
+
+
+@pytest.mark.parametrize("mask", ["prefix", "holes"])
+@pytest.mark.parametrize("K", [4, 14, 30])
+@pytest.mark.parametrize("d", [8, 32, 128, 200])
+@pytest.mark.parametrize("N", [77, 513, 1000, 4096])
+def test_kmeans_tile_model_matches_plain_and_jax(N, d, K, mask):
+    """The CUDA kernels' blocks and summation orders, modelled in numpy,
+    against the port's plain versions, JAX's Pallas kernels in interpret
+    mode and their jnp oracles: labels equal but for 1e-5 ties, counts
+    exact, sums and inertia within atol 1e-3 + rtol 1e-4."""
+    rng = np.random.RandomState(N + d + K)
+    x = _unit_rows(rng, N, d)
+    c = _unit_rows(rng, K, d)
+    valid = _km_mask(rng, N, mask)
+    a_m, d2_m, s_m, n_m, i_m = _kmeans_tile_model(x, c, valid)
+    jx, jc, jv = jnp.asarray(x), jnp.asarray(c), jnp.asarray(valid)
+    a_p, d2_p = kmeans_assign(_t(x), _t(c))
+    for a_w in (a_p.numpy(), jax_assign_ref(jx, jc)[0],
+                jax_kmeans_assign(jx, jc, interpret=True)[0]):
+        _labels_agree(a_m, a_w, x, c, f"kmeans labels {N, d, K}")
+    np.testing.assert_allclose(d2_m, d2_p.numpy(), atol=1e-5)
+    s_p, n_p, i_p = kmeans_update(_t(x), _t(c), _t(valid))
+    s_r, n_r, i_r = jax_update_ref(jx, jc, jv)
+    for s_w, n_w, i_w in ((s_p.numpy(), n_p.numpy(), i_p.numpy()),
+                          jax_kmeans_update(jx, jc, jv, interpret=True),
+                          (s_r, n_r, i_r[0])):
+        np.testing.assert_array_equal(n_m, np.asarray(n_w))
+        np.testing.assert_allclose(s_m, np.asarray(s_w), atol=1e-3,
+                                   rtol=1e-4)
+        np.testing.assert_allclose(i_m, float(i_w), atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("mask", ["prefix", "holes"])
+def test_kmeans_tile_model_is_blind_to_dead_rows(mask):
+    """The kernels' order depends only on the live rows and their row
+    indices: other finite values in the dead rows, and twice the capacity
+    (more dead rows at the end), leave the sums, counts and inertia
+    bitwise equal."""
+    rng = np.random.RandomState(3)
+    N, d, K = 1000, 32, 14
+    x = _unit_rows(rng, N, d)
+    c = _unit_rows(rng, K, d)
+    valid = _km_mask(rng, N, mask)
+    want = _kmeans_tile_model(x, c, valid)[2:]
+    dead = valid == 0
+    x_other = x.copy()
+    x_other[dead] = 10.0 * rng.randn(int(dead.sum()), d)
+    x_big = np.concatenate([x, rng.randn(N, d).astype(np.float32)])
+    v_big = np.concatenate([valid, np.zeros(N, np.float32)])
+    for got in (_kmeans_tile_model(x_other, c, valid)[2:],
+                _kmeans_tile_model(x_big, c, v_big)[2:]):
+        for g, w_ in zip(got, want):
+            assert np.array_equal(g, w_)
+
+
 # ---------------------------------------------------------------------------
 # flash attention
 # ---------------------------------------------------------------------------

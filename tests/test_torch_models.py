@@ -154,6 +154,65 @@ def test_seeded_init_is_reproducible_and_shaped_like_jax():
 
 
 # ---------------------------------------------------------------------------
+# dtype: only fp32 Stage 1 / Stage 2 is ported
+# ---------------------------------------------------------------------------
+
+def _bf16_route(which, route):
+    """Builds the Stage-1 ("bbe") or Stage-2 ("signature") model with
+    dtype "bfloat16" through one route a user would take."""
+    from repro_torch.api import SemanticBBVService, ServiceConfig
+    from repro_torch.core.pipeline import SemanticBBVPipeline
+    from repro_torch.core.signature import SignatureModel
+    if which == "bbe":
+        kw, jmod, init = TINY_BBE, jbbe, jbbe.bbe_init
+        cfg, Model = BBEConfig(**kw, dtype="bfloat16"), BBEEncoder
+        load = bridge.bbe_params_from_jax
+        cfgs = dict(bbe_cfg=cfg)
+    else:
+        kw, jmod, init = TINY_SIG, jsig, jsig.signature_init
+        cfg, Model = SignatureConfig(**kw, dtype="bfloat16"), SignatureModel
+        load = bridge.signature_params_from_jax
+        cfgs = dict(sig_cfg=cfg)
+    if route == "module":
+        return Model(cfg)
+    if route in ("bridge", "bridge-fp32-config"):
+        jcfg = dataclasses.replace(getattr(jmod, type(cfg).__name__)(**kw),
+                                   dtype="bfloat16")
+        tree = _np_tree(init(jax.random.PRNGKey(0), jcfg)[0])
+        assert "bfloat16" in {a.dtype.name
+                              for a in jax.tree_util.tree_leaves(tree)}
+        fp32 = dataclasses.replace(cfg, dtype="float32")
+        return load(tree, cfg if route == "bridge" else fp32)
+    if which == "bbe":
+        cfgs["sig_cfg"] = SignatureConfig(**TINY_SIG)
+    else:
+        cfgs["bbe_cfg"] = BBEConfig(**TINY_BBE)
+    if route == "pipeline":
+        return SemanticBBVPipeline.create(**cfgs, device="cpu")
+    return SemanticBBVService.create(ServiceConfig(
+        bbe=cfgs["bbe_cfg"], sig=cfgs["sig_cfg"]), device="cpu")
+
+
+@pytest.mark.parametrize("route", ["module", "bridge", "bridge-fp32-config",
+                                   "pipeline", "service"])
+@pytest.mark.parametrize("which", ["bbe", "signature"])
+def test_bf16_stage1_stage2_raise(which, route):
+    """JAX builds bf16 BBEs and signatures for dtype "bfloat16"; the port
+    has only fp32 (modules and kernels), so every route raises instead of
+    returning fp32 without a word. A bf16 JAX tree raises even where the
+    port's config says float32."""
+    with pytest.raises(NotImplementedError, match="bf16 Stage 1 / Stage 2"):
+        _bf16_route(which, route)
+
+
+def test_bridge_rejects_a_float64_tree():
+    _, params, _ = _bridged_encoder(TINY_BBE)
+    tree = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), params)
+    with pytest.raises(TypeError, match="float64"):
+        bridge.bbe_params_from_jax(tree, BBEConfig(**TINY_BBE))
+
+
+# ---------------------------------------------------------------------------
 # Stage 2
 # ---------------------------------------------------------------------------
 
