@@ -24,6 +24,19 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
      the 19th, estimate every program. Every kernel of the path must have
      launched. Then 5 more build(k=14) calls on the same store: their
      median wall time and k-means launches a build;
+ 4b. the store's lifecycle on phase 4's service: a vacuum whose LRU
+     policy (16,000 rows) evicts the 3 least recently estimated programs
+     and compacts the store (capacity 32,768 -> 16,384; the survivors'
+     estimates bitwise unchanged), a rebuild on the compacted store, a
+     save to build/chip_smoke_kb, then attach_intervals of an evicted
+     program (a pure query); after its launches are read, the witnesses:
+     the gathered matrix bitwise a fresh upload, a build on a fresh store
+     of the same live rows bitwise the rebuild, and a reload in a fresh
+     process (estimates bitwise summary.json's);
+ 4c. Fig. 4's SimPoint flow on the card for every program: classic BBVs
+     projected to 15 dims and the semantic signatures of phase 4, k 10,
+     with the exact k-means launches that implies; on two programs the
+     card's k-means against the CPU's from the same seeds;
   5. Stage-2 training at full width on the BBEs phase 4 made: 20 steps of
      64 triplets (the paper's selection policy over the 18 ingested
      programs), a checkpoint every 10 steps, then a fresh engine restored
@@ -43,9 +56,14 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
      on the CPU against the card: hidden states of a 256-token prefill and
      16 greedy tokens; (c) bf16 on the card: `Model.prefill` of 8 x 2048
      tokens (30 flash launches a call), then a ServeEngine with 8 slots
-     answering 24 requests twice with the same tokens.
-The line before the last is the JSON kernel summary; the last line is
-{"ok": true, "device": {...}}. Exits non-zero without CUDA.
+     answering 24 requests twice with the same tokens; the cyclic
+     collector runs before each peak-memory reading.
+The line before the last is the JSON kernel summary: `launches` counts
+each kernel on its own path (serving; training for the backward; the zoo
+for flash), `launches_by_path` on each path that launched it (serve,
+lifecycle, simpoint, train, zoo); the launches of comparisons and witness
+runs count on none. The last line is {"ok": true, "device": {...}}.
+Exits non-zero without CUDA.
 
     python3 chip_smoke.py --versus OTHER_CHECKOUT
 
@@ -61,6 +79,7 @@ a before/after comparison of two commits on the same card.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -529,12 +548,15 @@ def check_kmeans_assign(dev, gen):
         kmeans_assign, kmeans_assign_reference,
     )
     err = 0.0
-    # store capacity x 128 (clustered and uniform), then odd sizes: K 30 at
-    # d 200 (two K tiles), d 7 (element loads)
+    # store capacity x 128 (clustered and uniform), the compacted store's
+    # capacity (4b's re-pin and rebuild), then odd sizes: K 30 at d 200
+    # (two K tiles), d 7 (element loads), SimPoint's d 15 and K 10
     for n, d, k, clustered in [(32768, 128, 14, True), (32768, 128, 14, False),
+                               (16384, 128, 14, True),
                                (1000, 64, 14, False), (513, 32, 30, False),
                                (100, 8, 4, False), (77, 200, 5, False),
-                               (77, 200, 30, True), (300, 7, 9, False)]:
+                               (77, 200, 30, True), (300, 7, 9, False),
+                               (1000, 15, 10, True), (1000, 15, 10, False)]:
         if clustered:
             x, c = _clustered(n, d, k, gen, dev)
         else:
@@ -573,19 +595,26 @@ def check_kmeans_update(dev, gen, n_valid_main: int):
         kmeans_update, kmeans_update_reference,
     )
     err = 0.0
-    # the build's shape (a prefix mask) and a mask with holes, then odd
-    # sizes: K 30 at d 200 and N 77 with a prefix, d 7 (element loads)
-    for n, d, k, holes in [(32768, 128, 14, False), (32768, 128, 14, True),
-                           (1000, 64, 14, True), (513, 32, 30, False),
-                           (100, 8, 4, True), (77, 200, 30, False),
-                           (300, 7, 9, True)]:
+    # mask: "holes", None (every row weighs 1) or the count of live rows
+    # in a prefix. The build's shape (a prefix) and a mask with holes, the
+    # compacted store's rebuild (16,000 of 16,384 rows live), then odd
+    # sizes: K 30 at d 200 and N 77 with a prefix, d 7 (element loads),
+    # SimPoint's d 15 and K 10 with no mask
+    for n, d, k, mask in [(32768, 128, 14, 24576),
+                          (32768, 128, 14, "holes"), (16384, 128, 14, 16000),
+                          (1000, 64, 14, "holes"), (513, 32, 30, 384),
+                          (100, 8, 4, "holes"), (77, 200, 30, 57),
+                          (300, 7, 9, "holes"), (1000, 15, 10, None)]:
         x, c = _clustered(n, d, k, gen, dev)
-        if holes:
+        if mask == "holes":
             valid = (torch.rand((n,), generator=gen, device=dev) < 0.7).float()
+        elif mask is None:
+            valid = None
         else:
-            valid = (torch.arange(n, device=dev) < (3 * n) // 4).float()
+            valid = (torch.arange(n, device=dev) < mask).float()
         s, cnt, inertia = kmeans_update(x, c, valid)
-        s_ref, cnt_ref, inertia_ref = kmeans_update_reference(x, c, valid)
+        s_ref, cnt_ref, inertia_ref = kmeans_update_reference(
+            x, c, torch.ones((n,), device=dev) if valid is None else valid)
         require(torch.equal(cnt, cnt_ref), f"kmeans_update {n, d, k}: "
                 "counts differ")
         # fp32 sums over up to 32k rows in another order than the plain
@@ -794,6 +823,277 @@ def repeated_builds(svc, n: int = 5) -> None:
         f"{1e3 * float(np.median(walls)):.3f} ms (min {1e3 * min(walls):.3f}"
         f", max {1e3 * max(walls):.3f}); a build launches kmeans_update "
         f"{n_update} and kmeans_assign {n_assign} times")
+
+
+# --------------------------------------------------------------- phase 4b
+
+# The store arrays the reload in a fresh process is held to.
+STORE_ARRAYS = ("signatures", "weights", "cpis", "alive_mask", "uids",
+                "inserted_at", "last_used")
+
+# (4b) run by `python3 -c` in a fresh process with PYTHONPATH=src: load
+# the store and knowledge base a service saved in argv[1] onto the device
+# argv[3], estimate every program, and print the estimates, the digests
+# of the store arrays named in argv[2] and the wall seconds of load +
+# estimates (the device context started before the clock) as one JSON
+# line.
+RELOAD_CHILD = """
+import hashlib, json, sys, time
+import numpy as np, torch
+from repro_torch.api import KnowledgeBase, SignatureStore
+torch.zeros(1, device=sys.argv[3]).sum().item()   # the device is up
+t = time.perf_counter()
+store = SignatureStore.load(sys.argv[1] + "/store", device=sys.argv[3])
+kb = KnowledgeBase.load(sys.argv[1] + "/knowledge", store)
+ests = {p: kb.estimate(p) for p in store.programs if store.rows_for(p).size}
+store.device_matrix.sum().item()
+wall = time.perf_counter() - t
+print(json.dumps({"wall": wall, "estimates": {
+    p: {"est_cpi": e.est_cpi, "true_cpi": e.true_cpi,
+        "accuracy": e.accuracy} for p, e in ests.items()},
+    "arrays": {n: hashlib.sha256(np.ascontiguousarray(
+        getattr(store, n)).tobytes()).hexdigest()
+        for n in sys.argv[2].split(",")}}))
+"""
+
+
+def _digests(store) -> dict:
+    import hashlib
+    return {n: hashlib.sha256(np.ascontiguousarray(
+        getattr(store, n)).tobytes()).hexdigest() for n in STORE_ARRAYS}
+
+
+def _timed(fn, dev):
+    """(fn(), wall seconds) on the host clock, `dev` synchronised on both
+    sides."""
+    sync(dev)
+    t = time.perf_counter()
+    out = fn()
+    sync(dev)
+    return out, time.perf_counter() - t
+
+
+def lifecycle(svc, programs, intervals) -> dict:
+    """(4b) The lifecycle path on phase 4's service (19 programs x 1,000
+    rows, capacity 32,768): a vacuum whose LRU policy evicts the 3 least
+    recently estimated programs, the survivors' estimates, a rebuild on
+    the compacted store, a save, and a pure-query attach of an evicted
+    program's intervals, each with its host gates. Launches no kernel
+    but the path's; returns what `lifecycle_witness` holds it to."""
+    from repro_torch.api import EvictionPolicy, KnowledgeBase
+    from repro_torch.kernels.kmeans_assign import kmeans_assign, kmeans_update
+    names = [p.name for p in programs]
+    store, kb = svc.store, svc.kb
+    require((len(store), store.n_alive, store.capacity)
+            == (19 * N_INTERVALS, 19 * N_INTERVALS, 32768),
+            f"store before the vacuum: {len(store)} rows, capacity "
+            f"{store.capacity}")
+    evicted = names[:3]        # phase 4 estimated the programs in order
+    before = {n: kb.estimate(n) for n in names}
+    rep_cpi = kb.rep_cpi.copy()
+    on_evicted = sum(p in evicted for p in kb.rep_program)
+
+    dev = store.device
+    report, t_vacuum = _timed(
+        lambda: svc.vacuum(EvictionPolicy(max_rows=16_000)), dev)
+    require(report.evicted == 3000 and report.compacted
+            and report.rows_after == 16_000
+            and report.capacity_after == 16_384
+            and report.repinned == on_evicted,
+            f"vacuum report {report}, {on_evicted} representatives on the "
+            "evicted programs")
+    require(store.programs == names[3:], f"survivors {store.programs}")
+    require(np.array_equal(kb.rep_cpi, rep_cpi), "rep_cpi changed")
+    require(bool(store.alive_mask[kb.rep_global_idx].all()),
+            "a representative sits on a dead row")
+    for n in names[3:]:
+        a, b = kb.estimate(n), before[n]
+        require((a.est_cpi, a.true_cpi, a.accuracy)
+                == (b.est_cpi, b.true_cpi, b.accuracy)
+                and np.array_equal(a.fingerprint, b.fingerprint),
+                f"{n}: estimate moved across the vacuum")
+
+    u0, a0 = kmeans_update.launches, kmeans_assign.launches
+    built, t_build = _timed(lambda: KnowledgeBase(store).build(k=14, seed=0),
+                            dev)
+    build_launches = (kmeans_update.launches - u0, kmeans_assign.launches - a0)
+    require(build_launches == (75, 4),
+            f"the rebuild launched {build_launches}, not (75, 4)")
+
+    out = os.path.join(HERE, "build", "chip_smoke_kb")
+    shutil.rmtree(out, ignore_errors=True)
+    _, t_save = _timed(lambda: svc.save(out), dev)
+
+    ev = evicted[0]
+    v0, n0 = store.version, len(store)
+    f = svc.attach_intervals(ev, intervals[ev])
+    require(abs(float(f.sum()) - 1.0) < 1e-9 and f.shape == (14,),
+            f"attach_intervals fingerprint {f}")
+    require(ev not in kb.fingerprints and ev not in store
+            and (store.version, len(store)) == (v0, n0),
+            "attach_intervals recorded something")
+    log(f"  vacuum (LRU max_rows 16,000): evicted {report.evicted} rows of "
+        f"{', '.join(evicted)}, rows {report.rows_before} -> "
+        f"{report.rows_after}, capacity {report.capacity_before} -> "
+        f"{report.capacity_after}, {report.repinned} representatives "
+        f"re-pinned, in {1e3 * t_vacuum:.3f} ms; 16 survivors' estimates "
+        "bitwise unchanged")
+    log(f"  build(k=14) on the compacted store {1e3 * t_build:.3f} ms, "
+        f"{build_launches[0]} kmeans_update and {build_launches[1]} "
+        f"kmeans_assign launches; save {1e3 * t_save:.3f} ms")
+    log(f"  attach_intervals({ev}, {len(intervals[ev])} intervals): "
+        "fingerprint sums to 1, nothing recorded")
+    return dict(built=built, build_launches=build_launches, out=out)
+
+
+def lifecycle_witness(svc, path: dict) -> None:
+    """(4b) What the lifecycle path is held to, after its launches were
+    read: the compacted matrix bitwise a fresh upload of the live rows,
+    the rebuild bitwise a build over that fresh store, and a reload of
+    the save in a fresh process bitwise its summary.json."""
+    from repro_torch.api import KnowledgeBase, SignatureStore
+    from repro_torch.kernels.kmeans_assign import kmeans_assign, kmeans_update
+    store = svc.store
+    dev = store.device
+    fresh = SignatureStore(store.sig_dim, min_capacity=store.min_capacity,
+                           device=dev)
+    for n in store.programs:
+        rows = store.rows_for(n)
+        fresh.add(n, store.signatures[rows], store.weights[rows],
+                  store.cpis[rows])
+    require(fresh.capacity == store.capacity
+            and torch.equal(store.device_matrix.view(torch.int32),
+                            fresh.device_matrix.view(torch.int32)),
+            "the compacted device matrix is not bitwise a fresh upload")
+
+    u0, a0 = kmeans_update.launches, kmeans_assign.launches
+    kb2, t_fresh = _timed(lambda: KnowledgeBase(fresh).build(k=14, seed=0),
+                          dev)
+    fresh_launches = (kmeans_update.launches - u0,
+                      kmeans_assign.launches - a0)
+    require(fresh_launches == path["build_launches"],
+            f"the fresh store's build launched {fresh_launches}, the "
+            f"compacted store's {path['build_launches']}")
+    kb1 = path["built"]
+    require(np.array_equal(kb1.archetypes, kb2.archetypes)
+            and np.array_equal(kb1.rep_global_idx, kb2.rep_global_idx)
+            and np.array_equal(kb1._all_row_assign(), kb2._all_row_assign())
+            and all(np.array_equal(f, kb2.fingerprints[p])
+                    for p, f in kb1.fingerprints.items()),
+            "the build over the compacted store is not bitwise a fresh "
+            "store's")
+
+    out = path["out"]
+    with open(os.path.join(out, "summary.json")) as f:
+        summary = json.load(f)
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", RELOAD_CHILD, out,
+                          ",".join(STORE_ARRAYS), str(dev)], env=env,
+                         capture_output=True, text=True, timeout=300)
+    t_child = time.perf_counter() - t
+    require(run.returncode == 0, f"reload process failed:\n{run.stderr}")
+    child = json.loads(run.stdout.strip().splitlines()[-1])
+    require(sorted(summary["estimates"]) == sorted(store.programs)
+            and child["estimates"] == summary["estimates"],
+            "the reloaded estimates are not bitwise summary.json's")
+    require(child["arrays"] == _digests(store),
+            "the reloaded store's arrays differ from the saved store's")
+    log("  the compacted matrix bitwise a fresh upload; build(k=14) on a "
+        f"fresh store of the live rows {1e3 * t_fresh:.3f} ms, bitwise the "
+        "compacted store's build")
+    log(f"  reload in a fresh process: load + {len(child['estimates'])} "
+        f"estimates {1e3 * child['wall']:.3f} ms on its clock, its device "
+        f"context up first ({t_child:.1f} s with the process start); "
+        "estimates bitwise summary.json's, store arrays equal")
+
+
+# --------------------------------------------------------------- phase 4c
+
+SIMPOINT_K = 10           # Fig. 4's k-means budget
+SIMPOINT_PROJECT = 15     # SimPoint 3.0's projection of the classic BBV
+
+
+def simpoint_flow(programs, blocks, intervals, cpis, semantic,
+                  dev="cuda") -> dict:
+    """(4c) Fig. 4's flow for every program: SimPoint over its classic
+    BBV (every block, length-weighted, projected to 15 dims) and over its
+    semantic signatures (`semantic`, copied from the store before 4b), k
+    10, instruction weights, on the card. Returns the classic BBVs."""
+    from repro_torch.core.simpoint import classic_bbv_matrix, run_simpoint
+    from repro_torch.kernels.kmeans_assign import kmeans_assign, kmeans_update
+    order = sorted(blocks)
+    lens = {b: blk.num_instrs for b, blk in blocks.items()}
+    names = [p.name for p in programs]
+    t = time.perf_counter()
+    bbvs = {n: classic_bbv_matrix(intervals[n], order, lens) for n in names}
+    t_bbv = time.perf_counter() - t
+    u0, a0 = kmeans_update.launches, kmeans_assign.launches
+    acc = {"bbv": [], "semantic": []}
+    t = time.perf_counter()
+    for n in names:
+        w = np.array([iv.num_instrs for iv in intervals[n]], np.float64)
+        c = np.asarray(cpis[n], np.float64)
+        for kind, x, proj in (("bbv", bbvs[n], SIMPOINT_PROJECT),
+                              ("semantic", semantic[n], 0)):
+            res = run_simpoint(x, c, w, k=SIMPOINT_K, seed=SEED,
+                               project_to=proj, device=dev)
+            require(res.assign.shape == (N_INTERVALS,)
+                    and res.rep_indices.shape == (SIMPOINT_K,)
+                    and np.isfinite(res.accuracy),
+                    f"{n} {kind}: SimPoint result {res}")
+            acc[kind].append(res.accuracy)
+    sync(dev)
+    wall = time.perf_counter() - t
+    n_update = kmeans_update.launches - u0
+    n_assign = kmeans_assign.launches - a0
+    runs, restarts, iters = 2 * len(names), 3, 25
+    require((n_update, n_assign) == (runs * restarts * iters,
+                                     runs * restarts),
+            f"SimPoint launched kmeans_update {n_update} and kmeans_assign "
+            f"{n_assign} times")
+    log(f"  SimPoint (k {SIMPOINT_K}) over {len(names)} programs x "
+        f"{N_INTERVALS} intervals: mean accuracy classic BBV (projected to "
+        f"{SIMPOINT_PROJECT}) {np.mean(acc['bbv']):.4f}, semantic "
+        f"(untrained weights) {np.mean(acc['semantic']):.4f}; "
+        f"{wall:.3f} s on the card (+ {t_bbv:.3f} s of BBVs on the host), "
+        f"kmeans_update {n_update} and kmeans_assign {n_assign} launches")
+    return bbvs
+
+
+def simpoint_card_vs_cpu(names, bbvs, semantic, dev="cuda") -> None:
+    """(4c) On two programs, SimPoint's k-means on the card (kernels)
+    against the CPU (plain versions) from the same seeds: labels equal
+    but for ties within 1e-5, representatives equal, centroids within
+    1e-4."""
+    from repro_torch.core.clustering import (
+        kmeans, kmeans_pp_init, representatives,
+    )
+    from repro_torch.core.simpoint import random_projection
+    for n in names[:2]:
+        for kind, x in (("bbv", random_projection(
+                bbvs[n], SIMPOINT_PROJECT, SEED).astype(np.float32)),
+                ("semantic", semantic[n].astype(np.float32))):
+            xt = torch.from_numpy(x)
+            init = torch.stack([kmeans_pp_init(
+                torch.Generator().manual_seed(r), xt, SIMPOINT_K)
+                for r in range(3)])
+            got = kmeans(x, SIMPOINT_K, device=dev, init_centroids=init)
+            want = kmeans(x, SIMPOINT_K, device="cpu", init_centroids=init)
+            d2 = ((x[:, None, :].astype(np.float64)
+                   - want[0][None, :, :].astype(np.float64)) ** 2).sum(-1)
+            two = np.sort(d2, axis=1)[:, :2]
+            differ = got[1] != want[1]
+            require(bool((two[differ, 1] - two[differ, 0] <= 1e-5).all()),
+                    f"{n} {kind}: card and CPU labels differ beyond ties")
+            require(np.array_equal(representatives(x, *got[:2]),
+                                   representatives(x, *want[:2])),
+                    f"{n} {kind}: card and CPU representatives differ")
+            err = float(np.abs(got[0] - want[0]).max())
+            require(err <= 1e-4, f"{n} {kind}: centroids {err} apart")
+            log(f"  {n} {kind} (d {x.shape[1]}): card vs CPU k-means from "
+                f"the same seeds: {int(differ.sum())} labels differ (ties), "
+                f"representatives equal, centroids max err {err:.3g}")
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1107,6 +1407,9 @@ def zoo_path(dev):
     rng = np.random.RandomState(SEED)
     tokens = torch.from_numpy(rng.randint(0, V, (PREFILL_BATCH, PREFILL_LEN))
                               ).to(dev)
+    # earlier phases leave garbage in reference cycles (phase 5's engines):
+    # collect it, so that the peak counts this phase's memory only
+    gc.collect()
     torch.cuda.reset_peak_memory_stats()
     walls = []
     for call in range(3):
@@ -1133,6 +1436,7 @@ def zoo_path(dev):
 
     lens = rng.randint(16, 257, size=SERVE_REQUESTS)
     prompts = [rng.randint(0, V, n).tolist() for n in lens]
+    gc.collect()
     torch.cuda.reset_peak_memory_stats()
     runs = [_serve(model, params, prompts, dev, SERVE_MAX_NEW,
                    SERVE_SLOTS, SERVE_MAX_SEQ) for _ in range(2)]
@@ -1308,32 +1612,64 @@ def main() -> int:
     cross_check_full_width(programs, intervals)
     cross_check_stage2_grads(programs, intervals, cpis)
 
-    # 4. the serving path; only its launches count
-    for w in wrappers.values():
-        w.launches = 0
+    # 4. the serving path; `launches` is each kernel's count on its own
+    # path, `by_path` its count on every path that launched it
+    def drive(path, fn):
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        for name, w in wrappers.items():
+            if w.launches:
+                by_path.setdefault(name, {})[path] = w.launches
+        return out
+
+    by_path = {}
     t = time.perf_counter()
-    svc = main_path(programs, blocks, intervals, cpis)
+    svc = drive("serve", lambda: main_path(programs, blocks, intervals, cpis))
     log(f"main path: {time.perf_counter() - t:.3f} s")
-    launches = {name: w.launches for name, w in wrappers.items()}
     for name in ("wkv", "set_attention", "kmeans_assign", "kmeans_update"):
-        require(launches[name] > 0,
+        require(by_path.get(name, {}).get("serve", 0) > 0,
                 f"kernel {name} was not launched on the serving path")
     repeated_builds(svc)
 
-    # 5. Stage-2 training; only its launches count, under deterministic
-    # algorithms so that a library op that is not deterministic raises
-    for w in wrappers.values():
-        w.launches = 0
+    # 4b, 4c: the store's lifecycle, then Fig. 4's SimPoint flow over the
+    # semantic signatures as phase 4 left them; each path's launches are
+    # read before the gates that hold it to a witness run
+    names = [p.name for p in programs]
+    semantic = {n: svc.store.signatures[svc.store.rows_for(n)].copy()
+                for n in names}
+    for phase, path, fn in (
+            ("lifecycle", "lifecycle",
+             lambda: lifecycle(svc, programs, intervals)),
+            ("SimPoint", "simpoint",
+             lambda: simpoint_flow(programs, blocks, intervals, cpis,
+                                   semantic))):
+        t = time.perf_counter()
+        out = drive(path, fn)
+        log(f"{phase} path: {time.perf_counter() - t:.3f} s; launches "
+            + ", ".join(f"{name} {n[path]}" for name, n in by_path.items()
+                        if path in n))
+        require(all(path in by_path[name]
+                    for name in ("kmeans_assign", "kmeans_update")),
+                f"the k-means kernels were not launched on the {phase} path")
+        if path == "lifecycle":
+            lifecycle_witness(svc, out)
+        else:
+            simpoint_card_vs_cpu(names, out, semantic)
+    del semantic, out
+
+    # 5. Stage-2 training, under deterministic algorithms so that a
+    # library op that is not deterministic raises
     torch.use_deterministic_algorithms(True)
     try:
-        fwd, bwd = train_stage2(svc, programs, intervals, cpis)
+        fwd, bwd = drive("train", lambda: train_stage2(svc, programs,
+                                                       intervals, cpis))
     finally:
         torch.use_deterministic_algorithms(False)
     log(f"stage-2 training launches: set_attention {fwd}, "
         f"set_attention_backward {bwd}")
     require(fwd > 0 and bwd == 9 * (TRAIN_STEPS + TRAIN_STEPS - 10),
             "a set-attention kernel was not launched as expected in training")
-    launches["set_attention_backward"] = bwd
 
     # 6. the LM zoo: (a) the flash kernel, (b) CPU vs card at full width,
     # (c) the dense serving path; only (c)'s launches count
@@ -1345,11 +1681,8 @@ def main() -> int:
         f"{r['library_ms']:.4f}, bound_ms {r['bound'][0]:.4f} "
         f"({r['bound'][1]})")
     cross_check_zoo(dev)
-    for w in wrappers.values():
-        w.launches = 0
-    zoo_path(dev)
-    launches["flash_attention"] = flash_attention.launches
-    require(launches["flash_attention"] > 0,
+    drive("zoo", lambda: zoo_path(dev))
+    require(by_path.get("flash_attention", {}).get("zoo", 0) > 0,
             "flash_attention was not launched on the zoo path")
     log(f"zoo phase: {time.perf_counter() - t:.3f} s")
 
@@ -1368,9 +1701,14 @@ def main() -> int:
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention/flash.py:29"),
     }
+    # each kernel's own path: serving, training for the backward, the zoo
+    # for flash
+    own = {"set_attention_backward": "train", "flash_attention": "zoo"}
     kernels = [{
         "name": name, "route": "cuda", "source": meta[name][0],
-        "replaces": meta[name][1], "launches": launches[name],
+        "replaces": meta[name][1],
+        "launches": by_path[name][own.get(name, "serve")],
+        "launches_by_path": by_path[name],
         "max_abs_err": r["err"], "ms": r["ms"], "wrapper_ms": r["wrapper_ms"],
         "plain_ms": r["plain_ms"],
         "bound_ms": r["bound"][0], "bound_by": r["bound"][1],

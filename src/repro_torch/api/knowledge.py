@@ -14,7 +14,9 @@
 
 There is one build path and one assignment path, both on the store's
 device; which kernel or plain version runs follows from that device.
-`apply_remap` and `save`/`load` are for a later slice.
+`apply_remap` keeps the base valid across the store's `compact()`, and
+`save`/`load` use the JAX package's on-disk format, so a knowledge base
+saved by either package loads in the other.
 """
 from __future__ import annotations
 
@@ -26,8 +28,19 @@ import torch
 
 from repro_torch.api.store import SignatureStore
 from repro_torch.core.clustering import kmeans_device, representatives
-from repro_torch.core.crossprog import cpi_accuracy, speedup
+from repro_torch.core.crossprog import (
+    CrossProgramResult, cpi_accuracy, speedup,
+)
 from repro_torch.kernels.kmeans_assign.ops import kmeans_assign
+from repro_torch.train.checkpoint import (
+    in_jax_key_order, latest_checkpoint, read_manifest, restore_checkpoint,
+    save_checkpoint,
+)
+
+# The JAX reader requires these two meta keys. They name its backends;
+# these two compute the same functions as this port on any JAX backend.
+_JAX_ASSIGN_IMPL = "reference"
+_JAX_BUILD_IMPL = "device"
 
 
 def assign_signatures(signatures: torch.Tensor, centroids: torch.Tensor
@@ -248,3 +261,149 @@ class KnowledgeBase:
         accs = [cpi_accuracy(self.est_cpi[p], t)
                 for p, t in self.true_cpi.items() if t is not None]
         return float(np.mean(accs)) if accs else float("nan")
+
+    # ----------------------------------------------------- store lifecycle
+    def apply_remap(self, remap: np.ndarray) -> int:
+        """Consume a `SignatureStore.compact()` old -> new row remap:
+        representatives move to their new rows, fingerprints of programs
+        the compaction dropped are pruned, and representatives whose rows
+        were evicted are re-pinned to the nearest live member of their
+        archetype through ONE whole-store assignment.
+
+        `rep_cpi`/`rep_weight` are KEPT when re-pinning: they are the
+        results of the one-time archetype simulation, so `estimate()` on
+        untouched programs is bit-identical across a vacuum. Returns the
+        number of representatives re-pinned."""
+        self._require_built()
+        remap = np.asarray(remap, np.int64)
+        old = self.rep_global_idx
+        safe = np.clip(old, 0, max(remap.shape[0] - 1, 0))
+        self.rep_global_idx = np.where(
+            (old >= 0) & (old < remap.shape[0]), remap[safe], -1)
+        self._row_assign_cache = None
+        for p in list(self.fingerprints):
+            if p not in self.store:        # compaction dropped the program
+                del self.fingerprints[p]
+                self.est_cpi.pop(p, None)
+                self.true_cpi.pop(p, None)
+                self._attached_nrows.pop(p, None)
+        return self._repin_dead_reps()
+
+    def _repin_dead_reps(self) -> int:
+        """Re-pin every representative whose row is gone (index -1) to the
+        nearest LIVE member of its archetype: one whole-store assignment
+        (`_all_row_assign`) and one segment-reduce (`representatives`)
+        shared by all of them. A store with no live row leaves them at -1
+        (the next build replaces them)."""
+        dead = np.flatnonzero(self.rep_global_idx < 0)
+        if dead.size == 0:
+            return 0
+        alive = self.store.alive_rows
+        if alive.size == 0:
+            return 0
+        x = np.asarray(self.store.signatures, np.float32)
+        row_assign = self._all_row_assign()
+        reps = alive[representatives(x[alive], self.archetypes,
+                                     row_assign[alive])]
+        self.rep_global_idx[dead] = reps[dead]
+        self.rep_uid[dead] = self.store.uids[reps[dead]]
+        for j in dead:
+            self.rep_program[j] = self.store.program_of_row[
+                self.rep_global_idx[j]]
+        return int(dead.size)
+
+    # -------------------------------------------------------- persistence
+    def save(self, directory: str) -> str:
+        """Checkpoint at step `built_version` in the JAX package's format.
+        Its reader requires `assign_impl` and `build_impl`: written as
+        "reference" and "device", which compute this port's functions on
+        any JAX backend. `load` ignores both."""
+        self._require_built()
+        tree = {
+            "archetypes": self.archetypes,
+            "rep_cpi": self.rep_cpi,
+            "rep_weight": self.rep_weight,
+            "rep_global_idx": self.rep_global_idx,
+            "rep_uid": self.rep_uid,
+        }
+        built = self._built_version
+        meta = {
+            "k": int(self.k), "seed": int(self.seed),
+            "assign_impl": _JAX_ASSIGN_IMPL,
+            "build_impl": _JAX_BUILD_IMPL,
+            "rep_program": list(self.rep_program),
+            "built_version": None if built is None else int(built),
+            "fingerprints": {p: np.asarray(f).tolist()
+                             for p, f in self.fingerprints.items()},
+            "est_cpi": {p: float(v) for p, v in self.est_cpi.items()},
+            "true_cpi": {p: None if v is None else float(v)
+                         for p, v in self.true_cpi.items()},
+        }
+        return save_checkpoint(directory, int(built or 0),
+                               in_jax_key_order(tree), meta=meta)
+
+    @classmethod
+    def load(cls, directory: str, store: SignatureStore) -> "KnowledgeBase":
+        """The newest knowledge-base checkpoint under `directory`, over
+        `store` (its archetypes on the store's device). Representatives
+        re-resolve through their uids, so a base saved before the store
+        was compacted stays valid; those whose rows are gone re-pin.
+        Checkpoints written before `rep_uid` existed take the uids of
+        their saved rows."""
+        path = latest_checkpoint(directory)
+        if path is None:
+            raise FileNotFoundError(f"no KB checkpoint under {directory}")
+        manifest = read_manifest(path)
+        keys = ["archetypes", "rep_cpi", "rep_weight", "rep_global_idx"]
+        if "rep_uid" in manifest["shapes"]:   # absent before the lifecycle
+            keys.append("rep_uid")
+        template = {k: np.zeros(manifest["shapes"][k],
+                                np.dtype(manifest["dtypes"][k]))
+                    for k in keys}
+        tree, _, meta = restore_checkpoint(path, template)
+        kb = cls(store)
+        kb.k = int(meta["k"])
+        kb.seed = int(meta["seed"])
+        kb.archetypes = np.asarray(tree["archetypes"], np.float32)
+        kb._archetypes_dev = torch.tensor(kb.archetypes, device=store.device)
+        kb.rep_cpi = np.asarray(tree["rep_cpi"], np.float32)
+        kb.rep_weight = np.asarray(tree["rep_weight"], np.float32)
+        kb.rep_global_idx = np.asarray(tree["rep_global_idx"], np.int64)
+        kb.rep_program = list(meta["rep_program"])
+        if "rep_uid" in tree:
+            kb.rep_uid = np.asarray(tree["rep_uid"], np.int64)
+            kb.rep_global_idx = store.rows_of_uids(kb.rep_uid)
+        else:
+            ok = ((kb.rep_global_idx >= 0)
+                  & (kb.rep_global_idx < len(store)))
+            kb.rep_uid = np.where(
+                ok, store.uids[np.clip(kb.rep_global_idx, 0,
+                                       max(len(store) - 1, 0))], -1)
+        if (kb.rep_global_idx < 0).any():
+            kb._repin_dead_reps()
+        kb._built_version = meta["built_version"]
+        kb.fingerprints = {p: np.asarray(f, np.float64)
+                           for p, f in meta["fingerprints"].items()}
+        kb.est_cpi = {p: float(v) for p, v in meta["est_cpi"].items()}
+        kb.true_cpi = {p: (None if v is None else float(v))
+                       for p, v in meta["true_cpi"].items()}
+        # fingerprints are current for the co-saved store; a store that
+        # changed since re-attaches on the next estimate
+        kb._attached_nrows = {p: len(store.rows_for(p))
+                              for p in kb.fingerprints if p in store}
+        return kb
+
+    def as_cross_program_result(self) -> CrossProgramResult:
+        """`CrossProgramResult` view of the base (the JAX package's
+        one-shot result type)."""
+        self._require_built()
+        return CrossProgramResult(
+            k=self.k,
+            rep_global_idx=self.rep_global_idx,
+            rep_program=list(self.rep_program),
+            rep_cpi=self.rep_cpi,
+            fingerprints={p: np.asarray(f)
+                          for p, f in self.fingerprints.items()},
+            est_cpi=dict(self.est_cpi),
+            true_cpi={p: v for p, v in self.true_cpi.items()
+                      if v is not None})

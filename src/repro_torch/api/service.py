@@ -17,17 +17,21 @@ Typical flow:
 Everything runs on one device, "cuda" unless the caller asks for "cpu";
 the kernels run there, and the plain PyTorch versions on the CPU. The
 JAX package's backend switches (`impl`, `assign_impl`, `build_impl`) do
-not exist here. Store lifecycle policies (`vacuum`) and persistence are
-for a later slice.
+not exist here. `save`/`load` write and read the JAX package's layout
+(`store/`, `knowledge/`, `summary.json`), so a service saved by either
+package reloads in the other.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 
 from repro_torch.api.knowledge import CPIEstimate, KnowledgeBase
+from repro_torch.api.lifecycle import EvictionPolicy, VacuumReport, vacuum
 from repro_torch.api.store import SignatureStore
 from repro_torch.core.bbe import BBEConfig
 from repro_torch.core.pipeline import SemanticBBVPipeline
@@ -48,6 +52,9 @@ class ServiceConfig:
     encode_batch: int = 256           # Stage-1 block batch
     signature_batch: int = 512        # Stage-2 interval batch
     store_min_capacity: int = 64      # pad-and-grow floor
+    # store lifecycle: what vacuum() evicts (TTL/LRU over the store's
+    # logical clock; the default evicts nothing, compaction only)
+    eviction: EvictionPolicy = EvictionPolicy()
 
 
 class SemanticBBVService:
@@ -55,15 +62,17 @@ class SemanticBBVService:
     pipeline's device."""
 
     def __init__(self, pipeline: SemanticBBVPipeline,
-                 cfg: Optional[ServiceConfig] = None):
+                 cfg: Optional[ServiceConfig] = None,
+                 store: Optional[SignatureStore] = None,
+                 kb: Optional[KnowledgeBase] = None):
         self.pipe = pipeline
         self.cfg = cfg or ServiceConfig(bbe=pipeline.bbe_cfg,
                                         sig=pipeline.sig_cfg)
         self.bbe_table: Dict[int, np.ndarray] = {}
-        self.store = SignatureStore(pipeline.sig_cfg.sig_dim,
-                                    min_capacity=self.cfg.store_min_capacity,
-                                    device=pipeline.device)
-        self.kb = KnowledgeBase(self.store)
+        self.store = store if store is not None else SignatureStore(
+            pipeline.sig_cfg.sig_dim,
+            min_capacity=self.cfg.store_min_capacity, device=pipeline.device)
+        self.kb = kb if kb is not None else KnowledgeBase(self.store)
 
     # ------------------------------------------------------------ factory
     @classmethod
@@ -137,13 +146,75 @@ class SemanticBBVService:
             names = list(programs)
         return self.kb.attach_many(names)
 
+    def attach_intervals(self, program: str, intervals: Sequence
+                         ) -> np.ndarray:
+        """One-shot fingerprint WITHOUT ingesting into the store: a pure
+        query that records nothing in the knowledge base (ingest and
+        `estimate` to make a program estimable)."""
+        sigs = self.pipe.interval_signatures(
+            list(intervals), self.bbe_table, self.cfg.signature_batch)
+        return self.kb.attach(program, signatures=sigs,
+                              weights=[iv.num_instrs for iv in intervals])
+
     def estimate(self, program: str) -> CPIEstimate:
         est = self.kb.estimate(program)
         # recency stamp after the query (touch never bumps `version`)
         self.store.touch(self.store.rows_for(program))
         return est
 
+    # ---------------------------------------------------- store lifecycle
     def evict(self, program: str) -> int:
-        """Tombstone every live interval row of `program`; returns the
-        number of rows evicted."""
+        """Tombstone every live interval row of `program` (reclaimed at
+        the next `vacuum`); returns the number of rows evicted."""
         return self.store.evict_program(program)
+
+    def vacuum(self, policy: Optional[EvictionPolicy] = None
+               ) -> VacuumReport:
+        """One store-maintenance pass: evict per the policy (default:
+        `ServiceConfig.eviction`), compact the tombstones out of the
+        padded device matrix (one gather; capacity shrinks to a power of
+        two), and re-pin the knowledge base through the row remap.
+        Estimates of untouched programs are bit-identical across it."""
+        return vacuum(self.store, self.kb,
+                      self.cfg.eviction if policy is None else policy)
+
+    # -------------------------------------------------------- persistence
+    def save(self, directory: str) -> str:
+        """Persist store + knowledge base (+ a readable summary.json)
+        under `directory` through the atomic checkpoints."""
+        os.makedirs(directory, exist_ok=True)
+        self.store.save(os.path.join(directory, "store"))
+        summary = {"programs": self.store.programs,
+                   "intervals": len(self.store),
+                   "live_intervals": self.store.n_alive,
+                   "built": self.kb.built}
+        if self.kb.built:
+            # estimate() BEFORE kb.save(): it re-attaches every program
+            # whose live rows changed since its fingerprint, so the saved
+            # base and the summary agree (the reload contract). Fully
+            # evicted programs, not yet compacted, have nothing to estimate.
+            ests = {p: self.kb.estimate(p) for p in self.store.programs
+                    if self.store.rows_for(p).size}
+            self.kb.save(os.path.join(directory, "knowledge"))
+            summary.update(
+                k=self.kb.k,
+                avg_accuracy=self.kb.avg_accuracy,
+                speedup=next(iter(ests.values())).speedup if ests else None,
+                estimates={p: {"est_cpi": e.est_cpi, "true_cpi": e.true_cpi,
+                               "accuracy": e.accuracy}
+                           for p, e in ests.items()})
+        with open(os.path.join(directory, "summary.json"), "w") as f:
+            json.dump(summary, f, indent=2, sort_keys=True)
+        return directory
+
+    @classmethod
+    def load(cls, directory: str, pipeline: SemanticBBVPipeline,
+             cfg: Optional[ServiceConfig] = None) -> "SemanticBBVService":
+        """Rehydrate a saved service around a (trained) pipeline; the
+        store goes to the pipeline's device."""
+        store = SignatureStore.load(os.path.join(directory, "store"),
+                                    device=pipeline.device)
+        kb_dir = os.path.join(directory, "knowledge")
+        kb = (KnowledgeBase.load(kb_dir, store)
+              if os.path.isdir(kb_dir) else None)
+        return cls(pipeline, cfg, store=store, kb=kb)

@@ -1,7 +1,5 @@
 """`SignatureStore`: interval signatures plus per-interval metadata, with
-the signature matrix resident on the device. Port of `repro.api.store`
-(ingest, views, tombstone eviction; `compact` and `save`/`load` are for a
-later slice).
+the signature matrix resident on the device. Port of `repro.api.store`.
 
   PAD-AND-GROW. Host arrays are allocated at power-of-two capacity and
   doubled on overflow, and `device_matrix` exposes the WHOLE capacity
@@ -9,13 +7,22 @@ later slice).
   batched consumers (k-means build, whole-store assignment) see
   O(log N) distinct shapes over the store's life.
 
-  STABLE ROW IDS. Rows are appended, never moved; each carries a
-  monotonically increasing `uid`. `version` increments per mutation
-  (`add`/`add_many`/`evict`), so consumers cache derived state on it.
+  STABLE ROW IDS. Row positions hold between compactions, and each row
+  carries a monotonically increasing `uid` that survives `compact()`: the
+  handle a saved KnowledgeBase re-resolves its representatives through.
+  `version` increments per mutation (`add`/`add_many`/`evict`/`compact`),
+  so consumers cache derived state on it.
 
-  TOMBSTONES. `evict(rows)` marks rows dead in a host bitmap that is
-  folded into the `device_valid` mask, so the device build skips them.
-  Per-row `inserted_at`/`last_used` stamps count a logical `clock`.
+  LIFECYCLE. `evict(rows)` marks rows dead in a host bitmap that is
+  folded into the `device_valid` mask, so the device build skips them;
+  `compact()` rebuilds the padded matrix from the survivors in ONE device
+  gather, shrinks capacity back to the smallest power of two and returns
+  the old -> new row remap. Per-row `inserted_at`/`last_used` stamps count
+  a logical `clock` (the TTL/LRU policies of `repro_torch.api.lifecycle`).
+
+Persistence is the JAX package's on-disk format (`train/checkpoint.py`):
+the same leaves, meta keys and step, so a store saved by either package
+loads in the other, tombstones, uids and stamps included.
 """
 from __future__ import annotations
 
@@ -25,6 +32,10 @@ import numpy as np
 import torch
 
 from repro_torch.device import Device, resolve_device
+from repro_torch.train.checkpoint import (
+    in_jax_key_order, latest_checkpoint, read_manifest, restore_checkpoint,
+    save_checkpoint,
+)
 
 _MIN_CAPACITY = 64
 
@@ -99,23 +110,27 @@ class SignatureStore:
         return program in self._program_rows
 
     # ------------------------------------------------------------ ingest
+    # host arrays and the value of their padded tail
+    _HOST_ARRAYS = (("_sigs", 0), ("_weights", 0), ("_cpis", np.nan),
+                    ("_alive", False), ("_uids", 0), ("_inserted_at", 0),
+                    ("_last_used", 0))
+
+    def _resize_host(self, cap: int, rows) -> None:
+        """Reallocate every host array at capacity `cap`, holding the old
+        arrays' `rows` (a slice or an index array) at its head and its
+        fill value past them."""
+        for name, fill in self._HOST_ARRAYS:
+            arr = getattr(self, name)
+            out = np.full((cap,) + arr.shape[1:], fill, arr.dtype)
+            head = arr[rows]
+            out[:head.shape[0]] = head
+            setattr(self, name, out)
+
     def _grow_to(self, n: int):
         cap = _capacity_for(n, self.min_capacity)
         if cap == self.capacity:
             return
-
-        def grown(arr, fill):
-            out = np.full((cap,) + arr.shape[1:], fill, arr.dtype)
-            out[:self._n] = arr[:self._n]
-            return out
-
-        self._sigs = grown(self._sigs, 0)
-        self._weights = grown(self._weights, 0)
-        self._cpis = grown(self._cpis, np.nan)
-        self._alive = grown(self._alive, False)
-        self._uids = grown(self._uids, 0)
-        self._inserted_at = grown(self._inserted_at, 0)
-        self._last_used = grown(self._last_used, 0)
+        self._resize_host(cap, slice(0, self._n))
         self._invalidate()
 
     def _invalidate(self):
@@ -222,8 +237,52 @@ class SignatureStore:
         return int(newly.size)
 
     def evict_program(self, program: str) -> int:
-        """Tombstone every live row of `program` (it stays registered)."""
+        """Tombstone every live row of `program` (it stays registered
+        until the next `compact()`)."""
         return self.evict(self.rows_for(program))
+
+    def compact(self) -> np.ndarray:
+        """Drop tombstoned rows and shrink capacity back to the smallest
+        power of two. The padded device matrix, when resident, is rebuilt
+        from the survivors by ONE gather (order-preserving, tail rows
+        zero: bitwise the matrix a fresh upload of the live rows gives);
+        host metadata by fancy indexing; fully evicted programs leave the
+        registry.
+
+        Returns the old -> new row remap: (old_len,) int64, -1 for rows
+        that no longer exist. Uids survive. Bumps `version` only when
+        something changed."""
+        old_n = self._n
+        keep = np.flatnonzero(self._alive[:old_n]).astype(np.int64)
+        m = int(keep.size)
+        new_cap = _capacity_for(m, self.min_capacity)
+        remap = np.full(old_n, -1, np.int64)
+        remap[keep] = np.arange(m)
+        if not self.has_tombstones and new_cap == self.capacity:
+            return remap                      # nothing to do; no bump
+
+        if self._device is not None:
+            dev = self._device.new_zeros((new_cap, self.sig_dim))
+            dev[:m] = torch.index_select(
+                self._device, 0, torch.from_numpy(keep).to(self.device))
+            self._device = dev
+
+        self._resize_host(new_cap, keep)
+
+        self._program_of_row = np.asarray(self._program_of_row,
+                                          object)[keep].tolist()
+        new_rows: Dict[str, List[int]] = {}
+        for p, old_rows in self._program_rows.items():
+            nr = remap[np.asarray(old_rows, np.int64)]
+            nr = nr[nr >= 0]
+            if nr.size:
+                new_rows[p] = nr.tolist()
+        self._program_rows = new_rows
+        self._n = m
+        self._n_dead = 0
+        self.version += 1
+        self._device_valid = None
+        return remap
 
     # ------------------------------------------------------------- views
     def rows_for(self, program: str) -> np.ndarray:
@@ -253,11 +312,18 @@ class SignatureStore:
         return self._view(self._cpis)
 
     @property
+    def alive_mask(self) -> np.ndarray:
+        """(N,) bool: True where the row slot is live."""
+        return self._view(self._alive)
+
+    @property
     def alive_rows(self) -> np.ndarray:
         return np.flatnonzero(self._alive[:self._n]).astype(np.int64)
 
     @property
     def uids(self) -> np.ndarray:
+        """(N,) stable per-row uids (strictly increasing in row order;
+        survive `compact`)."""
         return self._view(self._uids)
 
     @property
@@ -267,6 +333,19 @@ class SignatureStore:
     @property
     def inserted_at(self) -> np.ndarray:
         return self._view(self._inserted_at)
+
+    def rows_of_uids(self, uids: np.ndarray) -> np.ndarray:
+        """Current row of each uid; -1 where its row was evicted (or never
+        existed). Uids increase in row order: one searchsorted."""
+        u = np.asarray(uids, np.int64)
+        if self._n == 0 or u.size == 0:
+            return np.full(u.shape, -1, np.int64)
+        stored = self._uids[:self._n]
+        pos = np.searchsorted(stored, u)
+        clamped = np.minimum(pos, self._n - 1)
+        found = ((pos < self._n) & (stored[clamped] == u)
+                 & self._alive[clamped])
+        return np.where(found, clamped, -1)
 
     @property
     def program_of_row(self) -> List[str]:
@@ -298,6 +377,76 @@ class SignatureStore:
             mask[:self._n] = self._alive[:self._n]
             self._device_valid = torch.tensor(mask, device=self.device)
         return self._device_valid
+
+    # ------------------------------------------------------- persistence
+    def save(self, directory: str) -> str:
+        """Checkpoint the store at step `version` (atomic; bit-identical on
+        reload, tombstones, uids and LRU/TTL stamps included)."""
+        tree = {
+            "signatures": self._sigs[:self._n].copy(),
+            "weights": self._weights[:self._n].copy(),
+            "cpis": self._cpis[:self._n].copy(),
+            "alive": self._alive[:self._n].copy(),
+            "uids": self._uids[:self._n].copy(),
+            "inserted_at": self._inserted_at[:self._n].copy(),
+            "last_used": self._last_used[:self._n].copy(),
+        }
+        meta = {
+            "sig_dim": int(self.sig_dim),
+            "min_capacity": int(self.min_capacity),
+            "program_of_row": list(self._program_of_row),
+            "clock": int(self._clock),
+            "next_uid": int(self._next_uid),
+        }
+        return save_checkpoint(directory, int(self.version),
+                               in_jax_key_order(tree), meta=meta)
+
+    @classmethod
+    def load(cls, directory: str, device: Device = "cuda"
+             ) -> "SignatureStore":
+        """The newest store checkpoint under `directory`, its matrix on
+        `device`. Checkpoints written before the lifecycle fields existed
+        load with every row alive, uids 0..N-1 and both stamps at the
+        clock (age 0, so a TTL vacuum does not evict everything)."""
+        device = resolve_device(device)
+        path = latest_checkpoint(directory)
+        if path is None:
+            raise FileNotFoundError(f"no store checkpoint under {directory}")
+        manifest = read_manifest(path)
+        keys = ["signatures", "weights", "cpis"] + [
+            k for k in ("alive", "uids", "inserted_at", "last_used")
+            if k in manifest["shapes"]]
+        template = {k: np.zeros(manifest["shapes"][k],
+                                np.dtype(manifest["dtypes"][k]))
+                    for k in keys}
+        tree, version, meta = restore_checkpoint(path, template)
+        store = cls(int(meta["sig_dim"]),
+                    min_capacity=int(meta["min_capacity"]), device=device)
+        sigs = tree["signatures"]
+        n = sigs.shape[0]
+        store._grow_to(n)
+        store._sigs[:n] = sigs
+        store._weights[:n] = tree["weights"]
+        store._cpis[:n] = tree["cpis"]
+        clock = int(meta.get("clock", version))
+        store._alive[:n] = tree["alive"] if "alive" in tree else True
+        store._uids[:n] = tree["uids"] if "uids" in tree else np.arange(n)
+        store._inserted_at[:n] = tree.get("inserted_at", clock)
+        store._last_used[:n] = tree.get("last_used", clock)
+        store._program_of_row = list(meta["program_of_row"])
+        for i, p in enumerate(store._program_of_row):
+            store._program_rows.setdefault(p, []).append(i)
+        store._n = n
+        store._n_dead = int(n - store._alive[:n].sum())
+        store._clock = clock
+        store._next_uid = int(meta.get(
+            "next_uid", (store._uids[:n].max() + 1) if n else 0))
+        store.version = int(version)
+        return store
+
+    # ------------------------------------------------------------- misc
+    def grouped_rows(self) -> Dict[str, np.ndarray]:
+        return {p: self.rows_for(p) for p in self.programs}
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
         return (f"SignatureStore(n={self._n}, alive={self.n_alive}, "

@@ -6,3 +6,7 @@
 #   clustering.py on-device k-means (++ init, the k-means kernels inside)
 #   crossprog.py  accuracy and speedup metrics
 #   pipeline.py   end-to-end signature pipeline (Fig 2)
+#   simpoint.py   intra-program SimPoint workflow (Fig 4)
+from repro_torch.core.clustering import kmeans, representatives
+from repro_torch.core.simpoint import run_simpoint, classic_bbv_matrix, \
+    SimPointResult

@@ -1,19 +1,23 @@
-"""k-means with kmeans++ seeding, on the device (port of
-`repro.core.clustering`, its on-device path).
+"""k-means with kmeans++ seeding (port of `repro.core.clustering`).
 
-`kmeans_device` runs every restart over a padded device-resident matrix
-(the store's `device_matrix`): seeding, `iters` fused Lloyd steps through
-the `kmeans_update` kernel, the final labels through `kmeans_assign`, and
-the best-of-inertia pick, all on the device; only the winning centroids
-and labels come back to the host. Validity is either a prefix
-(`n_valid`, the padded tail) or an arbitrary 0/1 mask (`valid_mask`,
-tombstoned rows), as in the JAX package.
+Two build paths share the per-iteration math (the `kmeans_update` kernel
+for each Lloyd step, `kmeans_assign` for the labels):
+
+  `kmeans`          host-facing: each restart's inertia read back and
+                    the best picked on the host with a strict `<` (the
+                    intra-program SimPoint clustering).
+  `kmeans_device`   every restart over a padded device-resident matrix
+                    (the store's `device_matrix`), the best-of-inertia
+                    pick an argmin on the device; only the winning
+                    centroids and labels come back (the 14-archetype
+                    universal build of `KnowledgeBase`). Validity is a
+                    prefix (`n_valid`, the padded tail) or an arbitrary
+                    0/1 mask (`valid_mask`, tombstoned rows).
 
 Seeding draws from `torch.Generator`s seeded `seed * 1000 + r` per
 restart, which cannot reproduce `jax.random`; `init_centroids`
 ((restarts, k, d)) replaces the seeding, so tests can hand in the JAX
-package's seeds. The host `kmeans` and the `mesh` sharding of the JAX
-package are for later slices.
+package's seeds. The `mesh` sharding of the JAX package is not ported.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.device import Device, resolve_device
 from repro_torch.kernels.kmeans_assign.ops import kmeans_assign, kmeans_update
 
 
@@ -114,6 +119,55 @@ def _fit_one(gen: Optional[torch.Generator], x, k: int, iters: int,
     return cents, a, d2.sum()
 
 
+def _each_restart(seeds: Sequence[int], x, k: int, iters: int, valid,
+                  n_valid: Optional[int],
+                  init_centroids: Optional[torch.Tensor]):
+    """(centroids, assign, inertia) of each restart in turn, as `_fit_one`
+    gives them: restart r seeded from a generator seeded seeds[r], or by
+    init_centroids[r] ((R, k, d); then there are R restarts)."""
+    restarts = (len(seeds) if init_centroids is None
+                else init_centroids.shape[0])
+    for r in range(restarts):
+        gen = (None if init_centroids is not None else
+               torch.Generator(device=x.device).manual_seed(seeds[r]))
+        init = None if init_centroids is None else init_centroids[r]
+        yield _fit_one(gen, x, k, iters, valid, n_valid, init)
+
+
+def kmeans_fit(seed: int, x, k: int, iters: int = 25,
+               init_centroids: Optional[torch.Tensor] = None):
+    """One restart over every row of x ((N, d), on its device): kmeans++
+    seeding from a generator seeded `seed` (or `init_centroids` (k, d)),
+    `iters` Lloyd steps, the restart's own final assignment. Returns
+    device (centroids (k,d), assign (N,), inertia)."""
+    init = None if init_centroids is None else init_centroids[None]
+    return next(_each_restart([seed], x.float().contiguous(), k, iters,
+                              None, None, init))
+
+
+@torch.inference_mode()
+def kmeans(x: np.ndarray, k: int, iters: int = 25, seed: int = 0,
+           restarts: int = 3, device: Device = "cuda",
+           init_centroids=None) -> Tuple[np.ndarray, np.ndarray, float]:
+    """Host-facing k-means of x ((N, d)) on `device`: restart r is a
+    `kmeans_fit` seeded `seed * 1000 + r` (or by `init_centroids[r]`),
+    its inertia comes back as a Python float, and the first restart with
+    the strictly least inertia wins. Returns host (centroids (k,d),
+    assign (N,) int32, inertia)."""
+    dev = resolve_device(device)
+    xd = torch.tensor(np.asarray(x, np.float32), device=dev)
+    if init_centroids is not None:
+        init_centroids = torch.as_tensor(init_centroids, dtype=torch.float32)
+    seeds = [seed * 1000 + r for r in range(restarts)]
+    best = None
+    for c, a, inertia in _each_restart(seeds, xd, k, iters, None, None,
+                                       init_centroids):
+        inertia = float(inertia)
+        if best is None or inertia < best[2]:
+            best = (c, a, inertia)
+    return best[0].cpu().numpy(), best[1].cpu().numpy(), best[2]
+
+
 def kmeans_fit_restarts(seeds: Sequence[int], x, k: int, iters: int = 25,
                         n_valid: Optional[int] = None, valid_mask=None,
                         init_centroids: Optional[torch.Tensor] = None):
@@ -131,13 +185,9 @@ def kmeans_fit_restarts(seeds: Sequence[int], x, k: int, iters: int = 25,
     else:
         nv = n if n_valid is None else int(n_valid)
         valid = (torch.arange(n, device=x.device) < nv).float()
-    restarts = len(seeds) if init_centroids is None else init_centroids.shape[0]
     cents_all, inertia_all = [], []
-    for r in range(restarts):
-        gen = (None if init_centroids is not None else
-               torch.Generator(device=x.device).manual_seed(seeds[r]))
-        init = None if init_centroids is None else init_centroids[r]
-        cents, _, inertia = _fit_one(gen, x, k, iters, valid, nv, init)
+    for cents, _, inertia in _each_restart(seeds, x, k, iters, valid, nv,
+                                           init_centroids):
         cents_all.append(cents)
         inertia_all.append(inertia)
     best = torch.argmin(torch.stack(inertia_all))

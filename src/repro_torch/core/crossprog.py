@@ -1,11 +1,16 @@
-"""Metric helpers of cross-program estimation (port of the two helpers of
-`repro.core.crossprog`; the deprecated one-shot surface is not ported).
+"""Metric helpers of cross-program estimation and the result type of the
+one-shot surface (port of `repro.core.crossprog`; its deprecated
+`universal_clustering` function is not ported: `KnowledgeBase` replaces
+it, and `KnowledgeBase.as_cross_program_result` gives this view).
 
   `cpi_accuracy` — the paper's 1 - |est-true|/true, with the divisor
       clamped away from zero and the result clipped into [0, 1].
   `speedup` — (instructions represented) / (instructions simulated).
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List
 
 import numpy as np
 
@@ -32,3 +37,23 @@ def speedup(total, simulated) -> float:
     t = float(np.asarray(total, np.float64).sum())
     s = float(np.asarray(simulated, np.float64).sum())
     return t / max(s, 1e-30)
+
+
+@dataclass
+class CrossProgramResult:
+    k: int
+    rep_global_idx: np.ndarray           # (k,) indices into the pooled set
+    rep_program: List[str]               # which program each rep came from
+    rep_cpi: np.ndarray                  # (k,) simulated ground truth
+    fingerprints: Dict[str, np.ndarray]  # program -> (k,) occupancy
+    est_cpi: Dict[str, float]
+    true_cpi: Dict[str, float]
+
+    def accuracy(self, program: str) -> float:
+        """Clamped accuracy (see `cpi_accuracy`), finite even when the
+        program's true CPI is zero or near zero."""
+        return cpi_accuracy(self.est_cpi[program], self.true_cpi[program])
+
+    @property
+    def avg_accuracy(self) -> float:
+        return float(np.mean([self.accuracy(p) for p in self.true_cpi]))

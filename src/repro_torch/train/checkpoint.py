@@ -45,7 +45,9 @@ log = get_logger("repro_torch.ckpt")
 
 def packb(obj: Any) -> bytes:
     """msgpack bytes of obj (dict, list/tuple, str, int, float, bool,
-    None), as `msgpack.packb` writes them by default."""
+    None), as `msgpack.packb` writes them by default. Like it, raises
+    TypeError on numpy integer and bool scalars: callers write plain
+    Python values."""
     out = bytearray()
     _pack(obj, out)
     return bytes(out)
@@ -212,6 +214,13 @@ def _to_numpy(leaf: Any) -> Tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
+def in_jax_key_order(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """A flat dict of leaves with its keys in sorted order, the order in
+    which the JAX writer flattens a dict: saved from it, a manifest lists
+    its keys as the JAX package's does."""
+    return dict(sorted(tree.items()))
+
+
 def save_checkpoint(directory: str, step: int, tree: Any,
                     meta: Optional[Dict] = None, keep: int = 3) -> str:
     """Writes `tree` as `<directory>/step_<step>` (atomically) and keeps
@@ -268,8 +277,10 @@ def read_manifest(path: str) -> Dict[str, Any]:
 
 def restore_checkpoint(path: str, template: Any) -> Tuple[Any, int, Dict]:
     """Restores into `template`'s structure: every leaf of the template
-    (a tensor) is read by its key and comes back as a tensor of the
-    template leaf's dtype, shape and device. Returns (tree, step, meta)."""
+    is read by its key. A tensor leaf comes back as a tensor of its dtype,
+    shape and device; a numpy leaf (the store's and the knowledge base's
+    host arrays) as a numpy array of its dtype. Returns (tree, step,
+    meta)."""
     manifest = read_manifest(path)
     with np.load(os.path.join(path, "arrays.npz")) as arrays:
         def load(tree: Any, prefix: str) -> Any:
@@ -282,6 +293,8 @@ def restore_checkpoint(path: str, template: Any) -> Tuple[Any, int, Dict]:
             if tuple(arr.shape) != tuple(tree.shape):
                 raise ValueError(f"{key}: checkpoint shape {arr.shape} vs "
                                  f"template shape {tuple(tree.shape)}")
+            if isinstance(tree, np.ndarray):
+                return np.array(arr, dtype=tree.dtype)
             if arr.dtype == np.uint16 and tree.dtype == torch.bfloat16:
                 t = torch.from_numpy(arr.view(np.int16).copy()).view(
                     torch.bfloat16)

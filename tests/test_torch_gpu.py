@@ -261,7 +261,8 @@ def _km_valid(dev, g, N, mask):
 @pytest.mark.parametrize("mask", ["holes", "prefix"])
 @pytest.mark.parametrize("N,d,K", [(32768, 128, 14), (1000, 64, 14),
                                    (513, 32, 30), (77, 200, 5),
-                                   (77, 200, 30), (300, 7, 9)])
+                                   (77, 200, 30), (300, 7, 9),
+                                   (1000, 15, 10)])
 def test_kmeans_kernels_match_plain(cuda, N, d, K, mask):
     g = _gen(cuda, N)
     x, c = _km_clustered(cuda, g, N, d, K)
@@ -548,3 +549,148 @@ def test_flash_bf16_fused_projection_view_is_bitwise(cuda):
     assert rows_aligned_16(q, k, v) and not q.is_contiguous()
     assert torch.equal(flash_attention(q, k, v), flash_attention(
         q.contiguous(), k.contiguous(), v.contiguous()))
+
+
+# ------------------------------------------ store lifecycle and SimPoint
+
+def _unit_rows(dev, g, n, d, k=6):
+    centres = torch.randn((k, d), generator=g, device=dev)
+    idx = torch.randint(k, (n,), generator=g, device=dev)
+    x = centres[idx] + 0.1 * torch.randn((n, d), generator=g, device=dev)
+    return (x / x.norm(dim=-1, keepdim=True)).cpu().numpy()
+
+
+def _lifecycle_stores(dev, evict=True):
+    """A store on `dev` with 3 programs x 400 rows of 128 (capacity
+    2,048), 40% of its rows evicted and compacted, and a fresh store of
+    the same live rows."""
+    from repro_torch.api import SignatureStore
+    g = _gen(dev, 11)
+    x = _unit_rows(dev, g, 1200, 128)
+    cpis = np.linspace(0.8, 3.0, 1200).astype(np.float32)
+    w = np.arange(1200, dtype=np.float32) + 1.0
+    store = SignatureStore(128, device=dev)
+    for p in range(3):
+        rows = slice(400 * p, 400 * (p + 1))
+        store.add(f"p{p}", x[rows], w[rows], cpis[rows])
+    _ = store.device_matrix
+    dead = np.random.RandomState(0).rand(1200) < 0.4
+    if evict:
+        store.evict(np.flatnonzero(dead))
+        store.compact()
+    fresh = SignatureStore(128, device=dev)
+    for p in range(3):
+        keep = np.flatnonzero(~dead[400 * p:400 * (p + 1)]) + 400 * p
+        fresh.add(f"p{p}", x[keep], w[keep], cpis[keep])
+    return store, fresh
+
+
+def test_compact_gather_is_a_fresh_upload_bitwise(cuda):
+    store, fresh = _lifecycle_stores(cuda)
+    assert store.capacity == fresh.capacity == 1024
+    got = store.device_matrix
+    assert got.device.type == "cuda"
+    want = torch.tensor(fresh.signatures.copy(), device=cuda)
+    want = torch.cat([want, torch.zeros((1024 - len(fresh), 128),
+                                        device=cuda)])
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got.view(torch.int32),
+                       fresh.device_matrix.view(torch.int32))
+
+
+def test_postcompact_build_is_a_fresh_stores_bitwise(cuda):
+    """The same live rows, the same capacity, the same seeds and
+    kmeans_update without atomics: a build over the compacted store is
+    bitwise a build over the fresh one, 75 + 4 launches each."""
+    from repro_torch.api import KnowledgeBase
+    kbs = []
+    for store in _lifecycle_stores(cuda):
+        u0, a0 = kmeans_update.launches, kmeans_assign.launches
+        kbs.append(KnowledgeBase(store).build(k=14, seed=0))
+        assert (kmeans_update.launches - u0, kmeans_assign.launches - a0) \
+            == (75, 4)
+    kb1, kb2 = kbs
+    np.testing.assert_array_equal(kb1.archetypes, kb2.archetypes)
+    np.testing.assert_array_equal(kb1.rep_global_idx, kb2.rep_global_idx)
+    np.testing.assert_array_equal(kb1._all_row_assign(),
+                                  kb2._all_row_assign())
+    for p in kb1.fingerprints:
+        np.testing.assert_array_equal(kb1.fingerprints[p],
+                                      kb2.fingerprints[p])
+
+
+def test_vacuum_save_load_round_trip_on_the_card(cuda, tmp_path):
+    """Vacuum (LRU) re-pins on the card; the store and base saved there
+    reload there with bitwise the same estimates and arrays, and the
+    archetypes back on the card."""
+    from repro_torch.api import (
+        EvictionPolicy, KnowledgeBase, SignatureStore, vacuum,
+    )
+    store, _ = _lifecycle_stores(cuda, evict=False)
+    kb = KnowledgeBase(store).build(k=14, seed=0)
+    for p in ("p1", "p2"):
+        store.touch(store.rows_for(p))
+    rep_cpi = kb.rep_cpi.copy()
+    on_p0 = sum(p == "p0" for p in kb.rep_program)
+    before = {p: kb.estimate(p) for p in ("p1", "p2")}
+    report = vacuum(store, kb, EvictionPolicy(max_rows=800))
+    assert (report.evicted, report.rows_after, report.capacity_after) == \
+        (400, 800, 1024)
+    assert report.repinned == on_p0 and "p0" not in kb.rep_program
+    np.testing.assert_array_equal(kb.rep_cpi, rep_cpi)
+    assert store.alive_mask[kb.rep_global_idx].all()
+    for p, e in before.items():
+        assert kb.estimate(p).est_cpi == e.est_cpi
+    store.save(str(tmp_path / "store"))
+    kb.save(str(tmp_path / "kb"))
+    store2 = SignatureStore.load(str(tmp_path / "store"))
+    kb2 = KnowledgeBase.load(str(tmp_path / "kb"), store2)
+    assert kb2._archetypes_dev.device.type == "cuda"
+    assert torch.equal(store2.device_matrix.view(torch.int32),
+                       store.device_matrix.view(torch.int32))
+    np.testing.assert_array_equal(kb2.rep_global_idx, kb.rep_global_idx)
+    for p in ("p1", "p2"):
+        a, b = kb2.estimate(p), kb.estimate(p)
+        assert (a.est_cpi, a.true_cpi, a.accuracy) == \
+            (b.est_cpi, b.true_cpi, b.accuracy)
+    sigs = store.signatures[:50]
+    np.testing.assert_array_equal(kb2.attach("q", signatures=sigs),
+                                  kb.attach("q", signatures=sigs))
+
+
+def _labels_agree(x, c, got, want, tie=1e-5):
+    """Labels equal except at rows whose two nearest centroids (of `c`)
+    are within `tie` in squared distance."""
+    x = np.asarray(x, np.float64)
+    c = np.asarray(c, np.float64)
+    d2 = ((x[:, None, :] - c[None, :, :]) ** 2).sum(-1)
+    two = np.sort(d2, axis=1)[:, :2]
+    differ = got != want
+    return bool((two[differ, 1] - two[differ, 0] <= tie).all())
+
+
+@pytest.mark.parametrize("n,d,k", [(1000, 15, 10), (1000, 128, 10)])
+def test_kmeans_on_card_matches_cpu(cuda, n, d, k):
+    """The host k-means of SimPoint on the card (kernels) and on the CPU
+    (plain versions) from the same seeds: the same labels (ties within
+    1e-5 aside), representatives and best restart, centroids within 1e-4,
+    and 3 x 25 kmeans_update and 3 kmeans_assign launches."""
+    from repro_torch.core.clustering import kmeans, kmeans_pp_init
+    from repro_torch.core.simpoint import run_simpoint
+    x = _unit_rows(cuda, _gen(cuda, d), n, d)
+    xt = torch.from_numpy(x)
+    init = torch.stack([kmeans_pp_init(torch.Generator().manual_seed(r),
+                                       xt, k) for r in range(3)])
+    u0, a0 = kmeans_update.launches, kmeans_assign.launches
+    c_dev, a_dev, i_dev = kmeans(x, k, device="cuda", init_centroids=init)
+    assert (kmeans_update.launches - u0, kmeans_assign.launches - a0) == \
+        (75, 3)
+    c_cpu, a_cpu, i_cpu = kmeans(x, k, device="cpu", init_centroids=init)
+    assert _labels_agree(x, c_cpu, a_dev, a_cpu)
+    np.testing.assert_allclose(c_dev, c_cpu, atol=1e-4)
+    np.testing.assert_allclose(i_dev, i_cpu, rtol=1e-4)
+    cpis = np.linspace(1.0, 2.0, n)
+    r_dev = run_simpoint(x, cpis, k=k, device="cuda", init_centroids=init)
+    r_cpu = run_simpoint(x, cpis, k=k, device="cpu", init_centroids=init)
+    np.testing.assert_array_equal(r_dev.rep_indices, r_cpu.rep_indices)
+    assert np.isfinite(r_dev.accuracy)
