@@ -14,10 +14,14 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
      its registers, shared memory and spills are printed; kmeans_update
      at the build's shape is bitwise equal on a second call, with other
      values in its dead rows and at twice the capacity, and both k-means
-     kernels print their registers, shared memory and spills;
+     kernels print their registers, shared memory and spills; the wkv
+     backward against its plain reverse loop at Stage-1 training's shape
+     and ragged ones (with an initial state and a final-state gradient),
+     bitwise repeatable, the forward that writes the states bitwise the
+     serving forward, its registers, shared memory and spills;
   3. the full-width models on CPU (plain versions) and on the card
      (kernels) agree on a small input: BBEs, signatures, and the Stage-2
-     loss gradients of every parameter;
+     and Stage-1 pre-training loss gradients of every parameter;
   4. the serving path at the paper's full width (default configs, k = 14,
      seeded untrained weights): 19 SPEC-like programs x 1,000 intervals,
      INORDER CPIs; ingest blocks, ingest 18 programs, build, attach_many
@@ -43,6 +47,14 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
      from step 10 and run to step 20 must end with bitwise the same
      weights (deterministic algorithms on). Both set-attention kernels
      must have launched, the backward 9 times a step;
+ 5b. Stage-1 training at the paper's width (default BBEConfig, 24.9M
+     parameters, seeded untrained): 20 pre-training steps (NTP + NIP) of
+     64 x 128 tokens from a SyntheticBinaryCorp of 500 functions, a
+     checkpoint every 10, then 10 triplet fine-tuning steps of 32
+     triplets; wkv forward and backward launched 12 times a pre-training
+     step and 36 a triplet step; then, after the path's launches are read,
+     a fresh Trainer restored from step 10 and run to step 20 must end with
+     bitwise the same weights (deterministic algorithms on);
   6. the LM zoo's dense serving path (smollm-135m at full width and
      depth, seeded untrained weights): (a) the flash-attention kernels
      against their plain version at the head dims of every zoo config (64,
@@ -59,10 +71,11 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
      answering 24 requests twice with the same tokens; the cyclic
      collector runs before each peak-memory reading.
 The line before the last is the JSON kernel summary: `launches` counts
-each kernel on its own path (serving; training for the backward; the zoo
-for flash), `launches_by_path` on each path that launched it (serve,
-lifecycle, simpoint, train, zoo); the launches of comparisons and witness
-runs count on none. The last line is {"ok": true, "device": {...}}.
+each kernel on its own path (serving; training for the set-attention
+backward; Stage-1 training for the wkv backward; the zoo for flash),
+`launches_by_path` on each path that launched it (serve, lifecycle,
+simpoint, train, stage1_training, zoo); the launches of comparisons and
+witness runs count on none. The last line is {"ok": true, "device": {...}}.
 Exits non-zero without CUDA.
 
     python3 chip_smoke.py --versus OTHER_CHECKOUT
@@ -75,6 +88,13 @@ since their redesigns), of the port
 under OTHER_CHECKOUT/src and of this one, in turns
 (other, this, this, other), each in a process of its own, on one card:
 a before/after comparison of two commits on the same card.
+
+    python3 chip_smoke.py --profile-stage1
+
+runs none of that either: it profiles 3 Stage-1 pre-training steps of
+phase 5b's configuration (torch.profiler) and prints where a step's time
+goes: host wall, kernels a step, the device's busy share, device time
+by kind and the top kernels.
 """
 from __future__ import annotations
 
@@ -104,6 +124,10 @@ SEED = 0
 N_INTERVALS = 1000        # per program, the paper's count
 TRAIN_STEPS = 20          # phase 5, with a checkpoint every 10 steps
 TRAIN_BATCH = 64          # triplets a step: 3 x 64 interval sets
+STAGE1_STEPS = 20         # phase 5b pre-training, a checkpoint every 10
+STAGE1_BATCH = 64         # token rows (x 128) a pre-training step
+TRIPLET_STEPS = 10        # phase 5b triplet fine-tuning
+TRIPLET_BATCH = 32        # triplets a step: 3 x 32 token rows
 ZOO_ARCH = "smollm_135m"  # phase 6: the zoo model the repo's serve demo runs
 PREFILL_BATCH, PREFILL_LEN = 8, 2048
 SERVE_REQUESTS, SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_MAX_NEW = 24, 8, 1024, 64
@@ -206,9 +230,10 @@ def describe(a: dict) -> str:
             f"block, {a['local_bytes']} B local (spills) a thread")
 
 
-def sass_counts(lib_path: str, function: str, ops=("HGMMA*",)):
+def sass_counts(lib_path: str, function, ops=("HGMMA*",)):
     """Counts of the given opcodes in the SASS of the kernels whose name
-    holds `function`, or None where the toolkit has no cuobjdump. An op
+    holds `function` (a string, or a tuple of strings that must all be
+    in the name), or None where the toolkit has no cuobjdump. An op
     matches exactly ("LDS" is the 4-byte shared load, "LDS.128" the
     16-byte one), or by prefix when it ends in "*"; never-executed `@!PT`
     placeholders are skipped."""
@@ -218,10 +243,11 @@ def sass_counts(lib_path: str, function: str, ops=("HGMMA*",)):
         return None
     sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
                           text=True, timeout=300, check=True).stdout
+    names = (function,) if isinstance(function, str) else function
     counts, inside = dict.fromkeys(ops, 0), False
     for line in sass.splitlines():
         if "Function :" in line:
-            inside = function in line
+            inside = all(f in line for f in names)
         elif inside and "@!PT" not in line:
             fields = line.split("*/")
             words = fields[1].split() if len(fields) > 1 else []
@@ -282,9 +308,10 @@ def check_wkv(dev, gen):
         log(f"  wkv kernel, dh <= {d}: {describe(a)}")
         require(a["static_smem"] == kernel_plan(d)["shared_bytes"],
                 f"wkv dh {d}: shared bytes differ from kernel_plan's")
-    sass = sass_counts(str(_lib.build_library()), "wkv_forward_kernel",
-                       SASS_OPS)
-    log(f"  wkv SASS (3 instances): {sass}")
+    # the serving instances (no states; "Lb0E": the template's false)
+    sass = sass_counts(str(_lib.build_library()),
+                       ("wkv_forward_kernel", "Lb0E"), SASS_OPS)
+    log(f"  wkv SASS (3 serving instances): {sass}")
 
     B, S, H, dh = 256, 128, 6, 64
     args = inputs(B, S, H, dh)
@@ -299,6 +326,92 @@ def check_wkv(dev, gen):
                 shape=f"B={B} S={S} H={H} dh={dh}",
                 extra=dict(registers=attrs[64]["registers"],
                            local_bytes=attrs[64]["local_bytes"], sass=sass))
+
+
+def check_wkv_backward(dev, gen):
+    """The wkv backward kernel against the plain reverse loop, with an
+    initial state and a final-state gradient: Stage-1 training's shape
+    (B 64, S 128, H 6, dh 64), dh 16, 48 and 128, S 1 and 13. The forward
+    that writes the states gives y and the final state bitwise equal to
+    the serving forward; two backward launches give the same bits."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.wkv import (
+        wkv, wkv_backward, wkv_backward_reference,
+    )
+    from repro_torch.kernels.wkv.ops import _forward, backward_plan
+
+    def inputs(B, S, H, dh):
+        r, k, v, dy = (torch.randn((B, S, H, dh), generator=gen, device=dev)
+                       for _ in range(4))
+        k = k / k.norm(dim=-1, keepdim=True).clamp(min=1e-6)
+        w = 0.7 + 0.3 * torch.rand((B, S, H, dh), generator=gen, device=dev)
+        beta = torch.rand((B, S, H), generator=gen, device=dev)
+        s0, dsf = (torch.randn((B, H, dh, dh), generator=gen, device=dev)
+                   for _ in range(2))
+        return r, k, v, w, beta, 0.1 * s0, dy, dsf
+
+    err = 0.0
+    for shape in [(64, 128, 6, 64), (2, 13, 2, 16), (2, 13, 3, 48),
+                  (2, 9, 2, 128), (2, 1, 3, 64), (3, 1, 2, 48),
+                  (2, 37, 2, 7)]:
+        r, k, v, w, beta, s0, dy, dsf = inputs(*shape)
+        y, sf, states = _forward(r, k, v, w, beta, s0, save=True)
+        y_serve, sf_serve = wkv(r, k, v, w, beta, s0)
+        require(torch.equal(y, y_serve) and torch.equal(sf, sf_serve),
+                f"wkv {shape}: the forward with states is not bitwise the "
+                "serving forward")
+        out = wkv_backward(r, k, v, w, beta, s0, states, dy, dsf)
+        ref = wkv_backward_reference(r, k, v, w, beta, s0, dy, dsf)
+        for name, a, b in zip(("dr", "dk", "dv", "dw", "dbeta", "dstate"),
+                              out, ref):
+            require(bool(torch.isfinite(a).all()),
+                    f"wkv_backward {shape}: non-finite {name}")
+            err = max(err, max_err(a, b, 1e-4, 1e-3,
+                                   f"wkv_backward {name} {shape}"))
+        again = wkv_backward(r, k, v, w, beta, s0, states, dy, dsf)
+        require(all(torch.equal(a, b) for a, b in zip(out, again)),
+                f"wkv_backward {shape}: two runs are not bitwise equal")
+
+    attrs = {}
+    for d in (32, 64, 128):
+        attrs[d] = a = _lib.kernel_attributes("rt_wkv_backward_attributes", d)
+        log(f"  wkv_backward kernel, dh <= {d}: {describe(a)}")
+        require(a["dynamic_smem"] == backward_plan(d)["shared_bytes"],
+                f"wkv_backward dh {d}: shared bytes differ from "
+                "backward_plan's")
+        require(a["local_bytes"] == 0, f"wkv_backward dh {d}: spills")
+    sass = sass_counts(str(_lib.build_library()), "wkv_backward_kernel",
+                       SASS_OPS)
+    log(f"  wkv_backward SASS (3 instances): {sass}")
+
+    B, S, H, dh = 64, 128, 6, 64
+    r, k, v, w, beta, _, dy, dsf = inputs(B, S, H, dh)
+    _, _, states = _forward(r, k, v, w, beta, None, save=True)
+    args = (r, k, v, w, beta, None, states, dy, dsf)
+    ms, wrapper_ms = kernel_ms(lambda: wkv_backward(*args), reps=20)
+    plain_ms = cuda_ms(lambda: wkv_backward_reference(
+        r, k, v, w, beta, None, dy, dsf), reps=3, warmup=1)
+    fwd_states_ms = device_ms(lambda: _forward(r, k, v, w, beta, None,
+                                               save=True))
+    fwd_ms = device_ms(lambda: _forward(r, k, v, w, beta, None, save=False))
+    log(f"  wkv forward at this shape: ms {fwd_ms:.4f}; writing the states "
+        f"(0.81 GB) ms {fwd_states_ms:.4f}")
+    # reads r k v w dy, beta, the states and dsf once; writes dr dk dv dw,
+    # dbeta and dS_0; 22 dh^2 operations a token and head (A formed in both
+    # passes)
+    n_tok = B * S * H * dh
+    nbytes = 4 * (5 * n_tok + B * S * H + B * S * H * dh * dh
+                  + B * H * dh * dh + 4 * n_tok + B * S * H + B * H * dh * dh)
+    flops = 22 * B * S * H * dh * dh
+    return dict(err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                library_ms=None, bound=bound(nbytes, flops),
+                shape=f"B={B} S={S} H={H} dh={dh}",
+                extra=dict(forward_ms=fwd_ms, forward_states_ms=fwd_states_ms,
+                           registers=attrs[64]["registers"],
+                           local_bytes=attrs[64]["local_bytes"],
+                           registers_dh32=attrs[32]["registers"],
+                           registers_dh128=attrs[128]["registers"],
+                           sass=sass))
 
 
 def check_set_attention(dev, gen):
@@ -726,6 +839,32 @@ def cross_check_stage2_grads(programs, intervals, cpis):
               for n, g in grads["cpu"].items())
     log(f"  full width, CPU plain vs card kernels: Stage-2 gradients max err "
         f"{err:.3g} over {len(grads['cpu'])} parameters (8 triplets)")
+
+
+def cross_check_stage1_grads():
+    """Stage-1 pre-training loss gradients of the full-width encoder
+    (default BBEConfig) on the CPU (plain versions) and on the card (both
+    wkv kernels), on a corpus batch of 4, every parameter within the JAX
+    suite's gradient bound."""
+    from repro_torch.core.bbe import BBEConfig, BBEEncoder, pretrain_loss
+    from repro_torch.data.corpus import SyntheticBinaryCorp
+    cfg = BBEConfig()
+    corp = SyntheticBinaryCorp(n_functions=500, max_len=cfg.max_len)
+    toks = torch.from_numpy(corp.pretrain_batch(0, 4)["tokens"])
+    grads, losses = {}, {}
+    for dev in ("cpu", "cuda"):
+        model = BBEEncoder(cfg, seed=SEED).to(dev)
+        loss, _ = pretrain_loss(model, {"tokens": toks.to(dev)})
+        named = dict(model.named_parameters())
+        gs = torch.autograd.grad(loss, list(named.values()),
+                                 allow_unused=True, materialize_grads=True)
+        grads[dev] = {n: g.cpu() for n, g in zip(named, gs)}
+        losses[dev] = float(loss.detach())
+    err = max(max_err(grads["cuda"][n], g, 1e-4, 1e-3, f"stage-1 grad {n}")
+              for n, g in grads["cpu"].items())
+    log(f"  full width, CPU plain vs card kernels: Stage-1 pre-training loss "
+        f"{losses['cpu']:.6f} / {losses['cuda']:.6f}, gradients max err "
+        f"{err:.3g} over {len(grads['cpu'])} parameters (4 x 128 tokens)")
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1216,6 +1355,150 @@ def train_stage2(svc, programs, intervals, cpis):
     return masked_set_attention.launches, set_attention_backward.launches
 
 
+# --------------------------------------------------------------- phase 5b
+
+STAGE1_PARAMS = 24_915_168   # fp32 parameters of the default BBEConfig
+
+
+def _stage1_loaders(cfg, dev):
+    """Phase 5b's data, as launch/train.py builds it: a SyntheticBinaryCorp
+    of 500 functions; pre-training batches of STAGE1_BATCH token rows and
+    triplet batches of TRIPLET_BATCH, each a pure function of the step,
+    moved to the card by the port's BatchLoader."""
+    from repro_torch.data import BatchLoader, SyntheticBinaryCorp
+    corp = SyntheticBinaryCorp(n_functions=500, max_len=cfg.max_len)
+    pre = BatchLoader(lambda s: {"tokens": corp.pretrain_batch(
+        s, STAGE1_BATCH)["tokens"]}, device=dev)
+    tri = BatchLoader(lambda s: corp.triplet_batch(s, TRIPLET_BATCH),
+                      device=dev)
+    return pre, tri
+
+
+def _stage1_run(trainer, batches, steps, per_step, what):
+    """`steps` Trainer steps on batches(step); each must launch the wkv
+    forward and backward kernels `per_step` times and give a finite loss.
+    Returns (step seconds, batch-assembly seconds, losses)."""
+    from repro_torch.kernels.wkv import wkv, wkv_backward
+    step_s, batch_s, losses = [], [], []
+    for step in range(steps):
+        t = time.perf_counter()
+        batch = batches(step)
+        torch.cuda.synchronize()
+        batch_s.append(time.perf_counter() - t)
+        f0, b0 = wkv.launches, wkv_backward.launches
+        t = time.perf_counter()
+        m = trainer.step(batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        saved = trainer.maybe_checkpoint()
+        ck_s = time.perf_counter() - t
+        require(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
+                f"{what} step {step}: loss {m['loss']}, grad_norm "
+                f"{m['grad_norm']}")
+        n = (wkv.launches - f0, wkv_backward.launches - b0)
+        require(n == (per_step, per_step),
+                f"{what} step {step}: wkv forward/backward launched {n}, not "
+                f"{per_step} each")
+        losses.append(m["loss"])
+        log(f"  {what} step {step:2d}: loss {m['loss']:.5f} "
+            + " ".join(f"{k} {m[k]:.5f}" for k in m
+                       if k not in ("loss", "grad_norm", "lr"))
+            + f" grad_norm {m['grad_norm']:.4f} lr {m['lr']:.2e} step "
+            f"{1e3 * step_s[-1]:.2f} ms, batch {1e3 * batch_s[-1]:.2f} ms"
+            + (f", checkpoint {1e3 * ck_s:.1f} ms" if saved else ""))
+    return step_s, batch_s, losses
+
+
+def _stage1_report(what, step_s, batch_s, losses, rows, length, peak):
+    med = float(np.median(step_s))
+    log(f"  {what}: step median {1e3 * med:.2f} ms (first "
+        f"{1e3 * step_s[0]:.2f}), {rows * length / med:.0f} tokens/s ({rows} x {length} tokens a "
+        f"step), host "
+        f"batch assembly median {1e3 * float(np.median(batch_s)):.2f} ms a "
+        f"step, peak device memory {peak / 2**30:.3f} GiB (after "
+        f"gc.collect()), loss first {losses[0]:.5f} last {losses[-1]:.5f}")
+
+
+def _peak_reset():
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def train_stage1(dev="cuda") -> dict:
+    """(5b) Stage-1 training on the card at the paper's width (default
+    BBEConfig, seeded untrained weights): STAGE1_STEPS pre-training steps
+    (NTP + NIP, lr 2e-3, the example's TrainConfig) with a checkpoint
+    every 10, then TRIPLET_STEPS triplet fine-tuning steps (lr 1e-3).
+    Returns what the resume witness needs."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.core.bbe import (
+        BBEConfig, BBEEncoder, finetune_triplet_loss, pretrain_loss,
+    )
+    from repro_torch.train import Trainer
+    cfg = BBEConfig()
+    pre, tri = _stage1_loaders(cfg, dev)
+    ckdir = os.path.join(HERE, "build", "chip_smoke_stage1")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    tc = TrainConfig(learning_rate=2e-3, total_steps=STAGE1_STEPS,
+                     warmup_steps=max(2, STAGE1_STEPS // 20),
+                     checkpoint_every=10,
+                     checkpoint_dir=os.path.join(ckdir, "run"))
+    t_phase = time.perf_counter()
+    encoder = BBEEncoder(cfg, seed=SEED).to(dev)
+    n_params = sum(p.numel() for p in encoder.parameters())
+    require(n_params == STAGE1_PARAMS, f"{n_params} Stage-1 parameters")
+    _peak_reset()
+    trainer = Trainer(pretrain_loss, encoder, tc)
+    step_s, batch_s, losses = _stage1_run(trainer, pre, STAGE1_STEPS,
+                                          cfg.num_layers, "pretrain")
+    _stage1_report("pre-training", step_s, batch_s, losses, STAGE1_BATCH,
+                   cfg.max_len, torch.cuda.max_memory_allocated())
+    final = {n: p.detach().clone() for n, p in trainer.state.params.items()}
+    del trainer
+    _peak_reset()
+    ft = Trainer(finetune_triplet_loss, encoder, TrainConfig(
+        learning_rate=1e-3, total_steps=TRIPLET_STEPS,
+        warmup_steps=max(2, TRIPLET_STEPS // 20), checkpoint_every=0,
+        checkpoint_dir=os.path.join(ckdir, "triplet")))
+    step_s, batch_s, losses = _stage1_run(ft, tri, TRIPLET_STEPS,
+                                          3 * cfg.num_layers, "triplet")
+    _stage1_report("triplet fine-tuning", step_s, batch_s, losses,
+                   3 * TRIPLET_BATCH, cfg.max_len,
+                   torch.cuda.max_memory_allocated())
+    del ft, encoder
+    log(f"  stage-1 training phase: {time.perf_counter() - t_phase:.3f} s "
+        f"({n_params} parameters)")
+    return dict(cfg=cfg, tc=tc, final=final, loader=pre, dev=dev)
+
+
+def stage1_witness(run: dict) -> None:
+    """A fresh Trainer from the same start, restored from phase 5b's step-10
+    checkpoint and run to step STAGE1_STEPS, ends with bitwise the weights
+    of the uninterrupted run."""
+    from repro_torch.core.bbe import BBEEncoder, pretrain_loss
+    from repro_torch.train import Trainer
+    tc = run["tc"]
+    resumed = os.path.join(os.path.dirname(tc.checkpoint_dir), "resumed")
+    os.makedirs(resumed)
+    shutil.copytree(os.path.join(tc.checkpoint_dir, "step_0000000010"),
+                    os.path.join(resumed, "step_0000000010"))
+    t = time.perf_counter()
+    trainer = Trainer(pretrain_loss,
+                      BBEEncoder(run["cfg"], seed=SEED).to(run["dev"]),
+                      dataclasses.replace(tc, checkpoint_dir=resumed))
+    trainer.fit(run["loader"], STAGE1_STEPS, log_every=STAGE1_STEPS)
+    require(trainer.state.step == STAGE1_STEPS, "the resumed run's step")
+    differ = [n for n, p in run["final"].items()
+              if not torch.equal(p, trainer.state.params[n])]
+    require(not differ, f"stage-1 resume from step 10 is not bitwise equal: "
+            f"{differ[:5]}")
+    log(f"  stage-1 resume: 10 steps from the step-10 checkpoint in "
+        f"{time.perf_counter() - t:.3f} s, bitwise equal "
+        f"({len(run['final'])} parameters)")
+
+
 # ---------------------------------------------------------------- phase 6
 
 def _visible_pairs(S: int, T: int, causal: bool, window: int) -> int:
@@ -1511,6 +1794,70 @@ def time_kernels(root: str) -> dict:
     return out
 
 
+def profile_stage1() -> int:
+    """Where a Stage-1 pre-training step of phase 5b goes: 3 steps under
+    torch.profiler after 3 warm-up steps (batches made beforehand). Prints
+    the host wall a step, the kernels a step, the device's busy time a
+    step (the union of kernel intervals) and its share of the wall, the
+    device time by kind (matmul, wkv, other) and the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.config import TrainConfig
+    from repro_torch.core.bbe import BBEConfig, BBEEncoder, pretrain_loss
+    from repro_torch.kernels import _lib
+    from repro_torch.train import Trainer
+    _lib.load_library()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = BBEConfig()
+    pre, _ = _stage1_loaders(cfg, "cuda")
+    batches = [pre(s) for s in range(6)]
+    trainer = Trainer(pretrain_loss, BBEEncoder(cfg, seed=SEED).to("cuda"),
+                      TrainConfig(learning_rate=2e-3, total_steps=20,
+                                  warmup_steps=2, checkpoint_every=0))
+    for b in batches[:3]:
+        trainer.step(b)
+    torch.cuda.synchronize()
+    n = len(batches) - 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for b in batches[3:]:
+            trainer.step(b)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) / n
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:                       # union of kernel intervals, us
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name = {}
+    for e in kernels:
+        c, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (c + 1, us + e.time_range.elapsed_us())
+    kinds = {"matmul": 0.0, "wkv": 0.0, "other": 0.0}
+    for name, (_, us) in by_name.items():
+        low = name.lower()
+        kind = ("wkv" if "wkv_" in low else "matmul"
+                if "gemm" in low or "cutlass" in low or "xmma" in low
+                else "other")
+        kinds[kind] += us
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    log(smi.splitlines()[0])
+    log(f"stage-1 pre-training step ({STAGE1_BATCH} x {cfg.max_len} tokens, "
+        f"{n} steps profiled): wall {1e3 * wall:.2f} ms, {len(kernels) / n:.0f}"
+        f" kernels, device busy {busy / 1e3 / n:.2f} ms "
+        f"({100 * busy / 1e3 / n / (1e3 * wall):.1f}% of the wall)")
+    log("  device ms a step by kind: " + ", ".join(
+        f"{k} {v / 1e3 / n:.2f}" for k, v in kinds.items()))
+    for name, (c, us) in sorted(by_name.items(), key=lambda x: -x[1][1])[:15]:
+        log(f"  {us / 1e3 / n:8.3f} ms {c // n:5d} x  {name[:90]}")
+    return 0
+
+
 def versus(other: str) -> int:
     """`time_kernels` of the checkout at `other` and of this one, in turns,
     each in its own process."""
@@ -1536,6 +1883,12 @@ def versus(other: str) -> int:
 
 
 def main() -> int:
+    if sys.argv[1:] == ["--profile-stage1"]:
+        if not torch.cuda.is_available():
+            print("chip_smoke: CUDA is not available", file=sys.stderr)
+            return 2
+        sys.path.insert(0, os.path.join(HERE, "src"))
+        return profile_stage1()
     if len(sys.argv) == 3 and sys.argv[1] in ("--versus", "--time-kernels"):
         if not torch.cuda.is_available():
             print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1557,7 +1910,7 @@ def main() -> int:
     from repro_torch.kernels.set_attention import (
         masked_set_attention, set_attention_backward,
     )
-    from repro_torch.kernels.wkv import wkv
+    from repro_torch.kernels.wkv import wkv, wkv_backward
 
     # plain versions on the card must be true fp32 (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1585,12 +1938,14 @@ def main() -> int:
     # 2. kernels against their plain versions
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    wrappers = {"wkv": wkv, "set_attention": masked_set_attention,
+    wrappers = {"wkv": wkv, "wkv_backward": wkv_backward,
+                "set_attention": masked_set_attention,
                 "kmeans_assign": kmeans_assign, "kmeans_update": kmeans_update,
                 "set_attention_backward": set_attention_backward,
                 "flash_attention": flash_attention}
     checks = {
         "wkv": lambda: check_wkv(dev, gen),
+        "wkv_backward": lambda: check_wkv_backward(dev, gen),
         "set_attention": lambda: check_set_attention(dev, gen),
         "kmeans_assign": lambda: check_kmeans_assign(dev, gen),
         "kmeans_update": lambda: check_kmeans_update(dev, gen, n_valid_build),
@@ -1611,6 +1966,7 @@ def main() -> int:
     # 3. full-width CPU vs card on a small input
     cross_check_full_width(programs, intervals)
     cross_check_stage2_grads(programs, intervals, cpis)
+    cross_check_stage1_grads()
 
     # 4. the serving path; `launches` is each kernel's count on its own
     # path, `by_path` its count on every path that launched it
@@ -1671,6 +2027,24 @@ def main() -> int:
     require(fwd > 0 and bwd == 9 * (TRAIN_STEPS + TRAIN_STEPS - 10),
             "a set-attention kernel was not launched as expected in training")
 
+    # 5b. Stage-1 training, under deterministic algorithms; the resume
+    # witness runs after the path's launches are read and counts on none
+    torch.use_deterministic_algorithms(True)
+    try:
+        t = time.perf_counter()
+        run = drive("stage1_training", train_stage1)
+        n = {name: by_path.get(name, {}).get("stage1_training", 0)
+             for name in ("wkv", "wkv_backward")}
+        log(f"stage-1 training path: {time.perf_counter() - t:.3f} s; "
+            f"launches wkv {n['wkv']}, wkv_backward {n['wkv_backward']}")
+        want = 12 * STAGE1_STEPS + 36 * TRIPLET_STEPS
+        require(n == {"wkv": want, "wkv_backward": want},
+                f"stage-1 training launched the wkv kernels {n}, not {want}")
+        stage1_witness(run)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del run
+
     # 6. the LM zoo: (a) the flash kernel, (b) CPU vs card at full width,
     # (c) the dense serving path; only (c)'s launches count
     t = time.perf_counter()
@@ -1689,6 +2063,9 @@ def main() -> int:
     meta = {
         "wkv": ("src/repro_torch/csrc/wkv.cu",
                 "src/repro/kernels/wkv/wkv.py:28"),
+        # no TPU twin: JAX differentiates the lax.scan of wkv_scan_ref
+        "wkv_backward": ("src/repro_torch/csrc/wkv.cu",
+                         "src/repro/models/rwkv.py:78"),
         "set_attention": ("src/repro_torch/csrc/set_attention.cu",
                           "src/repro/kernels/set_attention/set_attn.py:68"),
         "kmeans_assign": ("src/repro_torch/csrc/kmeans.cu",
@@ -1701,9 +2078,10 @@ def main() -> int:
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention/flash.py:29"),
     }
-    # each kernel's own path: serving, training for the backward, the zoo
-    # for flash
-    own = {"set_attention_backward": "train", "flash_attention": "zoo"}
+    # each kernel's own path: serving, training for the set-attention
+    # backward, Stage-1 training for the wkv backward, the zoo for flash
+    own = {"set_attention_backward": "train", "flash_attention": "zoo",
+           "wkv_backward": "stage1_training"}
     kernels = [{
         "name": name, "route": "cuda", "source": meta[name][0],
         "replaces": meta[name][1],

@@ -26,14 +26,18 @@ do, and any other dtype TypeError. Nothing here imports jax.
 Checkpoint directories cross in both directions through the shared
 on-disk format (`repro_torch.train.checkpoint`): the key of a leaf is
 its `state_dict` name with "." -> "/", which is the JAX tree's path.
-  * JAX -> port: `signature_params_from_checkpoint` loads the Stage-2
-    weights of a directory written by `repro.train.checkpoint.
-    save_checkpoint`; `stage2_engine_from_checkpoint` restores a JAX
-    `Stage2Engine` checkpoint (params, AdamW state, step) into a port
-    engine.
-  * port -> JAX: `save_signature_checkpoint` (and the port Trainer's own
-    checkpoints) write directories that `repro.train.checkpoint.
-    restore_checkpoint` reads with a JAX template.
+  * JAX -> port: `signature_params_from_checkpoint` and
+    `bbe_params_from_checkpoint` load the Stage-2 / Stage-1 weights of a
+    directory written by `repro.train.checkpoint.save_checkpoint`;
+    `stage2_engine_from_checkpoint` restores a JAX `Stage2Engine`
+    checkpoint (params, AdamW state, step) into a port engine, and a port
+    `Trainer` of the Stage-1 encoder restores a JAX Stage-1 `Trainer`'s
+    with its own `load`.
+  * port -> JAX: `save_signature_checkpoint`, `save_bbe_checkpoint` (and
+    the port Trainer's own checkpoints) write directories that
+    `repro.train.checkpoint.restore_checkpoint` reads with a JAX template.
+Stage-1 checkpoints keep `blocks` stacked, as `bbe_init` does: the
+encoder's `pack_checkpoint` / `unpack_checkpoint` convert the names.
 """
 from __future__ import annotations
 
@@ -154,6 +158,36 @@ def lm_params_from_jax(tree: Dict[str, Any], cfg: ModelConfig) -> LM:
 def _named(model: nn.Module) -> Dict[str, torch.Tensor]:
     """The model's parameters under their checkpoint keys."""
     return {k.replace(".", "/"): v for k, v in model.state_dict().items()}
+
+
+def bbe_params_from_checkpoint(path: str, cfg: BBEConfig) -> BBEEncoder:
+    """Stage-1 encoder (CPU) with the "params/..." leaves of the checkpoint
+    directory `path` (a `step_*` directory of either package), its
+    `blocks` stacked along a leading `num_layers` axis."""
+    model = BBEEncoder(cfg)
+    named = {"params/" + k: v for k, v in _named(model).items()}
+    tree, _, _ = checkpoint.restore_checkpoint(path,
+                                               model.pack_checkpoint(named))
+    flat = model.unpack_checkpoint(tree, named)
+    model.load_state_dict({k[len("params/"):].replace("/", "."): v
+                           for k, v in flat.items()}, strict=True)
+    return model
+
+
+def save_bbe_checkpoint(model: BBEEncoder, directory: str, step: int = 0,
+                        opt_state: Optional[Dict] = None,
+                        keep: int = 3) -> str:
+    """Writes the encoder's weights (and `opt_state` when given, in the
+    optimizer layout of `repro_torch.train.optimizer`) as checkpoint
+    `step` in `directory`, `blocks` stacked, for `repro.train.checkpoint.
+    restore_checkpoint` with a {"params": bbe_init tree[, "opt": ...]}
+    template."""
+    tree: Dict[str, Any] = {"params": _named(model)}
+    if opt_state is not None:
+        tree["opt"] = opt_state
+    return checkpoint.save_checkpoint(
+        directory, step, model.pack_checkpoint(checkpoint._flatten(tree)),
+        meta={"step": step}, keep=keep)
 
 
 def signature_params_from_checkpoint(path: str, cfg: SignatureConfig

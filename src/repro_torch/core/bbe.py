@@ -2,19 +2,34 @@
 
 Multi-dimensional concatenated embeddings -> RWKV backbone (a loop over
 the blocks of an `nn.ModuleList`) -> self-attention pooling ->
-L2-normalized BBE. Port of `repro.core.bbe`; the pre-training heads exist
-so that a JAX parameter tree bridges whole, but the pre-training and
-fine-tuning losses are for a later slice.
+L2-normalized BBE. Port of `repro.core.bbe`.
+
+Pre-training heads (discarded before fine-tuning, §III-A-3):
+  - NTP: next-token prediction over the asm dimension.
+  - NIP: at each instruction boundary (SEP token), predict the token
+    sequence of the ENTIRE next instruction (up to `nip_horizon` tokens).
+
+Fine-tuning: triplet loss over (anchor, positive, negative) blocks
+compiled at different optimization levels (§III-A-4/5).
+
+Both losses take `(encoder, batch)`, as the port's `Trainer` calls a
+loss; their gradients are held to `jax.grad` of the JAX package's.
+Checkpoints keep the JAX layout, in which `blocks` is stacked along a
+leading `num_layers` axis (`bbe_init` builds it with `jax.vmap`): the
+encoder's `pack_checkpoint` / `unpack_checkpoint` convert its per-layer
+names, and the `Trainer` calls them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import re
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.core.losses import l2_normalize
+from repro_torch.core.losses import l2_normalize, triplet_loss
 from repro_torch.core.tokenizer import MultiDimTokenizer, default_tokenizer
 from repro_torch.models.layers import (
     RMSNorm, init_array, param, require_float32,
@@ -56,12 +71,54 @@ class AttentionPool(nn.Module):
 
 
 class MLPHead(nn.Module):
-    """Pre-training head (NTP / NIP); its loss is for a later slice."""
+    """Pre-training head (NTP / NIP)."""
 
     def __init__(self, gen: torch.Generator, d: int, d_out: int):
         super().__init__()
         self.w1 = param(init_array(gen, (d, d)))
         self.w2 = param(init_array(gen, (d, d_out)))
+
+    def forward(self, h):
+        # jax.nn.gelu defaults to the tanh approximation; torch's does not
+        return F.gelu(h @ self.w1, approximate="tanh") @ self.w2
+
+
+# checkpoint key of a per-layer leaf: "<prefix>blocks/<layer>/<leaf>"
+_LAYER_KEY = re.compile(r"^(.*?\bblocks)/(\d+)/(.+)$")
+
+
+def stack_layers(flat: Dict[str, torch.Tensor], num_layers: int
+                 ) -> Dict[str, torch.Tensor]:
+    """"/"-keyed leaves with per-layer keys `...blocks/<n>/<leaf>` ->
+    `...blocks/<leaf>` stacked over n along a new leading axis (the
+    layout of `bbe_init`); other keys pass unchanged, in order."""
+    out: Dict[str, torch.Tensor] = {}
+    layers: Dict[str, list] = {}
+    for key, leaf in flat.items():
+        m = _LAYER_KEY.match(key)
+        if m is None:
+            out[key] = leaf
+            continue
+        stacked = f"{m.group(1)}/{m.group(3)}"
+        if stacked not in layers:
+            layers[stacked] = [None] * num_layers
+            out[stacked] = None                 # keeps the key's place
+        layers[stacked][int(m.group(2))] = leaf
+    for key, leaves in layers.items():
+        out[key] = torch.stack(leaves)
+    return out
+
+
+def unstack_layers(flat: Dict[str, torch.Tensor], like: Dict[str, object]
+                   ) -> Dict[str, torch.Tensor]:
+    """The inverse of `stack_layers`: the keys of `like` (per-layer),
+    each read from `flat` (stacked) at its layer's index."""
+    out = {}
+    for key in like:
+        m = _LAYER_KEY.match(key)
+        out[key] = (flat[key] if m is None else
+                    flat[f"{m.group(1)}/{m.group(3)}"][int(m.group(2))])
+    return out
 
 
 class BBEEncoder(nn.Module):
@@ -106,7 +163,70 @@ class BBEEncoder(nn.Module):
         pooled = self.pool(self.backbone(tokens), valid)
         return l2_normalize(pooled @ self.out_proj)
 
+    # checkpoints in the JAX layout (the Trainer's hooks)
+    def pack_checkpoint(self, flat: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+        return stack_layers(flat, self.cfg.num_layers)
+
+    def unpack_checkpoint(self, flat: Dict[str, torch.Tensor],
+                          like: Dict[str, object]) -> Dict[str, torch.Tensor]:
+        return unstack_layers(flat, like)
+
 
 def encode_bbe(encoder: BBEEncoder, tokens, pad_id: int = 0):
     """tokens: (B, L, 6) -> L2-normalized BBE (B, bbe_dim)."""
     return encoder(tokens, pad_id)
+
+
+# ---------------------------------------------------------------------------
+# pre-training and fine-tuning losses
+# ---------------------------------------------------------------------------
+
+def _cross_entropy(logits, target):
+    """-log softmax(logits)[target], in fp32."""
+    logits = logits.float()
+    sel = torch.gather(logits, -1, target[..., None].long())[..., 0]
+    return torch.logsumexp(logits, dim=-1) - sel
+
+
+def pretrain_loss(encoder: BBEEncoder, batch, sep_id: int = 3,
+                  pad_id: int = 0):
+    """Joint NTP + NIP loss on batch["tokens"] (B, L, 6).
+    Returns (loss, {"ntp", "nip"})."""
+    tokens = batch["tokens"]
+    B, L, _ = tokens.shape
+    h = encoder.backbone(tokens)
+    asm = tokens[..., 0]
+    valid = asm != pad_id
+
+    # --- NTP: predict asm id of token t+1 from state at t
+    ce = _cross_entropy(encoder.ntp_head(h[:, :-1]), asm[:, 1:])
+    v = (valid[:, 1:] & valid[:, :-1]).float()
+    ntp = torch.sum(ce * v) / torch.clamp(v.sum(), min=1.0)
+
+    # --- NIP: at SEP tokens predict the next instruction's token sequence
+    Hm = encoder.cfg.nip_horizon
+    nip_logits = encoder.nip_head(h)                         # (B,L,Hm*V)
+    nip_logits = nip_logits.reshape(B, L, Hm, nip_logits.shape[-1] // Hm)
+    idx = torch.clamp(torch.arange(L, device=tokens.device)[:, None] + 1
+                      + torch.arange(Hm, device=tokens.device)[None, :],
+                      max=L - 1)                             # (L,Hm)
+    tgt = asm[:, idx]                                        # (B,L,Hm)
+    # a target is valid until the *next* SEP (instruction boundary) or pad
+    beyond = torch.cumsum((tgt == sep_id).int(), dim=-1) > 0
+    at_sep = (asm == sep_id) & valid
+    vmask = (at_sep[..., None] & ~beyond & (tgt != pad_id)).float()
+    ce = _cross_entropy(nip_logits, tgt)
+    nip = torch.sum(ce * vmask) / torch.clamp(vmask.sum(), min=1.0)
+    return ntp + nip, {"ntp": ntp, "nip": nip}
+
+
+def finetune_triplet_loss(encoder: BBEEncoder, batch, margin: float = 0.5):
+    """batch: anchor/positive/negative -> (B, L, 6). Returns (loss,
+    {"d_ap", "d_an"})."""
+    a, p, n = (encoder(batch[role])
+               for role in ("anchor", "positive", "negative"))
+    loss = triplet_loss(a, p, n, margin)
+    d_ap = torch.mean(torch.sum(torch.square(a - p), -1))
+    d_an = torch.mean(torch.sum(torch.square(a - n), -1))
+    return loss, {"d_ap": d_ap, "d_an": d_an}

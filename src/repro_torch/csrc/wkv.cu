@@ -1,9 +1,15 @@
-// Gated delta-rule recurrence (RWKV-7 core of the Stage-1 encoder), forward.
+// Gated delta-rule recurrence (RWKV-7 core of the Stage-1 encoder), forward
+// and backward.
 //
-// Replaces the TPU kernel src/repro/kernels/wkv/wkv.py::_wkv_kernel (reached
-// through wkv_pallas and ops.py::wkv_chunked). Per (batch, head), with the
-// state S (dh x dh, S[k_dim][v_dim]) carried from token to token:
+// The forward replaces the TPU kernel src/repro/kernels/wkv/wkv.py::
+// _wkv_kernel (reached through wkv_pallas and ops.py::wkv_chunked). Per
+// (batch, head), with the state S (dh x dh, S[k_dim][v_dim]) carried from
+// token to token:
 //     S <- diag(w_t) S;  S <- S + beta_t k_t (v_t - S^T k_t)^T;  y_t = S^T r_t
+// For training it also writes S_{t-1} of every token (`states`), which the
+// backward reads; the instance without it is the serving path's.
+// The backward (namespace bwd, below the forward) has no TPU twin: the JAX
+// package differentiates the lax.scan of repro/models/rwkv.py::wkv_scan_ref.
 //
 // What bounds it on the H100: per encoder layer at the default shapes
 // (B = 256, S = 128, H = 6, dh = 64) it must move 0.28 GB and do 5.6 GFLOP
@@ -86,12 +92,42 @@ __device__ __forceinline__ void stage_chunk(float* buf, const float* w, const fl
                   beta + beta_base + static_cast<size_t>(t0 + t) * beta_stride);
 }
 
-template <int DHP, int RG, int MINB>
+// Writes a thread's tile of the state (rows 4 (rg + RG q) + e, columns
+// col .. col + kCols - 1) into the row-major dh x dh matrix at dst.
+template <int RG, int kRows>
+__device__ __forceinline__ void store_tile(float* dst, const float (&st)[kRows][kCols], int rg,
+                                           int col, int dh, int vec) {
+#pragma unroll
+  for (int q = 0; q < kRows / 4; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * (rg + RG * q) + e;
+      if (i >= dh) continue;
+#pragma unroll
+      for (int c4 = 0; c4 < kCols / 4; ++c4) {
+        const int cc = col + 4 * c4;
+        if (cc >= dh) break;
+        const float* x = &st[4 * q + e][4 * c4];
+        float* row = dst + static_cast<size_t>(i) * dh + cc;
+        if (vec) {
+          *reinterpret_cast<float4*>(row) = make_float4(x[0], x[1], x[2], x[3]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (cc + j < dh) row[j] = x[j];
+        }
+      }
+    }
+}
+
+// SAVE: also write S_{t-1} of token t to states (B, S, H, dh, dh).
+template <int DHP, int RG, int MINB, bool SAVE>
 __global__ void __launch_bounds__(Shape<DHP, RG>::kThreads, MINB)
 wkv_forward_kernel(const float* __restrict__ r, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ w,
                    const float* __restrict__ beta, const float* __restrict__ s0,
-                   float* __restrict__ y, float* __restrict__ sf, int S, int H, int dh, int vec) {
+                   float* __restrict__ y, float* __restrict__ sf, float* __restrict__ states,
+                   int S, int H, int dh, int vec) {
   using Sh = Shape<DHP, RG>;
   constexpr int kRows = Sh::kRows;
   constexpr int kQ = kRows / 4;   // float4 row groups a thread
@@ -161,6 +197,11 @@ wkv_forward_kernel(const float* __restrict__ r, const float* __restrict__ k,
 
     const float* buf = stage[ch & 1];
     for (int c = 0; c < nt; ++c) {
+      if constexpr (SAVE)
+        store_tile<RG, kRows>(
+            states + (static_cast<size_t>(b) * S * H + static_cast<size_t>(t0 + c) * H + h) *
+                         dh * dh,
+            st, rg, col, dh, vec);
       const float4* sw4 = reinterpret_cast<const float4*>(buf + c * DHP);
       const float4* sk4 = reinterpret_cast<const float4*>(buf + (kChunk + c) * DHP);
       const float4* sr4 = reinterpret_cast<const float4*>(buf + (2 * kChunk + c) * DHP);
@@ -271,14 +312,19 @@ wkv_forward_kernel(const float* __restrict__ r, const float* __restrict__ k,
 template <int DHP, int RG, int MINB>
 struct Instance {
   static cudaError_t launch(const float* r, const float* k, const float* v, const float* w,
-                            const float* beta, const float* s0, float* y, float* sf, int B,
-                            int S, int H, int dh, int vec, cudaStream_t stream) {
-    wkv_forward_kernel<DHP, RG, MINB><<<B * H, Shape<DHP, RG>::kThreads, 0, stream>>>(
-        r, k, v, w, beta, s0, y, sf, S, H, dh, vec);
+                            const float* beta, const float* s0, float* y, float* sf,
+                            float* states, int B, int S, int H, int dh, int vec,
+                            cudaStream_t stream) {
+    if (states)
+      wkv_forward_kernel<DHP, RG, MINB, true><<<B * H, Shape<DHP, RG>::kThreads, 0, stream>>>(
+          r, k, v, w, beta, s0, y, sf, states, S, H, dh, vec);
+    else
+      wkv_forward_kernel<DHP, RG, MINB, false><<<B * H, Shape<DHP, RG>::kThreads, 0, stream>>>(
+          r, k, v, w, beta, s0, y, sf, nullptr, S, H, dh, vec);
     return cudaGetLastError();
   }
   static cudaError_t attributes(cudaFuncAttributes* a) {
-    return cudaFuncGetAttributes(a, wkv_forward_kernel<DHP, RG, MINB>);
+    return cudaFuncGetAttributes(a, wkv_forward_kernel<DHP, RG, MINB, false>);
   }
 };
 
@@ -292,21 +338,25 @@ using Dh128 = Instance<128, 8, 2>;
 }  // namespace
 
 // r, k, v, w, y: (B, S, H, dh); beta: (B, S, H); s0 (may be null: zero
-// state) and sf: (B, H, dh, dh). All fp32, contiguous. dh <= 128.
-// vec != 0: dh % 4 == 0 and r, k, v, w, y, s0, sf 16-byte aligned.
+// state) and sf: (B, H, dh, dh); states (null: not written): (B, S, H, dh,
+// dh), S_{t-1} of each token. All fp32, contiguous. dh <= 128.
+// vec != 0: dh % 4 == 0 and r, k, v, w, y, s0, sf, states 16-byte aligned.
 extern "C" int rt_wkv_forward(const float* r, const float* k, const float* v, const float* w,
-                              const float* beta, const float* s0, float* y, float* sf, int B,
-                              int S, int H, int dh, int vec, cudaStream_t stream) {
+                              const float* beta, const float* s0, float* y, float* sf,
+                              float* states, int B, int S, int H, int dh, int vec,
+                              cudaStream_t stream) {
   if (B * H == 0 || S == 0) return cudaSuccess;
   if (dh <= 0 || dh > 128) return cudaErrorInvalidValue;
-  if (dh <= 32) return Dh32::launch(r, k, v, w, beta, s0, y, sf, B, S, H, dh, vec, stream);
-  if (dh <= 64) return Dh64::launch(r, k, v, w, beta, s0, y, sf, B, S, H, dh, vec, stream);
-  return Dh128::launch(r, k, v, w, beta, s0, y, sf, B, S, H, dh, vec, stream);
+  if (dh <= 32)
+    return Dh32::launch(r, k, v, w, beta, s0, y, sf, states, B, S, H, dh, vec, stream);
+  if (dh <= 64)
+    return Dh64::launch(r, k, v, w, beta, s0, y, sf, states, B, S, H, dh, vec, stream);
+  return Dh128::launch(r, k, v, w, beta, s0, y, sf, states, B, S, H, dh, vec, stream);
 }
 
-// The kernel a launch at head dim dh takes: out = {registers a thread,
-// static shared bytes, dynamic shared bytes a block, local (spill) bytes a
-// thread}.
+// The serving kernel (no states) a launch at head dim dh takes: out =
+// {registers a thread, static shared bytes, dynamic shared bytes a block,
+// local (spill) bytes a thread}.
 extern "C" int rt_wkv_attributes(int dh, int* out) {
   if (dh <= 0 || dh > 128) return cudaErrorInvalidValue;
   cudaFuncAttributes a;
@@ -317,6 +367,364 @@ extern "C" int rt_wkv_attributes(int dh, int* out) {
   out[0] = a.numRegs;
   out[1] = static_cast<int>(a.sharedSizeBytes);
   out[2] = 0;
+  out[3] = static_cast<int>(a.localSizeBytes);
+  return cudaSuccess;
+}
+
+// ---------------------------------------------------------------- backward
+//
+// Reverse pass over the tokens, per (batch, head), from G = dL/dS_T
+// (dsf, or zeros) and S_{t-1} of every token as the forward wrote it:
+//     A = diag(w_t) S_{t-1};  delta = v_t - A^T k_t;  S_t = A + beta_t k_t delta^T
+//     G += r_t dy_t^T;  dr_t = S_t dy_t
+//     ddelta = beta_t G^T k_t;  dbeta_t = k_t^T G delta;  dv_t = ddelta
+//     dk_t = beta_t G delta - A ddelta
+//     dA = G - k_t ddelta^T;  dw_t[i] = sum_j dA[i][j] S_{t-1}[i][j];  G <- diag(w_t) dA
+// The last G is dL/dS_0.
+//
+// What bounds it on the H100: every token reads its saved state once (dh^2
+// floats), 0.81 GB per layer at B 64, S 128, H 6, dh 64, against about
+// 4.4 GFLOP of fp32 work (11 dh^2 a token and head), so the bytes bound it
+// (0.24 ms at 3.35 TB/s) if the serial chain of tokens keeps enough loads in
+// flight. The design:
+//   * one block per (batch, head); G in register tiles: a thread holds
+//     kRows rows (rows rg + RG m, so the RG row groups of a quarter warp
+//     read adjacent rows) of 4 value columns. kRows is 8 (4 at dh <= 32):
+//     G, the row partials and the column vectors stay under 128 registers,
+//     so dh 128 runs 512 threads a block instead of spilling;
+//   * S_{t-1}, w, k, r, v, dy and beta of a token are staged by cp.async
+//     into one of two shared slots while the other token is used (one
+//     commit group a token); state rows have a stride of dh_pad + 4 floats,
+//     so the 16-byte loads of a quarter warp hit distinct banks;
+//   * the two column sums (A^T k, G^T k) run in one pass over the tile and
+//     are summed over the row groups by shfl.xor; the three row sums (dr,
+//     dk, dw) and dbeta are summed over a warp's column groups by shfl.xor,
+//     then over the warps through shared memory in warp order;
+//   * no atomics: every output element has one writer and a fixed order of
+//     sums, so two launches give the same bits;
+//   * the model layout (B, S, H, dh) is read in place; rows and columns past
+//     dh are zero in the slots and in G and stay zero.
+// Sums run in another order than the plain version's: within atol 1e-4 +
+// rtol 1e-3.
+namespace bwd {
+
+constexpr int kCols = 4;  // value columns a thread
+
+// DHP: head dim padded (32, 64, 128); ROWS: rows of G a thread.
+template <int DHP, int ROWS>
+struct Shape {
+  static constexpr int kDHP = DHP;
+  static constexpr int kRows = ROWS;
+  static constexpr int kRG = DHP / ROWS;        // row groups (low lane bits)
+  static constexpr int kCG = DHP / kCols;       // column groups
+  static constexpr int kThreads = kRG * kCG;
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kStride = DHP + 4;       // a state row in shared, floats
+  static constexpr int kVecs = DHP * kStride;   // offset of w, k, r, v, dy rows
+  static constexpr int kSlot = kVecs + 5 * DHP + 4;  // + beta, 16-byte padded
+  // two slots, then the row partials [3][kWarps][DHP] and dbeta's [kWarps]
+  static constexpr int kFloats = 2 * kSlot + 3 * kWarps * DHP + kWarps;
+  static constexpr int kBytes = 4 * kFloats;
+  static_assert(32 % kRG == 0 && kThreads % 32 == 0 && kCG * kCols == DHP, "tile");
+};
+
+// Stages token t of the saved state and of w, k, r, v, dy, beta into slot.
+// Entries past dh are never written (they hold the zeros of the start).
+template <class Sh>
+__device__ __forceinline__ void stage_token(float* slot, const float* __restrict__ states,
+                                            const float* w, const float* k, const float* r,
+                                            const float* v, const float* dy,
+                                            const float* __restrict__ beta, size_t sbase,
+                                            size_t vbase, size_t bidx, int dh, int vec) {
+  if (vec) {
+    const int d4 = dh / 4;
+    for (int i = threadIdx.x; i < dh * d4; i += Sh::kThreads) {
+      const int row = i / d4;
+      const int c = 4 * (i - row * d4);
+      rt::cp_async16(slot + row * Sh::kStride + c, states + sbase + static_cast<size_t>(row) * dh + c);
+    }
+    for (int i = threadIdx.x; i < 5 * d4; i += Sh::kThreads) {
+      const int a = i / d4;
+      const int c = 4 * (i - a * d4);
+      const float* src = a == 0 ? w : a == 1 ? k : a == 2 ? r : a == 3 ? v : dy;
+      rt::cp_async16(slot + Sh::kVecs + a * Sh::kDHP + c, src + vbase + c);
+    }
+  } else {
+    for (int i = threadIdx.x; i < dh * dh; i += Sh::kThreads) {
+      const int row = i / dh;
+      const int c = i - row * dh;
+      rt::cp_async4(slot + row * Sh::kStride + c, states + sbase + i);
+    }
+    for (int i = threadIdx.x; i < 5 * dh; i += Sh::kThreads) {
+      const int a = i / dh;
+      const int c = i - a * dh;
+      const float* src = a == 0 ? w : a == 1 ? k : a == 2 ? r : a == 3 ? v : dy;
+      rt::cp_async4(slot + Sh::kVecs + a * Sh::kDHP + c, src + vbase + c);
+    }
+  }
+  if (threadIdx.x == 0) rt::cp_async4(slot + Sh::kVecs + 5 * Sh::kDHP, beta + bidx);
+}
+
+template <int DHP, int ROWS, int MINB>
+__global__ void __launch_bounds__(Shape<DHP, ROWS>::kThreads, MINB)
+wkv_backward_kernel(const float* __restrict__ r, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ w,
+                    const float* __restrict__ beta, const float* __restrict__ states,
+                    const float* __restrict__ dy, const float* __restrict__ dsf,
+                    float* __restrict__ dr, float* __restrict__ dk, float* __restrict__ dv,
+                    float* __restrict__ dw, float* __restrict__ dbeta, float* __restrict__ ds0,
+                    int S, int H, int dh, int vec) {
+  using Sh = Shape<DHP, ROWS>;
+  constexpr int R = ROWS;
+  constexpr int RG = Sh::kRG;
+  constexpr int W = Sh::kWarps;
+  extern __shared__ __align__(16) float smem[];
+  float* part = smem + 2 * Sh::kSlot;  // [3][W][DHP] row partials
+  float* bpart = part + 3 * W * DHP;   // [W] dbeta partials
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int tid = threadIdx.x;
+  const int rg = tid % RG;  // rows rg + RG m
+  const int col = kCols * (tid / RG);
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  // padding rows and columns of both slots stay zero
+  for (int i = tid; i < 2 * Sh::kSlot; i += Sh::kThreads) smem[i] = 0.f;
+
+  float g[R][kCols];  // G[rg + RG m][col + c]
+  const float* gp = dsf ? dsf + static_cast<size_t>(bh) * dh * dh : nullptr;
+#pragma unroll
+  for (int m = 0; m < R; ++m) {
+    const int i = rg + RG * m;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c)
+      g[m][c] = gp && i < dh && col + c < dh ? gp[static_cast<size_t>(i) * dh + col + c] : 0.f;
+  }
+
+  const size_t tok = static_cast<size_t>(H) * dh;  // (B, S, H, dh) token stride
+  const size_t vbase = (static_cast<size_t>(b) * S * H + h) * dh;
+  const size_t sbase = vbase * dh;                 // (B, S, H, dh, dh)
+  const size_t bbase = static_cast<size_t>(b) * S * H + h;
+
+  __syncthreads();  // the zeros land before any copy into the same words
+  stage_token<Sh>(smem, states, w, k, r, v, dy, beta, sbase + (S - 1) * tok * dh,
+                  vbase + (S - 1) * tok, bbase + static_cast<size_t>(S - 1) * H, dh, vec);
+  rt::cp_async_commit();
+
+  for (int n = 0; n < S; ++n) {
+    const int t = S - 1 - n;
+    if (n + 1 < S) {
+      // the other slot was released by the barrier that ended token t + 1
+      stage_token<Sh>(smem + ((n + 1) & 1) * Sh::kSlot, states, w, k, r, v, dy, beta,
+                      sbase + (t - 1) * tok * dh, vbase + (t - 1) * tok,
+                      bbase + static_cast<size_t>(t - 1) * H, dh, vec);
+      rt::cp_async_commit();
+      rt::cp_async_wait<1>();
+    } else {
+      rt::cp_async_wait<0>();
+    }
+    __syncthreads();  // token t has landed for every thread
+
+    const float* sl = smem + (n & 1) * Sh::kSlot;
+    const float* sw = sl + Sh::kVecs;
+    const float* sk = sw + DHP;
+    const float* sr = sk + DHP;
+    const float4 v4 = *reinterpret_cast<const float4*>(sr + DHP + col);
+    const float4 y4 = *reinterpret_cast<const float4*>(sr + 2 * DHP + col);
+    const float bt = sr[3 * DHP];
+    const float vv[kCols] = {v4.x, v4.y, v4.z, v4.w};
+    const float dyv[kCols] = {y4.x, y4.y, y4.z, y4.w};
+
+    // pass 1: G += r dy^T; the column sums (A^T k)_j and (G^T k)_j
+    float a[kCols], gk[kCols];
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) a[c] = gk[c] = 0.f;
+#pragma unroll
+    for (int m = 0; m < R; ++m) {
+      const int i = rg + RG * m;
+      const float wi = sw[i], ki = sk[i], ri = sr[i];
+      const float4 s4 = *reinterpret_cast<const float4*>(sl + i * Sh::kStride + col);
+      const float sp[kCols] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        a[c] = fmaf(sp[c] * wi, ki, a[c]);
+        g[m][c] = fmaf(ri, dyv[c], g[m][c]);
+        gk[c] = fmaf(g[m][c], ki, gk[c]);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < RG; off <<= 1)
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        a[c] += __shfl_xor_sync(0xffffffffu, a[c], off);
+        gk[c] += __shfl_xor_sync(0xffffffffu, gk[c], off);
+      }
+    float dl[kCols], dd[kCols];  // delta, ddelta
+    float pb = 0.f;              // dbeta partial (row group 0 only)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      dl[c] = vv[c] - a[c];
+      dd[c] = bt * gk[c];
+      pb = fmaf(dl[c], gk[c], pb);
+    }
+    if (rg != 0) pb = 0.f;
+
+    // pass 2: the row partials of dr, dk, dw; G <- diag(w) (G - k ddelta^T)
+    float pr[R], pk[R], pw[R];
+#pragma unroll
+    for (int m = 0; m < R; ++m) {
+      const int i = rg + RG * m;
+      const float wi = sw[i], ki = sk[i];
+      const float4 s4 = *reinterpret_cast<const float4*>(sl + i * Sh::kStride + col);
+      const float sp[kCols] = {s4.x, s4.y, s4.z, s4.w};
+      const float bk = bt * ki;
+      pr[m] = pk[m] = pw[m] = 0.f;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const float A = sp[c] * wi;
+        pr[m] = fmaf(fmaf(bk, dl[c], A), dyv[c], pr[m]);
+        pk[m] = fmaf(bt * g[m][c], dl[c], pk[m]);
+        pk[m] = fmaf(-A, dd[c], pk[m]);
+        const float dA = fmaf(-ki, dd[c], g[m][c]);
+        pw[m] = fmaf(dA, sp[c], pw[m]);
+        g[m][c] = wi * dA;
+      }
+    }
+    // over the warp's column groups (lanes rg + RG x)
+#pragma unroll
+    for (int off = RG; off < 32; off <<= 1) {
+#pragma unroll
+      for (int m = 0; m < R; ++m) {
+        pr[m] += __shfl_xor_sync(0xffffffffu, pr[m], off);
+        pk[m] += __shfl_xor_sync(0xffffffffu, pk[m], off);
+        pw[m] += __shfl_xor_sync(0xffffffffu, pw[m], off);
+      }
+      pb += __shfl_xor_sync(0xffffffffu, pb, off);
+    }
+    if (lane < RG) {
+#pragma unroll
+      for (int m = 0; m < R; ++m) {
+        const int i = rg + RG * m;
+        part[(0 * W + warp) * DHP + i] = pr[m];
+        part[(1 * W + warp) * DHP + i] = pk[m];
+        part[(2 * W + warp) * DHP + i] = pw[m];
+      }
+      if (lane == 0) bpart[warp] = pb;
+    }
+    if (rg == 0) {  // dv = ddelta
+      float* o = dv + vbase + t * tok;
+      if (vec && col < dh) {
+        *reinterpret_cast<float4*>(o + col) = make_float4(dd[0], dd[1], dd[2], dd[3]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < kCols; ++c)
+          if (col + c < dh) o[col + c] = dd[c];
+      }
+    }
+    __syncthreads();  // the partials are in; slot n & 1 is free for token t - 2
+
+    // over the warps, in warp order: dr, dk, dw of token t, then dbeta
+    for (int idx = tid; idx < 3 * DHP; idx += Sh::kThreads) {
+      const int which = idx / DHP;
+      const int i = idx - which * DHP;
+      if (i >= dh) continue;
+      float s = 0.f;
+#pragma unroll
+      for (int x = 0; x < W; ++x) s += part[(which * W + x) * DHP + i];
+      float* o = which == 0 ? dr : which == 1 ? dk : dw;
+      o[vbase + t * tok + i] = s;
+    }
+    if (tid == 0) {
+      float s = 0.f;
+#pragma unroll
+      for (int x = 0; x < W; ++x) s += bpart[x];
+      dbeta[bbase + static_cast<size_t>(t) * H] = s;
+    }
+  }
+
+  // dL/dS_0
+  float* o = ds0 + static_cast<size_t>(bh) * dh * dh;
+#pragma unroll
+  for (int m = 0; m < R; ++m) {
+    const int i = rg + RG * m;
+    if (i >= dh || col >= dh) continue;
+    float* row = o + static_cast<size_t>(i) * dh + col;
+    if (vec) {
+      *reinterpret_cast<float4*>(row) = make_float4(g[m][0], g[m][1], g[m][2], g[m][3]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < kCols; ++c)
+        if (col + c < dh) row[c] = g[m][c];
+    }
+  }
+}
+
+template <int DHP, int ROWS, int MINB>
+struct Instance {
+  using Sh = Shape<DHP, ROWS>;
+  static cudaError_t launch(const float* r, const float* k, const float* v, const float* w,
+                            const float* beta, const float* states, const float* dy,
+                            const float* dsf, float* dr, float* dk, float* dv, float* dw,
+                            float* dbeta, float* ds0, int B, int S, int H, int dh, int vec,
+                            cudaStream_t stream) {
+    const cudaError_t err = rt::allow_smem(wkv_backward_kernel<DHP, ROWS, MINB>, Sh::kBytes);
+    if (err != cudaSuccess) return err;
+    wkv_backward_kernel<DHP, ROWS, MINB><<<B * H, Sh::kThreads, Sh::kBytes, stream>>>(
+        r, k, v, w, beta, states, dy, dsf, dr, dk, dv, dw, dbeta, ds0, S, H, dh, vec);
+    return cudaGetLastError();
+  }
+  static cudaError_t attributes(cudaFuncAttributes* a) {
+    return cudaFuncGetAttributes(a, wkv_backward_kernel<DHP, ROWS, MINB>);
+  }
+};
+
+// dh <= 32: 64 threads (4 rows x 4 columns a thread); <= 64: 128 threads
+// (8 x 4); <= 128: 512 threads (8 x 4, 16 row groups).
+using Dh32 = Instance<32, 4, 8>;
+using Dh64 = Instance<64, 8, 4>;
+using Dh128 = Instance<128, 8, 1>;
+
+}  // namespace bwd
+
+// r, k, v, w, dy, dr, dk, dv, dw: (B, S, H, dh); beta, dbeta: (B, S, H);
+// states: (B, S, H, dh, dh) as rt_wkv_forward wrote it; dsf (may be null:
+// zeros) and ds0: (B, H, dh, dh). All fp32, contiguous; S >= 1, dh <= 128.
+// vec != 0: dh % 4 == 0 and every pointer but beta's and dbeta's 16-byte
+// aligned.
+extern "C" int rt_wkv_backward(const float* r, const float* k, const float* v, const float* w,
+                               const float* beta, const float* states, const float* dy,
+                               const float* dsf, float* dr, float* dk, float* dv, float* dw,
+                               float* dbeta, float* ds0, int B, int S, int H, int dh, int vec,
+                               cudaStream_t stream) {
+  if (B * H == 0) return cudaSuccess;
+  if (S <= 0 || dh <= 0 || dh > 128) return cudaErrorInvalidValue;
+  if (dh <= 32)
+    return bwd::Dh32::launch(r, k, v, w, beta, states, dy, dsf, dr, dk, dv, dw, dbeta, ds0, B,
+                             S, H, dh, vec, stream);
+  if (dh <= 64)
+    return bwd::Dh64::launch(r, k, v, w, beta, states, dy, dsf, dr, dk, dv, dw, dbeta, ds0, B,
+                             S, H, dh, vec, stream);
+  return bwd::Dh128::launch(r, k, v, w, beta, states, dy, dsf, dr, dk, dv, dw, dbeta, ds0, B, S,
+                            H, dh, vec, stream);
+}
+
+// The backward kernel a launch at head dim dh takes: out = {registers a
+// thread, static shared bytes, dynamic shared bytes a block, local (spill)
+// bytes a thread}.
+extern "C" int rt_wkv_backward_attributes(int dh, int* out) {
+  if (dh <= 0 || dh > 128) return cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t err = dh <= 32   ? bwd::Dh32::attributes(&a)
+                          : dh <= 64 ? bwd::Dh64::attributes(&a)
+                                     : bwd::Dh128::attributes(&a);
+  if (err != cudaSuccess) return err;
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.sharedSizeBytes);
+  out[2] = dh <= 32 ? bwd::Dh32::Sh::kBytes : dh <= 64 ? bwd::Dh64::Sh::kBytes
+                                                        : bwd::Dh128::Sh::kBytes;
   out[3] = static_cast<int>(a.localSizeBytes);
   return cudaSuccess;
 }

@@ -1,5 +1,6 @@
 # Hand-written CUDA kernels for the port's hot spots, one family each:
-#   wkv            — Stage-1 RWKV delta-rule recurrence (state in registers)
+#   wkv            — Stage-1 RWKV delta-rule recurrence, forward and backward
+#                    (state, and its gradient, in registers)
 #   set_attention  — fused masked, frequency-weighted set attention (SAB/PMA)
 #   kmeans_assign  — nearest-centroid assignment and the fused k-means step
 #   flash_attention — streaming-softmax GQA attention of the LM zoo's

@@ -37,7 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # (name, argument kinds) of every C entry point: "p" pointer or stream,
 # "i" int, "f" float. Each returns the cudaError_t of its launch.
 _ENTRY_POINTS = {
-    "rt_wkv_forward": "ppppppppiiiiip",
+    "rt_wkv_forward": "pppppppppiiiiip",
+    "rt_wkv_backward": "p" * 14 + "iiiiip",
     "rt_set_attention_forward": "ppppppiiiiiifp",
     "rt_set_attention_backward": "ppppppppppiiiiiifp",
     "rt_kmeans_assign": "ppiiiippp",
@@ -53,6 +54,7 @@ _ENTRY_POINTS = {
     "rt_set_attention_forward_attributes": "iiip",
     "rt_set_attention_backward_attributes": "iiip",
     "rt_wkv_attributes": "ip",
+    "rt_wkv_backward_attributes": "ip",
     "rt_kmeans_assign_attributes": "iip",
     "rt_kmeans_update_attributes": "iip",
 }

@@ -1,54 +1,80 @@
-"""Wrapper of the wkv kernel: dispatch by device, checks, launch count.
+"""Wrappers of the wkv kernels: dispatch by device, checks, launch counts,
+and the autograd Function that joins the forward and the backward.
 
 Replaces `repro.kernels.wkv.ops.wkv_chunked`. Takes the model layout
-(B,S,H,dh) as it is; the CUDA kernel reads it in place. There is no
-chunk argument: the kernel takes any sequence length."""
+(B,S,H,dh) as it is; the CUDA kernels read it in place. There is no
+chunk argument: the kernels take any sequence length.
+
+`wkv` is differentiable on both devices: when a gradient is wanted it
+runs through `_WKV`, whose forward also keeps S_{t-1} of every token
+(the kernel writes them on CUDA) and whose backward is
+`wkv_backward`: the backward kernel on CUDA tensors, the plain reverse
+loop on CPU tensors. Without a gradient to take (serving,
+`torch.no_grad`) the forward runs alone and saves nothing."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import _lib
-from repro_torch.kernels.wkv.ref import wkv_reference
+from repro_torch.kernels.wkv.ref import wkv_backward_reference, wkv_reference
 
 MAX_HEAD_DIM = 128
 CHUNK = 8        # tokens a shared-memory stage of the kernel (two stages)
 
 
-def kernel_plan(dh: int) -> dict:
-    """The kernel instance that takes head dim dh, as `csrc/wkv.cu`
-    chooses it: head dim padded to 32, 64 or 128, threads a block (4 value
-    columns and `rows` rows of the state a thread), row groups summed by
-    shuffles, and static shared bytes (two stages of w, k, r, v rows and
-    beta). Raises for a head dim the kernel does not take."""
+def _padded(dh: int) -> int:
     if not 0 < dh <= MAX_HEAD_DIM:
         raise ValueError(f"wkv: head dim {dh} outside 1..{MAX_HEAD_DIM}")
-    padded, groups = (32, 4) if dh <= 32 else (64, 4) if dh <= 64 else (128, 8)
+    return 32 if dh <= 32 else 64 if dh <= 64 else 128
+
+
+def kernel_plan(dh: int) -> dict:
+    """The forward kernel instance that takes head dim dh, as
+    `csrc/wkv.cu` chooses it: head dim padded to 32, 64 or 128, threads a
+    block (4 value columns and `rows` rows of the state a thread), row
+    groups summed by shuffles, and static shared bytes (two stages of w,
+    k, r, v rows and beta). Raises for a head dim the kernel does not
+    take."""
+    padded = _padded(dh)
+    groups = 4 if padded <= 64 else 8
     return dict(padded=padded, row_groups=groups, rows=padded // groups,
                 threads=groups * padded // 4,
                 shared_bytes=4 * 2 * (4 * CHUNK * padded + CHUNK))
 
 
-def wkv(r, k, v, w, beta, state: Optional[torch.Tensor] = None):
-    """Delta-rule recurrence over a sequence, state chained in and out.
+def backward_plan(dh: int) -> dict:
+    """The backward kernel instance that takes head dim dh, as
+    `csrc/wkv.cu` (namespace bwd) chooses it: head dim padded, `rows` rows
+    of G a thread in `row_groups` groups, threads a block, and dynamic
+    shared bytes (two token slots of the saved state, rows of stride
+    padded + 4, and w, k, r, v, dy, beta; then the row partials of each
+    warp)."""
+    padded = _padded(dh)
+    rows = 4 if padded == 32 else 8
+    groups = padded // rows
+    threads = groups * padded // 4
+    warps = threads // 32
+    slot = padded * (padded + 4) + 5 * padded + 4
+    return dict(padded=padded, rows=rows, row_groups=groups, threads=threads,
+                shared_bytes=4 * (2 * slot + 3 * warps * padded + warps))
 
-    r,k,v,w: (B,S,H,dh); beta: (B,S,H); state: (B,H,dh,dh) or None
-    (zeros). Returns (y (B,S,H,dh) fp32, final_state (B,H,dh,dh) fp32).
-    CPU tensors take the plain version; CUDA tensors (fp32, contiguous,
-    dh <= 128) launch the kernel (`kernel_plan`), with 16-byte loads and
-    stores when every row is 16-byte aligned. The kernel has no backward,
-    as its JAX twin `wkv_pallas` has no VJP: on CUDA, an input that
-    requires a gradient (with grad mode on) raises rather than give a
-    result that autograd would silently treat as a constant."""
+
+def _aligned(*tensors) -> bool:
+    """True when every given tensor's data is 16-byte aligned (fresh
+    outputs always are); with dh % 4 == 0 every row then is too."""
+    return not any(t.data_ptr() % 16 for t in tensors if t is not None)
+
+
+def _forward(r, k, v, w, beta, state, save: bool):
+    """(y, final state, S_{t-1} of every token (B,S,H,dh,dh) or None).
+    The states are written only when `save` and only by the kernel; the
+    plain backward recomputes them."""
     inputs = (r, k, v, w, beta, state)
     if _lib.device_kind(*inputs) == "cpu":
-        return wkv_reference(*inputs)
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in inputs):
-        raise RuntimeError("wkv: the CUDA kernel has no gradient; run it "
-                           "under torch.no_grad() or torch.inference_mode()"
-                           " or on inputs that do not require grad")
+        return (*wkv_reference(*inputs), None)
     B, S, H, dh = r.shape
     for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
         _lib.require(t, name, (B, S, H, dh))
@@ -60,19 +86,103 @@ def wkv(r, k, v, w, beta, state: Optional[torch.Tensor] = None):
     if S == 0:
         sf = (torch.zeros((B, H, dh, dh), dtype=torch.float32,
                           device=r.device) if state is None else state.clone())
-        return y, sf
+        return y, sf, (torch.empty((B, 0, H, dh, dh), dtype=torch.float32,
+                                   device=r.device) if save else None)
     sf = torch.empty((B, H, dh, dh), dtype=torch.float32, device=r.device)
+    states = (torch.empty((B, S, H, dh, dh), dtype=torch.float32,
+                          device=r.device) if save else None)
     # contiguous inputs, fresh outputs: rows are 16-byte aligned when the
     # inputs' data is and a row is whole float4s
-    vec = dh % 4 == 0 and not any(
-        t.data_ptr() % 16 for t in (r, k, v, w, state) if t is not None)
+    vec = dh % 4 == 0 and _aligned(r, k, v, w, state)
     lib = _lib.load_library()
     rc = lib.rt_wkv_forward(_lib.ptr(r), _lib.ptr(k), _lib.ptr(v), _lib.ptr(w),
                             _lib.ptr(beta), _lib.ptr(state), _lib.ptr(y),
-                            _lib.ptr(sf), B, S, H, dh, int(vec), _lib.stream())
+                            _lib.ptr(sf), _lib.ptr(states), B, S, H, dh,
+                            int(vec), _lib.stream())
     _lib.check(rc, "wkv")
     wkv.launches += 1
-    return y, sf
+    return y, sf, states
+
+
+def wkv_backward(r, k, v, w, beta, state, states, dy,
+                 dstate_final: Optional[torch.Tensor] = None):
+    """Cotangents of `wkv(r, k, v, w, beta, state)` for the output
+    cotangents dy (B,S,H,dh) and dstate_final (B,H,dh,dh) or None (zeros).
+    Returns (dr, dk, dv, dw, dbeta, dstate), all fp32.
+
+    CPU tensors take the plain reverse loop (`wkv_backward_reference`,
+    which recomputes the states from `state`); CUDA tensors (fp32,
+    contiguous, dh <= 128) launch the backward kernel (`backward_plan`)
+    on `states`, S_{t-1} of every token as the forward kernel wrote them,
+    with 16-byte loads and stores when every row is 16-byte aligned."""
+    if _lib.device_kind(r, k, v, w, beta, state, states, dy,
+                        dstate_final) == "cpu":
+        return wkv_backward_reference(r, k, v, w, beta, state, dy,
+                                      dstate_final)
+    B, S, H, dh = r.shape
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("dy", dy)):
+        _lib.require(t, name, (B, S, H, dh))
+    _lib.require(beta, "beta", (B, S, H))
+    _lib.require(states, "states", (B, S, H, dh, dh))
+    for name, t in (("state", state), ("dstate_final", dstate_final)):
+        if t is not None:
+            _lib.require(t, name, (B, H, dh, dh))
+    backward_plan(dh)
+    grads = [torch.empty_like(t) for t in (r, k, v, w, beta)]
+    ds0 = torch.empty((B, H, dh, dh), dtype=torch.float32, device=r.device)
+    if S == 0:
+        if dstate_final is None:
+            ds0.zero_()
+        else:
+            ds0.copy_(dstate_final)
+        return (*grads, ds0)
+    vec = dh % 4 == 0 and _aligned(r, k, v, w, states, dy, dstate_final)
+    lib = _lib.load_library()
+    rc = lib.rt_wkv_backward(
+        _lib.ptr(r), _lib.ptr(k), _lib.ptr(v), _lib.ptr(w), _lib.ptr(beta),
+        _lib.ptr(states), _lib.ptr(dy), _lib.ptr(dstate_final),
+        *map(_lib.ptr, grads), _lib.ptr(ds0), B, S, H, dh, int(vec),
+        _lib.stream())
+    _lib.check(rc, "wkv_backward")
+    wkv_backward.launches += 1
+    return (*grads, ds0)
+
+
+class _WKV(torch.autograd.Function):
+    """Forward kernel (or plain forward) with the backward kernel (or
+    plain backward) as its gradient. Saves the inputs and, on CUDA, the
+    states S_{t-1} of every token (B·S·H·dh² fp32)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, beta, state):
+        y, sf, states = _forward(r, k, v, w, beta, state, save=True)
+        ctx.save_for_backward(r, k, v, w, beta, state, states)
+        return y, sf
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy, dsf):
+        r, k, v, w, beta, state, states = ctx.saved_tensors
+        *grads, ds = wkv_backward(r, k, v, w, beta, state, states,
+                                  dy.contiguous(), dsf.contiguous())
+        return (*grads, ds if ctx.needs_input_grad[5] else None)
+
+
+def wkv(r, k, v, w, beta, state: Optional[torch.Tensor] = None):
+    """Delta-rule recurrence over a sequence, state chained in and out.
+
+    r,k,v,w: (B,S,H,dh); beta: (B,S,H); state: (B,H,dh,dh) or None
+    (zeros). Returns (y (B,S,H,dh) fp32, final_state (B,H,dh,dh) fp32).
+    CPU tensors take the plain version; CUDA tensors (fp32, contiguous,
+    dh <= 128) launch the kernel (`kernel_plan`), with 16-byte loads and
+    stores when every row is 16-byte aligned. Differentiable in every
+    input through `_WKV` when grad mode is on and one requires grad."""
+    inputs = (r, k, v, w, beta, state)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in inputs):
+        return _WKV.apply(*inputs)
+    return _forward(*inputs, save=False)[:2]
 
 
 wkv.launches = 0
+wkv_backward.launches = 0

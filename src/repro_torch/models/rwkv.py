@@ -10,7 +10,8 @@ Channel-mix: token-shifted squared-ReLU FFN.
 Port of `repro.models.rwkv` (forward over whole sequences; the one-token
 decode path is for a later slice). Unlike the JAX encoder, whose Stage-1
 path always takes the `lax.scan` oracle, the time-mix here always goes
-through the wkv wrapper: the plain version on the CPU, the kernel on CUDA.
+through the wkv wrapper: the plain version on the CPU, the kernel on CUDA,
+forward and (when a gradient is wanted) backward.
 """
 from __future__ import annotations
 

@@ -202,6 +202,16 @@ def _flatten(tree: Any, prefix: str = "") -> Dict[str, Any]:
     return {prefix[:-1]: tree}
 
 
+def unflatten_like(flat: Dict[str, Any], like: Any, prefix: str = "") -> Any:
+    """The nested dicts of `like`, each leaf taken from `flat` by its
+    "/"-joined key: the inverse of `_flatten` for a tree shaped as
+    `like`."""
+    if isinstance(like, dict):
+        return {k: unflatten_like(flat, v, f"{prefix}{k}/")
+                for k, v in like.items()}
+    return flat[prefix[:-1]]
+
+
 def _to_numpy(leaf: Any) -> Tuple[np.ndarray, str]:
     """(array as stored, dtype name for the manifest)."""
     if isinstance(leaf, torch.Tensor):

@@ -73,7 +73,10 @@ class Trainer:
         for i in range(mb):
             part = _split(batch, mb, i) if mb > 1 else batch
             l_i, m_i = self.loss_fn(self.model, part)
-            g_i = torch.autograd.grad(l_i, leaves)
+            # a parameter the loss does not reach (the pooling head in
+            # pre-training) gets zeros, as under jax.grad
+            g_i = torch.autograd.grad(l_i, leaves, allow_unused=True,
+                                      materialize_grads=True)
             l_i, m_i = l_i.detach(), {k: v.detach() for k, v in m_i.items()}
             if grads is None:
                 loss, metrics, grads = l_i, m_i, list(g_i)
@@ -131,10 +134,17 @@ class Trainer:
 
         signal.signal(signal.SIGTERM, handler)
 
+    def _live_tree(self) -> Dict[str, Any]:
+        return {"params": self.state.params, "opt": self.state.opt_state}
+
     def checkpoint_tree(self) -> Dict[str, Any]:
         """{"params": ..., "opt": ...}: what a checkpoint holds, keyed as
-        the JAX Trainer's tree."""
-        return {"params": self.state.params, "opt": self.state.opt_state}
+        the JAX Trainer's tree. A model with a `pack_checkpoint` hook (the
+        Stage-1 encoder, whose JAX tree stacks its layers) lays out the
+        flattened tree itself."""
+        pack = getattr(self.model, "pack_checkpoint", None)
+        tree = self._live_tree()
+        return tree if pack is None else pack(ckpt._flatten(tree))
 
     def maybe_checkpoint(self, force: bool = False) -> Optional[str]:
         cfg = self.cfg
@@ -154,6 +164,11 @@ class Trainer:
         """Restores params, optimizer state and step from the checkpoint
         at `path` (written by either package). Returns the step."""
         tree, step, _ = ckpt.restore_checkpoint(path, self.checkpoint_tree())
+        unpack = getattr(self.model, "unpack_checkpoint", None)
+        if unpack is not None:
+            live = self._live_tree()
+            tree = ckpt.unflatten_like(unpack(tree, ckpt._flatten(live)),
+                                       live)
         with torch.no_grad():
             for name, p in self.state.params.items():
                 p.copy_(tree["params"][name])

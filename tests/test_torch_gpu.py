@@ -172,21 +172,93 @@ def test_set_attention_autograd_runs_the_backward_kernel(cuda):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3, msg=name)
 
 
-def test_wkv_raises_on_an_input_that_requires_grad(cuda):
-    g = _gen(cuda, 1)
-    B, S, H, dh = 1, 8, 2, 16
+@pytest.mark.parametrize("B,S,H,dh,state", [(4, 128, 6, 64, True),
+                                            (2, 1, 3, 64, True),
+                                            (3, 13, 2, 48, False),
+                                            (2, 37, 2, 16, True),
+                                            (2, 9, 2, 128, True),
+                                            (2, 17, 2, 7, True)])
+def test_wkv_grads_match_plain(cuda, B, S, H, dh, state):
+    """With inputs that require grad, wkv launches the forward kernel
+    (writing the states) and, in the backward, the backward kernel: every
+    gradient within the plain backward's bound, the forward's y bitwise
+    the serving kernel's, two backward launches bitwise equal."""
+    from repro_torch.kernels.wkv import wkv_backward, wkv_backward_reference
+    g = _gen(cuda, S + dh)
     r, k, v = (torch.randn((B, S, H, dh), generator=g, device=cuda)
                for _ in range(3))
-    w = torch.rand((B, S, H, dh), generator=g, device=cuda)
+    k = k / k.norm(dim=-1, keepdim=True)
+    w = 0.7 + 0.3 * torch.rand((B, S, H, dh), generator=g, device=cuda)
     beta = torch.rand((B, S, H), generator=g, device=cuda)
-    r.requires_grad_(True)
-    before = wkv.launches
-    with pytest.raises(RuntimeError, match="no gradient"):
-        wkv(r, k, v, w, beta)
-    assert wkv.launches == before
+    s0 = (0.1 * torch.randn((B, H, dh, dh), generator=g, device=cuda)
+          if state else None)
+    dy = torch.randn((B, S, H, dh), generator=g, device=cuda)
+    dsf = torch.randn((B, H, dh, dh), generator=g, device=cuda)
+    leaves = [t.clone().requires_grad_(True) for t in (r, k, v, w, beta)]
+    if state:
+        leaves.append(s0.clone().requires_grad_(True))
+    before = wkv.launches, wkv_backward.launches
+    y, sf = wkv(*leaves[:5], leaves[5] if state else None)
+    grads = torch.autograd.grad((y * dy).sum() + (sf * dsf).sum(), leaves)
+    torch.cuda.synchronize()
+    assert (wkv.launches, wkv_backward.launches) == (before[0] + 1,
+                                                     before[1] + 1)
     with torch.no_grad():
-        y, _ = wkv(r, k, v, w, beta)
-    assert wkv.launches == before + 1 and torch.isfinite(y).all()
+        y_serve, _ = wkv(r, k, v, w, beta, s0)
+    assert torch.equal(y.detach(), y_serve)
+    want = wkv_backward_reference(r, k, v, w, beta, s0, dy, dsf)
+    for name, a, b in zip(("dr", "dk", "dv", "dw", "dbeta", "dstate"),
+                          grads, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3, msg=name)
+    again = torch.autograd.grad(
+        sum((o * c).sum() for o, c in zip(
+            wkv(*leaves[:5], leaves[5] if state else None), (dy, dsf))),
+        leaves)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+def test_cuda_stage1_grads_match_cpu(cuda, tmp_path):
+    """Stage-1 pre-training and triplet gradients on the card (both wkv
+    kernels) equal the CPU's (plain versions) on every parameter; then a
+    CUDA Trainer takes a pre-training step through the kernels."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.core.bbe import (
+        BBEConfig, BBEEncoder, finetune_triplet_loss, pretrain_loss,
+    )
+    from repro_torch.data.corpus import SyntheticBinaryCorp
+    from repro_torch.kernels.wkv import wkv_backward
+    from repro_torch.train import Trainer
+    cfg = BBEConfig(dim_embeds=(48, 8, 8, 8, 8, 8), num_layers=2,
+                    num_heads=2, bbe_dim=32, max_len=64)
+    corp = SyntheticBinaryCorp(n_functions=40, max_len=cfg.max_len)
+    batches = {"pretrain": {"tokens": corp.pretrain_batch(0, 4)["tokens"]},
+               "triplet": corp.triplet_batch(0, 3)}
+    for what, loss_fn in (("pretrain", pretrain_loss),
+                          ("triplet", finetune_triplet_loss)):
+        grads = {}
+        for dev in ("cpu", cuda):
+            model = BBEEncoder(cfg, seed=1).to(dev)
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in batches[what].items()}
+            loss, _ = loss_fn(model, batch)
+            named = dict(model.named_parameters())
+            gs = torch.autograd.grad(loss, list(named.values()),
+                                     allow_unused=True,
+                                     materialize_grads=True)
+            grads[str(dev)] = {n: x.cpu() for n, x in zip(named, gs)}
+        for n, want in grads["cpu"].items():
+            torch.testing.assert_close(grads["cuda"][n], want, atol=1e-4,
+                                       rtol=1e-3, msg=f"{what} {n}")
+    tr = Trainer(pretrain_loss, BBEEncoder(cfg, seed=1).to(cuda),
+                 TrainConfig(learning_rate=2e-3, total_steps=2,
+                             warmup_steps=1, checkpoint_every=0,
+                             checkpoint_dir=str(tmp_path)))
+    before = wkv.launches, wkv_backward.launches
+    m = tr.step({"tokens": torch.from_numpy(
+        batches["pretrain"]["tokens"]).to(cuda)})
+    assert np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+    assert (wkv.launches - before[0], wkv_backward.launches - before[1]) \
+        == (cfg.num_layers, cfg.num_layers)
 
 
 def test_cuda_stage2_grads_match_cpu(cuda, tmp_path):

@@ -208,6 +208,136 @@ def test_wkv_tile_model_matches_plain_and_jax(B, S, H, dh):
                                    rtol=1e-3)
 
 
+@pytest.mark.parametrize("dh,padded,rows,groups,threads,shared", [
+    (1, 32, 4, 8, 64, 4 * (2 * (32 * 36 + 164) + 3 * 2 * 32 + 2)),
+    (48, 64, 8, 8, 128, 40496), (64, 64, 8, 8, 128, 40496),
+    (100, 128, 8, 16, 512, 164960)])
+def test_wkv_backward_plan(dh, padded, rows, groups, threads, shared):
+    from repro_torch.kernels.wkv.ops import backward_plan
+    assert backward_plan(dh) == dict(padded=padded, rows=rows,
+                                     row_groups=groups, threads=threads,
+                                     shared_bytes=shared)
+
+
+def _wkv_bwd_tile_model(r, k, v, w, beta, s0, dy, dsf):
+    """numpy fp32 model of the wkv backward kernel's arithmetic order
+    (csrc/wkv.cu, namespace bwd): everything zero-padded to the plan's
+    head dim; a thread holds rows g + G m (g its row group) of 4 columns;
+    per token, in reverse, the column sums (A^T k)_j and (G^T k)_j over a
+    group's rows in order, the butterfly over the G groups, then per row
+    the sums over the thread's 4 columns, the butterfly over the column
+    groups of a warp and the sum over the warps in order. S_{t-1} comes
+    from the plain forward (the forward kernel writes it)."""
+    from repro_torch.kernels.wkv.ops import backward_plan
+    B, S, H, dh = r.shape
+    plan = backward_plan(dh)
+    P, R, G = plan["padded"], plan["rows"], plan["row_groups"]
+    per_warp = 32 // G                   # column groups a warp
+    warps = plan["threads"] // 32
+
+    def pad(a):
+        return np.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, P - a.shape[-1])])
+
+    def pad2(a):
+        out = np.zeros(a.shape[:-2] + (P, P), np.float32)
+        out[..., :dh, :dh] = a
+        return out
+    r_, k_, v_, w_, dy_ = map(pad, (r, k, v, w, dy))
+    prev, st = [], np.zeros((B, H, P, P), np.float32)
+    if s0 is not None:
+        st = pad2(s0)
+    for t in range(S):                   # S_{t-1} of every token
+        prev.append(st)
+        a = st * w_[:, t][..., :, None]
+        delta = v_[:, t] - np.einsum("bhkv,bhk->bhv", a, k_[:, t])
+        st = (a + beta[:, t][..., None, None]
+              * (k_[:, t][..., :, None] * delta[..., None, :])
+              ).astype(np.float32)
+
+    def over_columns(parts):
+        """(..., P, column groups) thread partials -> the kernel's sum:
+        butterfly within a warp, then the warps in order."""
+        total = np.zeros(parts.shape[:-1], np.float32)
+        for wp in range(warps):
+            total = total + _butterfly([parts[..., wp * per_warp + x]
+                                        for x in range(per_warp)])
+        return total
+
+    g = np.zeros((B, H, P, P), np.float32) if dsf is None else pad2(dsf)
+    out = [np.zeros((B, S, H, P), np.float32) for _ in range(4)]
+    dbeta = np.zeros((B, S, H), np.float32)
+    for t in reversed(range(S)):
+        sp, wt, kt, rt, vt, dyt = (prev[t], w_[:, t], k_[:, t], r_[:, t],
+                                   v_[:, t], dy_[:, t])
+        bt = beta[:, t][..., None]
+        a_parts, gk_parts = [], []
+        for grp in range(G):
+            a = np.zeros((B, H, P), np.float32)
+            gk = np.zeros((B, H, P), np.float32)
+            for m in range(R):
+                i = grp + G * m
+                wi, ki = wt[..., i, None], kt[..., i, None]
+                a = _fma32(sp[:, :, i] * wi, ki, a)
+                g[:, :, i] = _fma32(rt[..., i, None], dyt, g[:, :, i])
+                gk = _fma32(g[:, :, i], ki, gk)
+            a_parts.append(a)
+            gk_parts.append(gk)
+        a, gk = _butterfly(a_parts), _butterfly(gk_parts)
+        dl, dd = vt - a, bt * gk
+        pb = np.zeros((B, H, P // 4), np.float32)
+        for c in range(4):
+            pb = _fma32(dl[..., c::4], gk[..., c::4], pb)
+        ncg = P // 4
+        pr, pk, pw = (np.zeros((B, H, P, ncg), np.float32) for _ in range(3))
+        A = sp * wt[..., :, None]
+        bk = bt * kt
+        for c in range(4):
+            cols = slice(c, P, 4)
+            Ac, gc = A[..., cols], g[..., cols]
+            pr = _fma32(_fma32(bk[..., :, None], dl[..., None, cols], Ac),
+                        dyt[..., None, cols], pr)
+            pk = _fma32(bt[..., None] * gc, dl[..., None, cols], pk)
+            pk = _fma32(-Ac, dd[..., None, cols], pk)
+            dA = _fma32(-kt[..., :, None], dd[..., None, cols], gc)
+            pw = _fma32(dA, sp[..., cols], pw)
+            g[..., cols] = wt[..., :, None] * dA
+        for o, p in zip(out, (pr, pk, None, pw)):
+            if p is not None:
+                o[:, t] = over_columns(p)
+        out[2][:, t] = dd
+        dbeta[:, t] = over_columns(pb[..., None, :])[..., 0]
+    dr, dk, dv, dw = (o[..., :dh] for o in out)
+    return dr, dk, dv, dw, dbeta, g[:, :, :dh, :dh]
+
+
+@pytest.mark.parametrize("B,S,H,dh", [(1, 5, 1, 8), (2, 13, 2, 44),
+                                      (1, 9, 2, 64), (1, 4, 1, 100),
+                                      (2, 1, 2, 16)])
+def test_wkv_backward_tile_model_matches_plain_and_jax(B, S, H, dh):
+    """The backward kernel's tiling and summation order, modelled in
+    numpy, against the plain reverse loop and `jax.grad` of the JAX
+    package's scan oracle, with a state in and a final-state gradient."""
+    import jax
+    from repro_torch.kernels.wkv import wkv_backward_reference
+    rng = np.random.RandomState(dh + 7 * S)
+    args = _wkv_inputs(rng, B, S, H, dh, "float32")
+    s0 = (0.1 * rng.randn(B, H, dh, dh)).astype(np.float32)
+    dy = rng.randn(B, S, H, dh).astype(np.float32)
+    dsf = rng.randn(B, H, dh, dh).astype(np.float32)
+    got = _wkv_bwd_tile_model(*args, s0, dy, dsf)
+    plain = wkv_backward_reference(*map(_t, args), _t(s0), _t(dy), _t(dsf))
+
+    def f(*xs):
+        y, sf = jax_wkv_ref(*xs[:5], state=xs[5])
+        return jnp.sum(y * dy) + jnp.sum(sf * dsf)
+    jgrads = jax.grad(f, range(6))(*map(jnp.asarray, (*args, s0)))
+    for name, m, p, j in zip(("dr", "dk", "dv", "dw", "dbeta", "dstate"),
+                             got, plain, jgrads):
+        for want in (p.numpy(), np.asarray(j)):
+            np.testing.assert_allclose(m, want, atol=1e-4, rtol=1e-3,
+                                       err_msg=name)
+
+
 # ---------------------------------------------------------------------------
 # set attention
 # ---------------------------------------------------------------------------
