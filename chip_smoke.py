@@ -69,13 +69,29 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
      16 greedy tokens; (c) bf16 on the card: `Model.prefill` of 8 x 2048
      tokens (30 flash launches a call), then a ServeEngine with 8 slots
      answering 24 requests twice with the same tokens; the cyclic
-     collector runs before each peak-memory reading.
+     collector runs before each peak-memory reading;
+  7. the zoo's recurrent archs (seeded untrained weights): (a) wkv at the
+     encoder's decode shape (B 8, S 1, H 6, dh 64, the state a view of a
+     stacked cache) and at its prefill of 8 x 2048 tokens, against its
+     plain version, timed beside its bound; (b) semanticbbv-encoder at
+     full width and depth (fp32): prefill and 4 decode steps on the CPU
+     against the card (12 wkv launches a call), then `Model.prefill` of 8
+     x 2048 tokens and a ServeEngine (8 slots, max_seq 1024) answering 24
+     requests of 16-256 prompt tokens, 64 new each, twice with the same
+     tokens, exactly 12 wkv launches a prefill call and a decode step;
+     (c) xlstm-1.3b at full width and depth (bf16): prefill of 4 x 2048
+     tokens, a ServeEngine (8 slots, max_seq 512) answering 16 requests of
+     16-128 prompt tokens, 32 new each, twice with the same tokens; then
+     one period of it (8 layers) in fp32 on the CPU against the card, and
+     one mLSTM layer's token scan; (d) one Mamba mixer at jamba-1.5-large's
+     width (fp32), prefill and 4 decode steps, CPU against the card.
 The line before the last is the JSON kernel summary: `launches` counts
 each kernel on its own path (serving; training for the set-attention
 backward; Stage-1 training for the wkv backward; the zoo for flash),
 `launches_by_path` on each path that launched it (serve, lifecycle,
-simpoint, train, stage1_training, zoo); the launches of comparisons and
-witness runs count on none. The last line is {"ok": true, "device": {...}}.
+simpoint, train, stage1_training, zoo, zoo_recurrent); the launches of
+comparisons and witness runs count on none. wkv's entry also carries
+`zoo_shapes`, phase 7a's numbers at the decode and prefill shapes. The last line is {"ok": true, "device": {...}}.
 Exits non-zero without CUDA.
 
     python3 chip_smoke.py --versus OTHER_CHECKOUT
@@ -141,6 +157,14 @@ FLASH_CASES = [   # (B, S, T, H, K, D, causal, window, fp32); the first timed
     (2, 1000, 1000, 8, 2, 80, True, 0, False),     # D 80: padded to 128
 ]
 FLASH_VIEW_SHAPE = (4, 1024, 9, 3, 64)   # (B, S, H, K, D) of the views
+ENCODER_ARCH, XLSTM_ARCH = "semanticbbv_encoder", "xlstm_1_3b"   # phase 7
+WKV_DECODE_SHAPE = (8, 1, 6, 64)       # (B, S, H, dh): the encoder, 8 slots
+WKV_PREFILL_SHAPE = (8, 2048, 6, 64)   # its prefill of 8 x 2048 tokens
+RNN_PREFILL = {ENCODER_ARCH: (8, 2048), XLSTM_ARCH: (4, 2048)}
+# requests, prompt tokens (least, most), new tokens each, slots, max_seq
+RNN_SERVE = {ENCODER_ARCH: (24, 16, 256, 64, 8, 1024),
+             XLSTM_ARCH: (16, 16, 128, 32, 8, 512)}
+MAMBA_WIDTH = (8192, 16, 4)            # jamba-1.5-large: d_model, state, conv
 # SASS opcodes counted in the register-tiled kernels: 4- and 16-byte
 # shared loads against the FMAs they feed
 SASS_OPS = ("LDS", "LDS.128", "FFMA", "FMUL", "SHFL*")
@@ -1740,6 +1764,279 @@ def zoo_path(dev):
         f"GiB; the repeat gave the same tokens")
 
 
+# ---------------------------------------------------------------- phase 7
+
+def _wkv_bound(B, S, H, dh):
+    """(bound_ms, bound_by) of one wkv call: r k v w and beta read, y
+    written, the state read and the final state written once; 7 dh^2
+    operations a token and head."""
+    nbytes = 4 * (5 * B * S * H * dh + B * S * H + 2 * B * H * dh * dh)
+    return bound(nbytes, 7 * B * H * S * dh * dh)
+
+
+def check_wkv_zoo(dev, gen) -> dict:
+    """(7a) The wkv kernel at the recurrent zoo's shapes against its plain
+    version, a random state in: the encoder's decode step on 8 slots (S 1,
+    the state a view of a stacked cache, which must stay as it was) and
+    its prefill of 8 x 2048 tokens; y and the final state at the JAX
+    suite's bound, the device time (CUDA graph) beside the bound."""
+    from repro_torch.kernels.wkv import wkv, wkv_reference
+    out = {}
+    for what, (B, S, H, dh) in (("decode", WKV_DECODE_SHAPE),
+                                ("prefill", WKV_PREFILL_SHAPE)):
+        r, k, v = (torch.randn((B, S, H, dh), generator=gen, device=dev)
+                   for _ in range(3))
+        k = k / k.norm(dim=-1, keepdim=True).clamp(min=1e-6)
+        w = 0.7 + 0.3 * torch.rand((B, S, H, dh), generator=gen, device=dev)
+        beta = torch.rand((B, S, H), generator=gen, device=dev)
+        cache = 0.1 * torch.randn((3, B, H, dh, dh), generator=gen,
+                                  device=dev)
+        state, kept = cache[1], cache.clone()
+        y, sf = wkv(r, k, v, w, beta, state)
+        require(torch.equal(cache, kept),
+                f"wkv {what}: the state's cache view was written")
+        y_ref, sf_ref = wkv_reference(r, k, v, w, beta, state)
+        err = max(max_err(y, y_ref, 1e-4, 1e-3, f"wkv {what} y"),
+                  max_err(sf, sf_ref, 1e-4, 1e-3, f"wkv {what} state"))
+        ms, wrapper_ms = kernel_ms(lambda: wkv(r, k, v, w, beta, state),
+                                   reps=20)
+        plain_ms = cuda_ms(lambda: wkv_reference(r, k, v, w, beta, state),
+                           reps=1, warmup=0)
+        b_ms, b_by = _wkv_bound(B, S, H, dh)
+        out[what] = dict(shape=f"B={B} S={S} H={H} dh={dh}", max_abs_err=err,
+                         ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by)
+        log(f"  wkv {what} [{out[what]['shape']}, state in]: max_abs_err "
+            f"{err:.3g}, ms {ms:.4f} (wrapper {wrapper_ms:.4f}), plain_ms "
+            f"{plain_ms:.4f}, bound_ms {b_ms:.5f} ({b_by})")
+        del r, k, v, w, beta, cache, state, kept, y, sf, y_ref, sf_ref
+    return out
+
+
+def _cache_bytes(cfg, slots: int, max_seq: int) -> int:
+    """Bytes of the decode cache a ServeEngine holds (from shapes)."""
+    from repro_torch.models.transformer import init_cache
+    cache = init_cache(cfg, slots, max_seq, torch.float32, device="meta")
+    return sum(t.numel() * t.element_size() for leaves in cache.values()
+               for t in leaves.values())
+
+
+def _cpu_vs_card(model, params, inputs, dev, atol, rtol, what,
+                 wkv_per_call: int = 0) -> float:
+    """`Model.prefill`'s hidden states for each token array of `inputs`,
+    then 4 decode steps over the first array's tokens from a zero cache
+    (logits, every cache leaf), on the CPU and then on the card (the same
+    seeded LM moved there); the card's wkv launches must be
+    `wkv_per_call` a call. Returns the max abs error."""
+    from repro_torch.kernels.wkv import wkv
+    runs = []
+    for d in ("cpu", dev):
+        params = params.to(d)
+        t = time.perf_counter()
+        before = wkv.launches
+        hidden = [model.prefill(params, {"tokens": x})[0].cpu()
+                  for x in inputs]
+        cache = model.init_cache(inputs[0].shape[0], 64, torch.float32,
+                                 device=d)
+        logits = []
+        for i in range(4):
+            lg, cache = model.decode_step(params, cache,
+                                          inputs[0][:, i:i + 1], i)
+            logits.append(lg.cpu())
+        sync(d)
+        calls = len(inputs) + 4
+        if torch.device(d).type == "cuda":
+            require(wkv.launches - before == wkv_per_call * calls,
+                    f"{what}: {wkv.launches - before} wkv launches in "
+                    f"{calls} calls, not {wkv_per_call} a call")
+        runs.append((hidden, torch.cat(logits, 1),
+                     {n: {k: v.cpu() for k, v in lv.items()}
+                      for n, lv in cache.items()}))
+        log(f"  {what} on {d}: {len(inputs)} prefill(s) and 4 decode steps "
+            f"in {time.perf_counter() - t:.1f} s")
+    (h_cpu, l_cpu, c_cpu), (h_dev, l_dev, c_dev) = runs
+    err = 0.0
+    for i, (a, b) in enumerate(zip(h_dev, h_cpu)):
+        require(bool(torch.isfinite(a).all()), f"{what}: non-finite hidden")
+        err = max(err, max_err(a, b, atol, rtol, f"{what} hidden {i}"))
+    err = max(err, max_err(l_dev, l_cpu, atol, rtol, f"{what} logits"))
+    for name, leaves in c_cpu.items():
+        for key, leaf in leaves.items():
+            err = max(err, max_err(c_dev[name][key], leaf, atol, rtol,
+                                   f"{what} cache {name}/{key}"))
+    return err
+
+
+def cross_check_encoder(dev) -> None:
+    """(7b) semanticbbv-encoder at full width and depth (fp32) from one
+    seeded LM: prefill of 2 x 256 tokens and 4 decode steps on the CPU and
+    on the card, 12 wkv launches a call there."""
+    from repro_torch.config import get_arch
+    from repro_torch.models.model_zoo import build_model
+    cfg = get_arch(ENCODER_ARCH)
+    model = build_model(cfg)
+    tokens = np.random.RandomState(SEED).randint(0, cfg.vocab_size, (2, 256))
+    err = _cpu_vs_card(model, model.init(SEED, device="cpu"), [tokens], dev,
+                       1e-4, 1e-4, cfg.name, wkv_per_call=cfg.num_layers)
+    log(f"  {cfg.name} fp32, CPU plain vs card kernels: max abs err "
+        f"{err:.3g} (hidden, logits, caches; atol 1e-4 rtol 1e-4)")
+
+
+def cross_check_xlstm(dev) -> None:
+    """(7c) xlstm-1.3b at full width in fp32 on one period (8 layers, 7
+    mLSTM + 1 sLSTM: the CPU half of 48 layers would take minutes) from
+    one seeded LM, CPU against the card: prefill of 2 x 64 and 2 x 37
+    tokens (both the chunkwise form: at the model's chunk, 256, S 37 is
+    one chunk of 37) and 4 decode steps; then its first mLSTM layer at
+    chunk 16 on S 37, which takes the token scan."""
+    from repro_torch.config import get_arch
+    from repro_torch.models import ssm
+    from repro_torch.models.model_zoo import build_model
+    full = get_arch(XLSTM_ARCH)
+    cfg = dataclasses.replace(full, num_layers=8,
+                              block_pattern=full.block_pattern[:8],
+                              dtype="float32", param_dtype="float32")
+    model = build_model(cfg)
+    rng = np.random.RandomState(SEED)
+    inputs = [rng.randint(0, cfg.vocab_size, (2, S)) for S in (64, 37)]
+    params = model.init(SEED, device="cpu")
+    err = _cpu_vs_card(model, params, inputs, dev, 1e-4, 1e-3,
+                       f"{cfg.name} (one period)")
+    mixer = params.layers[0].mixer
+    x = torch.from_numpy(rng.randn(2, 37, cfg.d_model).astype(np.float32))
+    got = []
+    for d in ("cpu", dev):
+        mixer = mixer.to(d)
+        with torch.inference_mode():
+            got.append(ssm.mlstm_apply(mixer, x.to(d), cfg.num_heads,
+                                       chunk=16).cpu())
+    err = max(err, max_err(got[1], got[0], 1e-4, 1e-3,
+                           "mLSTM token scan (S 37, chunk 16)"))
+    log(f"  {cfg.name} fp32 (8 layers), CPU plain vs card: max abs err "
+        f"{err:.3g} (hidden, logits, caches, the token scan; atol 1e-4 "
+        f"rtol 1e-3)")
+
+
+def cross_check_mamba(dev) -> None:
+    """(7d) One Mamba mixer at jamba-1.5-large's width (fp32, seeded):
+    `mamba_apply` on 1 x 64 and 4 `mamba_decode` steps from a zero state,
+    CPU against the card; the steps equal the prefill's first 4 tokens."""
+    from repro_torch.models import ssm
+    d, ds, k = MAMBA_WIDTH
+    mixer = ssm.Mamba(torch.Generator().manual_seed(SEED), d, ds, k,
+                      torch.float32)
+    x = torch.from_numpy(np.random.RandomState(SEED).randn(1, 64, d).astype(
+        np.float32))
+    runs = []
+    for dv in ("cpu", dev):
+        t = time.perf_counter()
+        mixer = mixer.to(dv)
+        xd = x.to(dv)
+        with torch.inference_mode():
+            y = ssm.mamba_apply(mixer, xd, ds)
+            state = ssm.mamba_init_state(1, d, ds, k, device=dv)
+            steps = []
+            for i in range(4):
+                yi, state = ssm.mamba_decode(mixer, xd[:, i:i + 1], state, ds)
+                steps.append(yi)
+        sync(dv)
+        runs.append((y.cpu(), torch.cat(steps, 1).cpu(), state["ssm"].cpu(),
+                     state["conv"].cpu()))
+        max_err(runs[-1][1], runs[-1][0][:, :4], 1e-4, 1e-3,
+                f"mamba on {dv}: decode steps vs the prefill's first tokens")
+        log(f"  mamba d_model {d} on {dv}: apply 1 x 64 and 4 decode steps "
+            f"in {time.perf_counter() - t:.1f} s")
+    err = max(max_err(a, b, 1e-4, 1e-3, f"mamba {name}") for name, a, b in
+              zip(("apply", "decode", "ssm state", "conv state"), runs[1],
+                  runs[0]))
+    log(f"  mamba (jamba-1.5-large width, fp32), CPU plain vs card: max abs "
+        f"err {err:.3g} (atol 1e-4 rtol 1e-3)")
+
+
+def _rnn_serve(arch, cfg, model, params, dev, rng) -> None:
+    """(7b, 7c) `Model.prefill` of RNN_PREFILL[arch] tokens (2 calls), then
+    a ServeEngine answering RNN_SERVE[arch]'s requests twice with the
+    same tokens; RWKV layers launch wkv once a layer a call. Prints wall
+    times, tokens/s, steps/s, peak memory and the state cache's bytes."""
+    from repro_torch.kernels.wkv import wkv
+    n_wkv = sum(kind == "rwkv" for kind in cfg.blocks())
+    B, S = RNN_PREFILL[arch]
+    V = cfg.vocab_size
+    tokens = torch.from_numpy(rng.randint(0, V, (B, S))).to(dev)
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for call in range(2):
+        before = wkv.launches
+        t = time.perf_counter()
+        hidden, _ = model.prefill(params, {"tokens": tokens})
+        sync(dev)
+        walls.append(time.perf_counter() - t)
+        require(wkv.launches - before == n_wkv,
+                f"{cfg.name} prefill call {call}: {wkv.launches - before} "
+                f"wkv launches, not {n_wkv}")
+    require(tuple(hidden.shape) == (B, S, cfg.d_model)
+            and bool(torch.isfinite(hidden).all()),
+            f"{cfg.name} prefill hidden {tuple(hidden.shape)}, or not finite")
+    log(f"  {cfg.name} prefill {B} x {S}: wall {1e3 * walls[1]:.2f} ms "
+        f"(second call; first {1e3 * walls[0]:.2f} ms), "
+        f"{B * S / walls[1]:.0f} tokens/s, {n_wkv} wkv launches a call; "
+        f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    del hidden, tokens
+
+    n_req, lo, hi, new, slots, max_seq = RNN_SERVE[arch]
+    lens = rng.randint(lo, hi + 1, size=n_req)
+    prompts = [rng.randint(0, V, n).tolist() for n in lens]
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(2):
+        before = wkv.launches
+        runs.append(_serve(model, params, prompts, dev, new, slots, max_seq))
+        require(wkv.launches - before == n_wkv * runs[-1][1],
+                f"{cfg.name} serve: {wkv.launches - before} wkv launches in "
+                f"{runs[-1][1]} decode steps, not {n_wkv} a step")
+    outs, steps, serve_s = runs[0]
+    require(sorted(outs) == list(range(n_req)),
+            f"{cfg.name}: {len(outs)} of {n_req} requests completed")
+    for r, out in outs.items():
+        require(len(out) == new and all(0 <= x < V for x in out),
+                f"{cfg.name} request {r}: {len(out)} tokens, or out of vocab")
+    require(runs[1][0] == outs, f"{cfg.name}: the repeat gave other tokens")
+    log(f"  {cfg.name} serve: {n_req} requests (prompts {lens.min()}-"
+        f"{lens.max()} tokens, {new} new each) on {slots} slots, max_seq "
+        f"{max_seq}: {steps} decode steps (prefill steps included) in "
+        f"{serve_s:.3f} s and {runs[1][2]:.3f} s, {steps / serve_s:.1f} and "
+        f"{runs[1][1] / runs[1][2]:.1f} steps/s, "
+        f"{n_req * new / serve_s:.1f} new tokens/s; state cache "
+        f"{_cache_bytes(cfg, slots, max_seq) / 2**30:.3f} GiB; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; the "
+        f"repeat gave the same tokens")
+
+
+def recurrent_zoo_path(dev) -> None:
+    """(7b, 7c) The recurrent zoo's serving path on the card at full width
+    and depth, seeded untrained weights: semanticbbv-encoder (fp32), then
+    xlstm-1.3b (bf16)."""
+    from repro_torch.config import get_arch
+    from repro_torch.models.model_zoo import build_model
+    rng = np.random.RandomState(SEED)
+    for arch in (ENCODER_ARCH, XLSTM_ARCH):
+        cfg = get_arch(arch)
+        model = build_model(cfg)
+        t = time.perf_counter()
+        params = model.init(SEED, device=dev)
+        sync(dev)
+        log(f"  {cfg.name}: {model.param_count()} parameters "
+            f"({cfg.param_dtype}), {cfg.num_layers} layers, drawn and moved "
+            f"in {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        _rnn_serve(arch, cfg, model, params, dev, rng)
+        log(f"  {cfg.name} path: {time.perf_counter() - t:.1f} s")
+        del params
+
+
 def time_kernels(root: str) -> dict:
     """Device and wrapper ms of wkv (the encoder's shape), of the
     set-attention backward (Stage-2 training's SAB and PMA shapes) and of
@@ -2059,6 +2356,21 @@ def main() -> int:
     require(by_path.get("flash_attention", {}).get("zoo", 0) > 0,
             "flash_attention was not launched on the zoo path")
     log(f"zoo phase: {time.perf_counter() - t:.3f} s")
+
+    # 7. the recurrent zoo: (a) wkv at the zoo's shapes, (b, c) CPU vs card
+    # for the encoder, then the serving path of the encoder and xlstm, then
+    # (c, d) CPU vs card for xlstm (one period) and a jamba-width Mamba;
+    # only the serving path's launches count
+    t = time.perf_counter()
+    wkv_zoo = check_wkv_zoo(dev, gen)
+    cross_check_encoder(dev)
+    drive("zoo_recurrent", lambda: recurrent_zoo_path(dev))
+    require(by_path.get("wkv", {}).get("zoo_recurrent", 0) > 0,
+            "wkv was not launched on the recurrent zoo path")
+    cross_check_xlstm(dev)
+    cross_check_mamba(dev)
+    log(f"recurrent zoo phase: {time.perf_counter() - t:.3f} s")
+    results["wkv"]["extra"]["zoo_shapes"] = wkv_zoo
 
     meta = {
         "wkv": ("src/repro_torch/csrc/wkv.cu",

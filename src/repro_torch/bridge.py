@@ -15,8 +15,11 @@ maps onto `state_dict` keys by path, with two layout changes:
 `lm_params_from_jax` loads an LM of the zoo (`repro.models.transformer.
 lm_init`): its `layers/p<pos>/...` leaves carry a leading `n_periods`
 axis (the `jax.vmap` init), split so that layer n * period + pos gets
-index n; the LM keeps the leaves' dtype, and bf16 leaves (numpy's
-`ml_dtypes.bfloat16`) cross as their bits, never through float.
+index n; the LM keeps the leaves' dtype (the config's `param_dtype`, but
+for the leaves JAX keeps in fp32 in every model: RWKV's `w_bias`,
+Mamba's `A_log` and `D`, mLSTM's `b_i` and `b_f`, sLSTM's `b_zifo`), and
+bf16 leaves (numpy's `ml_dtypes.bfloat16`) cross as their bits, never
+through float.
 
 Loading is strict: a missing or extra leaf, or a shape that differs,
 raises. The Stage-1/2 loaders take float32 leaves only: a bf16 tree (a
@@ -120,7 +123,7 @@ def lm_params_from_jax(tree: Dict[str, Any], cfg: ModelConfig) -> LM:
     """An LM of the zoo (CPU) with the weights of a `lm_init` tree.
 
     Strict on names and shapes like `_load`; each leaf must have the
-    dtype of the module's parameter (the config's `param_dtype`)."""
+    dtype of the module's parameter, which follows JAX leaf by leaf."""
     period = period_of(cfg)
     n_periods = cfg.num_layers // period
     flat = dict(_flatten({k: v for k, v in tree.items() if k != "layers"}))
@@ -149,7 +152,7 @@ def lm_params_from_jax(tree: Dict[str, Any], cfg: ModelConfig) -> LM:
         if t.dtype != state[key].dtype:
             raise TypeError(f"{key}: tree dtype {t.dtype} vs module dtype "
                             f"{state[key].dtype} (param_dtype "
-                            f"{cfg.param_dtype})")
+                            f"{cfg.param_dtype}; some leaves stay fp32)")
         loaded[key] = t
     model.load_state_dict(loaded, strict=True)
     return model

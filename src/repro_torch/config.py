@@ -9,8 +9,9 @@ configuration reads the same in both packages.
 * `ModelConfig` (+ `MoEConfig`) describes an LM of the zoo,
   `ShapeConfig` a workload shape. Arch configs live in
   `repro_torch/configs/<id>.py` and register themselves in `ARCHS`;
-  `get_arch` resolves an id. Only the dense attention-only decoders are
-  ported so far (`PORTED_ARCHS`); any other id raises a `KeyError`.
+  `get_arch` resolves an id. The dense attention-only decoders and the
+  recurrent archs without MoE (xlstm, the paper's encoder) are ported so
+  far (`PORTED_ARCHS`); any other id raises a `KeyError`.
 """
 from __future__ import annotations
 
@@ -151,9 +152,10 @@ class TrainConfig:
 ARCHS: Registry = Registry("architecture")
 
 # The zoo's archs with a config module in `repro_torch/configs/`: the dense
-# attention-only decoders. The MoE, SSM, hybrid, encoder-decoder and VLM
-# archs wait for their slices.
-PORTED_ARCHS = ("granite_3_2b", "qwen2_7b", "qwen3_4b", "smollm_135m")
+# attention-only decoders, xLSTM and the paper's RWKV encoder. The MoE
+# (and so the hybrid), encoder-decoder and VLM archs wait for their slices.
+PORTED_ARCHS = ("granite_3_2b", "qwen2_7b", "qwen3_4b", "smollm_135m",
+                "semanticbbv_encoder", "xlstm_1_3b")
 
 
 def canon(arch_id: str) -> str:

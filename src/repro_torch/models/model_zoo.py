@@ -6,10 +6,13 @@ ModelConfig (port of `repro.models.model_zoo`, inference part).
     hidden, aux = model.prefill(params, {"tokens": tokens})
 
 `params` is the `transformer.LM` module (weights in the config's
-`param_dtype`), on the device `init` was given. `prefill` and
-`decode_step` run under `torch.inference_mode()`; on CUDA, `prefill`
-runs its attention through the flash-attention kernel (one launch a
-layer). `loss`, `input_specs`, `param_specs` and `cache_specs` wait for
+`param_dtype`, but for the leaves JAX keeps in fp32), on the device
+`init` was given. `prefill` and `decode_step` run under
+`torch.inference_mode()`; on CUDA, attention layers run `prefill`
+through the flash-attention kernel and RWKV layers run `prefill` and
+`decode_step` through the wkv kernel (one launch a layer each); the
+Mamba, mLSTM and sLSTM recurrences are plain PyTorch, as they are plain
+JAX in the reference. `loss`, `input_specs`, `param_specs` and `cache_specs` wait for
 the training and distributed slices.
 """
 from __future__ import annotations
@@ -39,8 +42,8 @@ class Model:
     def init_cache(self, batch: int, max_seq: int,
                    dtype: torch.dtype = torch.bfloat16,
                    device: Device = "cuda") -> Dict[str, Any]:
-        """Zeroed KV cache (no specs: they come with the distributed
-        slice)."""
+        """Zeroed decode cache: KV in `dtype`, recurrent states in fp32
+        (no specs: they come with the distributed slice)."""
         return tfm.init_cache(self.cfg, batch, max_seq, dtype,
                               resolve_device(device))
 

@@ -1,4 +1,5 @@
-"""RWKV backbone for the Stage-1 basic-block encoder (paper §III-A-2).
+"""RWKV backbone for the Stage-1 basic-block encoder (paper §III-A-2), and
+the zoo's RWKV blocks (`configs/semanticbbv_encoder.py`).
 
 Time-mix: token-shift interpolation feeding r/k/v/decay/β projections,
 then the gated delta-rule state update run by the wkv kernel
@@ -7,11 +8,15 @@ then the gated delta-rule state update run by the wkv kernel
     y_t = S_tᵀ r_t
 Channel-mix: token-shifted squared-ReLU FFN.
 
-Port of `repro.models.rwkv` (forward over whole sequences; the one-token
-decode path is for a later slice). Unlike the JAX encoder, whose Stage-1
-path always takes the `lax.scan` oracle, the time-mix here always goes
-through the wkv wrapper: the plain version on the CPU, the kernel on CUDA,
-forward and (when a gradient is wanted) backward.
+Port of `repro.models.rwkv`: the forward over whole sequences, and the
+one-token decode step over a state {tm_shift, cm_shift, S}
+(`rwkv_init_state`, `timemix_decode`, `channelmix_decode`). Unlike the
+JAX package, whose Stage-1 path and zoo blocks always take the `lax.scan`
+oracle, the time-mix here always goes through the wkv wrapper: the plain
+version on the CPU, the kernel on CUDA, forward and (when a gradient is
+wanted) backward; the decode step is the kernel at S = 1 with the state
+passed in. Parameters are fp32 (Stage 1) or the zoo config's dtype, but
+for `w_bias`, which JAX keeps in fp32 in every model.
 """
 from __future__ import annotations
 
@@ -23,25 +28,32 @@ from repro_torch.kernels.wkv.ops import wkv
 from repro_torch.models.layers import RMSNorm, init_array, param, rmsnorm
 
 
-def token_shift(x):
-    """x_{t-1} stream: (B,S,d) -> previous token (zeros at t=0)."""
-    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+def token_shift(x, shift=None):
+    """x_{t-1} stream: (B,S,d) -> previous token; at t=0 the token before
+    x, `shift` (B,d) (a decode state, fp32), or zeros."""
+    if shift is None:
+        return F.pad(x, (0, 0, 1, 0))[:, :-1]
+    return torch.cat([shift[:, None].to(x.dtype), x], dim=1)[:, :-1]
 
 
 class TimeMix(nn.Module):
-    def __init__(self, gen: torch.Generator, d_model: int, num_heads: int):
+    def __init__(self, gen: torch.Generator, d_model: int, num_heads: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
         dh = d_model // num_heads
-        self.mu = param(torch.full((5, d_model), 0.5))  # lerp for r,k,v,w,β
-        self.wr = param(init_array(gen, (d_model, d_model)))
-        self.wk = param(init_array(gen, (d_model, d_model)))
-        self.wv = param(init_array(gen, (d_model, d_model)))
-        self.ww = param(init_array(gen, (d_model, num_heads * dh), 0.02))
+        # lerp for r,k,v,w,β
+        self.mu = param(torch.full((5, d_model), 0.5), dtype)
+        self.wr = param(init_array(gen, (d_model, d_model)), dtype)
+        self.wk = param(init_array(gen, (d_model, d_model)), dtype)
+        self.wv = param(init_array(gen, (d_model, d_model)), dtype)
+        self.ww = param(init_array(gen, (d_model, num_heads * dh), 0.02),
+                        dtype)
         self.w_bias = param(torch.full((d_model,), -2.0))  # decay ~ sigmoid
-        self.wbeta = param(init_array(gen, (d_model, num_heads), 0.02))
-        self.wo = param(init_array(gen, (d_model, d_model)))
-        self.ln_x = param(torch.ones(d_model))
+        self.wbeta = param(init_array(gen, (d_model, num_heads), 0.02),
+                           dtype)
+        self.wo = param(init_array(gen, (d_model, d_model)), dtype)
+        self.ln_x = param(torch.ones(d_model), dtype)
 
     def project(self, x, x_prev):
         """r, k (unit-normalised per head), v, w (decay), β."""
@@ -56,27 +68,34 @@ class TimeMix(nn.Module):
         w = torch.sigmoid((lerp[3] @ self.ww).float()
                           + self.w_bias).reshape(B, S, H, dh)
         beta = torch.sigmoid((lerp[4] @ self.wbeta).float())     # (B,S,H)
-        k = k / torch.clamp(torch.linalg.vector_norm(k.float(), dim=-1,
-                                                     keepdim=True), min=1e-6)
+        norm = torch.linalg.vector_norm(k.float(), dim=-1, keepdim=True)
+        k = k / torch.clamp(norm, min=1e-6).to(k.dtype)
         return r, k, v, w, beta
 
-    def forward(self, x):
+    def mix(self, x, shift=None, state=None):
+        """(out (B,S,d), wkv state after x (B,H,dh,dh) fp32) for x
+        (B,S,d) following the token `shift` and the wkv `state` (both
+        zeros when None)."""
         B, S, d = x.shape
-        r, k, v, w, beta = self.project(x, token_shift(x))
-        y, _ = wkv(r, k, v, w, beta)
+        r, k, v, w, beta = self.project(x, token_shift(x, shift))
+        y, sf = wkv(r.float(), k.float(), v.float(), w, beta, state)
         y = rmsnorm(y.to(x.dtype).reshape(B, S, d), self.ln_x)
-        return y @ self.wo
+        return y @ self.wo, sf
+
+    def forward(self, x):
+        return self.mix(x)[0]
 
 
 class ChannelMix(nn.Module):
-    def __init__(self, gen: torch.Generator, d_model: int, expand: int = 4):
+    def __init__(self, gen: torch.Generator, d_model: int,
+                 dtype: torch.dtype = torch.float32, expand: int = 4):
         super().__init__()
-        self.mu = param(torch.full((d_model,), 0.5))
-        self.wk = param(init_array(gen, (d_model, expand * d_model)))
-        self.wv = param(init_array(gen, (expand * d_model, d_model)))
+        self.mu = param(torch.full((d_model,), 0.5), dtype)
+        self.wk = param(init_array(gen, (d_model, expand * d_model)), dtype)
+        self.wv = param(init_array(gen, (expand * d_model, d_model)), dtype)
 
-    def forward(self, x):
-        xk = x * self.mu + token_shift(x) * (1 - self.mu)
+    def forward(self, x, shift=None):
+        xk = x * self.mu + token_shift(x, shift) * (1 - self.mu)
         return torch.square(torch.relu(xk @ self.wk)) @ self.wv
 
 
@@ -91,3 +110,32 @@ class RWKVBlock(nn.Module):
     def forward(self, x):
         x = x + self.time_mix(self.norm1(x))
         return x + self.channel_mix(self.norm2(x))
+
+
+# ---------------------------------------------------------------------------
+# decode: one token against a state
+# ---------------------------------------------------------------------------
+
+
+def rwkv_init_state(batch: int, d_model: int, num_heads: int,
+                    device=None) -> dict:
+    """Zero decode state of one RWKV block, all fp32: the normed inputs of
+    the last token to the time-mix and the channel-mix, and the wkv
+    state."""
+    dh = d_model // num_heads
+    zeros = lambda *shape: torch.zeros(shape, device=device)  # noqa: E731
+    return {"tm_shift": zeros(batch, d_model),
+            "cm_shift": zeros(batch, d_model),
+            "S": zeros(batch, num_heads, dh, dh)}
+
+
+def timemix_decode(params: TimeMix, x, shift, S):
+    """x: (B,1,d). Returns (out, new shift (fp32), new S): the wkv kernel
+    at S = 1 with the state passed in (the plain version on the CPU)."""
+    out, sf = params.mix(x, shift, S)
+    return out, x[:, 0].float(), sf
+
+
+def channelmix_decode(params: ChannelMix, x, shift):
+    """x: (B,1,d). Returns (out, new shift (fp32))."""
+    return params(x, shift), x[:, 0].float()

@@ -1,18 +1,22 @@
-"""LM assembly for the zoo's dense decoders: port of the dense part of
-`repro.models.transformer`.
+"""LM assembly for the zoo: port of `repro.models.transformer` (inference).
 
-A model is a stack of pre-norm blocks (norm1 -> attention -> residual,
-norm2 -> MLP -> residual) between a token embedding scaled by
-sqrt(d_model) and a final RMSNorm, with a tied or separate LM head.
-JAX stacks the parameters of each position of the repeating *period* and
+A model is a stack of pre-norm blocks between a token embedding scaled by
+sqrt(d_model) and a final RMSNorm, with a tied or separate LM head. A
+block is norm1 -> mixer -> residual, then (but for mLSTM and sLSTM,
+which carry their own projections) norm2 -> MLP -> residual, or for RWKV
+norm2 -> channel-mix -> residual. The mixer is attention, Mamba, mLSTM,
+sLSTM or the RWKV time-mix, as the config's block pattern says. JAX
+stacks the parameters of each position of the repeating *period* and
 scans over periods; the port keeps one module per layer (`LM.layers`)
 and loops over them in Python. The decode cache keeps JAX's stacked
-layout, {"p<pos>": {"k", "v"}} with a leading period axis, so caches
-compare leaf for leaf.
+layout, {"p<pos>": {leaf: (n_periods, batch, ...)}}: k/v for attention
+(in the cache dtype), the fp32 recurrent state of the other kinds
+(`rwkv_init_state`, `ssm.*_init_state`), so caches compare leaf for
+leaf.
 
-Mamba, mLSTM, sLSTM and RWKV blocks in the zoo, MoE layers, the encoder
-and cross-attention (encoder-decoder) and prefix inputs (the prefix-LM
-VLM) raise `NotImplementedError`: they wait for later slices.
+MoE layers, the encoder and cross-attention (encoder-decoder) and prefix
+inputs (the prefix-LM VLM) raise `NotImplementedError`: they wait for
+later slices.
 """
 from __future__ import annotations
 
@@ -21,8 +25,13 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from repro_torch.config import BLOCK_ATTN, ModelConfig
+from repro_torch.config import (
+    BLOCK_ATTN, BLOCK_MAMBA, BLOCK_MLSTM, BLOCK_RWKV, BLOCK_SLSTM,
+    ModelConfig,
+)
 from repro_torch.models import attention as attn
+from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm
 from repro_torch.models.layers import MLP, Embed, RMSNorm, embed, unembed
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -49,11 +58,7 @@ def period_of(cfg: ModelConfig) -> int:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raises NotImplementedError for what the dense slice does not port."""
-    for kind in set(cfg.blocks()):
-        if kind != BLOCK_ATTN:
-            raise NotImplementedError(f"{cfg.name}: {kind} blocks wait for "
-                                      f"the SSM slice")
+    """Raises NotImplementedError for what the port does not take yet."""
     if cfg.moe is not None:
         raise NotImplementedError(f"{cfg.name}: MoE layers wait for the MoE "
                                   f"slice")
@@ -72,19 +77,41 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 class Block(nn.Module):
-    """norm1, attention (`mixer`), norm2, MLP; names as the JAX block tree
-    (`_block_init`)."""
+    """norm1 and the mixer of `kind`, then norm2 + channel_mix (RWKV) or
+    norm2 + mlp (attention and Mamba when d_ff > 0); names as the JAX
+    block tree (`_block_init`)."""
 
-    def __init__(self, gen: torch.Generator, cfg: ModelConfig,
+    def __init__(self, gen: torch.Generator, cfg: ModelConfig, kind: str,
                  dtype: torch.dtype):
         super().__init__()
-        self.norm1 = RMSNorm(cfg.d_model, dtype, cfg.norm_eps)
-        self.mixer = attn.Attention(
-            gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-            cfg.resolved_head_dim, dtype, qkv_bias=cfg.qkv_bias,
-            qk_norm=cfg.qk_norm)
-        self.norm2 = RMSNorm(cfg.d_model, dtype, cfg.norm_eps)
-        self.mlp = MLP(gen, cfg.d_model, cfg.d_ff, dtype, gated=cfg.mlp_gated)
+        self.kind = kind
+        d = cfg.d_model
+        self.norm1 = RMSNorm(d, dtype, cfg.norm_eps)
+        if kind == BLOCK_ATTN:
+            self.mixer = attn.Attention(
+                gen, d, cfg.num_heads, cfg.num_kv_heads,
+                cfg.resolved_head_dim, dtype, qkv_bias=cfg.qkv_bias,
+                qk_norm=cfg.qk_norm)
+        elif kind == BLOCK_MAMBA:
+            self.mixer = ssm.Mamba(gen, d, cfg.ssm_state_dim,
+                                   cfg.ssm_conv_dim, dtype)
+        elif kind == BLOCK_MLSTM:
+            self.mixer = ssm.MLSTM(gen, d, cfg.num_heads, cfg.ssm_conv_dim,
+                                   dtype)
+        elif kind == BLOCK_SLSTM:
+            self.mixer = ssm.SLSTM(gen, d, cfg.num_heads, cfg.ssm_conv_dim,
+                                   dtype)
+        elif kind == BLOCK_RWKV:
+            self.mixer = rwkv_mod.TimeMix(gen, d, cfg.num_heads, dtype)
+        else:
+            raise ValueError(f"unknown block kind {kind}")
+        self.norm2 = self.mlp = self.channel_mix = None
+        if kind == BLOCK_RWKV:
+            self.norm2 = RMSNorm(d, dtype, cfg.norm_eps)
+            self.channel_mix = rwkv_mod.ChannelMix(gen, d, dtype)
+        elif cfg.d_ff > 0 and kind not in (BLOCK_MLSTM, BLOCK_SLSTM):
+            self.norm2 = RMSNorm(d, dtype, cfg.norm_eps)
+            self.mlp = MLP(gen, d, cfg.d_ff, dtype, gated=cfg.mlp_gated)
 
 
 def _attn_kwargs(cfg: ModelConfig) -> dict:
@@ -93,13 +120,32 @@ def _attn_kwargs(cfg: ModelConfig) -> dict:
                 use_rope=(cfg.pos_embedding == "rope"), qk_norm=cfg.qk_norm)
 
 
+def _ffn(params: Block, x):
+    """The block's second residual: channel-mix, MLP or nothing."""
+    if params.channel_mix is not None:
+        return x + params.channel_mix(params.norm2(x))
+    if params.mlp is not None:
+        return x + params.mlp(params.norm2(x))
+    return x
+
+
 def _block_apply(params: Block, cfg: ModelConfig, x, *, mask_mode: str,
                  positions=None):
     h = params.norm1(x)
-    x = x + attn.attn_apply(params.mixer, h, positions=positions,
-                            mask_mode=mask_mode, window=cfg.attn_window,
-                            **_attn_kwargs(cfg))
-    return x + params.mlp(params.norm2(x))
+    kind = params.kind
+    if kind == BLOCK_ATTN:
+        mix = attn.attn_apply(params.mixer, h, positions=positions,
+                              mask_mode=mask_mode, window=cfg.attn_window,
+                              **_attn_kwargs(cfg))
+    elif kind == BLOCK_MAMBA:
+        mix = ssm.mamba_apply(params.mixer, h, cfg.ssm_state_dim)
+    elif kind == BLOCK_MLSTM:
+        mix = ssm.mlstm_apply(params.mixer, h, cfg.num_heads)
+    elif kind == BLOCK_RWKV:
+        mix = params.mixer(h)
+    else:
+        mix = ssm.slstm_apply(params.mixer, h, cfg.num_heads)
+    return _ffn(params, x + mix)
 
 
 # ---------------------------------------------------------------------------
@@ -108,9 +154,10 @@ def _block_apply(params: Block, cfg: ModelConfig, x, *, mask_mode: str,
 
 
 class LM(nn.Module):
-    """The dense decoder's parameters (JAX's `lm_init`), drawn on the CPU
-    from `torch.Generator(seed)`, named as the JAX tree with the stacked
-    `layers/p0/...` split into `layers.<i>....`."""
+    """The model's parameters (JAX's `lm_init`), drawn on the CPU from
+    `torch.Generator(seed)`, named as the JAX tree with the stacked
+    `layers/p<pos>/...` split into `layers.<i>....`; in the config's
+    `param_dtype`, but for the leaves JAX keeps in fp32."""
 
     def __init__(self, cfg: ModelConfig, seed: int = 0):
         super().__init__()
@@ -119,8 +166,8 @@ class LM(nn.Module):
         dtype = torch_dtype(cfg.param_dtype)
         gen = torch.Generator().manual_seed(seed)
         self.embed = Embed(gen, cfg.vocab_size, cfg.d_model, dtype)
-        self.layers = nn.ModuleList(Block(gen, cfg, dtype)
-                                    for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(Block(gen, cfg, kind, dtype)
+                                    for kind in cfg.blocks())
         self.final_norm = RMSNorm(cfg.d_model, dtype, cfg.norm_eps)
         self.lm_head = (None if cfg.tie_embeddings else
                         Embed(gen, cfg.vocab_size, cfg.d_model, dtype))
@@ -160,37 +207,95 @@ def lm_apply(params: LM, cfg: ModelConfig, tokens, *,
 # ---------------------------------------------------------------------------
 
 
+def _layer_state(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
+                 dtype: torch.dtype, device) -> Dict[str, torch.Tensor]:
+    """One layer's zeroed decode state: k/v (B, max_seq, K, hd) in `dtype`
+    for attention, else the mixer's fp32 state."""
+    if kind == BLOCK_ATTN:
+        shape = (batch, max_seq, cfg.num_kv_heads, cfg.resolved_head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if kind == BLOCK_MAMBA:
+        return ssm.mamba_init_state(batch, cfg.d_model, cfg.ssm_state_dim,
+                                    cfg.ssm_conv_dim, device)
+    if kind == BLOCK_MLSTM:
+        return ssm.mlstm_init_state(batch, cfg.d_model, cfg.num_heads,
+                                    cfg.ssm_conv_dim, device)
+    if kind == BLOCK_RWKV:
+        return rwkv_mod.rwkv_init_state(batch, cfg.d_model, cfg.num_heads,
+                                        device)
+    return ssm.slstm_init_state(batch, cfg.d_model, device)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype: torch.dtype = torch.bfloat16,
                device: Optional[torch.device] = None
                ) -> Dict[str, Dict[str, torch.Tensor]]:
-    """Zeroed KV cache {"p<pos>": {"k", "v"}}, each (n_periods, batch,
-    max_seq, K, hd), as JAX's `init_cache` lays it out."""
+    """Zeroed decode cache {"p<pos>": {leaf: (n_periods, batch, ...)}}, as
+    JAX's `init_cache` lays it out: k/v (n_periods, batch, max_seq, K,
+    hd) in `dtype` for attention positions, the fp32 state leaves of the
+    recurrent kinds."""
     check_supported(cfg)
     period = period_of(cfg)
     n_periods = cfg.num_layers // period
-    shape = (n_periods, batch, max_seq, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
-    return {f"p{pos}": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                        "v": torch.zeros(shape, dtype=dtype, device=device)}
-            for pos in range(period)}
+    cache = {}
+    for pos in range(period):
+        kind, _ = layer_signature(cfg, pos)
+        one = _layer_state(cfg, kind, batch, max_seq, dtype, "meta")
+        cache[f"p{pos}"] = {key: torch.zeros((n_periods, *t.shape),
+                                             dtype=t.dtype, device=device)
+                            for key, t in one.items()}
+    return cache
 
 
-def _block_decode(params: Block, cfg: ModelConfig, x, cache_k, cache_v, pos,
+def _store(state: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
+           write: Optional[torch.Tensor]) -> None:
+    """Writes a recurrent step's new state into the cache views `state`,
+    in place; rows whose `write` is False keep their old state bitwise."""
+    for key, old in state.items():
+        value = new[key]
+        if write is not None:
+            mask = write.view(-1, *([1] * (value.dim() - 1)))
+            value = torch.where(mask, value, old)
+        old.copy_(value)
+
+
+def _block_decode(params: Block, cfg: ModelConfig, x, state, pos,
                   write=None):
+    """One token through a block; `state` holds this layer's views of the
+    cache, updated in place (rows whose `write` is False keep theirs)."""
     h = params.norm1(x)
-    mix, _, _ = attn.attn_decode(params.mixer, h, cache_k, cache_v, pos,
-                                 window=cfg.attn_window, write=write,
-                                 **_attn_kwargs(cfg))
-    x = x + mix
-    return x + params.mlp(params.norm2(x))
+    kind = params.kind
+    if kind == BLOCK_ATTN:
+        mix, _, _ = attn.attn_decode(params.mixer, h, state["k"], state["v"],
+                                     pos, window=cfg.attn_window,
+                                     write=write, **_attn_kwargs(cfg))
+        return _ffn(params, x + mix)
+    if kind == BLOCK_RWKV:
+        mix, tm_shift, S = rwkv_mod.timemix_decode(
+            params.mixer, h, state["tm_shift"], state["S"])
+        x = x + mix
+        out, cm_shift = rwkv_mod.channelmix_decode(
+            params.channel_mix, params.norm2(x), state["cm_shift"])
+        _store(state, {"tm_shift": tm_shift, "cm_shift": cm_shift, "S": S},
+               write)
+        return x + out
+    if kind == BLOCK_MAMBA:
+        mix, new = ssm.mamba_decode(params.mixer, h, state, cfg.ssm_state_dim)
+    elif kind == BLOCK_MLSTM:
+        mix, new = ssm.mlstm_decode(params.mixer, h, state, cfg.num_heads)
+    else:
+        mix, new = ssm.slstm_decode(params.mixer, h, state, cfg.num_heads)
+    _store(state, new, write)
+    return _ffn(params, x + mix)
 
 
 def lm_decode_step(params: LM, cfg: ModelConfig, cache, tokens, pos,
                    write: Optional[torch.Tensor] = None):
     """One decode step. tokens: (B,1) int; pos: an int shared by the batch
     or (B,) per-row positions (continuous batching with mid-run slot
-    refills). Updates `cache` in place (row b at pos[b]; rows whose
+    refills; only attention reads them). Updates `cache` in place (an
+    attention row b at pos[b], a recurrent row's whole state; rows whose
     `write` is False keep their cache) and returns (logits (B,1,V) fp32,
     cache)."""
     B = tokens.shape[0]
@@ -200,8 +305,8 @@ def lm_decode_step(params: LM, cfg: ModelConfig, cache, tokens, pos,
     x = _embed_tokens(params, cfg, tokens)
     period = period_of(cfg)
     for i, block in enumerate(params.layers):
-        c = cache[f"p{i % period}"]
         n = i // period
-        x = _block_decode(block, cfg, x, c["k"][n], c["v"][n], pos, write)
+        state = {key: leaf[n] for key, leaf in cache[f"p{i % period}"].items()}
+        x = _block_decode(block, cfg, x, state, pos, write)
     x = params.final_norm(x)
     return unembed(params.head_table, x).float(), cache

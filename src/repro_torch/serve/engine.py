@@ -5,8 +5,10 @@ slot pool with true per-slot positions and KV cache. Port of
 The engine keeps `num_slots` concurrent sequences. Each call to
 `step_all()` decodes one token for every active slot with one decode
 step that takes a (num_slots,) position vector, so a slot refilled
-mid-run restarts at position 0 with a zeroed cache row and can neither
-attend to nor overwrite the previous occupant's KV. Finished or empty
+mid-run restarts at position 0 with a zeroed cache row (KV, or the
+recurrent state of Mamba, xLSTM and RWKV layers, every leaf zeroed as in
+JAX, the stabiliser m included) and can neither attend to nor overwrite
+the previous occupant's. Finished or empty
 slots are refilled from the request queue.
 
 Prefill: newly filled slots consume their whole prompt in one call
@@ -199,9 +201,10 @@ def _prefill_scan(decode_step, vocab_size: int, params, cache, toks, lens,
     (last valid logits (B, V) fp32, updated cache). Steps at t >=
     lens[b] leave slot b's cache row, position, and logits unchanged, so
     idle and mid-generation slots are bit-identical before and after.
-    JAX merges the whole new cache with the old one per slot; a decode
-    step here writes only entry pos[b] of each row, so the same merge is
-    done at the write (`write=valid`), without copying the cache."""
+    JAX merges the whole new cache with the old one per slot; here the
+    decode step does the same merge where it writes (`write=valid`): an
+    attention layer writes only entry pos[b] of each valid row, a
+    recurrent layer keeps the old state of rows that are not valid."""
     B, L = toks.shape
     with torch.inference_mode():
         last = torch.zeros((B, vocab_size), dtype=torch.float32,

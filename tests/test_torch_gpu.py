@@ -766,3 +766,66 @@ def test_kmeans_on_card_matches_cpu(cuda, n, d, k):
     r_cpu = run_simpoint(x, cpis, k=k, device="cpu", init_centroids=init)
     np.testing.assert_array_equal(r_dev.rep_indices, r_cpu.rep_indices)
     assert np.isfinite(r_dev.accuracy)
+
+
+def test_wkv_decode_step_reads_a_cache_view(cuda):
+    """The encoder's decode shape on 8 slots (S 1, H 6, dh 64), the state
+    a view of a stacked cache at layer 1: y and the final state against
+    the plain version, one launch, and the cache left as it was."""
+    B, H, dh = 8, 6, 64
+    g = _gen(cuda, 1)
+    r, k, v = (torch.randn((B, 1, H, dh), generator=g, device=cuda)
+               for _ in range(3))
+    k = k / k.norm(dim=-1, keepdim=True)
+    w = 0.7 + 0.3 * torch.rand((B, 1, H, dh), generator=g, device=cuda)
+    beta = torch.rand((B, 1, H), generator=g, device=cuda)
+    cache = 0.1 * torch.randn((3, B, H, dh, dh), generator=g, device=cuda)
+    kept = cache.clone()
+    before = wkv.launches
+    y, sf = wkv(r, k, v, w, beta, cache[1])
+    torch.cuda.synchronize()
+    assert wkv.launches == before + 1
+    assert torch.equal(cache, kept)
+    y_ref, sf_ref = wkv_reference(r, k, v, w, beta, cache[1])
+    torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=1e-3)
+    torch.testing.assert_close(sf, sf_ref, atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("arch", ["semanticbbv_encoder", "xlstm_1_3b"])
+def test_recurrent_zoo_on_card_matches_cpu(cuda, arch):
+    """A small encoder / xLSTM (fp32) on the card and on the CPU from one
+    seed: prefill hidden states, then 4 decode steps with row 1 masked
+    out (`write`): the same logits and cache leaves, row 1's state still
+    zero; the encoder launches wkv once a layer a call on the card, never
+    on the CPU."""
+    from repro_torch.config import get_arch, scaled_down
+    from repro_torch.models.model_zoo import build_model
+    cfg = scaled_down(get_arch(arch), num_layers=4, d_model=128,
+                      num_heads=2, vocab_size=256)
+    model = build_model(cfg)
+    tokens = np.random.RandomState(0).randint(0, 256, (3, 40))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        params = model.init(0, device=dev)
+        before = wkv.launches
+        hidden, _ = model.prefill(params, {"tokens": tokens})
+        cache = model.init_cache(3, 16, torch.float32, device=dev)
+        write = torch.tensor([True, False, True], device=dev)
+        logits = []
+        for t in range(4):
+            lg, cache = model.decode_step(params, cache, tokens[:, t:t + 1],
+                                          t, write=write)
+            logits.append(lg.cpu())
+        runs[dev] = (hidden.cpu(), torch.cat(logits, 1),
+                     {(n, k): v.cpu() for n, lv in cache.items()
+                      for k, v in lv.items()}, wkv.launches - before)
+    n_wkv = cfg.num_layers if arch == "semanticbbv_encoder" else 0
+    assert runs["cpu"][3] == 0 and runs["cuda"][3] == 5 * n_wkv
+    torch.testing.assert_close(runs["cuda"][0], runs["cpu"][0], atol=1e-4,
+                               rtol=1e-3)
+    torch.testing.assert_close(runs["cuda"][1], runs["cpu"][1], atol=1e-4,
+                               rtol=1e-3)
+    for key, leaf in runs["cpu"][2].items():
+        assert not leaf[:, 1].any(), key
+        torch.testing.assert_close(runs["cuda"][2][key], leaf, atol=1e-4,
+                                   rtol=1e-3)

@@ -28,6 +28,7 @@ from repro_torch.models.model_zoo import build_model  # noqa: E402
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 DENSE = ["smollm_135m", "granite_3_2b", "qwen2_7b", "qwen3_4b"]
+RECURRENT = ["semanticbbv_encoder", "xlstm_1_3b"]   # test_torch_recurrent.py
 SMALL = dict(num_layers=3, d_model=64, num_heads=4, num_kv_heads=2, d_ff=96,
              vocab_size=128)
 
@@ -83,7 +84,7 @@ def test_config_fields_and_shapes_match_jax():
                   dataclasses.fields(getattr(jconfig, name))]
         assert [(f.name, f.default) for f in dataclasses.fields(
             getattr(tconfig, name))] == fields, name
-    assert sorted(tconfig.PORTED_ARCHS) == sorted(DENSE)
+    assert sorted(tconfig.PORTED_ARCHS) == sorted(DENSE + RECURRENT)
 
 
 def test_unported_archs_raise():
@@ -93,7 +94,8 @@ def test_unported_archs_raise():
         tconfig.get_arch("no_such_arch")
     base = tconfig.scaled_down(tconfig.get_arch("smollm_135m"))
     for changes, what in [
-            (dict(block_pattern=("mamba", "attn")), "mamba"),
+            (dict(block_pattern=("mamba", "attn"), moe_layer_stride=2,
+                  moe=tconfig.MoEConfig(4, 2, 64)), "MoE"),     # jamba
             (dict(moe=tconfig.MoEConfig(4, 2, 64)), "MoE"),
             (dict(encoder_layers=2, cross_attention=True), "encoder"),
             (dict(prefix_lm=True, frontend="vision_patches"), "prefix")]:
