@@ -84,15 +84,39 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
      16-128 prompt tokens, 32 new each, twice with the same tokens; then
      one period of it (8 layers) in fp32 on the CPU against the card, and
      one mLSTM layer's token scan; (d) one Mamba mixer at jamba-1.5-large's
-     width (fp32), prefill and 4 decode steps, CPU against the card.
+     width (fp32), prefill and 4 decode steps, CPU against the card;
+  8. the zoo's MoE archs (seeded untrained weights): (a) the bf16 flash
+     kernel at qwen3-moe-235b-a22b's prefill shape (B 8, S 2048, 64 query
+     heads over 4 kv heads, D 128) against its plain version, timed beside
+     SDPA and its bound; (b) fp32 at full width on the CPU against the
+     card: qwen3-moe cut to 1 layer (prefill of 2 x 64 tokens, its logits,
+     4 decode steps, the caches) and grok-1's MoE mixer alone (2 x 64 and
+     4 one-token steps), routing first (top-k experts, slots, kept pairs
+     equal but for flips where the CPU's probabilities lie within
+     ROUTING_ULPS, and the slots they move), then the rest on the groups
+     without a flip; (c) qwen3-moe at full width and 8 of its 94 layers
+     (bf16, 21,146,703,872 parameters): `Model.prefill` of 8 x 2048 tokens
+     (exactly 8 flash launches a call, a finite positive aux), then a
+     ServeEngine (8 slots, max_seq 512) answering 16 requests of 16-128
+     prompt tokens, 32 new each, twice with the same tokens.
 The line before the last is the JSON kernel summary: `launches` counts
 each kernel on its own path (serving; training for the set-attention
 backward; Stage-1 training for the wkv backward; the zoo for flash),
 `launches_by_path` on each path that launched it (serve, lifecycle,
-simpoint, train, stage1_training, zoo, zoo_recurrent); the launches of
-comparisons and witness runs count on none. wkv's entry also carries
-`zoo_shapes`, phase 7a's numbers at the decode and prefill shapes. The last line is {"ok": true, "device": {...}}.
-Exits non-zero without CUDA.
+simpoint, train, stage1_training, zoo, zoo_recurrent, zoo_moe); the
+launches of comparisons and witness runs count on none. wkv's entry also
+carries `zoo_shapes`, phase 7a's numbers at the decode and prefill
+shapes, and flash's `moe_shape`, phase 8a's. The last line is {"ok":
+true, "device": {...}}. Exits non-zero without CUDA.
+
+    python3 chip_smoke.py --moe
+
+runs the setup and phase 8 alone, and
+
+    python3 chip_smoke.py --profile-moe
+
+profiles qwen3-moe's prefill of 8 x 2048 tokens and its decode step on 8
+slots at full width and 2 layers (device time by kind, busy share).
 
     python3 chip_smoke.py --versus OTHER_CHECKOUT
 
@@ -165,6 +189,18 @@ RNN_PREFILL = {ENCODER_ARCH: (8, 2048), XLSTM_ARCH: (4, 2048)}
 RNN_SERVE = {ENCODER_ARCH: (24, 16, 256, 64, 8, 1024),
              XLSTM_ARCH: (16, 16, 128, 32, 8, 512)}
 MAMBA_WIDTH = (8192, 16, 4)            # jamba-1.5-large: d_model, state, conv
+MOE_ARCH, GROK_ARCH = "qwen3_moe_235b_a22b", "grok_1_314b"   # phase 8
+MOE_LAYERS = 8            # of qwen3-moe's 94: 42.3 GB of bf16 on one card
+MOE_PARAMS = 21_146_703_872                 # its parameters at 8 layers
+MOE_FLASH_SHAPE = (8, 2048, 64, 4, 128)     # (B, S, H, K, D): its prefill
+MOE_PREFILL = (8, 2048)
+# requests, prompt tokens (least, most), new tokens each, slots, max_seq
+MOE_SERVE = (16, 16, 128, 32, 8, 512)
+MOE_CHECK_TOKENS = (2, 64)   # 8b: a prefill of 2 x 64, then 4 decode steps
+MOE_PROFILE_LAYERS = 2       # --profile-moe
+# 8b: the card may route a token otherwise than the CPU only where two of
+# the CPU's top k+1 probabilities lie within this many fp32 ulps
+ROUTING_ULPS = 8
 # SASS opcodes counted in the register-tiled kernels: 4- and 16-byte
 # shared loads against the FMAs they feed
 SASS_OPS = ("LDS", "LDS.128", "FFMA", "FMUL", "SHFL*")
@@ -2037,6 +2073,309 @@ def recurrent_zoo_path(dev) -> None:
         del params
 
 
+# ---------------------------------------------------------------- phase 8
+
+def check_flash_moe(dev, gen) -> dict:
+    """(8a) The bf16 flash kernel at qwen3-moe's prefill shape (head dim
+    128, 64 query heads over 4 kv heads) against its plain version, at
+    phase 6's bf16 bound; its device time (CUDA graph) beside SDPA's and
+    the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        attention_reference, flash_attention,
+    )
+    B, S, H, K, D = MOE_FLASH_SHAPE
+    q = torch.randn((B, S, H, D), generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn((B, S, K, D), generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    shape = f"B={B} S={S} H={H} K={K} D={D} bf16 causal"
+    err = max_err(flash_attention(q, k, v).float(),
+                  attention_reference(q, k, v).float(), 3e-2, 1e-2,
+                  f"flash [{shape}]")
+    ms, wrapper_ms = kernel_ms(lambda: flash_attention(q, k, v), reps=20)
+    plain_ms = cuda_ms(lambda: attention_reference(q, k, v), reps=2,
+                       warmup=1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), reps=20)
+    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * K * D)     # q, o; k, v
+    b_ms, b_by = bound(nbytes, 4 * D * B * H * _visible_pairs(S, S, True, 0),
+                       PEAK_BF16_FLOP_PER_S)
+    out = dict(shape=shape, max_abs_err=err, ms=ms, wrapper_ms=wrapper_ms,
+               plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+               bound_by=b_by)
+    log(f"  flash_attention [{shape}]: max_abs_err {err:.3g}, ms {ms:.4f} "
+        f"(wrapper {wrapper_ms:.4f}), plain_ms {plain_ms:.4f}, library_ms "
+        f"{library_ms:.4f} (SDPA), bound_ms {b_ms:.4f} ({b_by})")
+    return out
+
+
+def _routing_first(cpu_routes, card_routes, what) -> torch.Tensor:
+    """Holds the card's routing of each MoE call to the CPU's: top-k
+    experts, slots and kept pairs equal but for flips at near ties
+    (`moe.compare_routing`, ROUTING_ULPS) and the slots they move. Returns
+    the groups (G,) with no difference in any call; prints the flips."""
+    from repro_torch.models import moe
+    require(len(cpu_routes) == len(card_routes) > 0,
+            f"{what}: {len(cpu_routes)} vs {len(card_routes)} MoE calls")
+    clean, flips, near = None, 0, 0
+    for a, b in zip(cpu_routes, card_routes):
+        cmp = moe.compare_routing(a, b, ROUTING_ULPS)
+        require(cmp["n_unexplained"] == 0,
+                f"{what}: {cmp['n_unexplained']} routing differences at "
+                f"tokens that are no near tie")
+        flips += cmp["n_flips"]
+        near += cmp["n_near_ties"]
+        c = cmp["clean_groups"]
+        clean = c if clean is None else clean & c
+    log(f"  {what} routing: {len(cpu_routes)} MoE calls, {flips} flips at "
+        f"near ties ({near} tokens within {ROUTING_ULPS} ulps), "
+        f"{int(clean.sum())} of {clean.numel()} groups compared further")
+    return clean
+
+
+def _moe_cpu_vs_card(model, params, tokens, dev):
+    """(8b) qwen3-moe cut in depth (fp32): `Model.prefill` of `tokens`, its
+    logits, and 4 decode steps from a zero cache on the CPU, then on the
+    card (the same LM moved there); routing first, then hidden states,
+    logits and caches at the zoo's fp32 bound on the groups without a
+    flip. Returns the max abs error."""
+    from repro_torch.models.layers import unembed
+    from repro_torch.models.moe import record_routing
+    runs = []
+    for d in ("cpu", dev):
+        params = params.to(d)
+        t = time.perf_counter()
+        with torch.inference_mode(), record_routing(params) as pre:
+            hidden, aux = model.prefill(params, {"tokens": tokens})
+            logits = unembed(params.head_table, hidden)
+        cache = model.init_cache(tokens.shape[0], 64, torch.float32,
+                                 device=d)
+        steps = []
+        with record_routing(params) as dec:
+            for i in range(4):
+                lg, cache = model.decode_step(params, cache,
+                                              tokens[:, i:i + 1], i)
+                steps.append(lg.cpu())
+        sync(d)
+        runs.append(dict(hidden=hidden.cpu(), logits=logits.cpu(),
+                         aux=float(aux), routes=pre + dec, steps=steps,
+                         cache={(n, k): v.cpu() for n, lv in cache.items()
+                                for k, v in lv.items()}))
+        log(f"  {model.cfg.name} ({model.cfg.num_layers} layer) on {d}: "
+            f"prefill {tuple(tokens.shape)}, logits and 4 decode steps in "
+            f"{time.perf_counter() - t:.1f} s")
+        del hidden, logits, cache
+    cpu, card = runs
+    n = model.cfg.num_layers
+    clean = _routing_first(cpu["routes"][:n], card["routes"][:n],
+                           f"{model.cfg.name} prefill")
+    g = cpu["routes"][0].idx.shape[1]
+    d = model.cfg.d_model
+    err = 0.0
+    for key, width in (("hidden", d), ("logits", model.cfg.vocab_size)):
+        a = card[key].reshape(-1, g, width)[clean]
+        b = cpu[key].reshape(-1, g, width)[clean]
+        require(bool(torch.isfinite(a).all()), f"non-finite {key}")
+        err = max(err, max_err(a, b, 1e-4, 1e-3, f"{model.cfg.name} {key}"))
+    if bool(clean.all()):
+        require(abs(card["aux"] - cpu["aux"]) <= 1e-5 * abs(cpu["aux"]),
+                f"aux {card['aux']} vs {cpu['aux']}")
+    flipped = False
+    for i in range(4):
+        step = _routing_first(cpu["routes"][n * (i + 1):n * (i + 2)],
+                              card["routes"][n * (i + 1):n * (i + 2)],
+                              f"{model.cfg.name} decode step {i}")
+        flipped = flipped or not bool(step.all())
+        if flipped:
+            break
+        err = max(err, max_err(card["steps"][i], cpu["steps"][i], 1e-4, 1e-3,
+                               f"{model.cfg.name} decode step {i} logits"))
+    if not flipped:
+        for key, leaf in cpu["cache"].items():
+            err = max(err, max_err(card["cache"][key], leaf, 1e-4, 1e-3,
+                                   f"{model.cfg.name} cache {key}"))
+    log(f"  {model.cfg.name} aux: CPU {cpu['aux']:.8f}, card "
+        f"{card['aux']:.8f}")
+    return err
+
+
+def _mixer_cpu_vs_card(mixer, cfg, x, dev):
+    """(8b) One MoE mixer at full width (fp32): `moe_apply` on x and on 4
+    one-token steps x[:, i], CPU then card; routing first, then the
+    outputs on the groups without a flip. JAX's fan-in rule takes E for
+    the expert leaves (1/sqrt(8) for grok-1), so on unit inputs the
+    outputs are of order 1e4: they are held at the zoo's fp32 bound with
+    its atol taken relative to the largest output, atol 1e-4 x
+    max|out|, rtol 1e-3. Returns the max abs error over that scale."""
+    from repro_torch.models.moe import record_routing
+    kw = dict(top_k=cfg.moe.top_k, capacity_factor=cfg.moe.capacity_factor)
+    runs = []
+    for d in ("cpu", dev):
+        mixer = mixer.to(d)
+        xd = x.to(d)
+        t = time.perf_counter()
+        with torch.inference_mode(), record_routing(mixer) as routes:
+            out, aux = mixer(xd, **kw)
+            steps = [mixer(xd[:, i:i + 1], **kw)[0].cpu() for i in range(4)]
+        sync(d)
+        runs.append((out.cpu(), float(aux), steps, routes))
+        log(f"  {cfg.name} MoE mixer on {d}: {tuple(x.shape)} and 4 steps "
+            f"in {time.perf_counter() - t:.1f} s")
+        del out, xd
+    (o_cpu, a_cpu, s_cpu, r_cpu), (o_dev, a_dev, s_dev, r_dev) = runs
+    clean = _routing_first(r_cpu[:1], r_dev[:1], f"{cfg.name} mixer")
+    g = r_cpu[0].idx.shape[1]
+    scale = o_cpu.abs().max().item()
+    log(f"  {cfg.name} mixer outputs: max |out| {scale:.6g} on the CPU")
+    err = max_err(o_dev.reshape(-1, g, cfg.d_model)[clean],
+                  o_cpu.reshape(-1, g, cfg.d_model)[clean], 1e-4 * scale,
+                  1e-3, f"{cfg.name} mixer output")
+    if bool(clean.all()):
+        require(abs(a_dev - a_cpu) <= 1e-5 * abs(a_cpu),
+                f"{cfg.name} aux {a_dev} vs {a_cpu}")
+    for i in range(4):
+        if bool(_routing_first(r_cpu[i + 1:i + 2], r_dev[i + 1:i + 2],
+                               f"{cfg.name} mixer step {i}").all()):
+            err = max(err, max_err(s_dev[i], s_cpu[i], 1e-4 * scale, 1e-3,
+                                   f"{cfg.name} mixer step {i}"))
+    return err / scale
+
+
+def cross_check_moe(dev) -> None:
+    """(8b) CPU against the card in fp32 at full width, cut in depth:
+    qwen3-moe-235b-a22b with 1 of its 94 layers (embedding and head
+    included), then grok-1's MoE mixer alone; each is drawn once, run on
+    the CPU, moved to the card, run there, and freed before the next."""
+    from repro_torch.config import get_arch
+    from repro_torch.models.moe import MoE
+    from repro_torch.models.model_zoo import build_model
+    rng = np.random.RandomState(SEED)
+    B, S = MOE_CHECK_TOKENS
+    cfg = dataclasses.replace(get_arch(MOE_ARCH), num_layers=1,
+                              dtype="float32", param_dtype="float32")
+    model = build_model(cfg)
+    t = time.perf_counter()
+    params = model.init(SEED, device="cpu")
+    log(f"  {cfg.name}, 1 layer, fp32: {model.param_count()} parameters "
+        f"drawn in {time.perf_counter() - t:.1f} s")
+    tokens = rng.randint(0, cfg.vocab_size, (B, S))
+    err = _moe_cpu_vs_card(model, params, tokens, dev)
+    del params
+    gc.collect()
+    log(f"  {cfg.name} (1 layer, fp32), CPU plain vs card: max abs err "
+        f"{err:.3g} (hidden, logits, caches; atol 1e-4 rtol 1e-3)")
+
+    gcfg = get_arch(GROK_ARCH)
+    t = time.perf_counter()
+    mixer = MoE(torch.Generator().manual_seed(SEED), gcfg.d_model,
+                gcfg.moe.d_ff, gcfg.moe.num_experts, torch.float32,
+                gated=gcfg.mlp_gated)
+    log(f"  {gcfg.name} MoE mixer, fp32: "
+        f"{sum(p.numel() for p in mixer.parameters())} parameters drawn in "
+        f"{time.perf_counter() - t:.1f} s")
+    x = torch.from_numpy(rng.randn(B, S, gcfg.d_model).astype(np.float32))
+    err = _mixer_cpu_vs_card(mixer, gcfg, x, dev)
+    del mixer
+    gc.collect()
+    log(f"  {gcfg.name} MoE mixer (fp32), CPU plain vs card: max abs err "
+        f"{err:.3g} of max |out| (atol 1e-4 x max |out|, rtol 1e-3)")
+
+
+def moe_zoo_path(dev) -> None:
+    """(8c) qwen3-moe-235b-a22b at full width, MOE_LAYERS of its 94 layers,
+    bf16, seeded: `Model.prefill` of MOE_PREFILL tokens (3 calls, exactly
+    one flash launch an attention layer each, a finite positive aux), then
+    a ServeEngine answering MOE_SERVE's requests twice with the same
+    tokens."""
+    from repro_torch.config import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.model_zoo import build_model
+    full = get_arch(MOE_ARCH)
+    cfg = dataclasses.replace(full, num_layers=MOE_LAYERS)
+    model = build_model(cfg)
+    log(f"  reduced: {json.dumps({'num_layers': [full.num_layers, MOE_LAYERS]})}")
+    gc.collect()
+    t = time.perf_counter()
+    params = model.init(SEED, device=dev)
+    sync(dev)
+    init_s = time.perf_counter() - t
+    n_params, n_active = model.param_count(), model.active_param_count()
+    require(n_params == MOE_PARAMS, f"{n_params} parameters")
+    log(f"  {cfg.name}: {n_params} parameters ({n_active} active a token, "
+        f"{cfg.param_dtype}), {cfg.num_layers} layers, drawn and moved in "
+        f"{init_s:.1f} s; weights on the card "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    rng = np.random.RandomState(SEED)
+    B, S = MOE_PREFILL
+    V = cfg.vocab_size
+    tokens = torch.from_numpy(rng.randint(0, V, (B, S))).to(dev)
+    n_attn = sum(kind == "attn" for kind in cfg.blocks())
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for call in range(3):
+        before = flash_attention.launches
+        t = time.perf_counter()
+        hidden, aux = model.prefill(params, {"tokens": tokens})
+        sync(dev)
+        walls.append(time.perf_counter() - t)
+        require(flash_attention.launches - before == n_attn,
+                f"prefill call {call}: {flash_attention.launches - before} "
+                f"flash launches, not {n_attn}")
+    require(tuple(hidden.shape) == (B, S, cfg.d_model)
+            and hidden.dtype == torch.bfloat16
+            and bool(torch.isfinite(hidden).all())
+            and bool(torch.isfinite(aux)) and float(aux) > 0,
+            f"prefill hidden {tuple(hidden.shape)} {hidden.dtype}, aux "
+            f"{float(aux)}")
+    wall = float(np.median(walls[1:]))
+    log(f"  prefill {B} x {S}: wall {1e3 * wall:.2f} ms (median of calls "
+        f"2-3; first {1e3 * walls[0]:.2f} ms), {B * S / wall:.0f} tokens/s, "
+        f"{n_attn} flash launches a call, aux {float(aux):.6f}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    del hidden, tokens
+
+    n_req, lo, hi, new, slots, max_seq = MOE_SERVE
+    lens = rng.randint(lo, hi + 1, size=n_req)
+    prompts = [rng.randint(0, V, n).tolist() for n in lens]
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    runs = [_serve(model, params, prompts, dev, new, slots, max_seq)
+            for _ in range(2)]
+    outs, steps, serve_s = runs[0]
+    require(sorted(outs) == list(range(n_req)),
+            f"{len(outs)} of {n_req} requests completed")
+    for r, out in outs.items():
+        require(len(out) == new and all(0 <= x < V for x in out),
+                f"request {r}: {len(out)} tokens, or out of vocab")
+    require(runs[1][0] == outs, "the repeated run gave other tokens")
+    log(f"  serve: {n_req} requests (prompts {lens.min()}-{lens.max()} "
+        f"tokens, {new} new each) on {slots} slots, max_seq {max_seq}: "
+        f"{steps} decode steps (prefill steps included) in {serve_s:.3f} s "
+        f"and {runs[1][2]:.3f} s, {steps / serve_s:.1f} and "
+        f"{runs[1][1] / runs[1][2]:.1f} steps/s, {n_req * new / serve_s:.1f} "
+        f"new tokens/s; KV cache {_cache_bytes(cfg, slots, max_seq)} bytes; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+        f"GiB; the repeat gave the same tokens")
+    del params
+
+
+def moe_phase(dev, gen, drive) -> dict:
+    """Phase 8: (a) flash at qwen3-moe's prefill shape, (b) CPU against
+    the card at full width cut in depth, (c) qwen3-moe's serving path
+    (`drive`n as "zoo_moe"; only its launches count). Returns 8a's
+    numbers."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    flash_moe = check_flash_moe(dev, gen)
+    cross_check_moe(dev)
+    drive("zoo_moe", lambda: moe_zoo_path(dev))
+    log(f"MoE zoo phase: {time.perf_counter() - t:.3f} s")
+    return flash_moe
+
+
 def time_kernels(root: str) -> dict:
     """Device and wrapper ms of wkv (the encoder's shape), of the
     set-attention backward (Stage-2 training's SAB and PMA shapes) and of
@@ -2097,8 +2436,6 @@ def profile_stage1() -> int:
     the host wall a step, the kernels a step, the device's busy time a
     step (the union of kernel intervals) and its share of the wall, the
     device time by kind (matmul, wkv, other) and the top kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.config import TrainConfig
     from repro_torch.core.bbe import BBEConfig, BBEEncoder, pretrain_loss
     from repro_torch.kernels import _lib
@@ -2114,12 +2451,33 @@ def profile_stage1() -> int:
     for b in batches[:3]:
         trainer.step(b)
     torch.cuda.synchronize()
-    n = len(batches) - 3
+    log(_card_name())
+    _profile(lambda: [trainer.step(b) for b in batches[3:]],
+             len(batches) - 3, f"stage-1 pre-training step ({STAGE1_BATCH} "
+             f"x {cfg.max_len} tokens", "wkv_")
+    return 0
+
+
+def _card_name() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    return smi.splitlines()[0]
+
+
+def _profile(fn, n: int, what: str, kernel: str) -> None:
+    """Runs fn() (n calls of what is profiled) under torch.profiler and
+    prints the host wall a call, the kernels a call, the device's busy
+    time a call (the union of kernel intervals) and its share of the
+    wall, the device time by kind (matmul; the port's kernel whose name
+    holds `kernel`; other) and the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        for b in batches[3:]:
-            trainer.step(b)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) / n
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -2133,35 +2491,65 @@ def profile_stage1() -> int:
     for e in kernels:
         c, us = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (c + 1, us + e.time_range.elapsed_us())
-    kinds = {"matmul": 0.0, "wkv": 0.0, "other": 0.0}
-    for name, (_, us) in by_name.items():
-        low = name.lower()
-        kind = ("wkv" if "wkv_" in low else "matmul"
-                if "gemm" in low or "cutlass" in low or "xmma" in low
+    name = kernel.strip("_")
+    kinds = {"matmul": 0.0, name: 0.0, "other": 0.0}
+    for kname, (_, us) in by_name.items():
+        low = kname.lower()
+        kind = (name if kernel in low else "matmul"
+                if any(m in low for m in ("gemm", "cutlass", "xmma", "nvjet"))
                 else "other")
         kinds[kind] += us
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True).stdout.strip()
-    log(smi.splitlines()[0])
-    log(f"stage-1 pre-training step ({STAGE1_BATCH} x {cfg.max_len} tokens, "
-        f"{n} steps profiled): wall {1e3 * wall:.2f} ms, {len(kernels) / n:.0f}"
-        f" kernels, device busy {busy / 1e3 / n:.2f} ms "
+    log(f"{what}, {n} calls profiled): wall {1e3 * wall:.2f} ms, "
+        f"{len(kernels) / n:.0f} kernels, device busy {busy / 1e3 / n:.2f} ms "
         f"({100 * busy / 1e3 / n / (1e3 * wall):.1f}% of the wall)")
-    log("  device ms a step by kind: " + ", ".join(
+    log("  device ms a call by kind: " + ", ".join(
         f"{k} {v / 1e3 / n:.2f}" for k, v in kinds.items()))
-    for name, (c, us) in sorted(by_name.items(), key=lambda x: -x[1][1])[:15]:
-        log(f"  {us / 1e3 / n:8.3f} ms {c // n:5d} x  {name[:90]}")
+    for kname, (c, us) in sorted(by_name.items(), key=lambda x: -x[1][1])[:15]:
+        log(f"  {us / 1e3 / n:8.3f} ms {c // n:5d} x  {kname[:90]}")
+
+
+def profile_moe() -> int:
+    """Where qwen3-moe's prefill and decode step go at phase 8c's widths
+    (bf16, seeded), cut to MOE_PROFILE_LAYERS layers (a layer's work does
+    not depend on the depth): 2 prefill calls of MOE_PREFILL tokens, then
+    5 decode steps on 8 slots, each after a warm-up, under torch.profiler
+    (`_profile`)."""
+    from repro_torch.config import get_arch
+    from repro_torch.kernels import _lib
+    from repro_torch.models.model_zoo import build_model
+    _lib.load_library()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch(MOE_ARCH),
+                              num_layers=MOE_PROFILE_LAYERS)
+    model = build_model(cfg)
+    params = model.init(SEED, device="cuda")
+    rng = np.random.RandomState(SEED)
+    B, S = MOE_PREFILL
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, S))).cuda()
+    model.prefill(params, {"tokens": tokens})
+    log(_card_name())
+    _profile(lambda: [model.prefill(params, {"tokens": tokens})
+                      for _ in range(2)], 2,
+             f"{cfg.name} prefill ({cfg.num_layers} layers, {B} x {S} tokens",
+             "flash")
+    slots = MOE_SERVE[4]
+    cache = model.init_cache(slots, MOE_SERVE[5], torch.float32,
+                             device="cuda")
+    step = torch.from_numpy(rng.randint(0, cfg.vocab_size, (slots, 1))).cuda()
+    pos = torch.arange(slots, device="cuda")
+    for i in range(2):
+        model.decode_step(params, cache, step, pos + i)
+    _profile(lambda: [model.decode_step(params, cache, step, pos + 2 + i)
+                      for i in range(5)], 5,
+             f"{cfg.name} decode step ({cfg.num_layers} layers, {slots} "
+             f"slots", "flash")
     return 0
 
 
 def versus(other: str) -> int:
     """`time_kernels` of the checkout at `other` and of this one, in turns,
     each in its own process."""
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True).stdout.strip()
-    log(smi.splitlines()[0])
+    log(_card_name())
     for tag, root in (("other", other), ("this", HERE), ("this", HERE),
                       ("other", other)):
         run = subprocess.run([sys.executable, os.path.abspath(__file__),
@@ -2180,12 +2568,13 @@ def versus(other: str) -> int:
 
 
 def main() -> int:
-    if sys.argv[1:] == ["--profile-stage1"]:
+    if sys.argv[1:] in (["--profile-stage1"], ["--profile-moe"]):
         if not torch.cuda.is_available():
             print("chip_smoke: CUDA is not available", file=sys.stderr)
             return 2
         sys.path.insert(0, os.path.join(HERE, "src"))
-        return profile_stage1()
+        return (profile_stage1() if sys.argv[1] == "--profile-stage1"
+                else profile_moe())
     if len(sys.argv) == 3 and sys.argv[1] in ("--versus", "--time-kernels"):
         if not torch.cuda.is_available():
             print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2194,6 +2583,7 @@ def main() -> int:
             return versus(sys.argv[2])
         print(json.dumps(time_kernels(sys.argv[2])), flush=True)
         return 0
+    moe_only = sys.argv[1:] == ["--moe"]
     # cuBLAS takes its workspace layout when CUDA starts: the fixed one
     # that deterministic algorithms (phase 5) need
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -2214,16 +2604,24 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # 1. setup
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True).stdout.strip()
-    card = smi.splitlines()[0]
+    card = _card_name()
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     t = time.perf_counter()
     _lib.load_library()
     log(f"kernel library built and loaded in {time.perf_counter() - t:.1f} s")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    if moe_only:
+        def count(path, fn):
+            flash_attention.launches = 0
+            fn()
+            log(f"{path} launches: flash_attention "
+                f"{flash_attention.launches}")
+
+        moe_phase(dev, gen, count)
+        return 0
 
     t = time.perf_counter()
     programs, blocks, intervals, cpis = make_world()
@@ -2233,8 +2631,6 @@ def main() -> int:
     n_valid_build = (len(programs) - 1) * N_INTERVALS
 
     # 2. kernels against their plain versions
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(SEED)
     wrappers = {"wkv": wkv, "wkv_backward": wkv_backward,
                 "set_attention": masked_set_attention,
                 "kmeans_assign": kmeans_assign, "kmeans_update": kmeans_update,
@@ -2371,6 +2767,16 @@ def main() -> int:
     cross_check_mamba(dev)
     log(f"recurrent zoo phase: {time.perf_counter() - t:.3f} s")
     results["wkv"]["extra"]["zoo_shapes"] = wkv_zoo
+
+    # 8. the zoo's MoE archs: (a) flash at qwen3-moe's prefill shape, (b)
+    # CPU vs card (qwen3-moe cut to 1 layer, grok-1's mixer), (c) qwen3-moe
+    # at 8 layers served; only (c)'s launches count
+    flash_moe = moe_phase(dev, gen, drive)
+    n_moe = by_path.get("flash_attention", {}).get("zoo_moe", 0)
+    require(n_moe == 3 * MOE_LAYERS,
+            f"flash_attention launched {n_moe} times on the MoE zoo path, "
+            f"not {3 * MOE_LAYERS}")
+    results["flash_attention"]["extra"]["moe_shape"] = flash_moe
 
     meta = {
         "wkv": ("src/repro_torch/csrc/wkv.cu",

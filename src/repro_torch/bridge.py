@@ -17,7 +17,9 @@ lm_init`): its `layers/p<pos>/...` leaves carry a leading `n_periods`
 axis (the `jax.vmap` init), split so that layer n * period + pos gets
 index n; the LM keeps the leaves' dtype (the config's `param_dtype`, but
 for the leaves JAX keeps in fp32 in every model: RWKV's `w_bias`,
-Mamba's `A_log` and `D`, mLSTM's `b_i` and `b_f`, sLSTM's `b_zifo`), and
+Mamba's `A_log` and `D`, mLSTM's `b_i` and `b_f`, sLSTM's `b_zifo`, the
+MoE `router`; an MoE layer's `moe/{router,wi,wg,wo}` map onto
+`layers.<i>.moe.*` like any other leaf), and
 bf16 leaves (numpy's `ml_dtypes.bfloat16`) cross as their bits, never
 through float.
 

@@ -127,10 +127,14 @@ def attn_decode(params: Attention, x, cache_k, cache_v, pos, *,
     (an int or 0-d tensor is shared by every row).
 
     Writes this step's k, v into row b of the caches at pos[b], in place,
-    except for rows whose `write` is False and rows with pos[b] >= T
-    (dropped, as JAX's scatter drops them), then attends over each row's
-    cache entries 0..pos[b] (and the window). Returns (out (B,1,d),
-    cache_k, cache_v)."""
+    but for rows with pos[b] >= T (dropped, as JAX's scatter drops them),
+    then attends over each row's cache entries 0..pos[b] (and the window).
+    Rows whose `write` is False attend as the others do, over their new
+    entry, and then get their old entry back: their cache is left bitwise
+    as it was, and their output is the reference's (whose caller merges
+    the old cache back), which matters where rows share a computation
+    (an MoE layer's expert capacity). Returns (out (B,1,d), cache_k,
+    cache_v)."""
     B = x.shape[0]
     T = cache_k.shape[1]
     pos = torch.as_tensor(pos, device=x.device)
@@ -141,15 +145,11 @@ def attn_decode(params: Attention, x, cache_k, cache_v, pos, *,
     q, k, v = _project_qkv(params, x, num_heads, num_kv_heads, head_dim,
                            positions, qk_norm, rope_theta, use_rope)
     rows = torch.arange(B, device=x.device)
-    keep = pos < T
-    if write is not None:
-        keep = keep & write
     at = pos.clamp(max=T - 1)
-    keep = keep[:, None, None]
-    cache_k[rows, at] = torch.where(keep, k[:, 0].to(cache_k.dtype),
-                                    cache_k[rows, at])
-    cache_v[rows, at] = torch.where(keep, v[:, 0].to(cache_v.dtype),
-                                    cache_v[rows, at])
+    inside = (pos < T)[:, None, None]
+    old_k, old_v = cache_k[rows, at], cache_v[rows, at]
+    cache_k[rows, at] = torch.where(inside, k[:, 0].to(cache_k.dtype), old_k)
+    cache_v[rows, at] = torch.where(inside, v[:, 0].to(cache_v.dtype), old_v)
     kv_pos = torch.arange(T, device=x.device)
     valid = kv_pos[None, :] <= pos[:, None]         # (B, T)
     if window > 0:
@@ -157,5 +157,9 @@ def attn_decode(params: Attention, x, cache_k, cache_v, pos, *,
     bias = torch.zeros((1, T), dtype=torch.float32, device=x.device)
     out = _ref_attention(q, cache_k.to(q.dtype), cache_v.to(q.dtype), bias,
                          kv_valid=valid)
+    if write is not None:
+        keep = write[:, None, None]
+        cache_k[rows, at] = torch.where(keep, cache_k[rows, at], old_k)
+        cache_v[rows, at] = torch.where(keep, cache_v[rows, at], old_v)
     out = out.reshape(B, 1, num_heads * head_dim)
     return out @ params.wo.to(out.dtype), cache_k, cache_v

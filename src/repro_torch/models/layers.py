@@ -25,7 +25,7 @@ def init_array(gen: torch.Generator, shape: Sequence[int],
     if scale is None:
         fan_in = shape[0] if len(shape) > 1 else shape[-1]
         scale = 1.0 / math.sqrt(max(1, fan_in))
-    return torch.randn(tuple(shape), generator=gen) * scale
+    return torch.randn(tuple(shape), generator=gen).mul_(scale)
 
 
 def require_float32(field: str, dtype: str) -> None:

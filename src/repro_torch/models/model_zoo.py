@@ -11,9 +11,10 @@ ModelConfig (port of `repro.models.model_zoo`, inference part).
 `torch.inference_mode()`; on CUDA, attention layers run `prefill`
 through the flash-attention kernel and RWKV layers run `prefill` and
 `decode_step` through the wkv kernel (one launch a layer each); the
-Mamba, mLSTM and sLSTM recurrences are plain PyTorch, as they are plain
-JAX in the reference. `loss`, `input_specs`, `param_specs` and `cache_specs` wait for
-the training and distributed slices.
+Mamba, mLSTM and sLSTM recurrences and the MoE layers' routing and
+expert products are plain PyTorch, as they are plain JAX in the
+reference. `loss`, `input_specs`, `param_specs` and `cache_specs` wait
+for the training and distributed slices.
 """
 from __future__ import annotations
 
@@ -35,8 +36,9 @@ class Model:
     def init(self, seed: int = 0, device: Device = "cuda") -> tfm.LM:
         """The model's parameters, drawn on the CPU from
         `torch.Generator(seed)` (so one seed gives the same weights on
-        every device) and moved to `device`."""
-        return tfm.LM(self.cfg, seed).to(resolve_device(device))
+        every device), each block moved to `device` as soon as it is
+        drawn."""
+        return tfm.LM(self.cfg, seed, device=resolve_device(device))
 
     # --------------------------------------------------------------- serve
     def init_cache(self, batch: int, max_seq: int,
@@ -57,7 +59,9 @@ class Model:
                                       write)
 
     def prefill(self, params: tfm.LM, batch: Dict[str, Any]):
-        """Full-sequence forward returning (hidden (B,S,d), aux)."""
+        """Full-sequence forward returning (hidden (B,S,d), aux): aux is
+        the fp32 sum of the MoE layers' load-balance losses (0 without
+        MoE layers)."""
         if "frames" in batch or "patches" in batch:
             raise NotImplementedError("frames / patches inputs wait for the "
                                       "encoder-decoder and VLM slices")
@@ -72,6 +76,20 @@ class Model:
         with torch.device("meta"):
             lm = tfm.LM(self.cfg)
         return sum(p.numel() for p in lm.parameters())
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token: the MoE layers' inactive experts
+        (num_experts - top_k of them) taken out of `param_count`."""
+        total = self.param_count()
+        moe = self.cfg.moe
+        if moe is None:
+            return total
+        n_moe_layers = sum(1 for i in range(self.cfg.num_layers)
+                           if self.cfg.is_moe_layer(i))
+        per_expert = self.cfg.d_model * moe.d_ff * (3 if self.cfg.mlp_gated
+                                                    else 2)
+        return total - n_moe_layers * (moe.num_experts - moe.top_k) * \
+            per_expert
 
 
 def _device(params: tfm.LM) -> torch.device:

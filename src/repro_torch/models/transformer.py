@@ -3,9 +3,11 @@
 A model is a stack of pre-norm blocks between a token embedding scaled by
 sqrt(d_model) and a final RMSNorm, with a tied or separate LM head. A
 block is norm1 -> mixer -> residual, then (but for mLSTM and sLSTM,
-which carry their own projections) norm2 -> MLP -> residual, or for RWKV
-norm2 -> channel-mix -> residual. The mixer is attention, Mamba, mLSTM,
-sLSTM or the RWKV time-mix, as the config's block pattern says. JAX
+which carry their own projections) norm2 -> MLP or MoE -> residual, or
+for RWKV norm2 -> channel-mix -> residual. The mixer is attention, Mamba,
+mLSTM, sLSTM or the RWKV time-mix, as the config's block pattern says;
+the MoE layers are those of `cfg.is_moe_layer`, and their load-balance
+losses are summed over layers into the forward's aux. JAX
 stacks the parameters of each position of the repeating *period* and
 scans over periods; the port keeps one module per layer (`LM.layers`)
 and loops over them in Python. The decode cache keeps JAX's stacked
@@ -14,9 +16,8 @@ layout, {"p<pos>": {leaf: (n_periods, batch, ...)}}: k/v for attention
 (`rwkv_init_state`, `ssm.*_init_state`), so caches compare leaf for
 leaf.
 
-MoE layers, the encoder and cross-attention (encoder-decoder) and prefix
-inputs (the prefix-LM VLM) raise `NotImplementedError`: they wait for
-later slices.
+The encoder and cross-attention (encoder-decoder) and prefix inputs (the
+prefix-LM VLM) raise `NotImplementedError`: they wait for later slices.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from repro_torch.config import (
     ModelConfig,
 )
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm
 from repro_torch.models.layers import MLP, Embed, RMSNorm, embed, unembed
@@ -59,9 +61,6 @@ def period_of(cfg: ModelConfig) -> int:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raises NotImplementedError for what the port does not take yet."""
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE layers wait for the MoE "
-                                  f"slice")
     if cfg.encoder_layers or cfg.cross_attention:
         raise NotImplementedError(f"{cfg.name}: the encoder and cross-"
                                   f"attention wait for the encoder-decoder "
@@ -77,12 +76,12 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 class Block(nn.Module):
-    """norm1 and the mixer of `kind`, then norm2 + channel_mix (RWKV) or
-    norm2 + mlp (attention and Mamba when d_ff > 0); names as the JAX
-    block tree (`_block_init`)."""
+    """norm1 and the mixer of `kind`, then norm2 + channel_mix (RWKV), or
+    for attention and Mamba norm2 + moe (`is_moe`) or norm2 + mlp (d_ff >
+    0); names as the JAX block tree (`_block_init`)."""
 
     def __init__(self, gen: torch.Generator, cfg: ModelConfig, kind: str,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, is_moe: bool = False):
         super().__init__()
         self.kind = kind
         d = cfg.d_model
@@ -105,13 +104,19 @@ class Block(nn.Module):
             self.mixer = rwkv_mod.TimeMix(gen, d, cfg.num_heads, dtype)
         else:
             raise ValueError(f"unknown block kind {kind}")
-        self.norm2 = self.mlp = self.channel_mix = None
+        self.norm2 = self.mlp = self.moe = self.channel_mix = None
         if kind == BLOCK_RWKV:
             self.norm2 = RMSNorm(d, dtype, cfg.norm_eps)
             self.channel_mix = rwkv_mod.ChannelMix(gen, d, dtype)
-        elif cfg.d_ff > 0 and kind not in (BLOCK_MLSTM, BLOCK_SLSTM):
+        elif ((cfg.d_ff > 0 or is_moe)
+              and kind not in (BLOCK_MLSTM, BLOCK_SLSTM)):
             self.norm2 = RMSNorm(d, dtype, cfg.norm_eps)
-            self.mlp = MLP(gen, d, cfg.d_ff, dtype, gated=cfg.mlp_gated)
+            if is_moe:
+                self.moe = moe_mod.MoE(gen, d, cfg.moe.d_ff,
+                                       cfg.moe.num_experts, dtype,
+                                       gated=cfg.mlp_gated)
+            else:
+                self.mlp = MLP(gen, d, cfg.d_ff, dtype, gated=cfg.mlp_gated)
 
 
 def _attn_kwargs(cfg: ModelConfig) -> dict:
@@ -120,17 +125,23 @@ def _attn_kwargs(cfg: ModelConfig) -> dict:
                 use_rope=(cfg.pos_embedding == "rope"), qk_norm=cfg.qk_norm)
 
 
-def _ffn(params: Block, x):
-    """The block's second residual: channel-mix, MLP or nothing."""
+def _ffn(params: Block, cfg: ModelConfig, x):
+    """The block's second residual: channel-mix, MLP, MoE or nothing.
+    Returns (x, the MoE's aux loss or None)."""
     if params.channel_mix is not None:
-        return x + params.channel_mix(params.norm2(x))
+        return x + params.channel_mix(params.norm2(x)), None
     if params.mlp is not None:
-        return x + params.mlp(params.norm2(x))
-    return x
+        return x + params.mlp(params.norm2(x)), None
+    if params.moe is not None:
+        out, aux = params.moe(params.norm2(x), top_k=cfg.moe.top_k,
+                              capacity_factor=cfg.moe.capacity_factor)
+        return x + out, aux
+    return x, None
 
 
 def _block_apply(params: Block, cfg: ModelConfig, x, *, mask_mode: str,
                  positions=None):
+    """(x, the block's aux loss or None)."""
     h = params.norm1(x)
     kind = params.kind
     if kind == BLOCK_ATTN:
@@ -145,7 +156,7 @@ def _block_apply(params: Block, cfg: ModelConfig, x, *, mask_mode: str,
         mix = params.mixer(h)
     else:
         mix = ssm.slstm_apply(params.mixer, h, cfg.num_heads)
-    return _ffn(params, x + mix)
+    return _ffn(params, cfg, x + mix)
 
 
 # ---------------------------------------------------------------------------
@@ -157,20 +168,30 @@ class LM(nn.Module):
     """The model's parameters (JAX's `lm_init`), drawn on the CPU from
     `torch.Generator(seed)`, named as the JAX tree with the stacked
     `layers/p<pos>/...` split into `layers.<i>....`; in the config's
-    `param_dtype`, but for the leaves JAX keeps in fp32."""
+    `param_dtype`, but for the leaves JAX keeps in fp32 (the MoE router
+    among them). With `device`, each module goes there as soon as its leaves
+    are drawn, so the host holds one block at a time; the draws, and so
+    the bits, are the same on every device."""
 
-    def __init__(self, cfg: ModelConfig, seed: int = 0):
+    def __init__(self, cfg: ModelConfig, seed: int = 0,
+                 device: Optional[torch.device] = None):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
         dtype = torch_dtype(cfg.param_dtype)
         gen = torch.Generator().manual_seed(seed)
-        self.embed = Embed(gen, cfg.vocab_size, cfg.d_model, dtype)
-        self.layers = nn.ModuleList(Block(gen, cfg, kind, dtype)
-                                    for kind in cfg.blocks())
-        self.final_norm = RMSNorm(cfg.d_model, dtype, cfg.norm_eps)
-        self.lm_head = (None if cfg.tie_embeddings else
-                        Embed(gen, cfg.vocab_size, cfg.d_model, dtype))
+
+        def placed(module: nn.Module) -> nn.Module:
+            return module if device is None else module.to(device)
+
+        self.embed = placed(Embed(gen, cfg.vocab_size, cfg.d_model, dtype))
+        self.layers = nn.ModuleList()
+        for i, kind in enumerate(cfg.blocks()):
+            self.layers.append(placed(Block(gen, cfg, kind, dtype,
+                                            is_moe=cfg.is_moe_layer(i))))
+        self.final_norm = placed(RMSNorm(cfg.d_model, dtype, cfg.norm_eps))
+        self.lm_head = (None if cfg.tie_embeddings else placed(
+            Embed(gen, cfg.vocab_size, cfg.d_model, dtype)))
 
     @property
     def head_table(self):
@@ -188,15 +209,18 @@ def lm_apply(params: LM, cfg: ModelConfig, tokens, *,
              return_hidden: bool = False):
     """tokens: (B, S) int. Returns (hidden (B,S,d), aux) when
     `return_hidden`, else (logits (B,S,V) in the model dtype, aux); aux
-    is the fp32 0 of a model without MoE layers."""
+    is the fp32 sum of the MoE layers' load-balance losses (0 without
+    MoE layers), added in layer order."""
     x = _embed_tokens(params, cfg, tokens)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
-    for block in params.layers:
-        x = _block_apply(block, cfg, x, mask_mode="causal",
-                         positions=positions)
-    x = params.final_norm(x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for block in params.layers:
+        x, a = _block_apply(block, cfg, x, mask_mode="causal",
+                            positions=positions)
+        if a is not None:
+            aux = aux + a
+    x = params.final_norm(x)
     if return_hidden:
         return x, aux
     return unembed(params.head_table, x), aux
@@ -263,14 +287,17 @@ def _store(state: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
 def _block_decode(params: Block, cfg: ModelConfig, x, state, pos,
                   write=None):
     """One token through a block; `state` holds this layer's views of the
-    cache, updated in place (rows whose `write` is False keep theirs)."""
+    cache, updated in place (rows whose `write` is False keep theirs).
+    Every row of the step goes through the block whatever its `write`:
+    in an MoE layer all B rows compete for the same expert capacity, as
+    in the reference."""
     h = params.norm1(x)
     kind = params.kind
     if kind == BLOCK_ATTN:
         mix, _, _ = attn.attn_decode(params.mixer, h, state["k"], state["v"],
                                      pos, window=cfg.attn_window,
                                      write=write, **_attn_kwargs(cfg))
-        return _ffn(params, x + mix)
+        return _ffn(params, cfg, x + mix)[0]
     if kind == BLOCK_RWKV:
         mix, tm_shift, S = rwkv_mod.timemix_decode(
             params.mixer, h, state["tm_shift"], state["S"])
@@ -287,7 +314,7 @@ def _block_decode(params: Block, cfg: ModelConfig, x, state, pos,
     else:
         mix, new = ssm.slstm_decode(params.mixer, h, state, cfg.num_heads)
     _store(state, new, write)
-    return _ffn(params, x + mix)
+    return _ffn(params, cfg, x + mix)[0]
 
 
 def lm_decode_step(params: LM, cfg: ModelConfig, cache, tokens, pos,

@@ -829,3 +829,93 @@ def test_recurrent_zoo_on_card_matches_cpu(cuda, arch):
         assert not leaf[:, 1].any(), key
         torch.testing.assert_close(runs["cuda"][2][key], leaf, atol=1e-4,
                                    rtol=1e-3)
+
+
+@pytest.mark.parametrize("gated", [True, False])
+def test_moe_apply_on_card_matches_cpu(cuda, gated):
+    """`moe_apply` (fp32) on the card against the CPU on the same weights,
+    routing first: no difference but flips at near ties (`compare_routing`)
+    and the slots they move; then the output on the groups without a
+    difference. Capacity factor 1.0: pairs are dropped."""
+    from repro_torch.models import moe
+    mod = moe.MoE(torch.Generator().manual_seed(0), 256, 384, 16,
+                  torch.float32, gated=gated)
+    x = torch.randn((4, 200, 256), generator=torch.Generator().manual_seed(1))
+    runs = []
+    for dev in ("cpu", cuda):
+        mod = mod.to(dev)
+        with torch.inference_mode():
+            r = moe.route(mod.router, x.to(dev), 4, 1.0)
+            out, aux = mod(x.to(dev), top_k=4, capacity_factor=1.0)
+        runs.append((r, out.cpu(), aux.cpu()))
+    (r_cpu, o_cpu, a_cpu), (r_dev, o_dev, a_dev) = runs
+    cmp = moe.compare_routing(r_cpu, r_dev)
+    assert cmp["n_unexplained"] == 0, cmp
+    assert int((~r_cpu.kept).sum()) > 0
+    clean = cmp["clean_groups"]
+    assert bool(clean.any())
+    g = r_cpu.idx.shape[1]
+    torch.testing.assert_close(o_dev.reshape(-1, g, 256)[clean],
+                               o_cpu.reshape(-1, g, 256)[clean], atol=1e-4,
+                               rtol=1e-3)
+    if cmp["n_flips"] == 0:
+        torch.testing.assert_close(a_dev, a_cpu, atol=0, rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["qwen3_moe_235b_a22b",
+                                  "jamba_1_5_large_398b"])
+def test_moe_zoo_on_card_matches_cpu(cuda, arch):
+    """A small MoE model (fp32) on the card and on the CPU from one seed,
+    routing first in every MoE layer (no difference but flips at near
+    ties); then the prefill's hidden states on the groups that no layer
+    flipped, the aux loss, one flash launch an attention layer, and 4
+    decode steps' logits up to the first step that flips."""
+    from repro_torch.config import get_arch, scaled_down
+    from repro_torch.models import moe
+    from repro_torch.models.model_zoo import build_model
+    cfg = scaled_down(get_arch(arch), num_layers=8 if "jamba" in arch else 2,
+                      d_model=128, num_heads=4, d_ff=256, vocab_size=512,
+                      num_experts=8)
+    model = build_model(cfg)
+    tokens = np.random.RandomState(0).randint(0, 512, (2, 40))
+    runs = []
+    for dev in ("cpu", cuda):
+        params = model.init(0, device=dev)
+        before = flash_attention.launches
+        with moe.record_routing(params) as prefill_routes:
+            hidden, aux = model.prefill(params, {"tokens": tokens})
+        launches = flash_attention.launches - before
+        cache = model.init_cache(2, 16, torch.float32, device=dev)
+        logits = []
+        with moe.record_routing(params) as decode_routes:
+            for t in range(4):
+                lg, cache = model.decode_step(params, cache,
+                                              tokens[:, t:t + 1], t)
+                logits.append(lg.cpu())
+        runs.append((hidden.cpu(), aux.cpu(), launches, prefill_routes,
+                     decode_routes, logits))
+    cpu, card = runs
+    n_attn = sum(kind == "attn" for kind in cfg.blocks())
+    assert cpu[2] == 0 and card[2] == n_attn
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+    assert len(cpu[3]) == len(card[3]) == n_moe
+    clean = torch.ones(1, dtype=torch.bool)
+    for a, b in zip(cpu[3], card[3]):
+        cmp = moe.compare_routing(a, b)
+        assert cmp["n_unexplained"] == 0, cmp
+        clean = clean & cmp["clean_groups"]
+    g = cpu[3][0].idx.shape[1]
+    torch.testing.assert_close(card[0].reshape(-1, g, cfg.d_model)[clean],
+                               cpu[0].reshape(-1, g, cfg.d_model)[clean],
+                               atol=1e-4, rtol=1e-3)
+    if bool(clean.all()):
+        torch.testing.assert_close(card[1], cpu[1], atol=0, rtol=1e-5)
+    for t in range(4):
+        step = [moe.compare_routing(a, b) for a, b in
+                zip(cpu[4][t * n_moe:(t + 1) * n_moe],
+                    card[4][t * n_moe:(t + 1) * n_moe])]
+        assert all(c["n_unexplained"] == 0 for c in step), step
+        if any(c["n_flips"] for c in step):
+            break
+        torch.testing.assert_close(card[5][t], cpu[5][t], atol=1e-4,
+                                   rtol=1e-3)

@@ -29,6 +29,8 @@ from repro_torch.models.model_zoo import build_model  # noqa: E402
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 DENSE = ["smollm_135m", "granite_3_2b", "qwen2_7b", "qwen3_4b"]
 RECURRENT = ["semanticbbv_encoder", "xlstm_1_3b"]   # test_torch_recurrent.py
+MOE = ["qwen3_moe_235b_a22b", "grok_1_314b",         # test_torch_moe.py
+       "jamba_1_5_large_398b"]
 SMALL = dict(num_layers=3, d_model=64, num_heads=4, num_kv_heads=2, d_ff=96,
              vocab_size=128)
 
@@ -84,19 +86,26 @@ def test_config_fields_and_shapes_match_jax():
                   dataclasses.fields(getattr(jconfig, name))]
         assert [(f.name, f.default) for f in dataclasses.fields(
             getattr(tconfig, name))] == fields, name
-    assert sorted(tconfig.PORTED_ARCHS) == sorted(DENSE + RECURRENT)
+    assert sorted(tconfig.PORTED_ARCHS) == sorted(DENSE + RECURRENT + MOE)
 
 
 def test_unported_archs_raise():
-    with pytest.raises(KeyError, match="not ported yet"):
-        tconfig.get_arch("grok-1-314b")
-    with pytest.raises(KeyError, match="not ported yet"):
-        tconfig.get_arch("no_such_arch")
+    """The encoder-decoder and the VLM (and unknown ids) still raise; the
+    MoE archs and MoE layers on a dense base build."""
+    assert tconfig.get_arch("grok-1-314b").name == "grok-1-314b"
+    for arch in ("whisper-tiny", "paligemma-3b", "no_such_arch"):
+        with pytest.raises(KeyError, match="not ported yet"):
+            tconfig.get_arch(arch)
     base = tconfig.scaled_down(tconfig.get_arch("smollm_135m"))
+    for changes in [
+            dict(block_pattern=("mamba", "attn"), moe_layer_stride=2,
+                 moe=tconfig.MoEConfig(4, 2, 64)),              # jamba
+            dict(moe=tconfig.MoEConfig(4, 2, 64))]:
+        cfg = dataclasses.replace(base, **changes)
+        lm = build_model(cfg).init(0, device="cpu")
+        assert [b.moe is not None for b in lm.layers] == \
+            [cfg.is_moe_layer(i) for i in range(cfg.num_layers)]
     for changes, what in [
-            (dict(block_pattern=("mamba", "attn"), moe_layer_stride=2,
-                  moe=tconfig.MoEConfig(4, 2, 64)), "MoE"),     # jamba
-            (dict(moe=tconfig.MoEConfig(4, 2, 64)), "MoE"),
             (dict(encoder_layers=2, cross_attention=True), "encoder"),
             (dict(prefix_lm=True, frontend="vision_patches"), "prefix")]:
         with pytest.raises(NotImplementedError, match=what):
