@@ -58,8 +58,11 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
   6. the LM zoo's dense serving path (smollm-135m at full width and
      depth, seeded untrained weights): (a) the flash-attention kernels
      against their plain version at the head dims of every zoo config (64,
-     128, 256; causal, windowed, non-causal S != T, ragged fp32) and at D
-     80, q/k/v as views of a fused projection (16-byte loads) and at an
+     128, 256; causal, windowed, non-causal S != T, ragged fp32), at D
+     80 and with the prefix rule in both dtypes (prefixes that cut a key
+     tile and a query tile, with a window, past T: bitwise the full mask),
+     bf16 within atol 1e-2 rtol 1e-2 and a relative L2 error of 1e-2,
+     fp32 within 2e-5 / 1e-2 / 1e-4; q/k/v as views of a fused projection (16-byte loads) and at an
      odd offset (element loads), bit for bit equal to contiguous copies;
      two launches give the same bits; registers, shared memory and spills
      of each bf16 instance; the HGMMA instructions in the bf16 kernel's
@@ -98,20 +101,41 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
      (bf16, 21,146,703,872 parameters): `Model.prefill` of 8 x 2048 tokens
      (exactly 8 flash launches a call, a finite positive aux), then a
      ServeEngine (8 slots, max_seq 512) answering 16 requests of 16-128
-     prompt tokens, 32 new each, twice with the same tokens.
+     prompt tokens, 32 new each, twice with the same tokens;
+  9. the zoo's encoder-decoder and prefix-LM (seeded untrained weights):
+     (a) prefix_len 0 bitwise the causal call at D 64, 128 and 256 in
+     both kernels, the registers, shared memory and spills of every
+     instance, and the bf16 kernel against its plain version (6a's
+     bounds) and timed beside SDPA and its bound at whisper's
+     encoder (16 x 1500 frames, full), cross (448 x 1500, full) and
+     decoder (448, causal) shapes and paligemma's prefill (8 x 2048, 8
+     heads over 1, D 256, prefix 256); (b) fp32 on the CPU against the
+     card: whisper-tiny at full width and depth (frames 2 x 1500, tokens
+     2 x 64, then 4 decode steps with the cross caches filled from the
+     encoder), paligemma-3b at full width cut to 2 layers (256 patches +
+     64 tokens, 4 decode steps); (c) whisper-tiny in bf16: `Model.prefill`
+     of 16 x 1500 frames + 16 x 448 tokens (exactly 12 flash launches a
+     call: 4 encoder, 4 decoder, 4 cross), a ServeEngine (8 slots,
+     max_seq 448) answering 16 requests of 4-128 prompt tokens, 128 new
+     each, twice with the same tokens; (d) paligemma-3b at full width and
+     depth in bf16: `Model.prefill` of 8 x (256 patches + 1,792 tokens)
+     (exactly 18 flash launches a call), a ServeEngine (8 slots, max_seq
+     512) answering 16 requests of 16-128 tokens, 32 new each, twice.
 The line before the last is the JSON kernel summary: `launches` counts
 each kernel on its own path (serving; training for the set-attention
 backward; Stage-1 training for the wkv backward; the zoo for flash),
 `launches_by_path` on each path that launched it (serve, lifecycle,
-simpoint, train, stage1_training, zoo, zoo_recurrent, zoo_moe); the
-launches of comparisons and witness runs count on none. wkv's entry also
-carries `zoo_shapes`, phase 7a's numbers at the decode and prefill
-shapes, and flash's `moe_shape`, phase 8a's. The last line is {"ok":
-true, "device": {...}}. Exits non-zero without CUDA.
+simpoint, train, stage1_training, zoo, zoo_recurrent, zoo_moe,
+zoo_encdec, zoo_vlm); the launches of comparisons and witness runs count
+on none. wkv's entry also carries `zoo_shapes`, phase 7a's numbers at
+the decode and prefill shapes, and flash's `moe_shape`, phase 8a's, and
+`modal_shapes`, phase 9a's. The last line is {"ok": true, "device":
+{...}}. Exits non-zero without CUDA.
 
     python3 chip_smoke.py --moe
+    python3 chip_smoke.py --modal
 
-runs the setup and phase 8 alone, and
+run the setup and phase 8 alone, or 6a's flash cases and phase 9, and
 
     python3 chip_smoke.py --profile-moe
 
@@ -121,7 +145,8 @@ slots at full width and 2 layers (device time by kind, busy share).
     python3 chip_smoke.py --versus OTHER_CHECKOUT
 
 runs none of that: it times wkv, the set-attention backward (SAB and
-PMA shapes) and the two k-means kernels (the build's shape; device time
+PMA shapes), the two k-means kernels (the build's shape) and the bf16
+flash kernel (smollm's and qwen3-moe's prefill shapes; device time
 through a CUDA graph and back-to-back wrapper calls), and counts the
 shared loads and FMAs in their SASS (by the kernels' names before and
 since their redesigns), of the port
@@ -171,14 +196,23 @@ TRIPLET_BATCH = 32        # triplets a step: 3 x 32 token rows
 ZOO_ARCH = "smollm_135m"  # phase 6: the zoo model the repo's serve demo runs
 PREFILL_BATCH, PREFILL_LEN = 8, 2048
 SERVE_REQUESTS, SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_MAX_NEW = 24, 8, 1024, 64
-FLASH_CASES = [   # (B, S, T, H, K, D, causal, window, fp32); the first timed
-    (4, 2048, 2048, 9, 3, 64, True, 0, False),     # smollm's prefill
-    (1, 4096, 4096, 32, 8, 128, True, 0, False),   # qwen3-4b's heads
-    (2, 2048, 2048, 9, 3, 64, True, 512, False),   # a window of 512
-    (2, 448, 1500, 6, 6, 64, False, 0, False),     # whisper's cross shape
-    (2, 512, 512, 8, 1, 256, False, 0, False),     # paligemma's heads
-    (2, 1000, 1000, 9, 3, 64, True, 0, True),      # ragged tile, fp32
-    (2, 1000, 1000, 8, 2, 80, True, 0, False),     # D 80: padded to 128
+# (B, S, T, H, K, D, causal, window, prefix_len, fp32); the first timed.
+# The prefix cases cut a 64-key tile (100), a 128-row query tile with a
+# window (200), or lie past T (1024)
+FLASH_CASES = [
+    (4, 2048, 2048, 9, 3, 64, True, 0, 0, False),     # smollm's prefill
+    (1, 4096, 4096, 32, 8, 128, True, 0, 0, False),   # qwen3-4b's heads
+    (2, 2048, 2048, 9, 3, 64, True, 512, 0, False),   # a window of 512
+    (2, 448, 1500, 6, 6, 64, False, 0, 0, False),     # whisper's cross shape
+    (2, 512, 512, 8, 1, 256, False, 0, 0, False),     # paligemma's heads
+    (2, 1000, 1000, 9, 3, 64, True, 0, 0, True),      # ragged tile, fp32
+    (2, 1000, 1000, 8, 2, 80, True, 0, 0, False),     # D 80: padded to 128
+    (2, 1000, 1000, 8, 1, 256, True, 0, 100, False),
+    (1, 600, 600, 8, 1, 256, True, 0, 100, True),
+    (2, 1000, 1000, 8, 1, 256, True, 128, 200, False),
+    (1, 600, 600, 8, 1, 256, True, 128, 200, True),
+    (1, 700, 700, 8, 2, 64, True, 0, 1024, False),
+    (1, 700, 700, 8, 2, 64, True, 0, 1024, True),
 ]
 FLASH_VIEW_SHAPE = (4, 1024, 9, 3, 64)   # (B, S, H, K, D) of the views
 ENCODER_ARCH, XLSTM_ARCH = "semanticbbv_encoder", "xlstm_1_3b"   # phase 7
@@ -198,6 +232,25 @@ MOE_PREFILL = (8, 2048)
 MOE_SERVE = (16, 16, 128, 32, 8, 512)
 MOE_CHECK_TOKENS = (2, 64)   # 8b: a prefill of 2 x 64, then 4 decode steps
 MOE_PROFILE_LAYERS = 2       # --profile-moe
+WHISPER_ARCH, PALI_ARCH = "whisper_tiny", "paligemma_3b"    # phase 9
+# 9a: timed at the four shapes the modal archs' prefills give flash:
+# (name, (B, S, T, H, K, D), causal, prefix_len)
+FLASH_MODAL_SHAPES = [
+    ("whisper encoder self", (16, 1500, 1500, 6, 6, 64), False, 0),
+    ("whisper cross", (16, 448, 1500, 6, 6, 64), False, 0),
+    ("whisper decoder self", (16, 448, 448, 6, 6, 64), True, 0),
+    ("paligemma prefill", (8, 2048, 2048, 8, 1, 256), True, 256),
+]
+# 9c: whisper's 30 s window (1500 frames) and 448-token text context
+WHISPER_PREFILL = (16, 1500, 448)          # B, frames, tokens
+WHISPER_CHECK = (2, 1500, 64)              # 9b, fp32 CPU vs card
+# requests, prompt tokens (least, most), new tokens each, slots, max_seq
+WHISPER_SERVE = (16, 4, 128, 128, 8, 448)
+PALI_PREFILL = (8, 256, 1792)              # B, patches, tokens: 2,048 rows
+PALI_CHECK = (2, 256, 64)                  # 9b, fp32 CPU vs card
+PALI_CHECK_LAYERS = 2                      # of 18, for the CPU half
+PALI_SERVE = (16, 16, 128, 32, 8, 512)
+WHISPER_PARAMS, PALI_PARAMS = 36_464_256, 2_508_662_784
 # 8b: the card may route a token otherwise than the CPU only where two of
 # the CPU's top k+1 probabilities lie within this many fp32 ulps
 ROUTING_ULPS = 8
@@ -1561,53 +1614,95 @@ def stage1_witness(run: dict) -> None:
 
 # ---------------------------------------------------------------- phase 6
 
-def _visible_pairs(S: int, T: int, causal: bool, window: int) -> int:
-    """Unmasked (q, k) pairs of one head, positions from 0 for both."""
+def _visible_pairs(S: int, T: int, causal: bool, window: int,
+                   prefix_len: int = 0) -> int:
+    """Unmasked (q, k) pairs of one head, positions from 0 for both; the
+    causal rule widened by the prefix (k < prefix_len visible to all)."""
     q = np.arange(S)[:, None]
     k = np.arange(T)[None, :]
     vis = np.ones((S, T), bool)
     if causal:
-        vis = k <= q
+        vis = (k <= q) | (k < prefix_len)
     if window > 0:
         vis = vis & (q - k < window)
     return int(vis.sum())
 
 
+def _flash_bound(B, S, T, H, K, D, causal, prefix_len):
+    """(bound_ms, bound_by) of one bf16 flash call: q, k, v read and o
+    written once; 4 D operations a visible (q, k) pair at the bf16 peak."""
+    nbytes = 2 * (2 * B * S * H * D + 2 * B * T * K * D)
+    flops = 4 * D * B * H * _visible_pairs(S, T, causal, 0, prefix_len)
+    return bound(nbytes, flops, PEAK_BF16_FLOP_PER_S)
+
+
+def _flash_inputs(gen, dev, B, S, T, H, K, D, dtype):
+    return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
+                 for shape in ((B, S, H, D), (B, T, K, D), (B, T, K, D)))
+
+
+def flash_err(got, want, fp32: bool, what: str) -> float:
+    """Max |got - want| of a flash output against its plain version. fp32
+    at the JAX suite's bound (atol 2e-5, rtol 1e-2); bf16 at atol 1e-2,
+    rtol 1e-2 (one bf16 ulp is at most 2^-7 |x|), since a typical output
+    of random q, k, v over hundreds of keys is only about 0.03-0.04. Both
+    also hold the relative L2 error ||got - want|| / ||want|| to 1e-4
+    (fp32) or 1e-2 (bf16): a dropped or doubled 64-key tile moves it by
+    several percent."""
+    err = max_err(got, want, 2e-5 if fp32 else 1e-2, 1e-2, what)
+    rel = ((got - want).norm() / want.norm()).item()
+    require(rel <= (1e-4 if fp32 else 1e-2),
+            f"{what}: relative L2 error {rel:.3g}")
+    log(f"  {what}: max abs err {err:.3g}, relative L2 error {rel:.3g}")
+    return err
+
+
+def check_flash_cases(dev, gen) -> float:
+    """Both flash kernels against their plain version at every case of
+    FLASH_CASES (`flash_err`), each launched twice with bitwise equal
+    outputs, and a prefix past T bitwise the full mask. Returns the max
+    abs error."""
+    from repro_torch.kernels.flash_attention import (
+        attention_reference, flash_attention,
+    )
+    err = 0.0
+    for B, S, T, H, K, D, causal, window, P, fp32 in FLASH_CASES:
+        dtype = torch.float32 if fp32 else torch.bfloat16
+        q, k, v = _flash_inputs(gen, dev, B, S, T, H, K, D, dtype)
+        kw = dict(causal=causal, window=window, prefix_len=P)
+        o = flash_attention(q, k, v, **kw)
+        case = (B, S, T, H, K, D, causal, f"window {window}", f"prefix {P}",
+                str(dtype))
+        require(o.dtype == dtype and bool(torch.isfinite(o).all()),
+                f"flash {case}: dtype {o.dtype} or non-finite")
+        e = flash_err(o.float(), attention_reference(q, k, v, **kw).float(),
+                      fp32, f"flash {case}")
+        require(torch.equal(o, flash_attention(q, k, v, **kw)),
+                f"flash {case}: two launches are not bitwise equal")
+        if P >= T and window == 0:
+            require(torch.equal(o, flash_attention(q, k, v, causal=False)),
+                    f"flash {case}: not bitwise the full mask")
+        err = max(err, e)
+        del q, k, v, o
+    return err
+
+
 def check_flash(dev, gen):
     """(6a) The flash kernel against its plain version at the zoo's head
-    dims, then timed at smollm-135m's prefill shape."""
+    dims and the prefix rule (`check_flash_cases`), then timed at
+    smollm-135m's prefill shape."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         attention_reference, flash_attention,
     )
-    bf16, f32 = torch.bfloat16, torch.float32
 
-    def inputs(B, S, T, H, K, D, dtype):
-        return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
-                     for shape in ((B, S, H, D), (B, T, K, D), (B, T, K, D)))
-
-    err = 0.0
-    for B, S, T, H, K, D, causal, window, fp32 in FLASH_CASES:
-        dtype = f32 if fp32 else bf16
-        q, k, v = inputs(B, S, T, H, K, D, dtype)
-        o = flash_attention(q, k, v, causal=causal, window=window)
-        ref = attention_reference(q, k, v, causal=causal, window=window)
-        require(o.dtype == dtype and bool(torch.isfinite(o).all()),
-                f"flash {B, S, T, H, K, D}: dtype {o.dtype} or non-finite")
-        # the JAX suite's bounds (tests/test_kernels.py): bf16 3e-2, fp32
-        # 2e-5, both rtol 1e-2
-        atol = 3e-2 if dtype == bf16 else 2e-5
-        case = (B, S, T, H, K, D, causal, window, str(dtype))
-        err = max(err, max_err(o.float(), ref.float(), atol, 1e-2,
-                               f"flash {case}"))
-        del q, k, v, o, ref
-
+    err = check_flash_cases(dev, gen)
     err = max(err, check_flash_layouts(dev, gen))
     from repro_torch.kernels import _lib
     attrs = {}
     for D in (64, 128, 256):
         attrs[D] = a = _lib.kernel_attributes("rt_flash_attention_attributes",
-                                              1, D)
+                                              1, D, 0)
         log(f"  flash_attention bf16 (wgmma) instance for D <= {D}: "
             f"{describe(a)}")
     sass = sass_counts(str(_lib.build_library()), "flash_wgmma_kernel")
@@ -1619,7 +1714,7 @@ def check_flash(dev, gen):
         require(hgmma > 0, "the bf16 flash kernel has no HGMMA instruction")
 
     B, S, _, H, K, D = FLASH_CASES[0][:6]
-    q, k, v = inputs(B, S, S, H, K, D, bf16)
+    q, k, v = _flash_inputs(gen, dev, B, S, S, H, K, D, torch.bfloat16)
     require(torch.equal(flash_attention(q, k, v), flash_attention(q, k, v)),
             "flash bf16: two launches are not bitwise equal")
     ms, wrapper_ms = kernel_ms(lambda: flash_attention(q, k, v), reps=20)
@@ -1635,11 +1730,9 @@ def check_flash(dev, gen):
     log(f"  flash_attention vs scaled_dot_product_attention: max abs diff "
         f"{e_lib.item():.3g} (yardstick only)")
     library_ms = cuda_ms(sdpa, reps=20)
-    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * K * D)     # q, o; k, v
-    flops = 4 * D * B * H * _visible_pairs(S, S, True, 0)
     return dict(err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                 library_ms=library_ms,
-                bound=bound(nbytes, flops, PEAK_BF16_FLOP_PER_S),
+                bound=_flash_bound(B, S, S, H, K, D, True, 0),
                 shape=f"B={B} S={S} H={H} K={K} D={D} bf16 causal",
                 extra=dict(registers=attrs[64]["registers"],
                            local_bytes=attrs[64]["local_bytes"],
@@ -1674,8 +1767,8 @@ def check_flash_layouts(dev, gen):
         o = flash_attention(*args)
         require(torch.equal(o, want), f"flash {name}: not bit for bit the "
                 "contiguous copies' result")
-        err = max(err, max_err(o.float(), attention_reference(*args).float(),
-                               3e-2, 1e-2, f"flash {name}"))
+        err = max(err, flash_err(o.float(), attention_reference(*args).float(),
+                                 False, f"flash {name}"))
     log(f"  flash bf16 views of a fused projection and an odd offset: bit "
         f"for bit the contiguous result, max abs err {err:.3g}")
     return err
@@ -1857,27 +1950,55 @@ def _cache_bytes(cfg, slots: int, max_seq: int) -> int:
                for t in leaves.values())
 
 
+def _fill_cross(params, cfg, cache, mem) -> None:
+    """Writes each decoder layer's cross caches from the encoder's output
+    `mem` (B, T, d), as tests/test_models.py fills JAX's: mem @ cross.wk
+    and mem @ cross.wv (no bias) at the start of the enc_len axis. The
+    reference never fills them itself."""
+    from repro_torch.models.transformer import period_of
+    B, T = mem.shape[:2]
+    period = period_of(cfg)
+    with torch.no_grad():
+        for i, block in enumerate(params.layers):
+            leaves = cache[f"p{i % period}"]
+            for key, w in (("ck", block.cross.wk), ("cv", block.cross.wv)):
+                value = (mem @ w.to(mem.dtype)).view(B, T, cfg.num_kv_heads,
+                                                     -1)
+                leaves[key][i // period, :, :T] = value.to(leaves[key].dtype)
+
+
 def _cpu_vs_card(model, params, inputs, dev, atol, rtol, what,
                  wkv_per_call: int = 0) -> float:
-    """`Model.prefill`'s hidden states for each token array of `inputs`,
-    then 4 decode steps over the first array's tokens from a zero cache
-    (logits, every cache leaf), on the CPU and then on the card (the same
-    seeded LM moved there); the card's wkv launches must be
+    """`Model.prefill`'s hidden states for each batch of `inputs` (dicts
+    with "tokens" and any "frames" or "patches"), then 4 decode steps over
+    the first batch's tokens from a zero cache, its cross part (an
+    encoder-decoder's) filled from the encoder over the first batch's
+    frames (logits, every cache leaf), on the CPU and then on the card
+    (the same seeded LM moved there); the card's wkv launches must be
     `wkv_per_call` a call. Returns the max abs error."""
     from repro_torch.kernels.wkv import wkv
+    from repro_torch.models.transformer import encoder_apply
+    first = inputs[0]
+    tokens = first["tokens"]
+    enc_len = first["frames"].shape[1] if "frames" in first else None
     runs = []
     for d in ("cpu", dev):
         params = params.to(d)
         t = time.perf_counter()
         before = wkv.launches
-        hidden = [model.prefill(params, {"tokens": x})[0].cpu()
-                  for x in inputs]
-        cache = model.init_cache(inputs[0].shape[0], 64, torch.float32,
-                                 device=d)
+        hidden = [model.prefill(params, x)[0].cpu() for x in inputs]
+        cache = model.init_cache(tokens.shape[0], 64, torch.float32,
+                                 device=d, enc_len=enc_len)
+        if enc_len:
+            with torch.no_grad():
+                mem = encoder_apply(params, model.cfg, torch.as_tensor(
+                    first["frames"], device=d))
+            _fill_cross(params, model.cfg, cache, mem)
+            del mem
         logits = []
         for i in range(4):
             lg, cache = model.decode_step(params, cache,
-                                          inputs[0][:, i:i + 1], i)
+                                          tokens[:, i:i + 1], i)
             logits.append(lg.cpu())
         sync(d)
         calls = len(inputs) + 4
@@ -1912,8 +2033,9 @@ def cross_check_encoder(dev) -> None:
     cfg = get_arch(ENCODER_ARCH)
     model = build_model(cfg)
     tokens = np.random.RandomState(SEED).randint(0, cfg.vocab_size, (2, 256))
-    err = _cpu_vs_card(model, model.init(SEED, device="cpu"), [tokens], dev,
-                       1e-4, 1e-4, cfg.name, wkv_per_call=cfg.num_layers)
+    err = _cpu_vs_card(model, model.init(SEED, device="cpu"),
+                       [{"tokens": tokens}], dev, 1e-4, 1e-4, cfg.name,
+                       wkv_per_call=cfg.num_layers)
     log(f"  {cfg.name} fp32, CPU plain vs card kernels: max abs err "
         f"{err:.3g} (hidden, logits, caches; atol 1e-4 rtol 1e-4)")
 
@@ -1934,7 +2056,8 @@ def cross_check_xlstm(dev) -> None:
                               dtype="float32", param_dtype="float32")
     model = build_model(cfg)
     rng = np.random.RandomState(SEED)
-    inputs = [rng.randint(0, cfg.vocab_size, (2, S)) for S in (64, 37)]
+    inputs = [{"tokens": rng.randint(0, cfg.vocab_size, (2, S))}
+              for S in (64, 37)]
     params = model.init(SEED, device="cpu")
     err = _cpu_vs_card(model, params, inputs, dev, 1e-4, 1e-3,
                        f"{cfg.name} (one period)")
@@ -2098,9 +2221,7 @@ def check_flash_moe(dev, gen) -> dict:
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True), reps=20)
-    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * K * D)     # q, o; k, v
-    b_ms, b_by = bound(nbytes, 4 * D * B * H * _visible_pairs(S, S, True, 0),
-                       PEAK_BF16_FLOP_PER_S)
+    b_ms, b_by = _flash_bound(B, S, S, H, K, D, True, 0)
     out = dict(shape=shape, max_abs_err=err, ms=ms, wrapper_ms=wrapper_ms,
                plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
                bound_by=b_by)
@@ -2376,6 +2497,241 @@ def moe_phase(dev, gen, drive) -> dict:
     return flash_moe
 
 
+# ---------------------------------------------------------------- phase 9
+
+def check_flash_modal(dev, gen) -> list:
+    """(9a) prefix_len 0 bitwise the causal call at every head-dim
+    instance of both kernels, the instances' resources, then the bf16
+    kernel at the four shapes of the modal archs' prefills against its
+    plain version (`flash_err`), its device time (CUDA graph) beside the
+    plain version's, SDPA's (a boolean mask for the prefix rule) and the
+    bound. The prefix cases themselves are in FLASH_CASES (6a). Returns
+    the timed shapes' numbers."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.flash_attention import (
+        attention_reference, flash_attention,
+    )
+    bf16 = torch.bfloat16
+    for D in (64, 128, 256):
+        for dtype in (bf16, torch.float32):
+            q, k, v = _flash_inputs(gen, dev, 2, 700, 700, 8, 2, D, dtype)
+            require(torch.equal(flash_attention(q, k, v, prefix_len=0),
+                                flash_attention(q, k, v)),
+                    f"flash D {D} {dtype}: prefix_len 0 is not bitwise the "
+                    f"causal call")
+    log("  flash prefix_len 0: bitwise the causal call at D 64, 128, 256, "
+        "bf16 and fp32")
+    for bf in (1, 0):
+        for D in (64, 128, 256):
+            for prefix in (0, 1):
+                a = _lib.kernel_attributes("rt_flash_attention_attributes",
+                                           bf, D, prefix)
+                log(f"  flash_attention "
+                    f"{'bf16 (wgmma)' if bf else 'fp32 (FMA)'} "
+                    f"{'prefix' if prefix else 'causal/full'} instance for "
+                    f"D <= {D}: {describe(a)}")
+    sass = sass_counts(str(_lib.build_library()), "flash_wgmma_kernel")
+    log(f"  HGMMA in the bf16 kernel's SASS: "
+        f"{'not checked' if sass is None else sass['HGMMA*']}")
+
+    out = []
+    for name, (B, S, T, H, K, D), causal, P in FLASH_MODAL_SHAPES:
+        q, k, v = _flash_inputs(gen, dev, B, S, T, H, K, D, bf16)
+        kw = dict(causal=causal, prefix_len=P)
+        err = flash_err(flash_attention(q, k, v, **kw).float(),
+                        attention_reference(q, k, v, **kw).float(), False,
+                        f"flash [{name}]")
+        ms, wrapper_ms = kernel_ms(lambda: flash_attention(q, k, v, **kw),
+                                   reps=20)
+        plain_ms = cuda_ms(lambda: attention_reference(q, k, v, **kw),
+                           reps=2, warmup=1)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        mask = None
+        if P:
+            pos_q = torch.arange(S, device=dev)[:, None]
+            pos_k = torch.arange(T, device=dev)[None, :]
+            mask = (pos_k <= pos_q) | (pos_k < P)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and not P,
+            enable_gqa=True), reps=20)
+        b_ms, b_by = _flash_bound(B, S, T, H, K, D, causal, P)
+        shape = (f"B={B} S={S} T={T} H={H} K={K} D={D} bf16 "
+                 + ("full" if not causal else
+                    f"prefix {P}" if P else "causal"))
+        out.append(dict(name=name, shape=shape, max_abs_err=err, ms=ms,
+                        wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                        library_ms=library_ms, bound_ms=b_ms, bound_by=b_by))
+        log(f"  flash_attention {name} [{shape}]: max_abs_err {err:.3g}, ms "
+            f"{ms:.4f} (wrapper {wrapper_ms:.4f}), plain_ms {plain_ms:.4f}, "
+            f"library_ms {library_ms:.4f} (SDPA), bound_ms {b_ms:.4f} "
+            f"({b_by})")
+        del q, k, v, qt, kt, vt, mask
+    return out
+
+
+def cross_check_modal(dev) -> None:
+    """(9b) whisper-tiny at full width and depth and paligemma-3b at full
+    width cut to PALI_CHECK_LAYERS layers, fp32, from one seeded LM each,
+    on the CPU and on the card (`_cpu_vs_card`, whisper's cross caches
+    filled from its encoder)."""
+    from repro_torch.config import get_arch
+    from repro_torch.models.model_zoo import build_model
+    rng = np.random.RandomState(SEED)
+    fp32 = dict(dtype="float32", param_dtype="float32")
+    cfg = dataclasses.replace(get_arch(WHISPER_ARCH), **fp32)
+    B, T, S = WHISPER_CHECK
+    batch = {"tokens": rng.randint(0, cfg.vocab_size, (B, S)),
+             "frames": rng.randn(B, T, cfg.d_model).astype(np.float32)}
+    model = build_model(cfg)
+    err = _cpu_vs_card(model, model.init(SEED, device="cpu"), [batch], dev,
+                       1e-4, 1e-3, cfg.name)
+    log(f"  {cfg.name} fp32 ({B} x {T} frames, {B} x {S} tokens; cross "
+        f"caches filled), CPU plain vs card kernels: max abs err {err:.3g} "
+        f"(hidden, logits, caches; atol 1e-4 rtol 1e-3)")
+    full = get_arch(PALI_ARCH)
+    cfg = dataclasses.replace(full, num_layers=PALI_CHECK_LAYERS, **fp32)
+    B, P, S = PALI_CHECK
+    batch = {"tokens": rng.randint(0, cfg.vocab_size, (B, S)),
+             "patches": rng.randn(B, P, cfg.d_model).astype(np.float32)}
+    model = build_model(cfg)
+    t = time.perf_counter()
+    params = model.init(SEED, device="cpu")
+    log(f"  {cfg.name} at {cfg.num_layers} of {full.num_layers} layers "
+        f"({model.param_count()} fp32 parameters) drawn in "
+        f"{time.perf_counter() - t:.1f} s")
+    err = _cpu_vs_card(model, params, [batch], dev, 1e-4, 1e-3, cfg.name)
+    log(f"  {cfg.name} fp32 ({B} x ({P} patches + {S} tokens)), CPU plain "
+        f"vs card kernels: max abs err {err:.3g} (hidden, logits, caches; "
+        f"atol 1e-4 rtol 1e-3)")
+    del params
+
+
+def _modal_path(arch, n_params, batch_of, rows, serve, dev) -> None:
+    """(9c, 9d) `arch` at full width and depth in bf16, seeded: 3
+    `Model.prefill` calls over `batch_of(cfg, rng)` (exactly one flash
+    launch a decoder layer and, for an encoder-decoder, one an encoder
+    layer and one a cross-attention), hidden (B, rows, d); then a
+    ServeEngine answering `serve`'s requests twice with the same
+    tokens."""
+    from repro_torch.config import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.model_zoo import build_model
+    cfg = get_arch(arch)
+    model = build_model(cfg)
+    gc.collect()
+    t = time.perf_counter()
+    params = model.init(SEED, device=dev)
+    sync(dev)
+    init_s = time.perf_counter() - t
+    require(model.param_count() == n_params,
+            f"{cfg.name}: {model.param_count()} parameters, not {n_params}")
+    log(f"  {cfg.name}: {n_params} parameters ({cfg.param_dtype}), "
+        f"{cfg.encoder_layers} encoder + {cfg.num_layers} decoder layers, "
+        f"drawn and moved in {init_s:.1f} s; weights on the card "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    rng = np.random.RandomState(SEED)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in batch_of(cfg, rng).items()}
+    B = batch["tokens"].shape[0]
+    per_call = cfg.num_layers * (2 if cfg.cross_attention else 1) \
+        + cfg.encoder_layers
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for call in range(3):
+        before = flash_attention.launches
+        t = time.perf_counter()
+        hidden, aux = model.prefill(params, batch)
+        sync(dev)
+        walls.append(time.perf_counter() - t)
+        require(flash_attention.launches - before == per_call,
+                f"prefill call {call}: {flash_attention.launches - before} "
+                f"flash launches, not {per_call}")
+    require(tuple(hidden.shape) == (B, rows, cfg.d_model)
+            and hidden.dtype == torch.bfloat16
+            and bool(torch.isfinite(hidden).all()) and float(aux) == 0.0,
+            f"prefill hidden {tuple(hidden.shape)} {hidden.dtype}")
+    wall = float(np.median(walls[1:]))
+    sizes = ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items())
+    n_in = sum(v.shape[0] * v.shape[1] for v in batch.values())
+    log(f"  prefill [{sizes}]: wall {1e3 * wall:.2f} ms (median of calls "
+        f"2-3; first {1e3 * walls[0]:.2f} ms), {B * rows / wall:.0f} "
+        f"decoder rows/s, {n_in / wall:.0f} input positions/s, {per_call} "
+        f"flash launches a call; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    del hidden, batch
+
+    n_req, lo, hi, new, slots, max_seq = serve
+    V = cfg.vocab_size
+    lens = rng.randint(lo, hi + 1, size=n_req)
+    prompts = [rng.randint(0, V, n).tolist() for n in lens]
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    runs = [_serve(model, params, prompts, dev, new, slots, max_seq)
+            for _ in range(2)]
+    outs, steps, serve_s = runs[0]
+    require(sorted(outs) == list(range(n_req)),
+            f"{len(outs)} of {n_req} requests completed")
+    for r, out in outs.items():
+        require(len(out) == new and all(0 <= x < V for x in out),
+                f"request {r}: {len(out)} tokens, or out of vocab")
+    require(runs[1][0] == outs, "the repeated run gave other tokens")
+    log(f"  serve: {n_req} requests (prompts {lens.min()}-{lens.max()} "
+        f"tokens, {new} new each) on {slots} slots, max_seq {max_seq}: "
+        f"{steps} decode steps (prefill steps included) in {serve_s:.3f} s "
+        f"and {runs[1][2]:.3f} s, {steps / serve_s:.1f} and "
+        f"{runs[1][1] / runs[1][2]:.1f} steps/s, {n_req * new / serve_s:.1f} "
+        f"new tokens/s; cache {_cache_bytes(cfg, slots, max_seq)} bytes"
+        f"{' (ck/cv included)' if cfg.cross_attention else ''}; peak device "
+        f"memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; the repeat "
+        f"gave the same tokens")
+    del params
+
+
+def whisper_path(dev) -> None:
+    """(9c) whisper-tiny: 16 x 1500 frames and 16 x 448 tokens."""
+    B, T, S = WHISPER_PREFILL
+    _modal_path(WHISPER_ARCH, WHISPER_PARAMS, lambda cfg, rng: {
+        "tokens": rng.randint(0, cfg.vocab_size, (B, S)),
+        "frames": rng.randn(B, T, cfg.d_model).astype(np.float32)},
+        S, WHISPER_SERVE, dev)
+
+
+def pali_path(dev) -> None:
+    """(9d) paligemma-3b: 8 x (256 patches + 1,792 tokens)."""
+    B, P, S = PALI_PREFILL
+    _modal_path(PALI_ARCH, PALI_PARAMS, lambda cfg, rng: {
+        "tokens": rng.randint(0, cfg.vocab_size, (B, S)),
+        "patches": rng.randn(B, P, cfg.d_model).astype(np.float32)},
+        P + S, PALI_SERVE, dev)
+
+
+def modal_launches() -> dict:
+    """Flash launches each modal path must make: 3 prefill calls."""
+    from repro_torch.config import get_arch
+    w, p = get_arch(WHISPER_ARCH), get_arch(PALI_ARCH)
+    return {"zoo_encdec": 3 * (2 * w.num_layers + w.encoder_layers),
+            "zoo_vlm": 3 * p.num_layers}
+
+
+def modal_phase(dev, gen, drive) -> list:
+    """Phase 9: (a) flash's prefix rule and the modal archs' shapes, (b)
+    CPU against the card, (c) whisper-tiny's and (d) paligemma-3b's
+    serving paths (`drive`n as "zoo_encdec" and "zoo_vlm"; only their
+    launches count). Returns 9a's timed shapes."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    shapes = check_flash_modal(dev, gen)
+    cross_check_modal(dev)
+    drive("zoo_encdec", lambda: whisper_path(dev))
+    drive("zoo_vlm", lambda: pali_path(dev))
+    log(f"modal zoo phase: {time.perf_counter() - t:.3f} s")
+    return shapes
+
+
 def time_kernels(root: str) -> dict:
     """Device and wrapper ms of wkv (the encoder's shape), of the
     set-attention backward (Stage-2 training's SAB and PMA shapes) and of
@@ -2413,6 +2769,15 @@ def time_kernels(root: str) -> dict:
     out["kmeans_update"] = kernel_ms(lambda: kmeans_update(x, c, valid),
                                      reps=100)
     out["kmeans_assign"] = kernel_ms(lambda: kmeans_assign(x, c), reps=100)
+    from repro_torch.kernels.flash_attention import flash_attention
+    for name, (B, S, H, K, D) in (("flash_smollm", FLASH_CASES[0][:2]
+                                   + FLASH_CASES[0][3:6]),
+                                  ("flash_qwen3_moe", MOE_FLASH_SHAPE)):
+        q = torch.randn((B, S, H, D), generator=gen, device=dev).bfloat16()
+        kk, vv = (torch.randn((B, S, K, D), generator=gen,
+                              device=dev).bfloat16() for _ in range(2))
+        out[name] = kernel_ms(lambda: flash_attention(q, kk, vv), reps=20)
+        del q, kk, vv
     # shared loads and FMAs of the kernels' SASS (the backward's and the
     # k-means kernels by their names before and since their redesigns)
     lib = str(_lib.build_library())
@@ -2584,6 +2949,7 @@ def main() -> int:
         print(json.dumps(time_kernels(sys.argv[2])), flush=True)
         return 0
     moe_only = sys.argv[1:] == ["--moe"]
+    modal_only = sys.argv[1:] == ["--modal"]
     # cuBLAS takes its workspace layout when CUDA starts: the fixed one
     # that deterministic algorithms (phase 5) need
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -2613,14 +2979,26 @@ def main() -> int:
     log(f"kernel library built and loaded in {time.perf_counter() - t:.1f} s")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    if moe_only:
+    if moe_only or modal_only:
+        # phase 8 or 9 alone, each path held to its flash launches
+        want = {"zoo_moe": 3 * MOE_LAYERS, **modal_launches()}
+
         def count(path, fn):
             flash_attention.launches = 0
             fn()
             log(f"{path} launches: flash_attention "
                 f"{flash_attention.launches}")
+            require(flash_attention.launches == want[path],
+                    f"{path}: not {want[path]} flash launches")
 
-        moe_phase(dev, gen, count)
+        if moe_only:
+            moe_phase(dev, gen, count)
+        else:
+            check_flash_cases(dev, gen)
+            modal_phase(dev, gen, count)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
         return 0
 
     t = time.perf_counter()
@@ -2777,6 +3155,16 @@ def main() -> int:
             f"flash_attention launched {n_moe} times on the MoE zoo path, "
             f"not {3 * MOE_LAYERS}")
     results["flash_attention"]["extra"]["moe_shape"] = flash_moe
+
+    # 9. the encoder-decoder and the prefix-LM: (a) flash's prefix rule and
+    # the modal shapes, (b) CPU vs card, (c) whisper-tiny and (d)
+    # paligemma-3b served; only (c)'s and (d)'s launches count
+    flash_modal = modal_phase(dev, gen, drive)
+    for path, want in modal_launches().items():
+        n = by_path.get("flash_attention", {}).get(path, 0)
+        require(n == want, f"flash_attention launched {n} times on the "
+                f"{path} path, not {want}")
+    results["flash_attention"]["extra"]["modal_shapes"] = flash_modal
 
     meta = {
         "wkv": ("src/repro_torch/csrc/wkv.cu",

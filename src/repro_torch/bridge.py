@@ -15,8 +15,11 @@ maps onto `state_dict` keys by path, with two layout changes:
 `lm_params_from_jax` loads an LM of the zoo (`repro.models.transformer.
 lm_init`): its `layers/p<pos>/...` leaves carry a leading `n_periods`
 axis (the `jax.vmap` init), split so that layer n * period + pos gets
-index n; the LM keeps the leaves' dtype (the config's `param_dtype`, but
-for the leaves JAX keeps in fp32 in every model: RWKV's `w_bias`,
+index n (a decoder block's `cross` and `cross_norm` among them), and an
+encoder-decoder's `encoder/layers/...` leaves a leading `encoder_layers`
+axis, split into `encoder.layers.<i>`; the LM keeps the leaves' dtype
+(the config's `param_dtype`, but for the leaves JAX keeps in fp32 in
+every model: RWKV's `w_bias`,
 Mamba's `A_log` and `D`, mLSTM's `b_i` and `b_f`, sLSTM's `b_zifo`, the
 MoE `router`; an MoE layer's `moe/{router,wi,wg,wo}` map onto
 `layers.<i>.moe.*` like any other leaf), and
@@ -128,7 +131,8 @@ def lm_params_from_jax(tree: Dict[str, Any], cfg: ModelConfig) -> LM:
     dtype of the module's parameter, which follows JAX leaf by leaf."""
     period = period_of(cfg)
     n_periods = cfg.num_layers // period
-    flat = dict(_flatten({k: v for k, v in tree.items() if k != "layers"}))
+    flat = dict(_flatten({k: v for k, v in tree.items()
+                          if k not in ("layers", "encoder")}))
     for pos_key, sub in tree["layers"].items():
         pos = int(pos_key[1:])                  # "p<pos>"
         for key, stacked in _flatten(sub):
@@ -138,6 +142,17 @@ def lm_params_from_jax(tree: Dict[str, Any], cfg: ModelConfig) -> LM:
                                  f"{n_periods}")
             for n in range(n_periods):
                 flat[f"layers.{n * period + pos}.{key}"] = stacked[n]
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        flat.update(_flatten({k: v for k, v in enc.items() if k != "layers"},
+                             "encoder."))
+        for key, stacked in _flatten(enc["layers"]):
+            if stacked.shape[0] != cfg.encoder_layers:
+                raise ValueError(f"encoder.layers.{key}: leading axis "
+                                 f"{stacked.shape[0]} != encoder_layers "
+                                 f"{cfg.encoder_layers}")
+            for i in range(cfg.encoder_layers):
+                flat[f"encoder.layers.{i}.{key}"] = stacked[i]
     model = LM(cfg)
     state = model.state_dict()
     missing = sorted(set(state) - set(flat))

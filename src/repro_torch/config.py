@@ -9,10 +9,11 @@ configuration reads the same in both packages.
 * `ModelConfig` (+ `MoEConfig`) describes an LM of the zoo,
   `ShapeConfig` a workload shape. Arch configs live in
   `repro_torch/configs/<id>.py` and register themselves in `ARCHS`;
-  `get_arch` resolves an id. The dense attention-only decoders, the
-  recurrent archs (xlstm, the paper's encoder) and the MoE archs
-  (qwen3-moe, grok-1, the jamba hybrid) are ported so far
-  (`PORTED_ARCHS`); any other id raises a `KeyError`.
+  `get_arch` resolves an id. Every arch of the zoo is ported
+  (`PORTED_ARCHS`): the dense attention-only decoders, the recurrent
+  archs (xlstm, the paper's encoder), the MoE archs (qwen3-moe, grok-1,
+  the jamba hybrid), the encoder-decoder (whisper) and the prefix-LM VLM
+  (paligemma); any other id raises a `KeyError`.
 """
 from __future__ import annotations
 
@@ -153,11 +154,12 @@ class TrainConfig:
 ARCHS: Registry = Registry("architecture")
 
 # The zoo's archs with a config module in `repro_torch/configs/`: the dense
-# attention-only decoders, xLSTM, the paper's RWKV encoder and the MoE
-# archs. The encoder-decoder and VLM archs wait for their slices.
+# attention-only decoders, xLSTM, the paper's RWKV encoder, the MoE archs,
+# the encoder-decoder and the VLM.
 PORTED_ARCHS = ("granite_3_2b", "qwen2_7b", "qwen3_4b", "smollm_135m",
                 "semanticbbv_encoder", "xlstm_1_3b",
-                "qwen3_moe_235b_a22b", "grok_1_314b", "jamba_1_5_large_398b")
+                "qwen3_moe_235b_a22b", "grok_1_314b", "jamba_1_5_large_398b",
+                "whisper_tiny", "paligemma_3b")
 
 
 def canon(arch_id: str) -> str:

@@ -6,10 +6,19 @@
 // row b, head h and query position i:
 //     o[b,i,h] = softmax_j(scale q[b,i,h] . k[b,j,h/g] + mask(i,j)) v[b,j,h/g]
 // with g = H/K, scale = D^-0.5, masked scores set to NEG_INF = -2^30 (not
-// -inf), the causal rule j <= i and the window rule i - j < window on
-// absolute positions counted from 0 for both q and k (also when S != T), a
-// running max m, a running denominator l and an fp32 accumulator, and the
-// output acc / max(l, 1e-30) cast to q's dtype.
+// -inf), the causal rule j <= i (widened by the prefix-LM rule to j <= i or
+// j < prefix_len: every row sees the whole prefix, as models/attention.py::
+// _mask_bias("prefix") of the JAX package; prefix_len 0 is the plain causal
+// rule) and the window rule i - j < window on absolute positions counted from
+// 0 for both q and k (also when S != T), a running max m, a running
+// denominator l and an fp32 accumulator, and the output acc / max(l, 1e-30)
+// cast to q's dtype. The TPU kernel has no prefix rule (its caller drops the
+// prefix); the prefix bounds below follow the causal ones. Each kernel has a
+// PREFIX template flag, set for causal launches with prefix_len > 0: without
+// it the instance is the causal kernel as it was before the rule (the same
+// code, the same tiles and bits, and its speed: a run-time prefix test in the
+// shared instances cost 7-12% at smollm's and qwen3-moe's shapes on the
+// H100).
 //
 // Two hand-written kernels, chosen by dtype in the wrapper
 // (kernels/flash_attention/ops.py); a failed build or launch of either raises.
@@ -57,10 +66,13 @@
 //     element by element by the same kernel into the same layout;
 //   * tiles that the causal rule or the window mask for every row of a
 //     warpgroup are skipped (the pl.when(run) bounds of the TPU kernel, at
-//     64 rows x 64 keys); only tiles that straddle the diagonal, the window
-//     edge or T apply the rule to the score fragment, the rest run unmasked;
+//     64 rows x 64 keys), but for tiles that start inside the prefix; only
+//     tiles that straddle the diagonal (and reach past the prefix), the
+//     window edge or T apply the rule to the score fragment, the rest run
+//     unmasked, a tile wholly inside the prefix among them;
 //   * under the causal rule blockIdx.y runs from the last query tile (the
-//     most key tiles) to the first, so the heavy tiles start first;
+//     most key tiles, with a prefix too) to the first, so the heavy tiles
+//     start first;
 //   * no atomics: two runs give the same bits.
 // Head dims: D up to 256, padded to 64, 128 or 256 columns (zero-filled).
 // Tried on the H100 and dropped (no gain at smollm's shape): three stages
@@ -74,9 +86,9 @@
 // (67 TFLOP/s), 0.29 ms or more:
 //   * one block of 256 threads (16 x 16) per (64-query tile, head, batch
 //     row), looping over 64-key tiles of kv head h / g;
-//   * key tiles that the causal rule or the window mask out for every row of
-//     the query tile are never loaded (the loop bounds), as pl.when(run)
-//     skipped them;
+//   * key tiles that the causal rule (past the prefix) or the window mask
+//     out for every row of the query tile are never loaded (the loop
+//     bounds), as pl.when(run) skipped them;
 //   * q (pre-scaled, fp32) and the k tile sit transposed in shared memory
 //     with a padded row, v row-major, the P tile with a padded row. Each
 //     thread computes a 4 x 4 block of scores from registers; the row max and
@@ -118,13 +130,15 @@ constexpr int kLdQ = kBQ + 1;               // padded rows of sQ, sK, sP
 constexpr int kLdK = kBK + 1;
 constexpr int kLdP = kBK + 1;
 
-// ND = accumulator columns a thread (head dim rounded up to 16, over 16).
-template <int ND>
+// ND = accumulator columns a thread (head dim rounded up to 16, over 16);
+// PREFIX: the causal rule is widened by prefix_len (else prefix_len unread).
+template <int ND, bool PREFIX>
 __global__ void __launch_bounds__(kThreads)
 flash_forward_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o, int S, int Tk, int H,
                      int G, int D, int qsb, int qss, int qsh, int ksb, int kss, int ksh,
-                     int vsb, int vss, int vsh, int causal, int window, float scale) {
+                     int vsb, int vss, int vsh, int causal, int window, int prefix_len,
+                     float scale) {
   constexpr int DP = ND * 16;  // row stride of sV; columns D..DP-1 are 0
   extern __shared__ float smem[];
   float* sQ = smem;             // (D, kLdQ): q^T, scaled
@@ -152,7 +166,7 @@ flash_forward_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // key tiles with any visible key for some row of this query tile
   const int q_last = min(S, q0 + kBQ) - 1;
   int k_end = Tk;
-  if (causal) k_end = min(k_end, q_last + 1);
+  if (causal) k_end = min(k_end, PREFIX ? max(q_last + 1, prefix_len) : q_last + 1);
   int k_begin = 0;
   if (window > 0) {
     const int lo = q0 - window + 1;  // first key row q0 can see
@@ -212,7 +226,7 @@ flash_forward_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const int c = tx + 16 * j;
         const int kpos = k0 + c;
         bool visible = true;
-        if (causal) visible = kpos <= qpos;
+        if (causal) visible = kpos <= qpos || (PREFIX && kpos < prefix_len);
         if (window > 0) visible = visible && (qpos - kpos < window);
         if (!visible) s[i][j] = kNegInf;
         if (c >= nk) s[i][j] = -INFINITY;  // no such key: p = 0 below
@@ -271,35 +285,36 @@ inline size_t smem_bytes(int D, int nd) {
                           static_cast<size_t>(kBK) * nd * 16 + static_cast<size_t>(kBQ) * kLdP);
 }
 
-template <int ND>
+template <int ND, bool PREFIX>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int Tk,
                    int H, int K, int D, int qsb, int qss, int qsh, int ksb, int kss, int ksh,
-                   int vsb, int vss, int vsh, int causal, int window, float scale,
-                   cudaStream_t stream) {
+                   int vsb, int vss, int vsh, int causal, int window, int prefix_len,
+                   float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(D, ND);
-  auto kernel = flash_forward_kernel<ND>;
+  auto kernel = flash_forward_kernel<ND, PREFIX>;
   cudaError_t err = rt::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), S, Tk, H, H / K, D, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh,
-      causal, window, scale);
+      causal, window, prefix_len, scale);
   return cudaGetLastError();
 }
 
+template <bool PREFIX>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B, int S, int Tk,
                      int H, int K, int D, int qsb, int qss, int qsh, int ksb, int kss, int ksh,
-                     int vsb, int vss, int vsh, int causal, int window, float scale,
-                     cudaStream_t stream) {
+                     int vsb, int vss, int vsh, int causal, int window, int prefix_len,
+                     float scale, cudaStream_t stream) {
   if (D <= 64)
-    return launch<4>(q, k, v, o, B, S, Tk, H, K, D, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
-                     vsh, causal, window, scale, stream);
+    return launch<4, PREFIX>(q, k, v, o, B, S, Tk, H, K, D, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
+                     vsh, causal, window, prefix_len, scale, stream);
   if (D <= 128)
-    return launch<8>(q, k, v, o, B, S, Tk, H, K, D, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
-                     vsh, causal, window, scale, stream);
-  return launch<16>(q, k, v, o, B, S, Tk, H, K, D, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
-                    vsh, causal, window, scale, stream);
+    return launch<8, PREFIX>(q, k, v, o, B, S, Tk, H, K, D, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
+                     vsh, causal, window, prefix_len, scale, stream);
+  return launch<16, PREFIX>(q, k, v, o, B, S, Tk, H, K, D, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
+                    vsh, causal, window, prefix_len, scale, stream);
 }
 
 }  // namespace simt
@@ -482,10 +497,11 @@ __device__ __forceinline__ void issue_pv(float (&acc)[DC][32], const uint32_t (&
 // max m, the correction corr of the old O and l, P in bf16 as the A
 // fragments of four k16 steps (the accumulator's columns 16 kk .. 16 kk + 15
 // are exactly A's k range of step kk), and l += the rounded P.
+template <bool PREFIX>
 __device__ __forceinline__ void softmax_tile(float (&s)[32], uint32_t (&pa)[4][4], float (&m)[2],
                                              float (&l)[2], float (&corr)[2], bool need_mask,
                                              int qrow, int k0, int lane, int Tk, int causal,
-                                             int window, float scale_log2) {
+                                             int window, int prefix_len, float scale_log2) {
   float mt[2] = {-INFINITY, -INFINITY};
 #pragma unroll
   for (int x = 0; x < 32; ++x) {
@@ -494,7 +510,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], uint32_t (&pa)[4][4
       const int qpos = qrow + 8 * i;
       const int kpos = k0 + (x >> 2) * 8 + (lane & 3) * 2 + (x & 1);
       bool visible = true;
-      if (causal) visible = kpos <= qpos;
+      if (causal) visible = kpos <= qpos || (PREFIX && kpos < prefix_len);
       if (window > 0) visible = visible && (qpos - kpos < window);
       if (!visible) s[x] = kNegInf;
       if (kpos >= Tk) s[x] = -INFINITY;  // no such key: p = 0 below
@@ -538,14 +554,15 @@ __device__ __forceinline__ void rescale(float (&acc)[DC][32], const float (&corr
 
 // DP: padded head dim (64, 128, 256); NWG: consumer warpgroups of 64 rows;
 // SUB: 64-key tiles a load stage holds (2 halves the block barriers; 1 at
-// D > 128, where two stages of 128 keys would not fit).
-template <int DP, int NWG, int MINB, int SUB>
+// D > 128, where two stages of 128 keys would not fit); PREFIX: the causal
+// rule is widened by prefix_len (else prefix_len unread).
+template <int DP, int NWG, int MINB, int SUB, bool PREFIX>
 __global__ void __launch_bounds__(NWG * 128, MINB)
 flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int S,
                    int Tk, int H, int G, int D, int qsb, int qss, int qsh, int ksb, int kss,
-                   int ksh, int vsb, int vss, int vsh, int causal, int window, int vec,
-                   float scale_log2) {
+                   int ksh, int vsb, int vss, int vsh, int causal, int window,
+                   int prefix_len, int vec, float scale_log2) {
   constexpr int BQ = 64 * NWG;
   constexpr int NT = 128 * NWG;
   constexpr int DC = DP / 64;    // 64-column blocks of the head dim
@@ -574,7 +591,7 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
 
   // key tiles with any visible key for some row of this block
   int k_end = Tk;
-  if (causal) k_end = min(k_end, min(S, q0 + BQ));
+  if (causal) k_end = min(k_end, PREFIX ? max(min(S, q0 + BQ), prefix_len) : min(S, q0 + BQ));
   int k_begin = 0;
   if (window > 0) {
     const int lo = q0 - window + 1;  // first key row q0 can see
@@ -619,10 +636,16 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
 #pragma unroll
     for (int sub = 0; sub < SUB; ++sub) {
       const int k0 = k_begin + (u * SUB + sub) * kBK;
-      const bool run = k0 < k_end && qw0 < S && (!causal || k0 <= w_last) &&
+      // a tile past this warpgroup's diagonal runs when it starts inside
+      // the prefix; one that reaches past the diagonal needs the causal rule
+      // unless it lies wholly inside the prefix
+      const bool run = k0 < k_end && qw0 < S &&
+                       (!causal || k0 <= w_last || (PREFIX && k0 < prefix_len)) &&
                        (window <= 0 || k0 + kBK - 1 >= w_first_key);
       if (!run) continue;
-      const bool need_mask = k0 + kBK > Tk || (causal && k0 + kBK - 1 > qw0) ||
+      const bool need_mask = k0 + kBK > Tk ||
+                             (causal && k0 + kBK - 1 > qw0 &&
+                              (!PREFIX || k0 + kBK > prefix_len)) ||
                              (window > 0 && qw0 + 63 - k0 >= window);
       float s[32];
       float corr[2];
@@ -633,8 +656,8 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(s);
-      softmax_tile(s, pa, m, l, corr, need_mask, qrow, k0, lane, Tk, causal, window,
-                   scale_log2);
+      softmax_tile<PREFIX>(s, pa, m, l, corr, need_mask, qrow, k0, lane, Tk, causal, window,
+                   prefix_len, scale_log2);
       rescale<DC>(acc, corr);
       wgmma_fence();
       issue_pv<DC, KR>(acc, pa, sV0 + sub * kBK * kRowBytes);
@@ -674,25 +697,43 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
   }
 }
 
-template <int DP, int NWG, int MINB, int SUB>
+template <int DP, int NWG, int MINB, int SUB, bool PREFIX>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int Tk,
                    int H, int K, int D, int qsb, int qss, int qsh, int ksb, int kss, int ksh,
-                   int vsb, int vss, int vsh, int causal, int window, int vec, float scale,
-                   cudaStream_t stream) {
+                   int vsb, int vss, int vsh, int causal, int window, int prefix_len,
+                   int vec, float scale, cudaStream_t stream) {
   constexpr int BQ = 64 * NWG;
   constexpr size_t smem = smem_bytes<DP, NWG, SUB>();
   const int n_q = (S + BQ - 1) / BQ;
   if (n_q > 65535 || static_cast<int64_t>(B) * H > 0x7fffffff) return cudaErrorInvalidValue;
-  auto kernel = flash_wgmma_kernel<DP, NWG, MINB, SUB>;
+  auto kernel = flash_wgmma_kernel<DP, NWG, MINB, SUB, PREFIX>;
   cudaError_t err = rt::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, n_q);
   kernel<<<grid, 128 * NWG, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, Tk, H, H / K, D,
-      qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, causal, window, vec,
+      qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, causal, window, prefix_len, vec,
       scale * 1.4426950408889634f);
   return cudaGetLastError();
+}
+
+template <bool PREFIX>
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B, int S, int Tk,
+                     int H, int K, int D, int qsb, int qss, int qsh, int ksb, int kss, int ksh,
+                     int vsb, int vss, int vsh, int causal, int window, int prefix_len, int vec,
+                     float scale, cudaStream_t stream) {
+  if (D <= 64)
+    return launch<64, 2, 2, 2, PREFIX>(q, k, v, o, B, S, Tk, H, K, D, qsb, qss, qsh, ksb, kss,
+                                       ksh, vsb, vss, vsh, causal, window, prefix_len, vec,
+                                       scale, stream);
+  if (D <= 128)
+    return launch<128, 2, 1, 2, PREFIX>(q, k, v, o, B, S, Tk, H, K, D, qsb, qss, qsh, ksb, kss,
+                                        ksh, vsb, vss, vsh, causal, window, prefix_len, vec,
+                                        scale, stream);
+  return launch<256, 1, 1, 1, PREFIX>(q, k, v, o, B, S, Tk, H, K, D, qsb, qss, qsh, ksb, kss,
+                                      ksh, vsb, vss, vsh, causal, window, prefix_len, vec, scale,
+                                      stream);
 }
 
 }  // namespace wg
@@ -701,18 +742,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
 
 // q: (B, S, H, D) with strides (qsb, qss, qsh, 1); k, v: (B, T, K, D) with
 // strides (ksb, kss, ksh, 1) and (vsb, vss, vsh, 1); o: (B, S, H, D)
-// contiguous; H % K == 0, 1 <= D <= 256. fp32 on the FMA kernel.
+// contiguous; H % K == 0, 1 <= D <= 256; prefix_len >= 0 widens the causal
+// rule (0: none; read only when causal). fp32 on the FMA kernel.
 extern "C" int rt_flash_attention_forward_f32(const void* q, const void* k, const void* v,
                                               void* o, int B, int S, int T, int H, int K, int D,
                                               int qsb, int qss, int qsh, int ksb, int kss,
                                               int ksh, int vsb, int vss, int vsh, int causal,
-                                              int window, float scale, cudaStream_t stream) {
+                                              int window, int prefix_len, float scale,
+                                              cudaStream_t stream) {
   if (B == 0 || S == 0 || H == 0) return cudaSuccess;
-  if (K <= 0 || H % K != 0 || D <= 0 || D > 256 || T < 0 || window < 0 || B > 65535 ||
-      H > 65535)
+  if (K <= 0 || H % K != 0 || D <= 0 || D > 256 || T < 0 || window < 0 || prefix_len < 0 ||
+      B > 65535 || H > 65535)
     return cudaErrorInvalidValue;
-  return simt::dispatch(q, k, v, o, B, S, T, H, K, D, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh,
-                       causal, window, scale, stream);
+  if (causal && prefix_len > 0)
+    return simt::dispatch<true>(q, k, v, o, B, S, T, H, K, D, qsb, qss, qsh, ksb, kss, ksh, vsb,
+                                vss, vsh, causal, window, prefix_len, scale, stream);
+  return simt::dispatch<false>(q, k, v, o, B, S, T, H, K, D, qsb, qss, qsh, ksb, kss, ksh, vsb,
+                               vss, vsh, causal, window, 0, scale, stream);
 }
 
 // As above, bf16 on the wgmma kernel. vec != 0: every row of q, k and v
@@ -722,19 +768,16 @@ extern "C" int rt_flash_attention_forward_bf16(const void* q, const void* k, con
                                                void* o, int B, int S, int T, int H, int K, int D,
                                                int qsb, int qss, int qsh, int ksb, int kss,
                                                int ksh, int vsb, int vss, int vsh, int causal,
-                                               int window, int vec, float scale,
+                                               int window, int prefix_len, int vec, float scale,
                                                cudaStream_t stream) {
   if (B == 0 || S == 0 || H == 0) return cudaSuccess;
-  if (K <= 0 || H % K != 0 || D <= 0 || D > 256 || T < 0 || window < 0)
+  if (K <= 0 || H % K != 0 || D <= 0 || D > 256 || T < 0 || window < 0 || prefix_len < 0)
     return cudaErrorInvalidValue;
-  if (D <= 64)
-    return wg::launch<64, 2, 2, 2>(q, k, v, o, B, S, T, H, K, D, qsb, qss, qsh, ksb, kss, ksh, vsb,
-                                vss, vsh, causal, window, vec, scale, stream);
-  if (D <= 128)
-    return wg::launch<128, 2, 1, 2>(q, k, v, o, B, S, T, H, K, D, qsb, qss, qsh, ksb, kss, ksh, vsb,
-                                 vss, vsh, causal, window, vec, scale, stream);
-  return wg::launch<256, 1, 1, 1>(q, k, v, o, B, S, T, H, K, D, qsb, qss, qsh, ksb, kss, ksh, vsb,
-                               vss, vsh, causal, window, vec, scale, stream);
+  if (causal && prefix_len > 0)
+    return wg::dispatch<true>(q, k, v, o, B, S, T, H, K, D, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
+                              vsh, causal, window, prefix_len, vec, scale, stream);
+  return wg::dispatch<false>(q, k, v, o, B, S, T, H, K, D, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
+                             vsh, causal, window, 0, vec, scale, stream);
 }
 
 namespace {
@@ -751,22 +794,32 @@ int attributes(Kernel kernel, size_t dynamic_smem, int* out) {
   return cudaSuccess;
 }
 
-}  // namespace
-
-// The kernel a launch at head dim D takes (bf16 != 0: the wgmma kernel):
-// out = {registers a thread, static shared bytes, dynamic shared bytes a
-// block, local (spill) bytes a thread}.
-extern "C" int rt_flash_attention_attributes(int bf16, int D, int* out) {
-  if (D <= 0 || D > 256) return cudaErrorInvalidValue;
+template <bool PREFIX>
+int flash_attributes(int bf16, int D, int* out) {
   if (bf16) {
-    if (D <= 64) return attributes(wg::flash_wgmma_kernel<64, 2, 2, 2>, wg::smem_bytes<64, 2, 2>(), out);
+    if (D <= 64)
+      return attributes(wg::flash_wgmma_kernel<64, 2, 2, 2, PREFIX>, wg::smem_bytes<64, 2, 2>(),
+                        out);
     if (D <= 128)
-      return attributes(wg::flash_wgmma_kernel<128, 2, 1, 2>, wg::smem_bytes<128, 2, 2>(), out);
-    return attributes(wg::flash_wgmma_kernel<256, 1, 1, 1>, wg::smem_bytes<256, 1, 1>(), out);
+      return attributes(wg::flash_wgmma_kernel<128, 2, 1, 2, PREFIX>,
+                        wg::smem_bytes<128, 2, 2>(), out);
+    return attributes(wg::flash_wgmma_kernel<256, 1, 1, 1, PREFIX>, wg::smem_bytes<256, 1, 1>(),
+                      out);
   }
   const int nd = D <= 64 ? 4 : D <= 128 ? 8 : 16;
   const size_t smem = simt::smem_bytes(D, nd);
-  if (nd == 4) return attributes(simt::flash_forward_kernel<4>, smem, out);
-  if (nd == 8) return attributes(simt::flash_forward_kernel<8>, smem, out);
-  return attributes(simt::flash_forward_kernel<16>, smem, out);
+  if (nd == 4) return attributes(simt::flash_forward_kernel<4, PREFIX>, smem, out);
+  if (nd == 8) return attributes(simt::flash_forward_kernel<8, PREFIX>, smem, out);
+  return attributes(simt::flash_forward_kernel<16, PREFIX>, smem, out);
+}
+
+}  // namespace
+
+// The kernel a launch at head dim D takes (bf16 != 0: the wgmma kernel;
+// prefix != 0: the instance a causal launch with prefix_len > 0 takes):
+// out = {registers a thread, static shared bytes, dynamic shared bytes a
+// block, local (spill) bytes a thread}.
+extern "C" int rt_flash_attention_attributes(int bf16, int D, int prefix, int* out) {
+  if (D <= 0 || D > 256) return cudaErrorInvalidValue;
+  return prefix ? flash_attributes<true>(bf16, D, out) : flash_attributes<false>(bf16, D, out);
 }

@@ -44,13 +44,14 @@ _ENTRY_POINTS = {
     "rt_kmeans_assign": "ppiiiippp",
     "rt_kmeans_update": "pppiiiipppp",
     # q k v o, B S T H K D, the (b, seq, head) strides of q, k and v,
-    # causal window, scale, stream; bf16 also takes vec before the scale
-    "rt_flash_attention_forward_f32": "pppp" + "i" * 17 + "fp",
-    "rt_flash_attention_forward_bf16": "pppp" + "i" * 18 + "fp",
-    # (bf16, D, out[4]), (N, M, dh, out[4]), (dh, out[4]) and (d, K,
-    # out[4]): the attributes of the kernel a launch takes, see
+    # causal window prefix_len, scale, stream; bf16 also takes vec before
+    # the scale
+    "rt_flash_attention_forward_f32": "pppp" + "i" * 18 + "fp",
+    "rt_flash_attention_forward_bf16": "pppp" + "i" * 19 + "fp",
+    # (bf16, D, prefix, out[4]), (N, M, dh, out[4]), (dh, out[4]) and
+    # (d, K, out[4]): the attributes of the kernel a launch takes, see
     # kernel_attributes
-    "rt_flash_attention_attributes": "iip",
+    "rt_flash_attention_attributes": "iiip",
     "rt_set_attention_forward_attributes": "iiip",
     "rt_set_attention_backward_attributes": "iiip",
     "rt_wkv_attributes": "ip",

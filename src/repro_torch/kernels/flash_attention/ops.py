@@ -34,17 +34,24 @@ def kernel_for(dtype: torch.dtype) -> str:
     return _ENTRY_POINTS[dtype]
 
 
-def flash_attention(q, k, v, causal: bool = True, window: int = 0):
+def flash_attention(q, k, v, causal: bool = True, window: int = 0,
+                    prefix_len: int = 0):
     """softmax(q k^T / sqrt(D) + mask) v with GQA (H % K == 0).
 
     q: (B,S,H,D); k, v: (B,T,K,D), one dtype, bf16 or fp32 on CUDA.
+    With `causal`, key j is visible to query i when j <= i or j <
+    `prefix_len` (the prefix-LM rule; 0: plain causal; prefix_len >= T:
+    every key); `window` > 0 also needs i - j < window.
     Returns (B,S,H,D) in q's dtype. CPU tensors take the plain version;
     CUDA tensors launch the kernel. The kernel has no backward, as its
     JAX twin has no VJP: on CUDA an input that requires a gradient (with
     grad mode on) raises rather than give a result that autograd would
     silently treat as a constant."""
+    if prefix_len < 0:
+        raise ValueError(f"flash_attention: prefix_len {prefix_len} < 0")
     if _lib.device_kind(q, k, v) == "cpu":
-        return attention_reference(q, k, v, causal=causal, window=window)
+        return attention_reference(q, k, v, causal=causal, window=window,
+                                   prefix_len=prefix_len)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("flash_attention: the CUDA kernel has no "
                            "gradient; run it under torch.no_grad() or "
@@ -84,7 +91,7 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0):
     fn = getattr(_lib.load_library(), kernel_for(q.dtype))
     args = [_lib.ptr(q), _lib.ptr(k), _lib.ptr(v), _lib.ptr(o), B, S, T, H,
             K, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            int(causal), int(window)]
+            int(causal), int(window), min(int(prefix_len), T)]
     if q.dtype == torch.bfloat16:
         args.append(int(_lib.rows_aligned_16(q, k, v)))
     rc = fn(*args, D ** -0.5, _lib.stream())

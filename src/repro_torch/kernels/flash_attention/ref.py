@@ -13,9 +13,12 @@ import torch
 NEG_INF = -2.0 ** 30
 
 
-def attention_reference(q, k, v, causal: bool = True, window: int = 0):
+def attention_reference(q, k, v, causal: bool = True, window: int = 0,
+                        prefix_len: int = 0):
     """q: (B,S,H,D); k,v: (B,T,K,D) with H % K == 0. GQA by kv head
-    h // (H/K); causal mask kpos <= qpos and window qpos - kpos < window,
+    h // (H/K); causal mask kpos <= qpos, widened to kpos <= qpos or kpos
+    < prefix_len (the prefix-LM rule of JAX's `_mask_bias("prefix")`; 0:
+    none, read only when causal), and window qpos - kpos < window,
     positions from 0 for both q and k. Returns (B,S,H,D) in q.dtype."""
     B, S, H, D = q.shape
     T, K = k.shape[1], k.shape[2]
@@ -26,7 +29,7 @@ def attention_reference(q, k, v, causal: bool = True, window: int = 0):
     kpos = torch.arange(T, device=q.device)[None, :]
     mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
     if causal:
-        mask = kpos <= qpos
+        mask = (kpos <= qpos) | (kpos < prefix_len)
     if window > 0:
         mask = mask & (qpos - kpos < window)
     s = torch.where(mask, s, NEG_INF)

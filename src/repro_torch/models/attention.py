@@ -6,10 +6,11 @@ launches the CUDA kernel on CUDA tensors and runs its plain version on
 CPU tensors; one-token decode steps (`attn_decode`) are plain PyTorch,
 as in JAX (`_ref_attention`).
 
-Mask modes: "causal" and "full", each with an optional sliding `window`.
-"prefix" (PaliGemma's prefix-LM) raises until the VLM slice. Weights keep
-the JAX layout ((d_in, d_out), applied as x @ w) and names, so
-`repro_torch.bridge` maps a tree by name.
+Mask modes: "causal", "full" and "prefix" (PaliGemma's prefix-LM:
+bidirectional over the first `prefix_len` positions, causal after), each
+with an optional sliding `window`; `kv_x` makes it cross-attention (the
+encoder-decoder's). Weights keep the JAX layout ((d_in, d_out), applied as
+x @ w) and names, so `repro_torch.bridge` maps a tree by name.
 """
 from __future__ import annotations
 
@@ -49,27 +50,29 @@ class Attention(nn.Module):
             self.k_norm = param(torch.ones(head_dim), dtype)
 
 
-def _project_qkv(params: Attention, x, num_heads, num_kv_heads, head_dim,
-                 positions, qk_norm, rope_theta, use_rope):
-    """Self-attention projections (B,S,H,hd), (B,S,K,hd) x2, as JAX's
-    `_project_qkv` with kv_x = x (`_rms` is `rmsnorm`)."""
+def _project_qkv(params: Attention, x, kv_x, num_heads, num_kv_heads,
+                 head_dim, positions, kv_positions, qk_norm, rope_theta,
+                 use_rope):
+    """Projections q (B,S,H,hd) of x and k, v (B,T,K,hd) of kv_x (x itself
+    for self-attention), as JAX's `_project_qkv` (`_rms` is `rmsnorm`)."""
     B, S = x.shape[:2]
+    T = kv_x.shape[1]
     dt = x.dtype
     q = x @ params.wq.to(dt)
-    k = x @ params.wk.to(dt)
-    v = x @ params.wv.to(dt)
+    k = kv_x @ params.wk.to(dt)
+    v = kv_x @ params.wv.to(dt)
     if params.qkv_bias:
         q, k, v = (q + params.bq.to(q.dtype), k + params.bk.to(k.dtype),
                    v + params.bv.to(v.dtype))
     q = q.reshape(B, S, num_heads, head_dim)
-    k = k.reshape(B, S, num_kv_heads, head_dim)
-    v = v.reshape(B, S, num_kv_heads, head_dim)
+    k = k.reshape(B, T, num_kv_heads, head_dim)
+    v = v.reshape(B, T, num_kv_heads, head_dim)
     if qk_norm:
         q = rmsnorm(q, params.q_norm)
         k = rmsnorm(k, params.k_norm)
     if use_rope:
         q = rope(q, positions, rope_theta)
-        k = rope(k, positions, rope_theta)
+        k = rope(k, kv_positions, rope_theta)
     return q, k, v
 
 
@@ -92,24 +95,32 @@ def _ref_attention(q, k, v, bias, kv_valid=None):
 
 
 def attn_apply(params: Attention, x, *, num_heads: int, num_kv_heads: int,
-               head_dim: int, positions=None, mask_mode: str = "causal",
-               window: int = 0, rope_theta: float = 10000.0,
+               head_dim: int, positions=None, kv_x=None,
+               mask_mode: str = "causal", window: int = 0,
+               prefix_len: int = 0, rope_theta: float = 10000.0,
                use_rope: bool = True, qk_norm: bool = False):
-    """Self-attention over full sequences (prefill), through the
-    flash-attention kernel. Its mask counts positions from 0 for q and k
-    (positions only feed RoPE), as the JAX kernel path does. Cross-
-    attention (`kv_x`) waits for the encoder-decoder slice."""
-    if mask_mode not in ("causal", "full"):
-        raise NotImplementedError(
-            f"mask_mode {mask_mode!r}: the prefix-LM mask waits for the VLM "
-            f"slice (the flash kernel takes causal / full masks)")
+    """Self- or cross-attention (keys and values from `kv_x`, (B,T,d))
+    over full sequences (prefill), through the flash-attention kernel.
+    Its mask counts positions from 0 for q and k (positions only feed
+    RoPE), as JAX's `_mask_bias` does on the positions the zoo passes;
+    "prefix" is the causal rule with keys below `prefix_len` visible to
+    every query. Cross-attention's kv positions are arange(T)."""
+    if mask_mode not in ("causal", "full", "prefix"):
+        raise ValueError(f"mask_mode {mask_mode!r}: causal, full or prefix")
     B, S = x.shape[:2]
+    cross = kv_x is not None and kv_x is not x
+    kv_x = x if kv_x is None else kv_x
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
-    q, k, v = _project_qkv(params, x, num_heads, num_kv_heads, head_dim,
-                           positions, qk_norm, rope_theta, use_rope)
-    out = flash_attention(q, k, v, causal=(mask_mode == "causal"),
-                          window=window)
+    kv_positions = (torch.arange(kv_x.shape[1], device=x.device)[None, :]
+                    if cross else positions)
+    q, k, v = _project_qkv(params, x, kv_x, num_heads, num_kv_heads,
+                           head_dim, positions, kv_positions, qk_norm,
+                           rope_theta, use_rope)
+    out = flash_attention(q, k, v, causal=(mask_mode != "full"),
+                          window=window,
+                          prefix_len=prefix_len if mask_mode == "prefix"
+                          else 0)
     out = out.reshape(B, S, num_heads * head_dim)
     return out @ params.wo.to(out.dtype)
 
@@ -142,8 +153,9 @@ def attn_decode(params: Attention, x, cache_k, cache_v, pos, *,
         pos = pos.expand(B)
     pos = pos.long()
     positions = pos[:, None]                        # (B, 1) for RoPE
-    q, k, v = _project_qkv(params, x, num_heads, num_kv_heads, head_dim,
-                           positions, qk_norm, rope_theta, use_rope)
+    q, k, v = _project_qkv(params, x, x, num_heads, num_kv_heads, head_dim,
+                           positions, positions, qk_norm, rope_theta,
+                           use_rope)
     rows = torch.arange(B, device=x.device)
     at = pos.clamp(max=T - 1)
     inside = (pos < T)[:, None, None]

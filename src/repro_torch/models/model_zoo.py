@@ -9,7 +9,9 @@ ModelConfig (port of `repro.models.model_zoo`, inference part).
 `param_dtype`, but for the leaves JAX keeps in fp32), on the device
 `init` was given. `prefill` and `decode_step` run under
 `torch.inference_mode()`; on CUDA, attention layers run `prefill`
-through the flash-attention kernel and RWKV layers run `prefill` and
+through the flash-attention kernel (self-attention, the encoder's and
+the cross-attention of an encoder-decoder, and the prefix-LM mask of a
+VLM) and RWKV layers run `prefill` and
 `decode_step` through the wkv kernel (one launch a layer each); the
 Mamba, mLSTM and sLSTM recurrences and the MoE layers' routing and
 expert products are plain PyTorch, as they are plain JAX in the
@@ -43,11 +45,13 @@ class Model:
     # --------------------------------------------------------------- serve
     def init_cache(self, batch: int, max_seq: int,
                    dtype: torch.dtype = torch.bfloat16,
-                   device: Device = "cuda") -> Dict[str, Any]:
-        """Zeroed decode cache: KV in `dtype`, recurrent states in fp32
-        (no specs: they come with the distributed slice)."""
+                   device: Device = "cuda",
+                   enc_len: Optional[int] = None) -> Dict[str, Any]:
+        """Zeroed decode cache: KV (and an encoder-decoder's cross KV of
+        `enc_len` positions) in `dtype`, recurrent states in fp32 (no
+        specs: they come with the distributed slice)."""
         return tfm.init_cache(self.cfg, batch, max_seq, dtype,
-                              resolve_device(device))
+                              resolve_device(device), enc_len=enc_len)
 
     def decode_step(self, params: tfm.LM, cache, tokens, pos,
                     write: Optional[torch.Tensor] = None):
@@ -61,13 +65,24 @@ class Model:
     def prefill(self, params: tfm.LM, batch: Dict[str, Any]):
         """Full-sequence forward returning (hidden (B,S,d), aux): aux is
         the fp32 sum of the MoE layers' load-balance losses (0 without
-        MoE layers)."""
-        if "frames" in batch or "patches" in batch:
-            raise NotImplementedError("frames / patches inputs wait for the "
-                                      "encoder-decoder and VLM slices")
+        MoE layers). `batch` holds "tokens" (B, S), and "frames" (B, T,
+        d) for an encoder-decoder (run through the encoder first) or
+        "patches" (B, P, d), put ahead of the text (hidden is then (B, P
+        + S, d))."""
         with torch.inference_mode():
-            tokens = torch.as_tensor(batch["tokens"], device=_device(params))
-            return tfm.lm_apply(params, self.cfg, tokens, return_hidden=True)
+            dev = _device(params)
+            tokens = torch.as_tensor(batch["tokens"], device=dev)
+            enc_memory = None
+            if self.cfg.encoder_layers:
+                enc_memory = tfm.encoder_apply(
+                    params, self.cfg,
+                    torch.as_tensor(batch["frames"], device=dev))
+            patches = batch.get("patches")
+            if patches is not None:
+                patches = torch.as_tensor(patches, device=dev)
+            return tfm.lm_apply(params, self.cfg, tokens,
+                                prefix_embeds=patches, enc_memory=enc_memory,
+                                return_hidden=True)
 
     # ------------------------------------------------------------ analytics
     def param_count(self) -> int:
@@ -97,5 +112,4 @@ def _device(params: tfm.LM) -> torch.device:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    tfm.check_supported(cfg)
     return Model(cfg)

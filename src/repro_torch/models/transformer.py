@@ -16,8 +16,16 @@ layout, {"p<pos>": {leaf: (n_periods, batch, ...)}}: k/v for attention
 (`rwkv_init_state`, `ssm.*_init_state`), so caches compare leaf for
 leaf.
 
-The encoder and cross-attention (encoder-decoder) and prefix inputs (the
-prefix-LM VLM) raise `NotImplementedError`: they wait for later slices.
+Encoder-decoder (whisper): `LM.encoder` holds `encoder_layers` attention
+blocks over precomputed frame embeddings (`encoder_apply`, full mask);
+each decoder block adds cross_norm + cross-attention over the encoder's
+output between its mixer and its MLP, and the decode cache adds ck/cv
+(n_periods, batch, enc_len, K, hd), read by the decode step's cross
+term. As in JAX nothing fills ck/cv: a decode step attends over the
+cache as it stands (zeros unless the caller wrote it). Prefix-LM
+(paligemma): `lm_apply(prefix_embeds=)` puts the patch embeddings ahead
+of the scaled text embedding, and a prefix-LM config runs every layer
+under the "prefix" mask (bidirectional over the patches).
 """
 from __future__ import annotations
 
@@ -59,17 +67,6 @@ def period_of(cfg: ModelConfig) -> int:
     return cfg.num_layers
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raises NotImplementedError for what the port does not take yet."""
-    if cfg.encoder_layers or cfg.cross_attention:
-        raise NotImplementedError(f"{cfg.name}: the encoder and cross-"
-                                  f"attention wait for the encoder-decoder "
-                                  f"slice")
-    if cfg.prefix_lm or cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.name}: prefix inputs wait for the "
-                                  f"VLM slice")
-
-
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
@@ -77,11 +74,14 @@ def check_supported(cfg: ModelConfig) -> None:
 
 class Block(nn.Module):
     """norm1 and the mixer of `kind`, then norm2 + channel_mix (RWKV), or
-    for attention and Mamba norm2 + moe (`is_moe`) or norm2 + mlp (d_ff >
-    0); names as the JAX block tree (`_block_init`)."""
+    (with `cross`, not for RWKV) cross_norm + cross-attention, then for
+    attention and Mamba norm2 + moe (`is_moe`) or norm2 + mlp (d_ff > 0);
+    names as the JAX block tree (`_block_init`). The cross-attention has
+    neither qkv bias nor qk norm, whatever the config says, as in JAX."""
 
     def __init__(self, gen: torch.Generator, cfg: ModelConfig, kind: str,
-                 dtype: torch.dtype, is_moe: bool = False):
+                 dtype: torch.dtype, is_moe: bool = False,
+                 cross: bool = False):
         super().__init__()
         self.kind = kind
         d = cfg.d_model
@@ -104,6 +104,12 @@ class Block(nn.Module):
             self.mixer = rwkv_mod.TimeMix(gen, d, cfg.num_heads, dtype)
         else:
             raise ValueError(f"unknown block kind {kind}")
+        self.cross_norm = self.cross = None
+        if cross and kind != BLOCK_RWKV:
+            self.cross_norm = RMSNorm(d, dtype, cfg.norm_eps)
+            self.cross = attn.Attention(gen, d, cfg.num_heads,
+                                        cfg.num_kv_heads,
+                                        cfg.resolved_head_dim, dtype)
         self.norm2 = self.mlp = self.moe = self.channel_mix = None
         if kind == BLOCK_RWKV:
             self.norm2 = RMSNorm(d, dtype, cfg.norm_eps)
@@ -140,14 +146,15 @@ def _ffn(params: Block, cfg: ModelConfig, x):
 
 
 def _block_apply(params: Block, cfg: ModelConfig, x, *, mask_mode: str,
-                 positions=None):
-    """(x, the block's aux loss or None)."""
+                 positions=None, enc_memory=None, prefix_len: int = 0):
+    """(x, the block's aux loss or None). `enc_memory` (B, T, d) feeds the
+    cross-attention of a block that has one."""
     h = params.norm1(x)
     kind = params.kind
     if kind == BLOCK_ATTN:
         mix = attn.attn_apply(params.mixer, h, positions=positions,
                               mask_mode=mask_mode, window=cfg.attn_window,
-                              **_attn_kwargs(cfg))
+                              prefix_len=prefix_len, **_attn_kwargs(cfg))
     elif kind == BLOCK_MAMBA:
         mix = ssm.mamba_apply(params.mixer, h, cfg.ssm_state_dim)
     elif kind == BLOCK_MLSTM:
@@ -156,7 +163,13 @@ def _block_apply(params: Block, cfg: ModelConfig, x, *, mask_mode: str,
         mix = params.mixer(h)
     else:
         mix = ssm.slstm_apply(params.mixer, h, cfg.num_heads)
-    return _ffn(params, cfg, x + mix)
+    x = x + mix
+    if params.cross is not None:
+        x = x + attn.attn_apply(
+            params.cross, params.cross_norm(x), num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+            kv_x=enc_memory, mask_mode="full", use_rope=False)
+    return _ffn(params, cfg, x)
 
 
 # ---------------------------------------------------------------------------
@@ -164,19 +177,33 @@ def _block_apply(params: Block, cfg: ModelConfig, x, *, mask_mode: str,
 # ---------------------------------------------------------------------------
 
 
+class Encoder(nn.Module):
+    """The encoder of an encoder-decoder (JAX's `params["encoder"]`):
+    `layers`, attention blocks without cross-attention, then `norm`; each
+    module goes through `placed` as soon as its leaves are drawn."""
+
+    def __init__(self, gen: torch.Generator, cfg: ModelConfig,
+                 dtype: torch.dtype, placed):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            placed(Block(gen, cfg, BLOCK_ATTN, dtype))
+            for _ in range(cfg.encoder_layers))
+        self.norm = placed(RMSNorm(cfg.d_model, dtype, cfg.norm_eps))
+
+
 class LM(nn.Module):
     """The model's parameters (JAX's `lm_init`), drawn on the CPU from
     `torch.Generator(seed)`, named as the JAX tree with the stacked
-    `layers/p<pos>/...` split into `layers.<i>....`; in the config's
-    `param_dtype`, but for the leaves JAX keeps in fp32 (the MoE router
-    among them). With `device`, each module goes there as soon as its leaves
+    `layers/p<pos>/...` split into `layers.<i>....` (and the encoder's
+    stacked `encoder/layers/...` into `encoder.layers.<i>....`); in the
+    config's `param_dtype`, but for the leaves JAX keeps in fp32 (the MoE
+    router among them). With `device`, each module goes there as soon as its leaves
     are drawn, so the host holds one block at a time; the draws, and so
     the bits, are the same on every device."""
 
     def __init__(self, cfg: ModelConfig, seed: int = 0,
                  device: Optional[torch.device] = None):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         dtype = torch_dtype(cfg.param_dtype)
         gen = torch.Generator().manual_seed(seed)
@@ -188,10 +215,13 @@ class LM(nn.Module):
         self.layers = nn.ModuleList()
         for i, kind in enumerate(cfg.blocks()):
             self.layers.append(placed(Block(gen, cfg, kind, dtype,
-                                            is_moe=cfg.is_moe_layer(i))))
+                                            is_moe=cfg.is_moe_layer(i),
+                                            cross=cfg.cross_attention)))
         self.final_norm = placed(RMSNorm(cfg.d_model, dtype, cfg.norm_eps))
         self.lm_head = (None if cfg.tie_embeddings else placed(
             Embed(gen, cfg.vocab_size, cfg.d_model, dtype)))
+        self.encoder = (Encoder(gen, cfg, dtype, placed)
+                        if cfg.encoder_layers else None)
 
     @property
     def head_table(self):
@@ -205,19 +235,39 @@ def _embed_tokens(params: LM, cfg: ModelConfig, tokens):
     return x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype)
 
 
+def encoder_apply(params: LM, cfg: ModelConfig, frames):
+    """frames: (B, T, d_model) precomputed frontend embeddings, cast to the
+    model dtype (no sqrt(d) scale). The encoder's blocks under the full
+    mask (RoPE over arange(T)), then its norm: (B, T, d)."""
+    x = frames.to(torch_dtype(cfg.dtype))
+    for block in params.encoder.layers:
+        x, _ = _block_apply(block, cfg, x, mask_mode="full")
+    return params.encoder.norm(x)
+
+
 def lm_apply(params: LM, cfg: ModelConfig, tokens, *,
+             prefix_embeds=None, enc_memory=None,
              return_hidden: bool = False):
-    """tokens: (B, S) int. Returns (hidden (B,S,d), aux) when
-    `return_hidden`, else (logits (B,S,V) in the model dtype, aux); aux
-    is the fp32 sum of the MoE layers' load-balance losses (0 without
-    MoE layers), added in layer order."""
+    """tokens: (B, S) int; prefix_embeds: (B, P, d) modality inputs put
+    ahead of the text (cast to the model dtype, unscaled; the rows become
+    P + S and a prefix-LM config masks them bidirectionally); enc_memory:
+    (B, T, d) the encoder's output, for the cross-attention. Returns
+    (hidden (B,P+S,d), aux) when `return_hidden`, else (logits (B,P+S,V)
+    in the model dtype, aux); aux is the fp32 sum of the MoE layers'
+    load-balance losses (0 without MoE layers), added in layer order."""
     x = _embed_tokens(params, cfg, tokens)
+    prefix_len = 0
+    if prefix_embeds is not None:
+        prefix_len = prefix_embeds.shape[1]
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
+    mask_mode = "prefix" if (cfg.prefix_lm and prefix_len) else "causal"
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for block in params.layers:
-        x, a = _block_apply(block, cfg, x, mask_mode="causal",
-                            positions=positions)
+        x, a = _block_apply(block, cfg, x, mask_mode=mask_mode,
+                            positions=positions, enc_memory=enc_memory,
+                            prefix_len=prefix_len)
         if a is not None:
             aux = aux + a
     x = params.final_norm(x)
@@ -232,13 +282,20 @@ def lm_apply(params: LM, cfg: ModelConfig, tokens, *,
 
 
 def _layer_state(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
-                 dtype: torch.dtype, device) -> Dict[str, torch.Tensor]:
+                 dtype: torch.dtype, device,
+                 enc_len: int) -> Dict[str, torch.Tensor]:
     """One layer's zeroed decode state: k/v (B, max_seq, K, hd) in `dtype`
-    for attention, else the mixer's fp32 state."""
+    for attention (and ck/cv (B, enc_len, K, hd) with cross-attention),
+    else the mixer's fp32 state."""
     if kind == BLOCK_ATTN:
-        shape = (batch, max_seq, cfg.num_kv_heads, cfg.resolved_head_dim)
-        return {"k": torch.zeros(shape, dtype=dtype, device=device),
-                "v": torch.zeros(shape, dtype=dtype, device=device)}
+        kv = (cfg.num_kv_heads, cfg.resolved_head_dim)
+        state = {key: torch.zeros((batch, max_seq, *kv), dtype=dtype,
+                                  device=device) for key in ("k", "v")}
+        if cfg.cross_attention:
+            state.update({key: torch.zeros((batch, enc_len, *kv),
+                                           dtype=dtype, device=device)
+                          for key in ("ck", "cv")})
+        return state
     if kind == BLOCK_MAMBA:
         return ssm.mamba_init_state(batch, cfg.d_model, cfg.ssm_state_dim,
                                     cfg.ssm_conv_dim, device)
@@ -253,19 +310,24 @@ def _layer_state(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype: torch.dtype = torch.bfloat16,
-               device: Optional[torch.device] = None
+               device: Optional[torch.device] = None,
+               enc_len: Optional[int] = None
                ) -> Dict[str, Dict[str, torch.Tensor]]:
     """Zeroed decode cache {"p<pos>": {leaf: (n_periods, batch, ...)}}, as
     JAX's `init_cache` lays it out: k/v (n_periods, batch, max_seq, K,
-    hd) in `dtype` for attention positions, the fp32 state leaves of the
+    hd) in `dtype` for attention positions (with cross-attention also
+    ck/cv (n_periods, batch, enc_len, K, hd), enc_len by default
+    `num_prefix_embeddings` or 1500), the fp32 state leaves of the
     recurrent kinds."""
-    check_supported(cfg)
+    if enc_len is None:
+        enc_len = cfg.num_prefix_embeddings or 1500
     period = period_of(cfg)
     n_periods = cfg.num_layers // period
     cache = {}
     for pos in range(period):
         kind, _ = layer_signature(cfg, pos)
-        one = _layer_state(cfg, kind, batch, max_seq, dtype, "meta")
+        one = _layer_state(cfg, kind, batch, max_seq, dtype, "meta",
+                           enc_len)
         cache[f"p{pos}"] = {key: torch.zeros((n_periods, *t.shape),
                                              dtype=t.dtype, device=device)
                             for key, t in one.items()}
@@ -284,6 +346,22 @@ def _store(state: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
         old.copy_(value)
 
 
+def _cross_decode(params: Block, cfg: ModelConfig, x, ck, cv):
+    """The decode step's cross term (JAX's `_block_decode`): q = cross_norm
+    (x) @ cross.wq (no bias, no RoPE) attends plainly over the whole cross
+    cache ck/cv (B, enc_len, K, hd) as it stands, cast to q's dtype; the
+    result goes through cross.wo."""
+    B = x.shape[0]
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    h = params.cross_norm(x)
+    q = (h @ params.cross.wq.to(h.dtype)).reshape(B, 1, H, hd)
+    bias = torch.zeros((1, ck.shape[1]), dtype=torch.float32,
+                       device=x.device)
+    out = attn._ref_attention(q, ck.to(q.dtype), cv.to(q.dtype), bias)
+    out = out.reshape(B, 1, H * hd)
+    return out @ params.cross.wo.to(out.dtype)
+
+
 def _block_decode(params: Block, cfg: ModelConfig, x, state, pos,
                   write=None):
     """One token through a block; `state` holds this layer's views of the
@@ -297,7 +375,10 @@ def _block_decode(params: Block, cfg: ModelConfig, x, state, pos,
         mix, _, _ = attn.attn_decode(params.mixer, h, state["k"], state["v"],
                                      pos, window=cfg.attn_window,
                                      write=write, **_attn_kwargs(cfg))
-        return _ffn(params, cfg, x + mix)[0]
+        x = x + mix
+        if params.cross is not None and "ck" in state:
+            x = x + _cross_decode(params, cfg, x, state["ck"], state["cv"])
+        return _ffn(params, cfg, x)[0]
     if kind == BLOCK_RWKV:
         mix, tm_shift, S = rwkv_mod.timemix_decode(
             params.mixer, h, state["tm_shift"], state["S"])

@@ -919,3 +919,107 @@ def test_moe_zoo_on_card_matches_cpu(cuda, arch):
             break
         torch.testing.assert_close(card[5][t], cpu[5][t], atol=1e-4,
                                    rtol=1e-3)
+
+
+@pytest.mark.parametrize("B,S,T,H,K,D,P,window,dtype", [
+    (1, 200, 200, 8, 1, 64, 100, 0, "bfloat16"),   # cuts a key tile and a
+    (1, 200, 200, 8, 1, 64, 100, 0, "float32"),    # 128-row query tile
+    (2, 300, 300, 8, 1, 256, 200, 64, "bfloat16"),  # D 256, a window
+    (1, 300, 300, 8, 1, 256, 200, 64, "float32"),
+    (1, 150, 150, 4, 2, 128, 256, 0, "bfloat16"),   # P >= S: every key
+    (1, 150, 150, 4, 2, 128, 256, 0, "float32"),
+    (1, 320, 320, 8, 1, 256, 128, 0, "bfloat16"),   # a multiple of 64
+    (1, 90, 130, 2, 1, 36, 70, 0, "bfloat16")])     # S != T, element loads
+def test_flash_prefix_kernels_match_plain(cuda, B, S, T, H, K, D, P, window,
+                                          dtype):
+    """Both flash kernels with the prefix rule against the plain version
+    at the JAX suite's bounds; two launches give the same bits; P >= T
+    gives the full mask's bits."""
+    g = _gen(cuda, S + T + P)
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, S, H, D), generator=g, device=cuda).to(dt)
+    k = torch.randn((B, T, K, D), generator=g, device=cuda).to(dt)
+    v = torch.randn((B, T, K, D), generator=g, device=cuda).to(dt)
+    before = flash_attention.launches
+    o = flash_attention(q, k, v, window=window, prefix_len=P)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    atol = 2e-5 if dtype == "float32" else 3e-2
+    torch.testing.assert_close(o.float(), attention_reference(
+        q, k, v, window=window, prefix_len=P).float(), atol=atol, rtol=1e-2)
+    assert torch.equal(o, flash_attention(q, k, v, window=window,
+                                          prefix_len=P))
+    if P >= T and window == 0:
+        assert torch.equal(o, flash_attention(q, k, v, causal=False))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("D,window", [(64, 0), (128, 96), (256, 0)])
+def test_flash_prefix_zero_is_bitwise_causal(cuda, dtype, D, window):
+    """prefix_len 0 runs the tiles of the causal call and gives its bits."""
+    g = _gen(cuda, D + window)
+    dt = getattr(torch, dtype)
+    q = torch.randn((2, 257, 8, D), generator=g, device=cuda).to(dt)
+    k, v = (torch.randn((2, 257, 2, D), generator=g, device=cuda).to(dt)
+            for _ in range(2))
+    assert torch.equal(flash_attention(q, k, v, window=window, prefix_len=0),
+                       flash_attention(q, k, v, window=window))
+
+
+@pytest.mark.parametrize("arch", ["whisper_tiny", "paligemma_3b"])
+def test_modal_zoo_on_card_matches_cpu(cuda, arch):
+    """A small encoder-decoder (frames) and prefix-LM (patches) in fp32
+    on the card and on the CPU from one seed: prefill hidden states, the
+    flash launches a call (encoder, decoder and cross layers; every
+    prefix-LM layer), 4 decode steps over a cache whose cross part is
+    filled from the encoder, and the same greedy tokens from the
+    ServeEngine."""
+    from repro_torch.config import get_arch, scaled_down
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serve import Request, ServeEngine
+    cfg = scaled_down(get_arch(arch), num_layers=2, d_model=128,
+                      num_heads=4, d_ff=256, vocab_size=512)
+    model = build_model(cfg)
+    rng = np.random.RandomState(0)
+    tokens = rng.randint(0, 512, (2, 70))
+    batch = {"tokens": tokens}
+    if cfg.encoder_layers:
+        batch["frames"] = rng.randn(2, 150, 128).astype(np.float32)
+    else:
+        batch["patches"] = rng.randn(2, 16, 128).astype(np.float32)
+    want_launches = 2 * cfg.num_layers + cfg.encoder_layers \
+        if cfg.encoder_layers else cfg.num_layers
+    runs = []
+    for dev in ("cpu", cuda):
+        params = model.init(0, device=dev)
+        before = flash_attention.launches
+        hidden, _ = model.prefill(params, batch)
+        launches = flash_attention.launches - before
+        cache = model.init_cache(2, 16, torch.float32, device=dev,
+                                 enc_len=150)
+        if cfg.encoder_layers:
+            with torch.no_grad():
+                mem = tfm.encoder_apply(params, cfg, torch.as_tensor(
+                    batch["frames"], device=dev))
+                for i, block in enumerate(params.layers):
+                    cache["p0"]["ck"][i] = (mem @ block.cross.wk).view(
+                        2, 150, cfg.num_kv_heads, -1)
+                    cache["p0"]["cv"][i] = (mem @ block.cross.wv).view(
+                        2, 150, cfg.num_kv_heads, -1)
+        logits = []
+        for t in range(4):
+            lg, cache = model.decode_step(params, cache, tokens[:, t:t + 1],
+                                          t)
+            logits.append(lg.cpu())
+        eng = ServeEngine(model, params, num_slots=2, max_seq=64, device=dev)
+        for i in range(3):
+            eng.submit(Request(rid=i, prompt=list(tokens[0, :5 + 7 * i]),
+                               max_new=8))
+        runs.append((hidden.cpu(), launches, torch.cat(logits, 1),
+                     {r: q.out for r, q in eng.run().items()}))
+    cpu, card = runs
+    assert cpu[1] == 0 and card[1] == want_launches
+    torch.testing.assert_close(card[0], cpu[0], atol=1e-4, rtol=1e-3)
+    torch.testing.assert_close(card[2], cpu[2], atol=1e-4, rtol=1e-3)
+    assert card[3] == cpu[3]

@@ -1022,6 +1022,202 @@ def test_flash_plain_matches_jax(B, S, T, H, K, D, causal, window, bq, bk,
                                    rtol=1e-2)
 
 
+FLASH_PREFIX_CASES = [
+    # (B, S, T, H, K, D, prefix_len, window, dtype): no prefix, a prefix
+    # inside a 64-key tile, one that cuts a 64-key tile and a 128-row query
+    # tile, a multiple of 64, one past S, with a window, S != T both ways,
+    # paligemma's 8:1 GQA
+    (1, 80, 80, 2, 1, 16, 0, 0, "float32"),
+    (2, 100, 100, 8, 1, 32, 37, 0, "float32"),
+    (1, 200, 200, 8, 1, 16, 100, 0, "float32"),
+    (1, 130, 130, 4, 2, 16, 64, 0, "float32"),
+    (1, 48, 48, 2, 2, 16, 60, 0, "float32"),
+    (1, 150, 150, 8, 1, 16, 130, 20, "float32"),
+    (2, 40, 70, 4, 2, 16, 50, 0, "float32"),
+    (1, 90, 60, 2, 1, 16, 30, 0, "float32"),
+    (1, 96, 96, 8, 1, 64, 40, 0, "bfloat16"),
+]
+
+
+def _prefix_inputs(B, S, T, H, K, D, dtype, seed):
+    rng = np.random.RandomState(seed)
+    return tuple(_as_dtype(rng.randn(*shape).astype(np.float32),
+                           getattr(jnp, dtype))
+                 for shape in ((B, S, H, D), (B, T, K, D), (B, T, K, D)))
+
+
+@pytest.mark.parametrize("B,S,T,H,K,D,P,window,dtype", FLASH_PREFIX_CASES)
+def test_flash_prefix_plain_matches_jax(B, S, T, H, K, D, P, window, dtype):
+    """The plain version with the prefix rule against JAX's
+    `_ref_attention` under `_mask_bias("prefix")` (the JAX kernel has no
+    prefix rule), at the JAX suite's bounds; P = 0 is the causal call."""
+    from repro.models.attention import _mask_bias, _ref_attention
+    q, k, v = _prefix_inputs(B, S, T, H, K, D, dtype, S + T + P)
+    td = getattr(torch, dtype)
+    args = [_t(a).to(td) for a in (q, k, v)]
+    out = flash_attention(*args, causal=True, window=window, prefix_len=P)
+    assert out.dtype == td and tuple(out.shape) == (B, S, H, D)
+    jd = getattr(jnp, dtype)
+    bias = _mask_bias("prefix", jnp.arange(S), jnp.arange(T), window, P)
+    want = _ref_attention(*(jnp.asarray(a, jd) for a in (q, k, v)), bias)
+    atol = 1e-5 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(want, np.float32), atol=atol,
+                               rtol=1e-2 if dtype == "bfloat16" else 1e-5)
+    if P == 0:
+        assert torch.equal(out, flash_attention(*args, window=window))
+    if P >= T and window == 0:      # every key: the full mask
+        assert torch.equal(out, flash_attention(*args, causal=False))
+
+
+def test_flash_rejects_a_negative_prefix():
+    x = torch.zeros(1, 8, 2, 16)
+    with pytest.raises(ValueError, match="prefix_len"):
+        flash_attention(x, x[:, :, :1], x[:, :, :1], prefix_len=-1)
+
+
+def _flash_tiles(S, T, causal, window, prefix_len, nwg, sub):
+    """The (warpgroup's first row, key tile start, need_mask) triples the
+    bf16 kernel (`wg::flash_wgmma_kernel<DP, NWG, MINB, SUB, PREFIX>`,
+    PREFIX when prefix_len > 0) runs, in its order, from its loop bounds
+    and its `run` / `need_mask` tests; nwg = sub = 1 with every tile
+    masked is the fp32 kernel's loop (its 64-row query tile and k_end
+    rule)."""
+    BQ, KR = 64 * nwg, 64 * sub
+    out = []
+    for q0 in range(0, S, BQ):
+        k_end = T
+        if causal:
+            k_end = min(k_end, max(min(S, q0 + BQ), prefix_len))
+        k_begin = 0
+        if window > 0 and q0 - window + 1 > 0:
+            k_begin = ((q0 - window + 1) // 64) * 64
+        n_tiles = -(-(k_end - k_begin) // 64) if k_end > k_begin else 0
+        for w in range(nwg):
+            qw0 = q0 + 64 * w
+            w_last = min(S, qw0 + 64) - 1
+            for u in range(-(-n_tiles // sub)):
+                for j in range(sub):
+                    k0 = k_begin + u * KR + j * 64
+                    run = (k0 < k_end and qw0 < S
+                           and (not causal or k0 <= w_last
+                                or k0 < prefix_len)
+                           and (window <= 0 or k0 + 63 >= qw0 - window + 1))
+                    if not run:
+                        continue
+                    need = (k0 + 64 > T
+                            or (causal and k0 + 63 > qw0
+                                and k0 + 64 > prefix_len)
+                            or (window > 0 and qw0 + 63 - k0 >= window))
+                    out.append((qw0, k0, need))
+    return out
+
+
+def _flash_tile_model(q, k, v, causal, window, prefix_len, nwg, sub,
+                      always_mask=False):
+    """numpy model of the kernels' tile loop (`_flash_tiles`): the online
+    softmax over the tiles they run, the rule applied only where they
+    apply it (NEG_INF before the scale), keys past T at -inf; rows past S
+    are computed on zeros and dropped."""
+    B, S, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+    g = H // K
+    neg = -2.0 ** 30
+    out = np.zeros((B, S, H, D))
+    tiles = _flash_tiles(S, T, causal, window, prefix_len, nwg, sub)
+    for qw0 in sorted({t[0] for t in tiles} | set(range(0, S, 64))):
+        rows = np.arange(qw0, qw0 + 64)
+        qs = np.zeros((B, 64, H, D))
+        qs[:, :min(64, S - qw0)] = q[:, qw0:qw0 + 64]
+        m = np.full((B, H, 64), neg)
+        l = np.zeros((B, H, 64))
+        acc = np.zeros((B, H, 64, D))
+        for _, k0, need in (t for t in tiles if t[0] == qw0):
+            keys = np.arange(k0, k0 + 64)
+            kt = np.zeros((B, 64, K, D))
+            vt = np.zeros((B, 64, K, D))
+            kt[:, :min(64, T - k0)] = k[:, k0:k0 + 64]
+            vt[:, :min(64, T - k0)] = v[:, k0:k0 + 64]
+            s = np.einsum("bihd,bjhd->bhij", qs, np.repeat(kt, g, axis=2))
+            if need or always_mask:
+                vis = np.ones((64, 64), bool)
+                if causal:
+                    vis = ((keys[None, :] <= rows[:, None])
+                           | (keys[None, :] < prefix_len))
+                if window > 0:
+                    vis &= rows[:, None] - keys[None, :] < window
+                s = np.where(vis, s, neg)
+                s = np.where(keys[None, :] >= T, -np.inf, s)
+            m_new = np.maximum(m, s.max(-1))
+            p = np.exp((s - m_new[..., None]) * D ** -0.5)
+            corr = np.exp((m - m_new) * D ** -0.5)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + np.einsum(
+                "bhij,bjhd->bhid", p, np.repeat(vt, g, axis=2))
+            m = m_new
+        o = acc / np.maximum(l, 1e-30)[..., None]
+        n = min(64, S - qw0)
+        out[:, qw0:qw0 + n] = o.transpose(0, 2, 1, 3)[:, :n]
+    return out
+
+
+@pytest.mark.parametrize("B,S,T,H,K,D,P,window,dtype", FLASH_PREFIX_CASES)
+def test_flash_tile_model_matches_plain(B, S, T, H, K, D, P, window, dtype):
+    """The loop bounds and masking tests of both kernels, with the prefix
+    rule, reproduce the plain version: every bf16 instance (two warpgroups
+    and two key tiles a stage at D <= 128, one and one at D 256) and the
+    fp32 kernel's loop; the causal rule without a prefix too."""
+    q, k, v = (a.astype(np.float64)
+               for a in _prefix_inputs(B, S, T, H, K, D, "float32", 3 * S))
+    for causal, p in ((True, P), (True, 0), (False, 0)):
+        want = flash_attention(*(_t(a).float() for a in (q, k, v)),
+                               causal=causal, window=window, prefix_len=p)
+        for nwg, sub, always in ((2, 2, False), (1, 1, False),
+                                 (1, 1, True)):
+            got = _flash_tile_model(q, k, v, causal, window, p, nwg, sub,
+                                    always)
+            np.testing.assert_allclose(got, want.numpy(), atol=1e-5,
+                                       rtol=1e-5,
+                                       err_msg=f"{causal, p, nwg, sub}")
+
+
+@pytest.mark.parametrize("S,T,window", [(1000, 1000, 0), (2048, 2048, 512),
+                                        (448, 1500, 0), (257, 257, 96),
+                                        (1500, 1500, 0)])
+def test_flash_tiles_without_prefix_are_the_old_ones(S, T, window):
+    """prefix_len 0 leaves every instance's tiles and masking decisions
+    as they were before the prefix rule (the causal-only tests of the
+    wgmma kernel without it), so the output is bitwise the same."""
+    def old(nwg, sub, causal):
+        BQ, KR, out = 64 * nwg, 64 * sub, []
+        for q0 in range(0, S, BQ):
+            k_end = min(T, min(S, q0 + BQ)) if causal else T
+            k_begin = 0
+            if window > 0 and q0 - window + 1 > 0:
+                k_begin = ((q0 - window + 1) // 64) * 64
+            n = -(-(k_end - k_begin) // 64) if k_end > k_begin else 0
+            for w in range(nwg):
+                qw0 = q0 + 64 * w
+                for u in range(-(-n // sub)):
+                    for j in range(sub):
+                        k0 = k_begin + u * KR + j * 64
+                        if not (k0 < k_end and qw0 < S
+                                and (not causal
+                                     or k0 <= min(S, qw0 + 64) - 1)
+                                and (window <= 0
+                                     or k0 + 63 >= qw0 - window + 1)):
+                            continue
+                        out.append((qw0, k0, k0 + 64 > T
+                                    or (causal and k0 + 63 > qw0)
+                                    or (window > 0
+                                        and qw0 + 63 - k0 >= window)))
+        return out
+    for nwg, sub in ((2, 2), (1, 1)):
+        for causal in (True, False):
+            assert _flash_tiles(S, T, causal, window, 0, nwg, sub) == \
+                old(nwg, sub, causal)
+
+
 def test_flash_cpu_launches_no_kernel():
     before = flash_attention.launches
     x = torch.randn(1, 8, 2, 16)

@@ -190,22 +190,31 @@ def test_leaf_dtypes_follow_jax_in_bf16(arch):
 
 
 def test_moe_encoder_and_prefix_configs_still_raise():
-    """The encoder and prefix configs still raise, and so do the archs
-    that need them; MoE on a recurrent base builds (xLSTM blocks take no
-    FFN, so no MoE either, as in JAX), and jamba is ported."""
+    """MoE on a recurrent base builds (xLSTM blocks take no FFN, so no MoE
+    either, as in JAX), and jamba is ported. The encoder and prefix
+    configs, which raised until the encoder-decoder and prefix-LM were
+    ported, build now on a recurrent base too, with JAX's tree (an
+    attention encoder, cross-attention beside each recurrent mixer), and
+    so do the archs that need them; an unknown id still raises."""
     base = tconfig.scaled_down(tconfig.get_arch("xlstm_1_3b"))
     lm = build_model(dataclasses.replace(
         base, moe=tconfig.MoEConfig(4, 2, 64))).init(0, device="cpu")
     assert all(b.moe is None and b.mlp is None for b in lm.layers)
-    for changes, what in [
-            (dict(encoder_layers=2, cross_attention=True), "encoder"),
-            (dict(prefix_lm=True, frontend="vision_patches"), "prefix")]:
-        with pytest.raises(NotImplementedError, match=what):
-            build_model(dataclasses.replace(base, **changes))
+    jbase = jconfig.scaled_down(jconfig.get_arch("xlstm_1_3b"))
+    for changes in (dict(encoder_layers=2, cross_attention=True),
+                    dict(prefix_lm=True, frontend="vision_patches")):
+        jcfg = dataclasses.replace(jbase, **changes)
+        shapes = jax.eval_shape(
+            lambda: jax_build_model(jcfg).init(jax.random.PRNGKey(0))[0])
+        tree = jax.tree_util.tree_map(
+            lambda a: np.zeros(a.shape, a.dtype), shapes)
+        bridge.lm_params_from_jax(
+            tree, dataclasses.replace(base, **changes))   # names, shapes
     assert tconfig.get_arch("jamba-1.5-large-398b").moe.num_experts == 16
     for arch in ("whisper-tiny", "paligemma-3b"):
-        with pytest.raises(KeyError, match="not ported yet"):
-            tconfig.get_arch(arch)
+        assert tconfig.get_arch(arch).family in ("encdec", "vlm")
+    with pytest.raises(KeyError, match="not ported yet"):
+        tconfig.get_arch("no-such-arch")
 
 
 # ---------------------------------------------------------------------------

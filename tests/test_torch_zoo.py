@@ -1,7 +1,9 @@
 """The port's LM zoo (dense decoders) on the CPU against the JAX package:
 configs, layers, attention, prefill and decode from bridged weights, at
 fp32 under `scaled_down` (bf16 rounds at other places in the two
-frameworks; the kernel's bf16 bound is held in test_torch_kernels.py)."""
+frameworks; the kernel's bf16 bound is held in test_torch_kernels.py).
+The encoder-decoder and the prefix-LM have files of their own
+(test_torch_encdec.py, test_torch_prefix_lm.py)."""
 import dataclasses
 import os
 import subprocess
@@ -31,6 +33,7 @@ DENSE = ["smollm_135m", "granite_3_2b", "qwen2_7b", "qwen3_4b"]
 RECURRENT = ["semanticbbv_encoder", "xlstm_1_3b"]   # test_torch_recurrent.py
 MOE = ["qwen3_moe_235b_a22b", "grok_1_314b",         # test_torch_moe.py
        "jamba_1_5_large_398b"]
+MODAL = ["whisper_tiny", "paligemma_3b"]   # test_torch_{encdec,prefix_lm}.py
 SMALL = dict(num_layers=3, d_model=64, num_heads=4, num_kv_heads=2, d_ff=96,
              vocab_size=128)
 
@@ -70,7 +73,7 @@ def zoo(request):
 # configs
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MODAL)
 def test_config_copies_match_jax(arch):
     want = dataclasses.asdict(jconfig.get_arch(arch))
     got = dataclasses.asdict(tconfig.get_arch(arch.replace("_", "-")))
@@ -86,16 +89,19 @@ def test_config_fields_and_shapes_match_jax():
                   dataclasses.fields(getattr(jconfig, name))]
         assert [(f.name, f.default) for f in dataclasses.fields(
             getattr(tconfig, name))] == fields, name
-    assert sorted(tconfig.PORTED_ARCHS) == sorted(DENSE + RECURRENT + MOE)
+    assert sorted(tconfig.PORTED_ARCHS) == sorted(
+        DENSE + RECURRENT + MOE + MODAL) == sorted(jconfig.list_archs())
 
 
 def test_unported_archs_raise():
-    """The encoder-decoder and the VLM (and unknown ids) still raise; the
-    MoE archs and MoE layers on a dense base build."""
+    """Every arch of the JAX zoo builds now, the encoder-decoder and the
+    VLM among them; an unknown id still raises. MoE layers on a dense
+    base, an encoder with cross-attention and a prefix-LM build too."""
     assert tconfig.get_arch("grok-1-314b").name == "grok-1-314b"
-    for arch in ("whisper-tiny", "paligemma-3b", "no_such_arch"):
-        with pytest.raises(KeyError, match="not ported yet"):
-            tconfig.get_arch(arch)
+    assert tconfig.get_arch("whisper-tiny").name == "whisper-tiny"
+    assert tconfig.get_arch("paligemma-3b").name == "paligemma-3b"
+    with pytest.raises(KeyError, match="not ported yet"):
+        tconfig.get_arch("no_such_arch")
     base = tconfig.scaled_down(tconfig.get_arch("smollm_135m"))
     for changes in [
             dict(block_pattern=("mamba", "attn"), moe_layer_stride=2,
@@ -105,14 +111,16 @@ def test_unported_archs_raise():
         lm = build_model(cfg).init(0, device="cpu")
         assert [b.moe is not None for b in lm.layers] == \
             [cfg.is_moe_layer(i) for i in range(cfg.num_layers)]
-    for changes, what in [
-            (dict(encoder_layers=2, cross_attention=True), "encoder"),
-            (dict(prefix_lm=True, frontend="vision_patches"), "prefix")]:
-        with pytest.raises(NotImplementedError, match=what):
-            build_model(dataclasses.replace(base, **changes))
+    lm = build_model(dataclasses.replace(
+        base, encoder_layers=2, cross_attention=True)).init(0, device="cpu")
+    assert len(lm.encoder.layers) == 2
+    assert all(b.cross is not None for b in lm.layers)
+    lm = build_model(dataclasses.replace(
+        base, prefix_lm=True, frontend="vision_patches")).init(0, "cpu")
+    assert lm.encoder is None and all(b.cross is None for b in lm.layers)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MODAL)
 def test_param_count_matches_jax(arch):
     """At full width and depth, from shapes alone on both sides."""
     want = jax_build_model(jconfig.get_arch(arch)).param_count()
@@ -207,10 +215,25 @@ def test_attn_apply_matches_jax(S, H, K, hd, mask_mode, window, qkv_bias,
 
 
 def test_attn_apply_prefix_mask_raises():
-    _, mod = _attention(0, 16, 2, 1, 8, False, False)
-    with pytest.raises(NotImplementedError, match="prefix"):
+    """The prefix mask runs now, as JAX's ref and chunked paths run it
+    (more cases in test_torch_prefix_lm.py); an unknown mask mode and a
+    negative prefix length still raise."""
+    jp, mod = _attention(0, 16, 2, 1, 8, False, False)
+    x = np.random.RandomState(1).randn(2, 10, 16).astype(np.float32)
+    kw = dict(num_heads=2, num_kv_heads=1, head_dim=8, mask_mode="prefix",
+              prefix_len=4)
+    got = tattn.attn_apply(mod, torch.from_numpy(x), **kw).detach().numpy()
+    for impl in ("ref", "chunked"):
+        want = jattn.attn_apply(jp, jnp.asarray(x), impl=impl, **kw)
+        np.testing.assert_allclose(got, np.asarray(want), atol=1e-5,
+                                   rtol=1e-4)
+    with pytest.raises(ValueError, match="mask_mode"):
         tattn.attn_apply(mod, torch.zeros(1, 4, 16), num_heads=2,
-                         num_kv_heads=1, head_dim=8, mask_mode="prefix")
+                         num_kv_heads=1, head_dim=8, mask_mode="sliding")
+    with pytest.raises(ValueError, match="prefix_len"):
+        tattn.attn_apply(mod, torch.zeros(1, 4, 16), num_heads=2,
+                         num_kv_heads=1, head_dim=8, mask_mode="prefix",
+                         prefix_len=-2)
 
 
 @pytest.mark.parametrize("window,qk_norm", [(0, False), (3, True)])
