@@ -120,22 +120,45 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
      each, twice with the same tokens; (d) paligemma-3b at full width and
      depth in bf16: `Model.prefill` of 8 x (256 patches + 1,792 tokens)
      (exactly 18 flash launches a call), a ServeEngine (8 slots, max_seq
-     512) answering 16 requests of 16-128 tokens, 32 new each, twice.
+     512) answering 16 requests of 16-128 tokens, 32 new each, twice;
+ 10. the zoo's training (seeded untrained weights): (a) the flash backward
+     kernel against its plain version on the same q, k, v, o, dO and
+     log-sum-exp at every row of FLASH_CASES in fp32 (1e-4 + 1e-3) and
+     bf16 (`flash_err`'s bounds), bitwise repeats, the `LSE` forward's
+     output bitwise the other instance's, fused-projection views and an
+     odd offset bitwise contiguous copies, autograd through flash against
+     autograd of the plain version, the instances' resources, and timed at
+     FLASH_BWD_SHAPES beside SDPA's backward and the bound; (b) fp32 on the
+     CPU against the card: `Model.loss` and every parameter's gradient of
+     smollm-135m (full width, 2 layers), whisper-tiny (whole, 1500
+     frames), paligemma-3b (full width, 2 layers) and the semanticbbv
+     encoder (2 layers), per leaf within 1e-4 max(1, max|g|); (c)
+     smollm-135m at full width and depth (bf16) trained by
+     `repro_torch.launch.train`: 20 steps of 8 x 2048 tokens with AdamW
+     and a checkpoint every 10 (build/chip_smoke_lm), exactly 30 flash
+     forward and 30 backward launches a step, 3 profiled steps (device
+     busy share), one step each under remat "full" and "dots"; (d) bf16
+     steps of whisper-tiny (8 x (1500 frames + 448 tokens)) and
+     paligemma-3b at 2 layers (4 x (256 patches + 768 tokens)); then,
+     after the path's launches are read, the step-10 resume witness
+     (bitwise; deterministic algorithms from (c) on).
 The line before the last is the JSON kernel summary: `launches` counts
 each kernel on its own path (serving; training for the set-attention
-backward; Stage-1 training for the wkv backward; the zoo for flash),
-`launches_by_path` on each path that launched it (serve, lifecycle,
-simpoint, train, stage1_training, zoo, zoo_recurrent, zoo_moe,
-zoo_encdec, zoo_vlm); the launches of comparisons and witness runs count
-on none. wkv's entry also carries `zoo_shapes`, phase 7a's numbers at
+backward; Stage-1 training for the wkv backward; the zoo for flash; the
+zoo's training for the flash backward), `launches_by_path` on each path
+that launched it (serve, lifecycle, simpoint, train, stage1_training,
+zoo, zoo_recurrent, zoo_moe, zoo_encdec, zoo_vlm, zoo_train); the
+launches of comparisons and witness runs count on none. wkv's entry also carries `zoo_shapes`, phase 7a's numbers at
 the decode and prefill shapes, and flash's `moe_shape`, phase 8a's, and
 `modal_shapes`, phase 9a's. The last line is {"ok": true, "device":
 {...}}. Exits non-zero without CUDA.
 
     python3 chip_smoke.py --moe
     python3 chip_smoke.py --modal
+    python3 chip_smoke.py --lm-train
 
-run the setup and phase 8 alone, or 6a's flash cases and phase 9, and
+run the setup and phase 8 alone, 6a's flash cases and phase 9, or phase
+10, and
 
     python3 chip_smoke.py --profile-moe
 
@@ -251,6 +274,37 @@ PALI_CHECK = (2, 256, 64)                  # 9b, fp32 CPU vs card
 PALI_CHECK_LAYERS = 2                      # of 18, for the CPU half
 PALI_SERVE = (16, 16, 128, 32, 8, 512)
 WHISPER_PARAMS, PALI_PARAMS = 36_464_256, 2_508_662_784
+# phase 10: smollm-135m trained at full width and depth (bf16), 8 x 2048
+# tokens a step; 10a times the flash backward at the training shapes of
+# smollm and the modal archs: (name, (B, S, T, H, K, D), causal, prefix)
+LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ = 20, 8, 2048
+LM_TRAIN_PARAMS = 134_515_008
+FLASH_BWD_SHAPES = [
+    ("smollm train", (8, 2048, 2048, 9, 3, 64), True, 0),
+    ("whisper encoder", (16, 1500, 1500, 6, 6, 64), False, 0),
+    ("whisper cross", (16, 448, 1500, 6, 6, 64), False, 0),
+    ("paligemma prefix", (8, 2048, 2048, 8, 1, 256), True, 256),
+]
+# 10a: autograd through flash against autograd of the plain version at
+# (B, S, T, H, K, D, causal, prefix_len); in bf16 to a relative L2 error
+# and a max abs error of this times max(1, max|g|) (the kernel rounds P
+# before P V and takes delta from the stored o; on the H100 these shapes
+# gave 4e-5 to 1.5e-3 and 0.0005-0.0156 at max|g| 0.29-7.3)
+FLASH_AUTOGRAD_SHAPES = [(2, 1024, 1024, 9, 3, 64, True, 0),
+                         (2, 448, 1500, 6, 6, 64, False, 0),
+                         (2, 1024, 1024, 8, 1, 256, True, 256)]
+FLASH_AUTOGRAD_BF16_REL = 1e-2
+# 10b: (arch, layers (0: all), B, S, extra input) fp32 CPU vs card
+LM_TRAIN_CHECKS = [("smollm_135m", 2, 2, 128, None),
+                   ("whisper_tiny", 0, 2, 64, "frames"),
+                   ("paligemma_3b", 2, 2, 64, "patches"),
+                   ("semanticbbv_encoder", 2, 2, 128, None)]
+# 10d: bf16 steps of whisper-tiny (B, frames, tokens) and paligemma-3b
+# at 2 layers (B, patches, tokens)
+LM_MASK_STEPS = 3
+WHISPER_TRAIN = (8, 1500, 448)
+PALI_TRAIN = (4, 256, 768)
+PALI_TRAIN_LAYERS = 2
 # 8b: the card may route a token otherwise than the CPU only where two of
 # the CPU's top k+1 probabilities lie within this many fp32 ulps
 ROUTING_ULPS = 8
@@ -1702,7 +1756,7 @@ def check_flash(dev, gen):
     attrs = {}
     for D in (64, 128, 256):
         attrs[D] = a = _lib.kernel_attributes("rt_flash_attention_attributes",
-                                              1, D, 0)
+                                              1, D, 0, 0)
         log(f"  flash_attention bf16 (wgmma) instance for D <= {D}: "
             f"{describe(a)}")
     sass = sass_counts(str(_lib.build_library()), "flash_wgmma_kernel")
@@ -2526,7 +2580,7 @@ def check_flash_modal(dev, gen) -> list:
         for D in (64, 128, 256):
             for prefix in (0, 1):
                 a = _lib.kernel_attributes("rt_flash_attention_attributes",
-                                           bf, D, prefix)
+                                           bf, D, prefix, 0)
                 log(f"  flash_attention "
                     f"{'bf16 (wgmma)' if bf else 'fp32 (FMA)'} "
                     f"{'prefix' if prefix else 'causal/full'} instance for "
@@ -2730,6 +2784,505 @@ def modal_phase(dev, gen, drive) -> list:
     drive("zoo_vlm", lambda: pali_path(dev))
     log(f"modal zoo phase: {time.perf_counter() - t:.3f} s")
     return shapes
+
+
+# --------------------------------------------------------------- phase 10
+
+def _flash_bwd_bound(B, S, T, H, K, D, causal, prefix_len):
+    """(bound_ms, bound_by) of one bf16 flash backward: q, k, v, o and dO
+    read and dq, dk, dv written once, lse and delta (fp32, B H S each);
+    10 D operations a visible (q, k) pair (S = QK^T, dP = dO V^T, dV, dK,
+    dQ) at the bf16 peak."""
+    nbytes = 2 * (4 * B * S * H * D + 4 * B * T * K * D) + 2 * 4 * B * H * S
+    flops = 10 * D * B * H * _visible_pairs(S, T, causal, 0, prefix_len)
+    return bound(nbytes, flops, PEAK_BF16_FLOP_PER_S)
+
+
+def _grad_err(got, want, what: str, bf16: bool) -> float:
+    """Max |got - want| of a gradient against its plain version: fp32 at
+    the wkv backward's bound (atol 1e-4, rtol 1e-3); bf16 at atol 1e-2,
+    rtol 1e-2 and a relative L2 error of 1e-2 (both round once from
+    fp32)."""
+    if not bf16:
+        return max_err(got, want, 1e-4, 1e-3, what)
+    return flash_err(got.float(), want.float(), False, what)
+
+
+def check_flash_backward(dev, gen) -> dict:
+    """(10a) The flash backward kernel against its plain version
+    (`attention_backward_reference`) on the same q, k, v, o, dO and lse,
+    at every row of FLASH_CASES in fp32 and bf16 (`_grad_err`), bitwise
+    on a repeat; the `LSE` forward's output bitwise the flagged-off one's
+    and its log-sum-exp against the plain one; fused-projection views and
+    an odd offset bitwise contiguous copies; the whole autograd path
+    against autograd of the plain version; the instances' resources; then
+    timed at FLASH_BWD_SHAPES beside SDPA's backward and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.flash_attention import (
+        attention_backward_reference, attention_reference, flash_attention,
+        flash_attention_backward, flash_forward,
+    )
+    err = 0.0
+    for B, S, T, H, K, D, causal, window, P, _ in FLASH_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            bf16 = dtype == torch.bfloat16
+            q, k, v = _flash_inputs(gen, dev, B, S, T, H, K, D, dtype)
+            do = torch.randn((B, S, H, D), generator=gen,
+                             device=dev).to(dtype)
+            kw = dict(causal=causal, window=window, prefix_len=P)
+            case = (B, S, T, H, K, D, causal, f"window {window}",
+                    f"prefix {P}", str(dtype))
+            o, lse = flash_forward(q, k, v, return_lse=True, **kw)
+            require(torch.equal(o, flash_forward(q, k, v, **kw)),
+                    f"flash {case}: the LSE instance's output is not "
+                    f"bitwise the other's")
+            _, lse_ref = attention_reference(q, k, v, return_lse=True, **kw)
+            max_err(lse, lse_ref, 2e-2 if bf16 else 1e-4, 1e-4,
+                    f"flash lse {case}")
+            got = flash_attention_backward(q, k, v, o, do, lse, **kw)
+            want = attention_backward_reference(q, k, v, o, do, lse, **kw)
+            for name, a, b in zip(("dq", "dk", "dv"), got, want):
+                require(a.dtype == dtype and bool(torch.isfinite(a).all()),
+                        f"flash backward {case} {name}: dtype or non-finite")
+                err = max(err, _grad_err(a, b, f"flash backward {case} "
+                                         f"{name}", bf16))
+            again = flash_attention_backward(q, k, v, o, do, lse, **kw)
+            require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                    f"flash backward {case}: two launches are not bitwise "
+                    f"equal")
+            del q, k, v, do, o, lse, lse_ref, got, want, again
+    log(f"  flash backward at every FLASH_CASES row, fp32 and bf16: max abs "
+        f"err {err:.3g}, bitwise repeats, LSE outputs bitwise")
+
+    B, S, H, K, D = FLASH_VIEW_SHAPE
+    qkv = torch.randn((B, S, (H + 2 * K) * D), generator=gen,
+                      device=dev).bfloat16()
+    q = qkv[..., :H * D].view(B, S, H, D)
+    k = qkv[..., H * D:(H + K) * D].view(B, S, K, D)
+    v = qkv[..., (H + K) * D:].view(B, S, K, D)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)
+    q_odd = buf[1:].view(q.shape)
+    q_odd.copy_(q)
+    do = torch.randn((B, S, H, D), generator=gen, device=dev).bfloat16()
+    o, lse = flash_forward(q.contiguous(), k.contiguous(), v.contiguous(),
+                           return_lse=True)
+    want = flash_attention_backward(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), o, do, lse)
+    for name, args in (("fused-projection views", (q, k, v)),
+                       ("odd offset", (q_odd, k, v))):
+        got = flash_attention_backward(*args, o, do, lse)
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"flash backward {name}: not bit for bit the contiguous "
+                f"copies' result")
+    log("  flash backward on views of a fused projection and at an odd "
+        "offset: bit for bit the contiguous result")
+    del qkv, q, k, v, buf, q_odd, do, o, lse, want, got
+
+    # the autograd path (LSE forward, then the backward kernel) against
+    # autograd of the plain version
+    auto = {}
+    for B, S, T, H, K, D, causal, P in FLASH_AUTOGRAD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (t.requires_grad_() for t in _flash_inputs(
+                gen, dev, B, S, T, H, K, D, dtype))
+            do = torch.randn((B, S, H, D), generator=gen,
+                             device=dev).to(dtype)
+            kw = dict(causal=causal, prefix_len=P)
+            before = (flash_attention.launches,
+                      flash_attention_backward.launches)
+            got = torch.autograd.grad(flash_attention(q, k, v, **kw),
+                                      (q, k, v), do)
+            require((flash_attention.launches,
+                     flash_attention_backward.launches)
+                    == (before[0] + 1, before[1] + 1),
+                    "autograd through flash: not one forward and one "
+                    "backward launch")
+            want = torch.autograd.grad(attention_reference(q, k, v, **kw),
+                                       (q, k, v), do)
+            for name, a, b in zip(("dq", "dk", "dv"), got, want):
+                what = (f"flash autograd [{B}x{S}x{T} H {H} K {K} D {D} "
+                        f"{'causal' if causal else 'full'} prefix {P} "
+                        f"{dtype}] {name}")
+                if dtype == torch.float32:
+                    max_err(a, b, 1e-4, 1e-3, what)
+                else:
+                    rel = ((a.float() - b.float()).norm()
+                           / b.float().norm()).item()
+                    e = (a.float() - b.float()).abs().max().item()
+                    top = max(1.0, b.float().abs().max().item())
+                    auto[what] = (e, rel)
+                    require(rel <= FLASH_AUTOGRAD_BF16_REL
+                            and e <= FLASH_AUTOGRAD_BF16_REL * top,
+                            f"{what}: max abs err {e:.3g}, relative L2 "
+                            f"error {rel:.3g}")
+                    log(f"  {what}: max abs err {e:.3g} (max |g| "
+                        f"{b.float().abs().max().item():.3g}), relative L2 "
+                        f"error {rel:.3g}")
+            del q, k, v, do, got, want
+    log("  flash autograd (LSE forward + backward kernel) against autograd "
+        f"of the plain version: fp32 within 1e-4 + 1e-3, bf16 within a "
+        f"relative L2 error of {FLASH_AUTOGRAD_BF16_REL} and "
+        f"{FLASH_AUTOGRAD_BF16_REL} max(1, max|g|)")
+
+    resources = {}
+    for bf in (0, 1):
+        for D in (64, 128, 256):
+            for prefix in (0, 1):
+                for kern, name in ((0, "delta"), (1, "dkdv"), (2, "dq")):
+                    a = _lib.kernel_attributes(
+                        "rt_flash_attention_backward_attributes", bf, D,
+                        prefix, kern)
+                    resources[(bf, D, prefix, name)] = a
+                    log(f"  flash backward {'bf16' if bf else 'fp32'} "
+                        f"{name} {'prefix' if prefix else 'causal/full'} "
+                        f"instance for D <= {D}: {describe(a)}")
+            for lse in (0, 1):
+                a = _lib.kernel_attributes("rt_flash_attention_attributes",
+                                           bf, D, 0, lse)
+                log(f"  flash forward {'bf16' if bf else 'fp32'} "
+                    f"{'LSE' if lse else 'plain'} instance for D <= {D}: "
+                    f"{describe(a)}")
+
+    out = []
+    for name, (B, S, T, H, K, D), causal, P in FLASH_BWD_SHAPES:
+        q, k, v = _flash_inputs(gen, dev, B, S, T, H, K, D, torch.bfloat16)
+        do = torch.randn((B, S, H, D), generator=gen, device=dev).bfloat16()
+        kw = dict(causal=causal, prefix_len=P)
+        o, lse = flash_forward(q, k, v, return_lse=True, **kw)
+        got = flash_attention_backward(q, k, v, o, do, lse, **kw)
+        e = 0.0
+        for gname, a, b in zip(("dq", "dk", "dv"), got, (
+                attention_backward_reference(q, k, v, o, do, lse, **kw))):
+            e = max(e, _grad_err(a, b, f"flash backward [{name}] {gname}",
+                                 True))
+        del got
+        ms, wrapper_ms = kernel_ms(lambda: flash_attention_backward(
+            q, k, v, o, do, lse, **kw), reps=10)
+        plain_ms = cuda_ms(lambda: attention_backward_reference(
+            q, k, v, o, do, lse, **kw), reps=2, warmup=1)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        dot = do.transpose(1, 2)
+        mask = None
+        if P:
+            pos_q = torch.arange(S, device=dev)[:, None]
+            pos_k = torch.arange(T, device=dev)[None, :]
+            mask = (pos_k <= pos_q) | (pos_k < P)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=causal and not P,
+                enable_gqa=True)
+
+        def sdpa_both():
+            torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+
+        with torch.no_grad():
+            fwd_ms = cuda_ms(sdpa, reps=10)
+        library_ms = cuda_ms(sdpa_both, reps=10) - fwd_ms
+        b_ms, b_by = _flash_bwd_bound(B, S, T, H, K, D, causal, P)
+        shape = (f"B={B} S={S} T={T} H={H} K={K} D={D} bf16 "
+                 + ("full" if not causal else
+                    f"prefix {P}" if P else "causal"))
+        out.append(dict(name=name, shape=shape, max_abs_err=e, ms=ms,
+                        wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                        library_ms=library_ms, bound_ms=b_ms, bound_by=b_by))
+        log(f"  flash_attention_backward {name} [{shape}]: max_abs_err "
+            f"{e:.3g}, ms {ms:.4f} (wrapper {wrapper_ms:.4f}), plain_ms "
+            f"{plain_ms:.4f}, library_ms {library_ms:.4f} (SDPA backward: "
+            f"forward + backward {library_ms + fwd_ms:.4f} less forward "
+            f"{fwd_ms:.4f}), bound_ms {b_ms:.4f} ({b_by}), "
+            f"{b_ms / ms:.3f} of the bound")
+        del q, k, v, do, o, lse, qt, kt, vt, dot, mask
+    first = out[0]
+    dkdv = resources[(1, 64, 0, "dkdv")]
+    return dict(err=max(err, max(x["max_abs_err"] for x in out)),
+                ms=first["ms"], wrapper_ms=first["wrapper_ms"],
+                plain_ms=first["plain_ms"], library_ms=first["library_ms"],
+                bound=(first["bound_ms"], first["bound_by"]),
+                shape=first["shape"],
+                extra=dict(registers=dkdv["registers"],
+                           local_bytes=dkdv["local_bytes"],
+                           train_shapes=out[1:],
+                           autograd_bf16=[dict(what=k, max_abs_err=v[0],
+                                               rel_l2=v[1])
+                                          for k, v in auto.items()]))
+
+
+def _loss_grads(model, params, batch):
+    """(loss, {name: gradient on the CPU}) of `Model.loss` on `batch`."""
+    loss, _ = model.loss(params, batch)
+    names, leaves = zip(*params.named_parameters())
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
+    return float(loss.detach()), {n: g.cpu() for n, g in zip(names, grads)}
+
+
+def cross_check_zoo_train(dev) -> None:
+    """(10b) `Model.loss` and every parameter's gradient, fp32, from one
+    seeded LM on the CPU and then on the card (the same module moved
+    there): smollm-135m at full width and 2 layers, whisper-tiny whole
+    with 1500 frames, paligemma-3b at full width and 2 layers, and the
+    semanticbbv-encoder at 2 layers (the wkv kernels on the zoo's path);
+    per leaf within 1e-4 max(1, max|g|)."""
+    from repro_torch.config import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention_backward
+    from repro_torch.kernels.wkv import wkv_backward
+    from repro_torch.models.model_zoo import build_model
+    rng = np.random.RandomState(SEED)
+    fp32 = dict(dtype="float32", param_dtype="float32")
+    for arch, layers, B, S, extra in LM_TRAIN_CHECKS:
+        full = get_arch(arch)
+        n = layers or full.num_layers
+        cfg = dataclasses.replace(full, num_layers=n, **fp32, block_pattern=(
+            full.block_pattern[:n] if full.block_pattern else None))
+        batch = {"tokens": rng.randint(0, cfg.vocab_size, (B, S))}
+        if extra == "frames":
+            batch["frames"] = rng.randn(B, 1500, cfg.d_model).astype(
+                np.float32)
+        elif extra == "patches":
+            batch["patches"] = rng.randn(
+                B, cfg.num_prefix_embeddings, cfg.d_model).astype(np.float32)
+        model = build_model(cfg)
+        t = time.perf_counter()
+        params = model.init(SEED, device="cpu")
+        loss_cpu, g_cpu = _loss_grads(model, params, batch)
+        cpu_s = time.perf_counter() - t
+        params = params.to(dev)
+        before = (flash_attention_backward.launches, wkv_backward.launches)
+        t = time.perf_counter()
+        loss_dev, g_dev = _loss_grads(model, params, batch)
+        sync(dev)
+        dev_s = time.perf_counter() - t
+        n = (flash_attention_backward.launches - before[0],
+             wkv_backward.launches - before[1])
+        kinds = cfg.blocks()
+        want = (kinds.count("attn") * (2 if cfg.cross_attention else 1)
+                + cfg.encoder_layers, kinds.count("rwkv"))
+        require(n == want or torch.device(dev).type == "cpu",
+                f"{arch}: flash / wkv backward launched {n}, not {want}")
+        require(abs(loss_dev - loss_cpu) <= 1e-4 * max(1.0, abs(loss_cpu)),
+                f"{arch}: loss {loss_dev} on the card, {loss_cpu} on the CPU")
+        worst, worst_name = 0.0, ""
+        for name, want in g_cpu.items():
+            scale = max(1.0, float(want.abs().max()))
+            e = float((g_dev[name] - want).abs().max())
+            require(e <= 1e-4 * scale, f"{arch} gradient {name}: max abs "
+                    f"err {e:.3g} beyond 1e-4 x {scale:.3g}")
+            if e / scale > worst:
+                worst, worst_name = e / scale, name
+        log(f"  {cfg.name} fp32 ({cfg.num_layers} of {full.num_layers} "
+            f"layers, {model.param_count()} parameters, batch "
+            + ", ".join(f"{k} {tuple(np.shape(v))}" for k, v in batch.items())
+            + f"): loss {loss_cpu:.6f} CPU / {loss_dev:.6f} card; "
+            f"{len(g_cpu)} gradients, worst max abs err / max(1, max|g|) "
+            f"{worst:.3g} ({worst_name}); flash / wkv backward launches "
+            f"{n[0]} / {n[1]}; CPU {cpu_s:.1f} s, card {dev_s:.1f} s")
+        del params, g_cpu, g_dev
+
+
+def _lm_steps(trainer, batch_fn, steps, per_step, what, ckpt=True):
+    """`steps` Trainer steps on batch_fn(step); each must give a finite
+    loss and launch the flash forward and backward `per_step` = (forward,
+    backward) times. Returns the step seconds."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_backward,
+    )
+    step_s = []
+    for _ in range(steps):
+        batch = batch_fn(trainer.state.step)
+        sync(batch["tokens"].device)
+        before = (flash_attention.launches, flash_attention_backward.launches)
+        t = time.perf_counter()
+        m = trainer.step(batch)
+        sync(batch["tokens"].device)
+        step_s.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        saved = trainer.maybe_checkpoint() if ckpt else None
+        ck_s = time.perf_counter() - t
+        n = (flash_attention.launches - before[0],
+             flash_attention_backward.launches - before[1])
+        require(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
+                f"{what} step {trainer.state.step}: loss {m['loss']}")
+        require(n == per_step, f"{what} step {trainer.state.step}: flash "
+                f"forward/backward launched {n}, not {per_step}")
+        log(f"  {what} step {trainer.state.step:2d}: loss {m['loss']:.5f} "
+            f"nll {m['nll']:.5f} aux {m['aux']:.5f} grad_norm "
+            f"{m['grad_norm']:.4f} lr {m['lr']:.2e} step "
+            f"{1e3 * step_s[-1]:.2f} ms"
+            + (f", checkpoint {1e3 * ck_s:.1f} ms" if saved else ""))
+    return step_s
+
+
+def lm_train_path(dev) -> dict:
+    """(10c) smollm-135m at full width and depth (bf16, seeded) trained by
+    `repro_torch.launch.train` (`make_run`, its Trainer and batches):
+    LM_TRAIN_STEPS steps of LM_TRAIN_BATCH x LM_TRAIN_SEQ tokens, AdamW, a
+    checkpoint every 10 to build/chip_smoke_lm, exactly one flash forward
+    and one backward launch a layer a step; then one step each under
+    remat "full" and "dots" (two forward launches a layer, one backward)
+    and 3 profiled steps. Returns what the resume witness needs."""
+    from repro_torch.launch import train as launch_train
+    ckdir = os.path.join(HERE, "build", "chip_smoke_lm")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    kw = dict(preset="full", steps=LM_TRAIN_STEPS, batch=LM_TRAIN_BATCH,
+              seq=LM_TRAIN_SEQ, checkpoint_every=10, device=dev)
+    gc.collect()
+    t = time.perf_counter()
+    run = launch_train.make_run(ZOO_ARCH, checkpoint_dir=os.path.join(
+        ckdir, "run"), **kw)
+    cfg = run.cfg
+    n_params = sum(p.numel() for p in run.trainer.model.parameters())
+    require(n_params == LM_TRAIN_PARAMS, f"{n_params} smollm parameters")
+    log(f"  {cfg.name}: {n_params} parameters ({cfg.param_dtype}), "
+        f"{cfg.num_layers} layers, drawn and moved in "
+        f"{time.perf_counter() - t:.1f} s")
+    L = cfg.num_layers
+    _peak_reset()
+    step_s = _lm_steps(run.trainer, run.batch_fn, LM_TRAIN_STEPS, (L, L),
+                       "smollm train")
+    peak = torch.cuda.max_memory_allocated()
+    final = {n: p.detach().clone()
+             for n, p in run.trainer.state.params.items()}
+    med = float(np.median(step_s[1:]))
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    log(f"  smollm train ({LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens a step, "
+        f"remat none, deterministic algorithms): step median "
+        f"{1e3 * med:.2f} ms (first {1e3 * step_s[0]:.2f}), "
+        f"{tokens / med:.0f} tokens/s, peak device memory "
+        f"{peak / 2**30:.3f} GiB (after gc.collect()), {L} flash forward "
+        f"and {L} backward launches a step")
+    batches = [run.batch_fn(s) for s in range(3)]
+    _profile(lambda: [run.trainer.step(b) for b in batches], 3,
+             f"smollm train step ({LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens",
+             "flash")
+    del run, batches
+    for policy in ("full", "dots"):
+        gc.collect()
+        run = launch_train.make_run(ZOO_ARCH, remat=policy,
+                                    checkpoint_dir=os.path.join(
+                                        ckdir, policy), **kw)
+        _lm_steps(run.trainer, run.batch_fn, 1, (2 * L, L),
+                  f"remat {policy} warm-up", ckpt=False)
+        _peak_reset()
+        s = _lm_steps(run.trainer, run.batch_fn, 1, (2 * L, L),
+                      f"remat {policy}", ckpt=False)
+        log(f"  remat {policy}: step {1e3 * s[0]:.2f} ms, peak device "
+            f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
+            f"{2 * L} flash forward and {L} backward launches a step")
+        del run
+    return dict(kw=kw, ckdir=ckdir, final=final)
+
+
+def lm_train_witness(path: dict) -> None:
+    """A fresh run of `make_run`, restored from 10c's step-10 checkpoint
+    (JAX's stacked layout) and trained to LM_TRAIN_STEPS, ends with
+    bitwise the weights of the uninterrupted run."""
+    from repro_torch.launch import train as launch_train
+    resumed = os.path.join(path["ckdir"], "resumed")
+    os.makedirs(resumed)
+    shutil.copytree(os.path.join(path["ckdir"], "run", "step_0000000010"),
+                    os.path.join(resumed, "step_0000000010"))
+    gc.collect()
+    t = time.perf_counter()
+    run = launch_train.make_run(ZOO_ARCH, checkpoint_dir=resumed,
+                                **path["kw"])
+    run.trainer.fit(run.batch_fn, LM_TRAIN_STEPS, log_every=LM_TRAIN_STEPS)
+    require(run.trainer.state.step == LM_TRAIN_STEPS, "the resumed run's step")
+    differ = [n for n, p in path["final"].items()
+              if not torch.equal(p, run.trainer.state.params[n])]
+    require(not differ, f"smollm resume from step 10 is not bitwise equal: "
+            f"{differ[:5]}")
+    log(f"  smollm resume: {LM_TRAIN_STEPS - 10} steps from the step-10 "
+        f"checkpoint in {time.perf_counter() - t:.3f} s, bitwise equal "
+        f"({len(path['final'])} parameters)")
+    del run
+
+
+def lm_train_masks(dev) -> None:
+    """(10d) bf16 training steps of the other masks: whisper-tiny whole
+    with 1500 frames (encoder full, decoder causal, cross over ragged T)
+    and paligemma-3b at full width and PALI_TRAIN_LAYERS layers (the
+    prefix rule at D 256, 8 heads over 1); exact flash launches a step."""
+    from repro_torch.config import TrainConfig, get_arch
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train import Trainer
+    for arch, layers, (B, P, S) in ((WHISPER_ARCH, 0, WHISPER_TRAIN),
+                                    (PALI_ARCH, PALI_TRAIN_LAYERS,
+                                     PALI_TRAIN)):
+        full = get_arch(arch)
+        cfg = dataclasses.replace(full, num_layers=layers or full.num_layers)
+        model = build_model(cfg)
+        gc.collect()
+        t = time.perf_counter()
+        params = model.init(SEED, device=dev)
+        init_s = time.perf_counter() - t
+        rng = np.random.RandomState(SEED)
+        side = "frames" if cfg.encoder_layers else "patches"
+        data = [{"tokens": rng.randint(0, cfg.vocab_size, (B, S)),
+                 side: rng.randn(B, P, cfg.d_model).astype(np.float32)}
+                for _ in range(LM_MASK_STEPS)]
+        batches = [{k: torch.from_numpy(v).to(dev) for k, v in d.items()}
+                   for d in data]
+        trainer = Trainer(lambda p, b: model.loss(p, b), params, TrainConfig(
+            learning_rate=3e-4, total_steps=LM_MASK_STEPS, warmup_steps=2,
+            checkpoint_every=0))
+        per = cfg.num_layers * (2 if cfg.cross_attention else 1) \
+            + cfg.encoder_layers
+        _peak_reset()
+        s = _lm_steps(trainer, lambda i: batches[i], LM_MASK_STEPS,
+                      (per, per), cfg.name, ckpt=False)
+        log(f"  {cfg.name} bf16 ({cfg.encoder_layers} + {cfg.num_layers} of "
+            f"{full.num_layers} layers, {model.param_count()} parameters, "
+            f"drawn in {init_s:.1f} s; {B} x ({P} {side} + {S} tokens)): "
+            f"step median {1e3 * float(np.median(s[1:])):.2f} ms (first "
+            f"{1e3 * s[0]:.2f}), peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, {per} flash "
+            f"forward and {per} backward launches a step")
+        del trainer, params, batches
+
+
+def lm_train_launches() -> dict:
+    """Flash forward and backward launches the zoo_train path (10c, 10d)
+    must make: one each an attention layer a step (smollm's main run and
+    3 profiled steps; whisper's encoder, decoder and cross layers;
+    paligemma's 2 layers), but two forward under remat "full" and "dots"
+    (2 steps each)."""
+    from repro_torch.config import get_arch
+    L = get_arch(ZOO_ARCH).num_layers
+    w = get_arch(WHISPER_ARCH)
+    masks = LM_MASK_STEPS * (2 * w.num_layers + w.encoder_layers
+                             + PALI_TRAIN_LAYERS)
+    plain = L * (LM_TRAIN_STEPS + 3) + masks
+    return {"flash_attention": plain + 2 * 2 * 2 * L,
+            "flash_attention_backward": plain + 2 * 2 * L}
+
+
+def lm_train_phase(dev, gen, drive) -> dict:
+    """Phase 10: (a) the flash backward kernel, (b) CPU against the card
+    for the gradients, (c) smollm-135m trained at full width (`drive`n as
+    "zoo_train", with (d)), its resume witness after the path's launches
+    are read, (d) whisper's and paligemma's masks in training, all under
+    deterministic algorithms from (c) on. Returns 10a's numbers."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    r = check_flash_backward(dev, gen)
+    t_a = time.perf_counter() - t
+    cross_check_zoo_train(dev)
+    t_b = time.perf_counter() - t - t_a
+    torch.use_deterministic_algorithms(True)
+    try:
+        path = drive("zoo_train", lambda: (lm_train_path(dev),
+                                           lm_train_masks(dev))[0])
+        lm_train_witness(path)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del path
+    log(f"lm training phase: {time.perf_counter() - t:.3f} s (10a "
+        f"{t_a:.1f} s, 10b {t_b:.1f} s)")
+    return r
 
 
 def time_kernels(root: str) -> dict:
@@ -2950,6 +3503,7 @@ def main() -> int:
         return 0
     moe_only = sys.argv[1:] == ["--moe"]
     modal_only = sys.argv[1:] == ["--modal"]
+    train_only = sys.argv[1:] == ["--lm-train"]
     # cuBLAS takes its workspace layout when CUDA starts: the fixed one
     # that deterministic algorithms (phase 5) need
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -2958,7 +3512,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(HERE, "src"))
     from repro_torch.kernels import _lib
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_backward,
+    )
     from repro_torch.kernels.kmeans_assign import kmeans_assign, kmeans_update
     from repro_torch.kernels.set_attention import (
         masked_set_attention, set_attention_backward,
@@ -3000,6 +3556,24 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if train_only:
+        # phase 10 alone, its path held to its flash launches
+        def count_train(path, fn):
+            flash_attention.launches = flash_attention_backward.launches = 0
+            out = fn()
+            got = {"flash_attention": flash_attention.launches,
+                   "flash_attention_backward":
+                       flash_attention_backward.launches}
+            log(f"{path} launches: {got}")
+            require(got == lm_train_launches(),
+                    f"{path}: launches {got}, not {lm_train_launches()}")
+            return out
+
+        lm_train_phase(dev, gen, count_train)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     t = time.perf_counter()
     programs, blocks, intervals, cpis = make_world()
@@ -3013,7 +3587,8 @@ def main() -> int:
                 "set_attention": masked_set_attention,
                 "kmeans_assign": kmeans_assign, "kmeans_update": kmeans_update,
                 "set_attention_backward": set_attention_backward,
-                "flash_attention": flash_attention}
+                "flash_attention": flash_attention,
+                "flash_attention_backward": flash_attention_backward}
     checks = {
         "wkv": lambda: check_wkv(dev, gen),
         "wkv_backward": lambda: check_wkv_backward(dev, gen),
@@ -3166,6 +3741,15 @@ def main() -> int:
                 f"{path} path, not {want}")
     results["flash_attention"]["extra"]["modal_shapes"] = flash_modal
 
+    # 10. LM-zoo training: (a) the flash backward kernel, (b) CPU vs card
+    # gradients, (c) smollm-135m trained at full width and (d) the other
+    # masks in training; only (c)'s and (d)'s launches count
+    results["flash_attention_backward"] = r = lm_train_phase(dev, gen, drive)
+    for name, want in lm_train_launches().items():
+        n = by_path.get(name, {}).get("zoo_train", 0)
+        require(n == want, f"{name} launched {n} times on the zoo_train "
+                f"path, not {want}")
+
     meta = {
         "wkv": ("src/repro_torch/csrc/wkv.cu",
                 "src/repro/kernels/wkv/wkv.py:28"),
@@ -3183,11 +3767,16 @@ def main() -> int:
             "src/repro/kernels/set_attention/set_attn.py:76"),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention/flash.py:29"),
+        # no TPU twin: JAX differentiates _chunked_attention by its VJP
+        "flash_attention_backward": (
+            "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/models/attention.py:180"),
     }
     # each kernel's own path: serving, training for the set-attention
     # backward, Stage-1 training for the wkv backward, the zoo for flash
     own = {"set_attention_backward": "train", "flash_attention": "zoo",
-           "wkv_backward": "stage1_training"}
+           "wkv_backward": "stage1_training",
+           "flash_attention_backward": "zoo_train"}
     kernels = [{
         "name": name, "route": "cuda", "source": meta[name][0],
         "replaces": meta[name][1],

@@ -60,7 +60,9 @@ from repro_torch.config import ModelConfig, TrainConfig
 from repro_torch.core.signature import SignatureConfig, SignatureModel
 from repro_torch.device import Device, resolve_device
 from repro_torch.models.layers import require_float32
-from repro_torch.models.transformer import LM, period_of
+from repro_torch.models.transformer import (
+    LM, period_of, stacked_key, unstack_lm_layers,
+)
 from repro_torch.train import checkpoint
 from repro_torch.train.stage2 import Stage2Engine
 
@@ -127,41 +129,32 @@ def _leaf_tensor(value: np.ndarray) -> torch.Tensor:
 def lm_params_from_jax(tree: Dict[str, Any], cfg: ModelConfig) -> LM:
     """An LM of the zoo (CPU) with the weights of a `lm_init` tree.
 
-    Strict on names and shapes like `_load`; each leaf must have the
-    dtype of the module's parameter, which follows JAX leaf by leaf."""
-    period = period_of(cfg)
-    n_periods = cfg.num_layers // period
-    flat = dict(_flatten({k: v for k, v in tree.items()
-                          if k not in ("layers", "encoder")}))
-    for pos_key, sub in tree["layers"].items():
-        pos = int(pos_key[1:])                  # "p<pos>"
-        for key, stacked in _flatten(sub):
-            if stacked.shape[0] != n_periods:
-                raise ValueError(f"layers.{pos_key}.{key}: leading axis "
-                                 f"{stacked.shape[0]} != n_periods "
-                                 f"{n_periods}")
-            for n in range(n_periods):
-                flat[f"layers.{n * period + pos}.{key}"] = stacked[n]
-    if "encoder" in tree:
-        enc = tree["encoder"]
-        flat.update(_flatten({k: v for k, v in enc.items() if k != "layers"},
-                             "encoder."))
-        for key, stacked in _flatten(enc["layers"]):
-            if stacked.shape[0] != cfg.encoder_layers:
-                raise ValueError(f"encoder.layers.{key}: leading axis "
-                                 f"{stacked.shape[0]} != encoder_layers "
-                                 f"{cfg.encoder_layers}")
-            for i in range(cfg.encoder_layers):
-                flat[f"encoder.layers.{i}.{key}"] = stacked[i]
+    The stacked leaves are split by `transformer.stacked_key`, the rule
+    the LM's checkpoint hooks stack by. Strict on names and shapes like
+    `_load`; each leaf must have the dtype of the module's parameter,
+    which follows JAX leaf by leaf."""
+    n_periods = cfg.num_layers // period_of(cfg)
+    stacked = {k.replace(".", "/"): v for k, v in _flatten(tree)}
+    for key, leaf in stacked.items():
+        for part, n, name in (("layers/p", n_periods, "n_periods"),
+                              ("encoder/layers/", cfg.encoder_layers,
+                               "encoder_layers")):
+            if key.startswith(part) and leaf.shape[0] != n:
+                raise ValueError(f"{key}: leading axis {leaf.shape[0]} != "
+                                 f"{name} {n}")
     model = LM(cfg)
     state = model.state_dict()
-    missing = sorted(set(state) - set(flat))
-    extra = sorted(set(flat) - set(state))
+    named = [k.replace(".", "/") for k in state]
+    want = {(stacked_key(cfg, k) or (k,))[0] for k in named}
+    missing = sorted(want - set(stacked))
+    extra = sorted(set(stacked) - want)
     if missing or extra:
         raise KeyError(f"parameter tree does not match the model: missing "
                        f"{missing[:5]}, unexpected {extra[:5]}")
+    flat = unstack_lm_layers(cfg, stacked, named)
     loaded = {}
     for key, value in flat.items():
+        key = key.replace("/", ".")
         t = _leaf_tensor(value)
         if tuple(t.shape) != tuple(state[key].shape):
             raise ValueError(f"{key}: tree shape {tuple(t.shape)} vs module "

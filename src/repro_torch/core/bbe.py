@@ -35,6 +35,7 @@ from repro_torch.models.layers import (
     RMSNorm, init_array, param, require_float32,
 )
 from repro_torch.models.rwkv import RWKVBlock
+from repro_torch.utils.tree import stack_leaves, unstack_leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,38 +88,30 @@ class MLPHead(nn.Module):
 _LAYER_KEY = re.compile(r"^(.*?\bblocks)/(\d+)/(.+)$")
 
 
+def _layer_of(key: str):
+    m = _LAYER_KEY.match(key)
+    return None if m is None else (f"{m.group(1)}/{m.group(3)}",
+                                   int(m.group(2)))
+
+
 def stack_layers(flat: Dict[str, torch.Tensor], num_layers: int
                  ) -> Dict[str, torch.Tensor]:
     """"/"-keyed leaves with per-layer keys `...blocks/<n>/<leaf>` ->
     `...blocks/<leaf>` stacked over n along a new leading axis (the
     layout of `bbe_init`); other keys pass unchanged, in order."""
-    out: Dict[str, torch.Tensor] = {}
-    layers: Dict[str, list] = {}
-    for key, leaf in flat.items():
-        m = _LAYER_KEY.match(key)
-        if m is None:
-            out[key] = leaf
-            continue
-        stacked = f"{m.group(1)}/{m.group(3)}"
-        if stacked not in layers:
-            layers[stacked] = [None] * num_layers
-            out[stacked] = None                 # keeps the key's place
-        layers[stacked][int(m.group(2))] = leaf
-    for key, leaves in layers.items():
-        out[key] = torch.stack(leaves)
-    return out
+    stacked = stack_leaves(flat, _layer_of)
+    bad = [k for k, v in stacked.items()
+           if k not in flat and v.shape[0] != num_layers]
+    if bad:
+        raise ValueError(f"{bad[:3]}: not {num_layers} layers")
+    return stacked
 
 
 def unstack_layers(flat: Dict[str, torch.Tensor], like: Dict[str, object]
                    ) -> Dict[str, torch.Tensor]:
     """The inverse of `stack_layers`: the keys of `like` (per-layer),
     each read from `flat` (stacked) at its layer's index."""
-    out = {}
-    for key in like:
-        m = _LAYER_KEY.match(key)
-        out[key] = (flat[key] if m is None else
-                    flat[f"{m.group(1)}/{m.group(3)}"][int(m.group(2))])
-    return out
+    return unstack_leaves(flat, like, _layer_of)
 
 
 class BBEEncoder(nn.Module):

@@ -1,4 +1,5 @@
-// Streaming-softmax (flash) GQA attention, forward, for the LM zoo's prefill.
+// Streaming-softmax (flash) GQA attention for the LM zoo: the forward
+// (prefill and training) and, in namespace bwd, its backward (training).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/flash.py::
 // _flash_kernel (reached through flash_pallas and ops.py::flash_attention,
@@ -108,6 +109,63 @@
 // with no visible key at all (only possible with a window, when S > T +
 // window - 1) gets the mean of v over the computed tiles' keys, or 0 when
 // every tile was skipped, where the plain version averages all T keys.
+//
+// The log-sum-exp. Each forward kernel has an LSE template flag, set when
+// the wrapper passes an lse pointer (autograd): the instance also writes,
+// for every stored row, lse = log sum_j exp(scale q.k_j + mask) in natural
+// log units of the scaled, masked scores, fp32, (B, H, S). The fp32
+// kernel's m is already scaled (lse = m + log l); the bf16 kernel keeps a
+// raw max and powers of 2, so it writes (m scale log2(e) + log2 l) ln 2.
+// Without the flag (serving) an instance is the code it was before the
+// flag: the same registers (bf16 122, 153, 218; fp32 80, 93, 128 at D <=
+// 64, 128, 256 on the H100) and the same bits.
+//
+// The backward (namespace bwd): rt_flash_attention_backward_{f32,bf16}.
+// No TPU kernel computes it: JAX differentiates its chunked oracle
+// (models/attention.py::_chunked_attention) by a custom VJP that
+// recomputes p from the saved row statistics, and so does this code:
+//     p = exp(scale q.k - lse) (0 where masked, for keys past T and rows
+//     past S), delta = rowsum(dO o), dS = p (dO.v - delta),
+//     dq = scale dS k, dk = scale dS^T q, dv = p^T dO,
+// dk and dv summed over the G query heads of each kv head. The masks are
+// the forward's, the PREFIX flag among them. delta comes from the stored
+// o (JAX takes it from the fp32 output before the cast): the same in
+// fp32, o's rounding apart in bf16. Arithmetic is fp32 for both dtypes
+// (bf16 inputs are widened as they are loaded), with no TF32 and no
+// atomics: each output element is summed by one thread in a fixed order,
+// so two runs give the same bits (the Trainer's exact resume needs them).
+//   * a pre-pass writes delta (fp32, (B, H, S)), a warp a row;
+//   * dkdv_kernel: one block of 256 threads (16 x 16) per (BK-key tile, kv
+//     head, batch row) keeps dK and dV of the tile (BK x D fp32) in
+//     registers and loops over the G query heads and the 64-row query
+//     tiles that see a key of the tile: from the tile's diagonal under the
+//     causal rule (from 0 when the tile starts inside the prefix), up to
+//     the window's reach past its last key. Each pair of tiles recomputes
+//     S and dP from transposed fp32 copies of q (scaled), dO, k and v in
+//     shared memory (rows padded to 65 or 33 floats), writes P and dS to
+//     shared memory, then dV += P^T dO and dK += dS^T q;
+//   * dq_kernel: one block per (64-query tile, head, batch row), heavy
+//     causal tiles first, loops over the forward's key tiles and keeps dQ
+//     (64 x D) in registers;
+//   * BK = 64 keys, 32 at D > 128, where 64-row fp32 copies of all four
+//     operands would not fit the 227 KB of shared memory a block may have
+//     (218,112 bytes at D 256; static_asserts in `launch` hold every
+//     instance to it, and rt_flash_attention_backward_attributes reports
+//     the bytes).
+// What bounds it on the H100: at smollm-135m's training shape (B 8, S
+// 2048, H 9, K 3, D 64, causal) it must move about 100 MB (q, k, v, o, dO
+// read once, dq, dk, dv written once, lse and delta: 0.03 ms at 3.35
+// TB/s) and do 10 D operations per visible pair (5 products), 96.7 GFLOP:
+// 0.098 ms at the bf16 tensor-core rate. So the operations bound it. This
+// first design does 7 D FMAs a pair on the FMA pipes (fp32 peak 67
+// TFLOP/s), and its inner loops issue one shared load per two FMAs: it
+// takes 6.83 ms there (PERF.md), 11x SDPA's backward. Left to a redesign:
+// the five products on wgmma (bf16 operands from swizzled shared memory,
+// fp32 accumulators: S^T and dP^T per key tile as in FA3's backward), Q,
+// dO and the row stats by TMA into a ring of stages, dQ accumulated
+// across key tiles without atomics (a second pass, or one dQ block per
+// query tile as here), and rows with no visible key as the forward has
+// them (the test shapes stay out of that regime, as the forward's do).
 #include <cuda_bf16.h>
 
 #include <cmath>
@@ -131,14 +189,15 @@ constexpr int kLdK = kBK + 1;
 constexpr int kLdP = kBK + 1;
 
 // ND = accumulator columns a thread (head dim rounded up to 16, over 16);
-// PREFIX: the causal rule is widened by prefix_len (else prefix_len unread).
-template <int ND, bool PREFIX>
+// PREFIX: the causal rule is widened by prefix_len (else prefix_len unread);
+// LSE: each stored row's log-sum-exp goes to lse (else lse unread).
+template <int ND, bool PREFIX, bool LSE>
 __global__ void __launch_bounds__(kThreads)
 flash_forward_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o, int S, int Tk, int H,
                      int G, int D, int qsb, int qss, int qsh, int ksb, int kss, int ksh,
                      int vsb, int vss, int vsh, int causal, int window, int prefix_len,
-                     float scale) {
+                     float scale, float* __restrict__ lse) {
   constexpr int DP = ND * 16;  // row stride of sV; columns D..DP-1 are 0
   extern __shared__ float smem[];
   float* sQ = smem;             // (D, kLdQ): q^T, scaled
@@ -276,6 +335,8 @@ flash_forward_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int d = tx + 16 * j;
       if (d < D) orow[d] = acc[i][j] / den;
     }
+    // m is in units of the scaled scores (sQ holds q scale)
+    if (LSE && tx == 0) lse[(static_cast<int64_t>(b) * H + h) * S + qpos] = m[i] + logf(den);
   }
 }
 
@@ -285,36 +346,36 @@ inline size_t smem_bytes(int D, int nd) {
                           static_cast<size_t>(kBK) * nd * 16 + static_cast<size_t>(kBQ) * kLdP);
 }
 
-template <int ND, bool PREFIX>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int Tk,
-                   int H, int K, int D, int qsb, int qss, int qsh, int ksb, int kss, int ksh,
-                   int vsb, int vss, int vsh, int causal, int window, int prefix_len,
-                   float scale, cudaStream_t stream) {
+template <int ND, bool PREFIX, bool LSE>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int S, int Tk, int H, int K, int D, int qsb, int qss, int qsh, int ksb,
+                   int kss, int ksh, int vsb, int vss, int vsh, int causal, int window,
+                   int prefix_len, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(D, ND);
-  auto kernel = flash_forward_kernel<ND, PREFIX>;
+  auto kernel = flash_forward_kernel<ND, PREFIX, LSE>;
   cudaError_t err = rt::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), S, Tk, H, H / K, D, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh,
-      causal, window, prefix_len, scale);
+      causal, window, prefix_len, scale, lse);
   return cudaGetLastError();
 }
 
-template <bool PREFIX>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B, int S, int Tk,
-                     int H, int K, int D, int qsb, int qss, int qsh, int ksb, int kss, int ksh,
-                     int vsb, int vss, int vsh, int causal, int window, int prefix_len,
-                     float scale, cudaStream_t stream) {
+template <bool PREFIX, bool LSE>
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                     int S, int Tk, int H, int K, int D, int qsb, int qss, int qsh, int ksb,
+                     int kss, int ksh, int vsb, int vss, int vsh, int causal, int window,
+                     int prefix_len, float scale, cudaStream_t stream) {
   if (D <= 64)
-    return launch<4, PREFIX>(q, k, v, o, B, S, Tk, H, K, D, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
-                     vsh, causal, window, prefix_len, scale, stream);
+    return launch<4, PREFIX, LSE>(q, k, v, o, lse, B, S, Tk, H, K, D, qsb, qss, qsh, ksb, kss,
+                                  ksh, vsb, vss, vsh, causal, window, prefix_len, scale, stream);
   if (D <= 128)
-    return launch<8, PREFIX>(q, k, v, o, B, S, Tk, H, K, D, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
-                     vsh, causal, window, prefix_len, scale, stream);
-  return launch<16, PREFIX>(q, k, v, o, B, S, Tk, H, K, D, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
-                    vsh, causal, window, prefix_len, scale, stream);
+    return launch<8, PREFIX, LSE>(q, k, v, o, lse, B, S, Tk, H, K, D, qsb, qss, qsh, ksb, kss,
+                                  ksh, vsb, vss, vsh, causal, window, prefix_len, scale, stream);
+  return launch<16, PREFIX, LSE>(q, k, v, o, lse, B, S, Tk, H, K, D, qsb, qss, qsh, ksb, kss,
+                                 ksh, vsb, vss, vsh, causal, window, prefix_len, scale, stream);
 }
 
 }  // namespace simt
@@ -555,14 +616,15 @@ __device__ __forceinline__ void rescale(float (&acc)[DC][32], const float (&corr
 // DP: padded head dim (64, 128, 256); NWG: consumer warpgroups of 64 rows;
 // SUB: 64-key tiles a load stage holds (2 halves the block barriers; 1 at
 // D > 128, where two stages of 128 keys would not fit); PREFIX: the causal
-// rule is widened by prefix_len (else prefix_len unread).
-template <int DP, int NWG, int MINB, int SUB, bool PREFIX>
+// rule is widened by prefix_len (else prefix_len unread); LSE: each stored
+// row's log-sum-exp goes to lse (else lse unread).
+template <int DP, int NWG, int MINB, int SUB, bool PREFIX, bool LSE>
 __global__ void __launch_bounds__(NWG * 128, MINB)
 flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int S,
                    int Tk, int H, int G, int D, int qsb, int qss, int qsh, int ksb, int kss,
                    int ksh, int vsb, int vss, int vsh, int causal, int window,
-                   int prefix_len, int vec, float scale_log2) {
+                   int prefix_len, int vec, float scale_log2, float* __restrict__ lse) {
   constexpr int BQ = 64 * NWG;
   constexpr int NT = 128 * NWG;
   constexpr int DC = DP / 64;    // 64-column blocks of the head dim
@@ -679,6 +741,11 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
     const int qpos = qrow + 8 * i;
     if (qpos >= S) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    // m is a raw score and l sums powers of 2: natural units are
+    // (m scale log2(e) + log2 l) ln 2
+    if (LSE && (lane & 3) == 0)
+      lse[(static_cast<int64_t>(b) * H + h) * S + qpos] =
+          (m[i] * scale_log2 + log2f(den)) * 0.6931471805599453f;
     __nv_bfloat16* orow = o + ((static_cast<int64_t>(b) * S + qpos) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < DC; ++c)
@@ -697,16 +764,16 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
   }
 }
 
-template <int DP, int NWG, int MINB, int SUB, bool PREFIX>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int Tk,
-                   int H, int K, int D, int qsb, int qss, int qsh, int ksb, int kss, int ksh,
-                   int vsb, int vss, int vsh, int causal, int window, int prefix_len,
-                   int vec, float scale, cudaStream_t stream) {
+template <int DP, int NWG, int MINB, int SUB, bool PREFIX, bool LSE>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int S, int Tk, int H, int K, int D, int qsb, int qss, int qsh, int ksb,
+                   int kss, int ksh, int vsb, int vss, int vsh, int causal, int window,
+                   int prefix_len, int vec, float scale, cudaStream_t stream) {
   constexpr int BQ = 64 * NWG;
   constexpr size_t smem = smem_bytes<DP, NWG, SUB>();
   const int n_q = (S + BQ - 1) / BQ;
   if (n_q > 65535 || static_cast<int64_t>(B) * H > 0x7fffffff) return cudaErrorInvalidValue;
-  auto kernel = flash_wgmma_kernel<DP, NWG, MINB, SUB, PREFIX>;
+  auto kernel = flash_wgmma_kernel<DP, NWG, MINB, SUB, PREFIX, LSE>;
   cudaError_t err = rt::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, n_q);
@@ -714,70 +781,546 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, Tk, H, H / K, D,
       qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, causal, window, prefix_len, vec,
-      scale * 1.4426950408889634f);
+      scale * 1.4426950408889634f, lse);
   return cudaGetLastError();
 }
 
-template <bool PREFIX>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B, int S, int Tk,
-                     int H, int K, int D, int qsb, int qss, int qsh, int ksb, int kss, int ksh,
-                     int vsb, int vss, int vsh, int causal, int window, int prefix_len, int vec,
-                     float scale, cudaStream_t stream) {
+template <bool PREFIX, bool LSE>
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                     int S, int Tk, int H, int K, int D, int qsb, int qss, int qsh, int ksb,
+                     int kss, int ksh, int vsb, int vss, int vsh, int causal, int window,
+                     int prefix_len, int vec, float scale, cudaStream_t stream) {
   if (D <= 64)
-    return launch<64, 2, 2, 2, PREFIX>(q, k, v, o, B, S, Tk, H, K, D, qsb, qss, qsh, ksb, kss,
-                                       ksh, vsb, vss, vsh, causal, window, prefix_len, vec,
-                                       scale, stream);
+    return launch<64, 2, 2, 2, PREFIX, LSE>(q, k, v, o, lse, B, S, Tk, H, K, D, qsb, qss, qsh,
+                                            ksb, kss, ksh, vsb, vss, vsh, causal, window,
+                                            prefix_len, vec, scale, stream);
   if (D <= 128)
-    return launch<128, 2, 1, 2, PREFIX>(q, k, v, o, B, S, Tk, H, K, D, qsb, qss, qsh, ksb, kss,
-                                        ksh, vsb, vss, vsh, causal, window, prefix_len, vec,
-                                        scale, stream);
-  return launch<256, 1, 1, 1, PREFIX>(q, k, v, o, B, S, Tk, H, K, D, qsb, qss, qsh, ksb, kss,
-                                      ksh, vsb, vss, vsh, causal, window, prefix_len, vec, scale,
-                                      stream);
+    return launch<128, 2, 1, 2, PREFIX, LSE>(q, k, v, o, lse, B, S, Tk, H, K, D, qsb, qss, qsh,
+                                             ksb, kss, ksh, vsb, vss, vsh, causal, window,
+                                             prefix_len, vec, scale, stream);
+  return launch<256, 1, 1, 1, PREFIX, LSE>(q, k, v, o, lse, B, S, Tk, H, K, D, qsb, qss, qsh,
+                                           ksb, kss, ksh, vsb, vss, vsh, causal, window,
+                                           prefix_len, vec, scale, stream);
 }
 
 }  // namespace wg
+
+namespace bwd {
+
+constexpr int kBQ = 64;         // query rows a tile
+constexpr int kThreads = 256;   // 16 x 16
+constexpr int kLdQ = kBQ + 1;   // padded rows of sQ, sO
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// delta[b, h, i] = sum_d dO[b, i, h, d] O[b, i, h, d] in fp32: a warp a
+// row, lanes over d, summed by shuffles (the same bits every run).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+delta_kernel(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ delta,
+             int B, int S, int H, int D, int osb, int oss, int osh, int dsb, int dss, int dsh) {
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (row >= static_cast<int64_t>(B) * H * S) return;  // the whole warp
+  const int i = static_cast<int>(row % S);
+  const int64_t bh = row / S;
+  const int h = static_cast<int>(bh % H);
+  const int b = static_cast<int>(bh / H);
+  const T* orow = o + static_cast<int64_t>(b) * osb + static_cast<int64_t>(i) * oss +
+                  static_cast<int64_t>(h) * osh;
+  const T* drow = dout + static_cast<int64_t>(b) * dsb + static_cast<int64_t>(i) * dss +
+                  static_cast<int64_t>(h) * dsh;
+  float acc = 0.f;
+  for (int d = lane; d < D; d += 32) acc = fmaf(to_f(orow[d]), to_f(drow[d]), acc);
+  acc = rt::warp_sum(acc);
+  if (lane == 0) delta[row] = acc;
+}
+
+// Rows r0 .. r0 + R - 1 of a (nrows, D) view with row stride rs, times
+// `scale`, into dst transposed in fp32: dst[d * (R + 1) + r]; rows past
+// nrows and columns D .. DP - 1 are zeros.
+template <int R, int DP, typename T>
+__device__ __forceinline__ void load_t(float* dst, const T* src, int r0, int nrows, int rs,
+                                       int D, float scale, int tid) {
+  for (int i = tid; i < R * DP; i += kThreads) {
+    const int r = i / DP;
+    const int d = i - r * DP;
+    const int row = r0 + r;
+    dst[d * (R + 1) + r] =
+        (row < nrows && d < D) ? to_f(src[static_cast<int64_t>(row) * rs + d]) * scale : 0.f;
+  }
+}
+
+// lse and delta of rows q0 .. q0 + kBQ - 1 of (b, h) ((B, H, S) fp32), 0
+// past S.
+__device__ __forceinline__ void load_rows(float* sL, float* sD, const float* lse,
+                                          const float* delta, int64_t bh, int q0, int S,
+                                          int tid) {
+  for (int i = tid; i < kBQ; i += kThreads) {
+    const int pos = q0 + i;
+    const int64_t at = bh * S + pos;
+    sL[i] = pos < S ? lse[at] : 0.f;
+    sD[i] = pos < S ? delta[at] : 0.f;
+  }
+}
+
+// The score tile of one (query tile, key tile) pair: s = (q scale) . k and
+// dp = dO . v over d < D, p = exp(s - lse) where the pair is visible (else
+// 0), dS = p (dp - delta); rows ty + 16 i, keys tx + 16 j of this thread.
+// Writes dS into sS and, when sP is not null, p into sP ((kBQ, BK + 1)).
+template <int BK, bool PREFIX>
+__device__ __forceinline__ void score_tile(const float* sQ, const float* sO, const float* sK,
+                                           const float* sV, const float* sL, const float* sD,
+                                           float* sP, float* sS, int q0, int k0, int S, int Tk,
+                                           int D, int causal, int window, int prefix_len,
+                                           int tx, int ty) {
+  constexpr int KC = BK / 16;
+  constexpr int LK = BK + 1;
+  float s[4][KC], dp[4][KC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < KC; ++j) s[i][j] = dp[i][j] = 0.f;
+  for (int d = 0; d < D; ++d) {
+    float a[4], g[4], bk[KC], bv[KC];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a[i] = sQ[d * kLdQ + ty + 16 * i];
+      g[i] = sO[d * kLdQ + ty + 16 * i];
+    }
+#pragma unroll
+    for (int j = 0; j < KC; ++j) {
+      bk[j] = sK[d * LK + tx + 16 * j];
+      bv[j] = sV[d * LK + tx + 16 * j];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < KC; ++j) {
+        s[i][j] = fmaf(a[i], bk[j], s[i][j]);
+        dp[i][j] = fmaf(g[i], bv[j], dp[i][j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+    const int qpos = q0 + r;
+#pragma unroll
+    for (int j = 0; j < KC; ++j) {
+      const int c = tx + 16 * j;
+      const int kpos = k0 + c;
+      bool visible = qpos < S && kpos < Tk;
+      if (causal) visible = visible && (kpos <= qpos || (PREFIX && kpos < prefix_len));
+      if (window > 0) visible = visible && (qpos - kpos < window);
+      const float p = visible ? expf(s[i][j] - sL[r]) : 0.f;
+      if (sP != nullptr) sP[r * LK + c] = p;
+      sS[r * LK + c] = p * (dp[i][j] - sD[r]);
+    }
+  }
+}
+
+template <int ND, int BK>
+constexpr size_t dkdv_smem_bytes() {
+  // q^T, dO^T (DP, kLdQ); k^T, v^T (DP, BK + 1); P, dS (kBQ, BK + 1); lse, delta
+  return sizeof(float) * (2 * ND * 16 * kLdQ + 2 * ND * 16 * (BK + 1) + 2 * kBQ * (BK + 1) +
+                          2 * kBQ);
+}
+
+template <int ND, int BK>
+constexpr size_t dq_smem_bytes() {
+  // q^T, dO^T (DP, kLdQ); k^T, v^T (DP, BK + 1); dS (kBQ, BK + 1); lse, delta
+  return sizeof(float) * (2 * ND * 16 * kLdQ + 2 * ND * 16 * (BK + 1) + kBQ * (BK + 1) +
+                          2 * kBQ);
+}
+
+constexpr size_t kMaxSmem = 232448;  // 227 KB, the most a block may have on the H100
+
+// dK and dV of one (b, kv head, BK-key tile): loops over the G query heads
+// of the kv head and the query tiles that see a key of the tile, and keeps
+// dK, dV (BK x DP fp32) in registers: key rows ty + 16 i, columns tx + 16 j
+// of this thread. Each element is written once.
+template <int ND, int BK, bool PREFIX, typename T>
+__global__ void __launch_bounds__(kThreads)
+dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+            const T* __restrict__ dout, const float* __restrict__ lse,
+            const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int S,
+            int Tk, int H, int K, int G, int D, int qsb, int qss, int qsh, int ksb, int kss,
+            int ksh, int vsb, int vss, int vsh, int dsb, int dss, int dsh, int causal,
+            int window, int prefix_len, float scale) {
+  constexpr int DP = ND * 16;
+  constexpr int KC = BK / 16;
+  constexpr int LK = BK + 1;
+  extern __shared__ float smem[];
+  float* sQ = smem;              // (DP, kLdQ): q^T scaled
+  float* sO = sQ + DP * kLdQ;    // (DP, kLdQ): dO^T
+  float* sK = sO + DP * kLdQ;    // (DP, LK): k^T of the tile
+  float* sV = sK + DP * LK;      // (DP, LK): v^T of the tile
+  float* sP = sV + DP * LK;      // (kBQ, LK)
+  float* sS = sP + kBQ * LK;     // (kBQ, LK): dS
+  float* sL = sS + kBQ * LK;     // (kBQ): lse
+  float* sD = sL + kBQ;          // (kBQ): delta
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int k0 = blockIdx.x * BK;
+  const int kh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int64_t kvo = static_cast<int64_t>(b) * ksb + static_cast<int64_t>(kh) * ksh;
+  load_t<BK, DP>(sK, k + kvo, k0, Tk, kss, D, 1.f, tid);
+  load_t<BK, DP>(sV, v + static_cast<int64_t>(b) * vsb + static_cast<int64_t>(kh) * vsh, k0, Tk,
+                 vss, D, 1.f, tid);
+
+  // query rows that see some key of this tile: from the tile's diagonal
+  // under the causal rule (every row when the tile starts inside the
+  // prefix), up to the window's reach past its last key
+  int q_begin = 0;
+  if (causal && !(PREFIX && k0 < prefix_len)) q_begin = (k0 / kBQ) * kBQ;
+  int q_end = S;
+  if (window > 0) q_end = min(q_end, k0 + BK - 1 + window);
+
+  float aK[KC][ND], aV[KC][ND];
+#pragma unroll
+  for (int i = 0; i < KC; ++i)
+#pragma unroll
+    for (int j = 0; j < ND; ++j) aK[i][j] = aV[i][j] = 0.f;
+
+  for (int h = kh * G; h < (kh + 1) * G; ++h) {
+    const T* qb = q + static_cast<int64_t>(b) * qsb + static_cast<int64_t>(h) * qsh;
+    const T* db = dout + static_cast<int64_t>(b) * dsb + static_cast<int64_t>(h) * dsh;
+    for (int q0 = q_begin; q0 < q_end; q0 += kBQ) {
+      __syncthreads();  // the previous tile's sQ, sO, sP, sS read
+      load_t<kBQ, DP>(sQ, qb, q0, S, qss, D, scale, tid);
+      load_t<kBQ, DP>(sO, db, q0, S, dss, D, 1.f, tid);
+      load_rows(sL, sD, lse, delta, static_cast<int64_t>(b) * H + h, q0, S, tid);
+      __syncthreads();
+      score_tile<BK, PREFIX>(sQ, sO, sK, sV, sL, sD, sP, sS, q0, k0, S, Tk, D, causal, window,
+                             prefix_len, tx, ty);
+      __syncthreads();
+      // dV += P^T dO, dK += dS^T (q scale)
+      for (int r = 0; r < kBQ; ++r) {
+        float p[KC], ds[KC], g[ND], a[ND];
+#pragma unroll
+        for (int i = 0; i < KC; ++i) {
+          p[i] = sP[r * LK + ty + 16 * i];
+          ds[i] = sS[r * LK + ty + 16 * i];
+        }
+#pragma unroll
+        for (int j = 0; j < ND; ++j) {
+          g[j] = sO[(tx + 16 * j) * kLdQ + r];
+          a[j] = sQ[(tx + 16 * j) * kLdQ + r];
+        }
+#pragma unroll
+        for (int i = 0; i < KC; ++i)
+#pragma unroll
+          for (int j = 0; j < ND; ++j) {
+            aV[i][j] = fmaf(p[i], g[j], aV[i][j]);
+            aK[i][j] = fmaf(ds[i], a[j], aK[i][j]);
+          }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < KC; ++i) {
+    const int kpos = k0 + ty + 16 * i;
+    if (kpos >= Tk) continue;
+    const int64_t at = ((static_cast<int64_t>(b) * Tk + kpos) * K + kh) * D;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      const int d = tx + 16 * j;
+      if (d < D) {
+        dk[at + d] = from_f<T>(aK[i][j]);
+        dv[at + d] = from_f<T>(aV[i][j]);
+      }
+    }
+  }
+}
+
+// dQ of one (b, head, 64-query tile): loops over the key tiles the tile's
+// rows see (the forward's bounds), dQ (64 x DP fp32) in registers: rows
+// ty + 16 i, columns tx + 16 j of this thread; written once, times scale.
+template <int ND, int BK, bool PREFIX, typename T>
+__global__ void __launch_bounds__(kThreads)
+dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+          const T* __restrict__ dout, const float* __restrict__ lse,
+          const float* __restrict__ delta, T* __restrict__ dq, int S, int Tk, int H, int G,
+          int D, int qsb, int qss, int qsh, int ksb, int kss, int ksh, int vsb, int vss,
+          int vsh, int dsb, int dss, int dsh, int causal, int window, int prefix_len,
+          float scale) {
+  constexpr int DP = ND * 16;
+  constexpr int LK = BK + 1;
+  extern __shared__ float smem[];
+  float* sQ = smem;              // (DP, kLdQ): q^T scaled
+  float* sO = sQ + DP * kLdQ;    // (DP, kLdQ): dO^T
+  float* sK = sO + DP * kLdQ;    // (DP, LK): k^T of the tile
+  float* sV = sK + DP * LK;      // (DP, LK): v^T of the tile
+  float* sS = sV + DP * LK;      // (kBQ, LK): dS
+  float* sL = sS + kBQ * LK;     // (kBQ): lse
+  float* sD = sL + kBQ;          // (kBQ): delta
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  // under the causal rule the last query tiles see the most keys: first
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * kBQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const T* kb = k + static_cast<int64_t>(b) * ksb + static_cast<int64_t>(h / G) * ksh;
+  const T* vb = v + static_cast<int64_t>(b) * vsb + static_cast<int64_t>(h / G) * vsh;
+  load_t<kBQ, DP>(sQ, q + static_cast<int64_t>(b) * qsb + static_cast<int64_t>(h) * qsh, q0, S,
+                  qss, D, scale, tid);
+  load_t<kBQ, DP>(sO, dout + static_cast<int64_t>(b) * dsb + static_cast<int64_t>(h) * dsh, q0,
+                  S, dss, D, 1.f, tid);
+  load_rows(sL, sD, lse, delta, static_cast<int64_t>(b) * H + h, q0, S, tid);
+
+  // key tiles with a visible key for some row of this tile
+  const int q_last = min(S, q0 + kBQ) - 1;
+  int k_end = Tk;
+  if (causal) k_end = min(k_end, PREFIX ? max(q_last + 1, prefix_len) : q_last + 1);
+  int k_begin = 0;
+  if (window > 0) {
+    const int lo = q0 - window + 1;  // first key row q0 can see
+    if (lo > 0) k_begin = (lo / BK) * BK;
+  }
+
+  float acc[4][ND];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < ND; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
+    __syncthreads();  // sQ, sO written; the previous tile's sK, sV, sS read
+    load_t<BK, DP>(sK, kb, k0, Tk, kss, D, 1.f, tid);
+    load_t<BK, DP>(sV, vb, k0, Tk, vss, D, 1.f, tid);
+    __syncthreads();
+    score_tile<BK, PREFIX>(sQ, sO, sK, sV, sL, sD, nullptr, sS, q0, k0, S, Tk, D, causal,
+                           window, prefix_len, tx, ty);
+    __syncthreads();
+    // dQ += dS k
+    for (int c = 0; c < BK; ++c) {
+      float ds[4], kk[ND];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ds[i] = sS[(ty + 16 * i) * LK + c];
+#pragma unroll
+      for (int j = 0; j < ND; ++j) kk[j] = sK[(tx + 16 * j) * LK + c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < ND; ++j) acc[i][j] = fmaf(ds[i], kk[j], acc[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qpos = q0 + ty + 16 * i;
+    if (qpos >= S) continue;
+    T* row = dq + ((static_cast<int64_t>(b) * S + qpos) * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      const int d = tx + 16 * j;
+      if (d < D) row[d] = from_f<T>(acc[i][j] * scale);
+    }
+  }
+}
+
+// Key-tile width: 64, or 32 at D > 128, where the fp32 copies of q^T, dO^T,
+// k^T and v^T of 64-row tiles would not fit in shared memory.
+template <int ND>
+constexpr int key_tile() {
+  return ND > 8 ? 32 : 64;
+}
+
+template <int ND, bool PREFIX, typename T>
+cudaError_t launch(const T* q, const T* k, const T* v, const T* dout, const float* lse,
+                   const float* delta, T* dq, T* dk, T* dv, int B, int S, int Tk, int H, int K,
+                   int D, int qsb, int qss, int qsh, int ksb, int kss, int ksh, int vsb, int vss,
+                   int vsh, int dsb, int dss, int dsh, int causal, int window, int prefix_len,
+                   float scale, cudaStream_t stream) {
+  constexpr int BK = key_tile<ND>();
+  static_assert(dkdv_smem_bytes<ND, BK>() <= kMaxSmem, "dK/dV tiles exceed shared memory");
+  static_assert(dq_smem_bytes<ND, BK>() <= kMaxSmem, "dQ tiles exceed shared memory");
+  const int G = H / K;
+  if (Tk > 0) {
+    auto kernel = dkdv_kernel<ND, BK, PREFIX, T>;
+    constexpr size_t smem = dkdv_smem_bytes<ND, BK>();
+    cudaError_t err = rt::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3((Tk + BK - 1) / BK, K, B), kThreads, smem, stream>>>(
+        q, k, v, dout, lse, delta, dk, dv, S, Tk, H, K, G, D, qsb, qss, qsh, ksb, kss, ksh, vsb,
+        vss, vsh, dsb, dss, dsh, causal, window, prefix_len, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  auto kernel = dq_kernel<ND, BK, PREFIX, T>;
+  constexpr size_t smem = dq_smem_bytes<ND, BK>();
+  cudaError_t err = rt::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((S + kBQ - 1) / kBQ, H, B), kThreads, smem, stream>>>(
+      q, k, v, dout, lse, delta, dq, S, Tk, H, G, D, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh,
+      dsb, dss, dsh, causal, window, prefix_len, scale);
+  return cudaGetLastError();
+}
+
+template <bool PREFIX, typename T>
+cudaError_t dispatch(const T* q, const T* k, const T* v, const T* dout, const float* lse,
+                     const float* delta, T* dq, T* dk, T* dv, int B, int S, int Tk, int H, int K,
+                     int D, int qsb, int qss, int qsh, int ksb, int kss, int ksh, int vsb,
+                     int vss, int vsh, int dsb, int dss, int dsh, int causal, int window,
+                     int prefix_len, float scale, cudaStream_t stream) {
+  if (D <= 64)
+    return launch<4, PREFIX, T>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, Tk, H, K, D, qsb,
+                                qss, qsh, ksb, kss, ksh, vsb, vss, vsh, dsb, dss, dsh, causal,
+                                window, prefix_len, scale, stream);
+  if (D <= 128)
+    return launch<8, PREFIX, T>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, Tk, H, K, D, qsb,
+                                qss, qsh, ksb, kss, ksh, vsb, vss, vsh, dsb, dss, dsh, causal,
+                                window, prefix_len, scale, stream);
+  return launch<16, PREFIX, T>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, Tk, H, K, D, qsb,
+                               qss, qsh, ksb, kss, ksh, vsb, vss, vsh, dsb, dss, dsh, causal,
+                               window, prefix_len, scale, stream);
+}
+
+// The pre-pass, then dK/dV, then dQ, on `stream`; delta is scratch of
+// B H S floats.
+template <typename T>
+int backward(const void* q_, const void* k_, const void* v_, const void* o_, const void* do_,
+             const float* lse, float* delta, void* dq_, void* dk_, void* dv_, int B, int S,
+             int Tk, int H, int K, int D, int qsb, int qss, int qsh, int ksb, int kss, int ksh,
+             int vsb, int vss, int vsh, int osb, int oss, int osh, int dsb, int dss, int dsh,
+             int causal, int window, int prefix_len, float scale, cudaStream_t stream) {
+  if (B == 0 || S == 0 || H == 0) return cudaSuccess;
+  if (K <= 0 || H % K != 0 || D <= 0 || D > 256 || Tk < 0 || window < 0 || prefix_len < 0 ||
+      B > 65535 || H > 65535)
+    return cudaErrorInvalidValue;
+  const T* q = static_cast<const T*>(q_);
+  const T* k = static_cast<const T*>(k_);
+  const T* v = static_cast<const T*>(v_);
+  const T* dout = static_cast<const T*>(do_);
+  const int64_t rows = static_cast<int64_t>(B) * H * S;
+  constexpr int kRowsPerBlock = kThreads / 32;
+  const int64_t blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  delta_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      static_cast<const T*>(o_), dout, delta, B, S, H, D, osb, oss, osh, dsb, dss, dsh);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  T* dq = static_cast<T*>(dq_);
+  T* dk = static_cast<T*>(dk_);
+  T* dv = static_cast<T*>(dv_);
+  if (causal && prefix_len > 0)
+    return dispatch<true, T>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, Tk, H, K, D, qsb, qss,
+                             qsh, ksb, kss, ksh, vsb, vss, vsh, dsb, dss, dsh, causal, window,
+                             prefix_len, scale, stream);
+  return dispatch<false, T>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, Tk, H, K, D, qsb, qss,
+                            qsh, ksb, kss, ksh, vsb, vss, vsh, dsb, dss, dsh, causal, window, 0,
+                            scale, stream);
+}
+
+}  // namespace bwd
+
 
 }  // namespace
 
 // q: (B, S, H, D) with strides (qsb, qss, qsh, 1); k, v: (B, T, K, D) with
 // strides (ksb, kss, ksh, 1) and (vsb, vss, vsh, 1); o: (B, S, H, D)
 // contiguous; H % K == 0, 1 <= D <= 256; prefix_len >= 0 widens the causal
-// rule (0: none; read only when causal). fp32 on the FMA kernel.
+// rule (0: none; read only when causal); lse: null, or (B, H, S) fp32 for
+// each row's log-sum-exp (natural log of the scaled, masked scores).
+// fp32 on the FMA kernel.
 extern "C" int rt_flash_attention_forward_f32(const void* q, const void* k, const void* v,
-                                              void* o, int B, int S, int T, int H, int K, int D,
-                                              int qsb, int qss, int qsh, int ksb, int kss,
-                                              int ksh, int vsb, int vss, int vsh, int causal,
-                                              int window, int prefix_len, float scale,
-                                              cudaStream_t stream) {
+                                              void* o, void* lse, int B, int S, int T, int H,
+                                              int K, int D, int qsb, int qss, int qsh, int ksb,
+                                              int kss, int ksh, int vsb, int vss, int vsh,
+                                              int causal, int window, int prefix_len,
+                                              float scale, cudaStream_t stream) {
   if (B == 0 || S == 0 || H == 0) return cudaSuccess;
   if (K <= 0 || H % K != 0 || D <= 0 || D > 256 || T < 0 || window < 0 || prefix_len < 0 ||
       B > 65535 || H > 65535)
     return cudaErrorInvalidValue;
-  if (causal && prefix_len > 0)
-    return simt::dispatch<true>(q, k, v, o, B, S, T, H, K, D, qsb, qss, qsh, ksb, kss, ksh, vsb,
-                                vss, vsh, causal, window, prefix_len, scale, stream);
-  return simt::dispatch<false>(q, k, v, o, B, S, T, H, K, D, qsb, qss, qsh, ksb, kss, ksh, vsb,
-                               vss, vsh, causal, window, 0, scale, stream);
+  float* l = static_cast<float*>(lse);
+  const bool prefix = causal && prefix_len > 0;
+  const int pl = prefix ? prefix_len : 0;
+  if (prefix && l)
+    return simt::dispatch<true, true>(q, k, v, o, l, B, S, T, H, K, D, qsb, qss, qsh, ksb, kss,
+                                      ksh, vsb, vss, vsh, causal, window, pl, scale, stream);
+  if (prefix)
+    return simt::dispatch<true, false>(q, k, v, o, l, B, S, T, H, K, D, qsb, qss, qsh, ksb, kss,
+                                       ksh, vsb, vss, vsh, causal, window, pl, scale, stream);
+  if (l)
+    return simt::dispatch<false, true>(q, k, v, o, l, B, S, T, H, K, D, qsb, qss, qsh, ksb, kss,
+                                       ksh, vsb, vss, vsh, causal, window, pl, scale, stream);
+  return simt::dispatch<false, false>(q, k, v, o, l, B, S, T, H, K, D, qsb, qss, qsh, ksb, kss,
+                                      ksh, vsb, vss, vsh, causal, window, pl, scale, stream);
 }
 
 // As above, bf16 on the wgmma kernel. vec != 0: every row of q, k and v
 // starts 16-byte aligned (D % 8 == 0, pointers and strides likewise), so
 // tiles load by 16-byte cp.async; else element by element.
 extern "C" int rt_flash_attention_forward_bf16(const void* q, const void* k, const void* v,
-                                               void* o, int B, int S, int T, int H, int K, int D,
-                                               int qsb, int qss, int qsh, int ksb, int kss,
-                                               int ksh, int vsb, int vss, int vsh, int causal,
-                                               int window, int prefix_len, int vec, float scale,
-                                               cudaStream_t stream) {
+                                               void* o, void* lse, int B, int S, int T, int H,
+                                               int K, int D, int qsb, int qss, int qsh, int ksb,
+                                               int kss, int ksh, int vsb, int vss, int vsh,
+                                               int causal, int window, int prefix_len, int vec,
+                                               float scale, cudaStream_t stream) {
   if (B == 0 || S == 0 || H == 0) return cudaSuccess;
   if (K <= 0 || H % K != 0 || D <= 0 || D > 256 || T < 0 || window < 0 || prefix_len < 0)
     return cudaErrorInvalidValue;
-  if (causal && prefix_len > 0)
-    return wg::dispatch<true>(q, k, v, o, B, S, T, H, K, D, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
-                              vsh, causal, window, prefix_len, vec, scale, stream);
-  return wg::dispatch<false>(q, k, v, o, B, S, T, H, K, D, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
-                             vsh, causal, window, 0, vec, scale, stream);
+  float* l = static_cast<float*>(lse);
+  const bool prefix = causal && prefix_len > 0;
+  const int pl = prefix ? prefix_len : 0;
+  if (prefix && l)
+    return wg::dispatch<true, true>(q, k, v, o, l, B, S, T, H, K, D, qsb, qss, qsh, ksb, kss, ksh,
+                                    vsb, vss, vsh, causal, window, pl, vec, scale, stream);
+  if (prefix)
+    return wg::dispatch<true, false>(q, k, v, o, l, B, S, T, H, K, D, qsb, qss, qsh, ksb, kss,
+                                     ksh, vsb, vss, vsh, causal, window, pl, vec, scale, stream);
+  if (l)
+    return wg::dispatch<false, true>(q, k, v, o, l, B, S, T, H, K, D, qsb, qss, qsh, ksb, kss,
+                                     ksh, vsb, vss, vsh, causal, window, pl, vec, scale, stream);
+  return wg::dispatch<false, false>(q, k, v, o, l, B, S, T, H, K, D, qsb, qss, qsh, ksb, kss,
+                                    ksh, vsb, vss, vsh, causal, window, pl, vec, scale, stream);
+}
+
+// The backward: q, o, dout (B, S, H, D) and k, v (B, T, K, D) through their
+// strides (unit stride over D), lse (B, H, S) fp32 as the forward wrote it,
+// delta scratch of B H S floats; dq (B, S, H, D), dk, dv (B, T, K, D)
+// contiguous, in the inputs' dtype. The mask arguments are the forward's.
+extern "C" int rt_flash_attention_backward_f32(
+    const void* q, const void* k, const void* v, const void* o, const void* dout,
+    const void* lse, void* delta, void* dq, void* dk, void* dv, int B, int S, int T, int H,
+    int K, int D, int qsb, int qss, int qsh, int ksb, int kss, int ksh, int vsb, int vss,
+    int vsh, int osb, int oss, int osh, int dsb, int dss, int dsh, int causal, int window,
+    int prefix_len, float scale, cudaStream_t stream) {
+  return bwd::backward<float>(q, k, v, o, dout, static_cast<const float*>(lse),
+                              static_cast<float*>(delta), dq, dk, dv, B, S, T, H, K, D, qsb, qss,
+                              qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh, dsb, dss, dsh,
+                              causal, window, prefix_len, scale, stream);
+}
+
+extern "C" int rt_flash_attention_backward_bf16(
+    const void* q, const void* k, const void* v, const void* o, const void* dout,
+    const void* lse, void* delta, void* dq, void* dk, void* dv, int B, int S, int T, int H,
+    int K, int D, int qsb, int qss, int qsh, int ksb, int kss, int ksh, int vsb, int vss,
+    int vsh, int osb, int oss, int osh, int dsb, int dss, int dsh, int causal, int window,
+    int prefix_len, float scale, cudaStream_t stream) {
+  return bwd::backward<__nv_bfloat16>(q, k, v, o, dout, static_cast<const float*>(lse),
+                                      static_cast<float*>(delta), dq, dk, dv, B, S, T, H, K, D,
+                                      qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh,
+                                      dsb, dss, dsh, causal, window, prefix_len, scale, stream);
 }
 
 namespace {
@@ -794,32 +1337,65 @@ int attributes(Kernel kernel, size_t dynamic_smem, int* out) {
   return cudaSuccess;
 }
 
-template <bool PREFIX>
+template <bool PREFIX, bool LSE>
 int flash_attributes(int bf16, int D, int* out) {
   if (bf16) {
     if (D <= 64)
-      return attributes(wg::flash_wgmma_kernel<64, 2, 2, 2, PREFIX>, wg::smem_bytes<64, 2, 2>(),
-                        out);
+      return attributes(wg::flash_wgmma_kernel<64, 2, 2, 2, PREFIX, LSE>,
+                        wg::smem_bytes<64, 2, 2>(), out);
     if (D <= 128)
-      return attributes(wg::flash_wgmma_kernel<128, 2, 1, 2, PREFIX>,
+      return attributes(wg::flash_wgmma_kernel<128, 2, 1, 2, PREFIX, LSE>,
                         wg::smem_bytes<128, 2, 2>(), out);
-    return attributes(wg::flash_wgmma_kernel<256, 1, 1, 1, PREFIX>, wg::smem_bytes<256, 1, 1>(),
-                      out);
+    return attributes(wg::flash_wgmma_kernel<256, 1, 1, 1, PREFIX, LSE>,
+                      wg::smem_bytes<256, 1, 1>(), out);
   }
   const int nd = D <= 64 ? 4 : D <= 128 ? 8 : 16;
   const size_t smem = simt::smem_bytes(D, nd);
-  if (nd == 4) return attributes(simt::flash_forward_kernel<4, PREFIX>, smem, out);
-  if (nd == 8) return attributes(simt::flash_forward_kernel<8, PREFIX>, smem, out);
-  return attributes(simt::flash_forward_kernel<16, PREFIX>, smem, out);
+  if (nd == 4) return attributes(simt::flash_forward_kernel<4, PREFIX, LSE>, smem, out);
+  if (nd == 8) return attributes(simt::flash_forward_kernel<8, PREFIX, LSE>, smem, out);
+  return attributes(simt::flash_forward_kernel<16, PREFIX, LSE>, smem, out);
+}
+
+template <int ND, bool PREFIX, typename T>
+int backward_instance_attributes(int kernel, int* out) {
+  constexpr int BK = bwd::key_tile<ND>();
+  if (kernel == 0) return attributes(bwd::delta_kernel<T>, 0, out);
+  if (kernel == 1)
+    return attributes(bwd::dkdv_kernel<ND, BK, PREFIX, T>, bwd::dkdv_smem_bytes<ND, BK>(), out);
+  return attributes(bwd::dq_kernel<ND, BK, PREFIX, T>, bwd::dq_smem_bytes<ND, BK>(), out);
+}
+
+template <bool PREFIX, typename T>
+int backward_attributes(int D, int kernel, int* out) {
+  if (D <= 64) return backward_instance_attributes<4, PREFIX, T>(kernel, out);
+  if (D <= 128) return backward_instance_attributes<8, PREFIX, T>(kernel, out);
+  return backward_instance_attributes<16, PREFIX, T>(kernel, out);
 }
 
 }  // namespace
 
-// The kernel a launch at head dim D takes (bf16 != 0: the wgmma kernel;
-// prefix != 0: the instance a causal launch with prefix_len > 0 takes):
-// out = {registers a thread, static shared bytes, dynamic shared bytes a
-// block, local (spill) bytes a thread}.
-extern "C" int rt_flash_attention_attributes(int bf16, int D, int prefix, int* out) {
+// The forward kernel a launch at head dim D takes (bf16 != 0: the wgmma
+// kernel; prefix != 0: the instance a causal launch with prefix_len > 0
+// takes; lse != 0: the instance that writes the log-sum-exp): out =
+// {registers a thread, static shared bytes, dynamic shared bytes a block,
+// local (spill) bytes a thread}.
+extern "C" int rt_flash_attention_attributes(int bf16, int D, int prefix, int lse, int* out) {
   if (D <= 0 || D > 256) return cudaErrorInvalidValue;
-  return prefix ? flash_attributes<true>(bf16, D, out) : flash_attributes<false>(bf16, D, out);
+  if (prefix) return lse ? flash_attributes<true, true>(bf16, D, out)
+                         : flash_attributes<true, false>(bf16, D, out);
+  return lse ? flash_attributes<false, true>(bf16, D, out)
+             : flash_attributes<false, false>(bf16, D, out);
+}
+
+// The same for the backward's kernels: kernel 0 the delta pre-pass, 1 the
+// dK/dV kernel, 2 the dQ kernel, of the instance a backward launch at head
+// dim D (in bf16 when bf16 != 0, with the prefix rule when prefix != 0)
+// takes.
+extern "C" int rt_flash_attention_backward_attributes(int bf16, int D, int prefix, int kernel,
+                                                      int* out) {
+  if (D <= 0 || D > 256 || kernel < 0 || kernel > 2) return cudaErrorInvalidValue;
+  if (bf16) return prefix ? backward_attributes<true, __nv_bfloat16>(D, kernel, out)
+                          : backward_attributes<false, __nv_bfloat16>(D, kernel, out);
+  return prefix ? backward_attributes<true, float>(D, kernel, out)
+                : backward_attributes<false, float>(D, kernel, out);
 }

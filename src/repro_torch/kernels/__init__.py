@@ -4,7 +4,8 @@
 #   set_attention  — fused masked, frequency-weighted set attention (SAB/PMA)
 #   kmeans_assign  — nearest-centroid assignment and the fused k-means step
 #   flash_attention — streaming-softmax GQA attention of the LM zoo's
-#                    prefill (causal / window / full)
+#                    prefill and training (causal / window / full /
+#                    prefix), forward and backward
 # Each family has: ref.py (plain PyTorch version, the CPU path and the
 # yardstick the kernel is held to) and ops.py (the wrapper). The CUDA
 # sources are in ../csrc; _lib.py builds them with nvcc into one library.

@@ -43,15 +43,21 @@ _ENTRY_POINTS = {
     "rt_set_attention_backward": "ppppppppppiiiiiifp",
     "rt_kmeans_assign": "ppiiiippp",
     "rt_kmeans_update": "pppiiiipppp",
-    # q k v o, B S T H K D, the (b, seq, head) strides of q, k and v,
+    # q k v o lse, B S T H K D, the (b, seq, head) strides of q, k and v,
     # causal window prefix_len, scale, stream; bf16 also takes vec before
     # the scale
-    "rt_flash_attention_forward_f32": "pppp" + "i" * 18 + "fp",
-    "rt_flash_attention_forward_bf16": "pppp" + "i" * 19 + "fp",
-    # (bf16, D, prefix, out[4]), (N, M, dh, out[4]), (dh, out[4]) and
-    # (d, K, out[4]): the attributes of the kernel a launch takes, see
-    # kernel_attributes
-    "rt_flash_attention_attributes": "iiip",
+    "rt_flash_attention_forward_f32": "ppppp" + "i" * 18 + "fp",
+    "rt_flash_attention_forward_bf16": "ppppp" + "i" * 19 + "fp",
+    # q k v o dout lse delta dq dk dv, B S T H K D, the (b, seq, head)
+    # strides of q, k, v, o and dout, causal window prefix_len, scale,
+    # stream
+    "rt_flash_attention_backward_f32": "p" * 10 + "i" * 24 + "fp",
+    "rt_flash_attention_backward_bf16": "p" * 10 + "i" * 24 + "fp",
+    # (bf16, D, prefix, lse, out[4]), (bf16, D, prefix, kernel, out[4]),
+    # (N, M, dh, out[4]), (dh, out[4]) and (d, K, out[4]): the attributes
+    # of the kernel a launch takes, see kernel_attributes
+    "rt_flash_attention_attributes": "iiiip",
+    "rt_flash_attention_backward_attributes": "iiiip",
     "rt_set_attention_forward_attributes": "iiip",
     "rt_set_attention_backward_attributes": "iiip",
     "rt_wkv_attributes": "ip",

@@ -15,8 +15,11 @@ VLM) and RWKV layers run `prefill` and
 `decode_step` through the wkv kernel (one launch a layer each); the
 Mamba, mLSTM and sLSTM recurrences and the MoE layers' routing and
 expert products are plain PyTorch, as they are plain JAX in the
-reference. `loss`, `input_specs`, `param_specs` and `cache_specs` wait
-for the training and distributed slices.
+reference. `loss` is the training objective (`transformer.lm_loss`),
+run with autograd on: on CUDA each attention layer's flash call saves
+its log-sum-exp and its backward launches the flash backward kernel.
+`input_specs`, `param_specs` and `cache_specs` wait for the distributed
+slice.
 """
 from __future__ import annotations
 
@@ -41,6 +44,20 @@ class Model:
         every device), each block moved to `device` as soon as it is
         drawn."""
         return tfm.LM(self.cfg, seed, device=resolve_device(device))
+
+    # --------------------------------------------------------------- train
+    def loss(self, params: tfm.LM, batch: Dict[str, Any],
+             remat: str = "none", label_smoothing: float = 0.0):
+        """(loss, {"nll", "aux"}) of `transformer.lm_loss` on `batch`
+        (tokens, and frames or patches as `prefill` takes them), moved to
+        the params' device; grad mode as the caller has it, so that
+        `loss.backward()` or `torch.autograd.grad` reaches every
+        parameter. `remat`: "none", "dots" or "full"
+        (`transformer.remat_wrap`)."""
+        dev = _device(params)
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        return tfm.lm_loss(params, self.cfg, batch, remat=remat,
+                           label_smoothing=label_smoothing)
 
     # --------------------------------------------------------------- serve
     def init_cache(self, batch: int, max_seq: int,

@@ -1,4 +1,4 @@
-"""LM assembly for the zoo: port of `repro.models.transformer` (inference).
+"""LM assembly for the zoo: port of `repro.models.transformer`.
 
 A model is a stack of pre-norm blocks between a token embedding scaled by
 sqrt(d_model) and a final RMSNorm, with a tied or separate LM head. A
@@ -26,13 +26,25 @@ cache as it stands (zeros unless the caller wrote it). Prefix-LM
 (paligemma): `lm_apply(prefix_embeds=)` puts the patch embeddings ahead
 of the scaled text embedding, and a prefix-LM config runs every layer
 under the "prefix" mask (bidirectional over the patches).
+
+Training: `lm_loss` (the mean next-token NLL over the text, by
+`chunked_xent`, plus 0.01 x the MoE aux) under a `remat` policy that
+wraps each period of layers in `torch.utils.checkpoint`, as JAX wraps
+its scan body. `LM.pack_checkpoint` / `unpack_checkpoint` let the
+Trainer write and read checkpoints in JAX's stacked layout; the
+stacking rule (`stacked_key`) is the one `bridge.lm_params_from_jax`
+unstacks by.
 """
 from __future__ import annotations
 
+import functools
+import re
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.config import (
     BLOCK_ATTN, BLOCK_MAMBA, BLOCK_MLSTM, BLOCK_RWKV, BLOCK_SLSTM,
@@ -43,6 +55,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm
 from repro_torch.models.layers import MLP, Embed, RMSNorm, embed, unembed
+from repro_torch.utils.tree import stack_leaves, unstack_leaves
 
 def torch_dtype(name: str) -> torch.dtype:
     """"bfloat16" / "float32" (a config's dtype field) -> torch dtype."""
@@ -65,6 +78,42 @@ def period_of(cfg: ModelConfig) -> int:
                 sigs[i] == sigs[i % p] for i in range(cfg.num_layers)):
             return p
     return cfg.num_layers
+
+
+# a per-layer leaf's key: "<prefix>layers/<i>/<leaf>" (the decoder's) or
+# "<prefix>encoder/layers/<i>/<leaf>"
+_LAYER_KEY = re.compile(r"^(.*?)\blayers/(\d+)/(.+)$")
+
+
+def stacked_key(cfg: ModelConfig, key: str) -> Optional[Tuple[str, int]]:
+    """Where a per-layer leaf lies in JAX's stacked tree: (its key there,
+    its index on the leading axis), or None for a leaf that is not per
+    layer. "/"-joined keys: decoder layer i = n * period + pos is
+    `layers/p<pos>/<leaf>` at index n; encoder layer i is
+    `encoder/layers/<leaf>` at index i."""
+    m = _LAYER_KEY.match(key)
+    if m is None:
+        return None
+    prefix, i, leaf = m.group(1), int(m.group(2)), m.group(3)
+    if prefix.endswith("encoder/"):
+        return f"{prefix}layers/{leaf}", i
+    period = period_of(cfg)
+    return f"{prefix}layers/p{i % period}/{leaf}", i // period
+
+
+def stack_lm_layers(cfg: ModelConfig, flat: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+    """"/"-keyed leaves with per-layer keys -> JAX's stacked keys, each
+    stacked along a new leading axis (`stacked_key`); other keys pass
+    unchanged, in order."""
+    return stack_leaves(flat, functools.partial(stacked_key, cfg))
+
+
+def unstack_lm_layers(cfg: ModelConfig, flat: Dict[str, object],
+                      like) -> Dict[str, object]:
+    """The inverse of `stack_lm_layers`: the keys of `like` (per-layer),
+    each read from `flat` (stacked) at its index."""
+    return unstack_leaves(flat, like, functools.partial(stacked_key, cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -227,6 +276,15 @@ class LM(nn.Module):
     def head_table(self):
         return (self.embed if self.lm_head is None else self.lm_head).table
 
+    # checkpoints in the JAX layout (the Trainer's hooks)
+    def pack_checkpoint(self, flat: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+        return stack_lm_layers(self.cfg, flat)
+
+    def unpack_checkpoint(self, flat: Dict[str, torch.Tensor],
+                          like: Dict[str, object]) -> Dict[str, torch.Tensor]:
+        return unstack_lm_layers(self.cfg, flat, like)
+
 
 def _embed_tokens(params: LM, cfg: ModelConfig, tokens):
     dtype = torch_dtype(cfg.dtype)
@@ -235,23 +293,59 @@ def _embed_tokens(params: LM, cfg: ModelConfig, tokens):
     return x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype)
 
 
-def encoder_apply(params: LM, cfg: ModelConfig, frames):
+# the matmuls whose outputs "dots" keeps (JAX's checkpoint_dots): every
+# x @ w, einsum and batched product reaches one of these
+_DOT_OPS = [torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default]
+
+
+def remat_wrap(fn, policy: str):
+    """fn as JAX's `_remat_wrap` leaves it: "none" as it is; "full" under
+    `torch.utils.checkpoint` (nothing saved, the whole body recomputed in
+    the backward); "dots" under a selective checkpoint that saves only
+    the matmul outputs and recomputes the rest. The gradients are the
+    same under all three (bitwise on the CPU). A flash-attention call in
+    fn runs again in the recompute: under "full" and "dots" an attention
+    layer launches the flash forward twice a training step (its `LSE`
+    instance both times) and the backward once, against once each under
+    "none"."""
+    if policy == "none":
+        return fn
+    if policy == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if policy == "dots":
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _DOT_OPS))
+    raise ValueError(f"remat {policy!r}: none, dots or full")
+
+
+def encoder_apply(params: LM, cfg: ModelConfig, frames,
+                  remat: str = "none"):
     """frames: (B, T, d_model) precomputed frontend embeddings, cast to the
     model dtype (no sqrt(d) scale). The encoder's blocks under the full
-    mask (RoPE over arange(T)), then its norm: (B, T, d)."""
+    mask (RoPE over arange(T)), each under `remat_wrap(remat)` as JAX
+    wraps its scan body, then its norm: (B, T, d)."""
     x = frames.to(torch_dtype(cfg.dtype))
+
+    def body(h, block):
+        return _block_apply(block, cfg, h, mask_mode="full")[0]
+
+    body = remat_wrap(body, remat)
     for block in params.encoder.layers:
-        x, _ = _block_apply(block, cfg, x, mask_mode="full")
+        x = body(x, block)
     return params.encoder.norm(x)
 
 
 def lm_apply(params: LM, cfg: ModelConfig, tokens, *,
              prefix_embeds=None, enc_memory=None,
-             return_hidden: bool = False):
+             return_hidden: bool = False, remat: str = "none"):
     """tokens: (B, S) int; prefix_embeds: (B, P, d) modality inputs put
     ahead of the text (cast to the model dtype, unscaled; the rows become
     P + S and a prefix-LM config masks them bidirectionally); enc_memory:
-    (B, T, d) the encoder's output, for the cross-attention. Returns
+    (B, T, d) the encoder's output, for the cross-attention. Each period
+    of layers (`period_of`) runs under `remat_wrap(remat)`. Returns
     (hidden (B,P+S,d), aux) when `return_hidden`, else (logits (B,P+S,V)
     in the model dtype, aux); aux is the fp32 sum of the MoE layers'
     load-balance losses (0 without MoE layers), added in layer order."""
@@ -263,17 +357,94 @@ def lm_apply(params: LM, cfg: ModelConfig, tokens, *,
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
     mask_mode = "prefix" if (cfg.prefix_lm and prefix_len) else "causal"
+    period = period_of(cfg)
+
+    def period_body(h, aux, n):
+        for block in params.layers[n * period:(n + 1) * period]:
+            h, a = _block_apply(block, cfg, h, mask_mode=mask_mode,
+                                positions=positions, enc_memory=enc_memory,
+                                prefix_len=prefix_len)
+            if a is not None:
+                aux = aux + a
+        return h, aux
+
+    period_body = remat_wrap(period_body, remat)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for block in params.layers:
-        x, a = _block_apply(block, cfg, x, mask_mode=mask_mode,
-                            positions=positions, enc_memory=enc_memory,
-                            prefix_len=prefix_len)
-        if a is not None:
-            aux = aux + a
+    for n in range(cfg.num_layers // period):
+        x, aux = period_body(x, aux, n)
     x = params.final_norm(x)
     if return_hidden:
         return x, aux
     return unembed(params.head_table, x), aux
+
+
+# ---------------------------------------------------------------------------
+# loss (chunked cross-entropy)
+# ---------------------------------------------------------------------------
+
+
+def _chunk_loss(h, table, targets, valid, label_smoothing: float):
+    """(sum of nll x valid, sum of valid) of one chunk of rows: fp32
+    logits h @ table^T (in h's dtype, then cast), log-sum-exp minus the
+    target's logit, smoothed toward the mean logit."""
+    logits = (h @ table.to(h.dtype).T).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
+    nll = lse - tgt
+    if label_smoothing > 0.0:
+        nll = (1 - label_smoothing) * nll + label_smoothing * (
+            lse - logits.mean(-1))
+    return (nll * valid).sum(), valid.sum()
+
+
+def chunked_xent(hidden, table, targets, valid, chunk: int = 512,
+                 label_smoothing: float = 0.0):
+    """hidden: (B,S,d); table: (V,d); targets, valid: (B,S). The mean NLL
+    over valid positions, sum(nll valid) / max(sum(valid), 1), in chunks
+    of `chunk` rows (the last one ragged), each under
+    `torch.utils.checkpoint`, so that full-length logits never exist: a
+    chunk's (B, chunk, V) fp32 logits live during its own forward and
+    its recompute in the backward. Twin of JAX's `chunked_xent`, which
+    pads the last chunk with invalid rows instead."""
+    S = hidden.shape[1]
+    chunk = min(chunk, S)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, S, chunk):
+        rows = slice(c0, c0 + chunk)
+        part, n = ckpt.checkpoint(
+            _chunk_loss, hidden[:, rows], table, targets[:, rows].long(),
+            valid[:, rows].float(), label_smoothing, use_reentrant=False)
+        tot = tot + part
+        cnt = cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def lm_loss(params: LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            remat: str = "none", aux_weight: float = 0.01,
+            label_smoothing: float = 0.0):
+    """batch: tokens (B,S) [+ frames (B,T,d) for an encoder-decoder, +
+    patches (B,P,d) put ahead of the text]. The next-token NLL over the
+    text (targets are the tokens shifted left; the last position has
+    none), hidden rows of the patches dropped, plus `aux_weight` x the MoE
+    aux. Returns (loss, {"nll", "aux"}), fp32 0-d."""
+    tokens = batch["tokens"]
+    enc_memory = None
+    prefix = batch.get("patches")
+    if cfg.encoder_layers:
+        enc_memory = encoder_apply(params, cfg, batch["frames"], remat)
+    hidden, aux = lm_apply(params, cfg, tokens, prefix_embeds=prefix,
+                           enc_memory=enc_memory, return_hidden=True,
+                           remat=remat)
+    if prefix is not None:      # loss only over the text region
+        hidden = hidden[:, prefix.shape[1]:]
+    targets = F.pad(tokens[:, 1:], (0, 1))
+    valid = F.pad(torch.ones_like(tokens[:, 1:], dtype=torch.float32),
+                  (0, 1))
+    nll = chunked_xent(hidden, params.head_table, targets, valid,
+                       label_smoothing=label_smoothing)
+    loss = nll + aux_weight * aux
+    return loss, {"nll": nll, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    attention_reference, flash_attention,
+    attention_backward_reference, attention_reference, flash_attention,
+    flash_attention_backward, flash_forward,
 )
 from repro_torch.kernels.kmeans_assign import (  # noqa: E402
     kmeans_assign, kmeans_assign_reference, kmeans_update,
@@ -488,10 +489,18 @@ def test_flash_kernel_reads_strides_in_place(cuda):
 
 
 def test_flash_raises_on_grad_fp16_and_wide_heads(cuda):
+    """An input that requires a gradient now runs the forward's `LSE`
+    instance and, in the backward, the backward kernel (it used to
+    raise); fp16, head dims past 256 and a non-unit head-dim stride still
+    raise."""
     q = torch.randn((1, 8, 2, 16), device=cuda, requires_grad=True)
     kv = torch.randn((1, 8, 1, 16), device=cuda)
-    with pytest.raises(RuntimeError, match="gradient"):
-        flash_attention(q, kv, kv)
+    before = (flash_attention.launches, flash_attention_backward.launches)
+    flash_attention(q, kv, kv).sum().backward()
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_backward.launches) \
+        == (before[0] + 1, before[1] + 1)
+    assert q.grad is not None and bool(torch.isfinite(q.grad).all())
     with torch.no_grad():
         flash_attention(q, kv, kv)
     h = torch.zeros((1, 8, 2, 16), device=cuda, dtype=torch.float16)
@@ -502,6 +511,168 @@ def test_flash_raises_on_grad_fp16_and_wide_heads(cuda):
         flash_attention(w, w[:, :, :1], w[:, :, :1])
     with pytest.raises(ValueError):
         flash_attention(q.detach()[:, :, :, :8].transpose(2, 3), kv, kv)
+
+
+# (B, S, T, H, K, D, causal, window, prefix_len): causal, full, window,
+# prefix (cutting a key tile, with a window), S != T, ragged T, GQA, D 80
+FLASH_BWD_CASES = [
+    (2, 130, 130, 4, 2, 64, True, 0, 0),
+    (1, 200, 300, 4, 2, 100, False, 0, 0),
+    (1, 257, 257, 6, 3, 64, True, 100, 0),
+    (1, 96, 1500, 6, 6, 64, False, 0, 0),
+    (1, 300, 300, 8, 1, 256, True, 0, 100),
+    (1, 300, 300, 8, 2, 80, True, 64, 150),
+    (1, 200, 200, 4, 4, 128, True, 0, 0),
+    (1, 150, 150, 4, 1, 256, False, 0, 0)]
+
+
+def _bwd_inputs(dev, B, S, T, H, K, D, dt, seed):
+    g = _gen(dev, seed)
+    q = torch.randn((B, S, H, D), generator=g, device=dev).to(dt)
+    k = torch.randn((B, T, K, D), generator=g, device=dev).to(dt)
+    v = torch.randn((B, T, K, D), generator=g, device=dev).to(dt)
+    do = torch.randn((B, S, H, D), generator=g, device=dev).to(dt)
+    return q, k, v, do
+
+
+def _rel_l2(got, want):
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp(min=1e-30))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,T,H,K,D,causal,window,P", FLASH_BWD_CASES)
+def test_flash_backward_kernel_matches_plain(cuda, B, S, T, H, K, D, causal,
+                                             window, P, dtype):
+    """The forward's log-sum-exp against the plain one, and the backward
+    kernel against `attention_backward_reference` on the same q, k, v, o,
+    dO and lse: fp32 within the wkv backward's 1e-4 + 1e-3; bf16 (both
+    compute in fp32 and round once) within 1e-2 + 1e-2 and a relative L2
+    error of 1e-2."""
+    dt = getattr(torch, dtype)
+    q, k, v, do = _bwd_inputs(cuda, B, S, T, H, K, D, dt, S + T + D)
+    kw = dict(causal=causal, window=window, prefix_len=P)
+    o, lse = flash_forward(q, k, v, return_lse=True, **kw)
+    _, lse_ref = attention_reference(q, k, v, return_lse=True, **kw)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4 if dtype ==
+                               "float32" else 2e-2, rtol=1e-4)
+    before = flash_attention_backward.launches
+    got = flash_attention_backward(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_backward.launches == before + 1
+    want = attention_backward_reference(q, k, v, o, do, lse, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dt and a.shape == b.shape, name
+        if dtype == "float32":
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3, msg=name)
+        else:
+            torch.testing.assert_close(a.float(), b.float(), atol=1e-2,
+                                       rtol=1e-2, msg=name)
+            assert _rel_l2(a, b) <= 1e-2, name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_autograd_runs_the_backward_kernel(cuda, dtype):
+    """Autograd through flash on the card: one `LSE` forward and one
+    backward launch, gradients of views of a fused projection against
+    autograd of the plain version (fp32 1e-4 + 1e-3; bf16 a relative L2
+    error of 1e-2: the kernel rounds P before P V and takes delta from
+    the stored o), and two runs give the same bits."""
+    dt = getattr(torch, dtype)
+    B, S, H, K, D = 2, 300, 6, 2, 64
+    g = _gen(cuda, 11)
+    qkv0 = torch.randn((B, S, (H + 2 * K) * D), generator=g, device=cuda)
+    do = torch.randn((B, S, H, D), generator=g, device=cuda).to(dt)
+
+    def grads(fn):
+        qkv = qkv0.to(dt).requires_grad_()
+        q = qkv[..., :H * D].view(B, S, H, D)
+        k = qkv[..., H * D:(H + K) * D].view(B, S, K, D)
+        v = qkv[..., (H + K) * D:].view(B, S, K, D)
+        (fn(q, k, v, prefix_len=40) * do).sum().backward()
+        return qkv.grad
+
+    before = (flash_attention.launches, flash_attention_backward.launches)
+    got = grads(flash_attention)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_backward.launches) \
+        == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, grads(flash_attention))
+    want = grads(attention_reference)
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-3)
+    else:
+        assert _rel_l2(got, want) <= 1e-2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D,P", [(64, 0), (128, 0), (256, 0), (64, 100),
+                                 (256, 100)])
+def test_flash_lse_instances_keep_the_output_and_repeat(cuda, D, P, dtype):
+    """The `LSE` instance's output is bitwise the flagged-off one's, and
+    two backward launches give the same bits."""
+    dt = getattr(torch, dtype)
+    q, k, v, do = _bwd_inputs(cuda, 2, 333, 333, 4, 2, D, dt, D + P)
+    o, lse = flash_forward(q, k, v, prefix_len=P, return_lse=True)
+    assert torch.equal(o, flash_forward(q, k, v, prefix_len=P))
+    first = flash_attention_backward(q, k, v, o, do, lse, prefix_len=P)
+    again = flash_attention_backward(q, k, v, o, do, lse, prefix_len=P)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_flash_backward_resources_fit_a_block(cuda):
+    """Each backward instance's dynamic shared bytes, as its attributes
+    entry reports them, fit a block of the H100 (232,448 bytes);
+    registers and spills are printed."""
+    from repro_torch.kernels import _lib
+    for bf16 in (0, 1):
+        for D in (64, 128, 256):
+            for prefix in (0, 1):
+                for kernel in (1, 2):
+                    a = _lib.kernel_attributes(
+                        "rt_flash_attention_backward_attributes", bf16, D,
+                        prefix, kernel)
+                    print(bf16, D, prefix, kernel, a)
+                    assert 0 < a["dynamic_smem"] <= 232448
+            for lse in (0, 1):
+                a = _lib.kernel_attributes("rt_flash_attention_attributes",
+                                           bf16, D, 0, lse)
+                print("forward", bf16, D, lse, a)
+
+
+@pytest.mark.parametrize("arch", ["smollm_135m", "whisper_tiny",
+                                  "paligemma_3b", "semanticbbv_encoder"])
+def test_zoo_loss_grads_on_card_match_cpu(cuda, arch):
+    """`Model.loss` and every parameter's gradient of a scaled-down arch
+    (fp32), on the card (flash forward and backward kernels; wkv for the
+    encoder) against the CPU, per leaf within 1e-4 max(1, max|g|)."""
+    import dataclasses
+    from repro_torch.config import get_arch, scaled_down
+    from repro_torch.launch.train import lm_batch_fn
+    from repro_torch.models.model_zoo import build_model
+    cfg = dataclasses.replace(scaled_down(get_arch(arch)), dtype="float32",
+                              param_dtype="float32")
+    model = build_model(cfg)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        params = model.init(0, device=dev)
+        batch = lm_batch_fn(cfg.vocab_size, 2, 96, cfg, dev)(3)
+        before = flash_attention_backward.launches
+        loss, _ = model.loss(params, batch)
+        names, leaves = zip(*params.named_parameters())
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        runs[dev] = (float(loss), {n: g.cpu() for n, g in zip(names, grads)},
+                     flash_attention_backward.launches - before)
+    n_attn = sum(k == "attn" for k in cfg.blocks()) * (
+        2 if cfg.cross_attention else 1) + cfg.encoder_layers
+    assert runs["cpu"][2] == 0 and runs["cuda"][2] == n_attn
+    assert abs(runs["cpu"][0] - runs["cuda"][0]) <= 1e-4 * max(
+        1.0, abs(runs["cpu"][0]))
+    for name, want in runs["cpu"][1].items():
+        got = runs["cuda"][1][name]
+        bound = 1e-4 * max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) <= bound, name
 
 
 def test_zoo_on_card_matches_cpu(cuda):
