@@ -124,11 +124,15 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
  10. the zoo's training (seeded untrained weights): (a) the flash backward
      kernel against its plain version on the same q, k, v, o, dO and
      log-sum-exp at every row of FLASH_CASES in fp32 (1e-4 + 1e-3) and
-     bf16 (`flash_err`'s bounds), bitwise repeats, the `LSE` forward's
-     output bitwise the other instance's, fused-projection views and an
-     odd offset bitwise contiguous copies, autograd through flash against
-     autograd of the plain version, the instances' resources, and timed at
-     FLASH_BWD_SHAPES beside SDPA's backward and the bound; (b) fp32 on the
+     bf16 (`flash_err`'s bounds; its products on wgmma since PR 18),
+     bitwise repeats, the `LSE` forward's output bitwise the other
+     instance's, fused-projection views, a head-major view and an odd
+     offset bitwise contiguous copies (the bf16 kernels' three load
+     routes: TMA, 16-byte cp.async, element loads), autograd through
+     flash against autograd of the plain version, the instances'
+     resources (no bf16 instance spills), the HGMMA count of the bf16
+     dK/dV and dQ kernels' SASS (> 0), and timed at FLASH_BWD_SHAPES
+     beside SDPA's backward and the bound; (b) fp32 on the
      CPU against the card: `Model.loss` and every parameter's gradient of
      smollm-135m (full width, 2 layers), whisper-tiny (whole, 1500
      frames), paligemma-3b (full width, 2 layers) and the semanticbbv
@@ -168,11 +172,12 @@ slots at full width and 2 layers (device time by kind, busy share).
     python3 chip_smoke.py --versus OTHER_CHECKOUT
 
 runs none of that: it times wkv, the set-attention backward (SAB and
-PMA shapes), the two k-means kernels (the build's shape) and the bf16
-flash kernel (smollm's and qwen3-moe's prefill shapes; device time
-through a CUDA graph and back-to-back wrapper calls), and counts the
-shared loads and FMAs in their SASS (by the kernels' names before and
-since their redesigns), of the port
+PMA shapes), the two k-means kernels (the build's shape), the bf16
+flash kernel (smollm's and qwen3-moe's prefill shapes) and the bf16
+flash backward (FLASH_BWD_SHAPES; device time through a CUDA graph and
+back-to-back wrapper calls), and counts the shared loads, FMAs and
+HGMMAs in their SASS (by the kernels' names before and since their
+redesigns), of the port
 under OTHER_CHECKOUT/src and of this one, in turns
 (other, this, this, other), each in a process of its own, on one card:
 a before/after comparison of two commits on the same card.
@@ -187,6 +192,7 @@ by kind and the top kernels.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -397,6 +403,18 @@ def describe(a: dict) -> str:
             f"block, {a['local_bytes']} B local (spills) a thread")
 
 
+@functools.lru_cache(maxsize=None)
+def _sass(lib_path: str):
+    """The SASS of a library (`cuobjdump -sass`, once a process), or None
+    where the toolkit has no cuobjdump."""
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    tool = shutil.which("cuobjdump") or os.path.join(home, "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    return subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+
+
 def sass_counts(lib_path: str, function, ops=("HGMMA*",)):
     """Counts of the given opcodes in the SASS of the kernels whose name
     holds `function` (a string, or a tuple of strings that must all be
@@ -404,12 +422,9 @@ def sass_counts(lib_path: str, function, ops=("HGMMA*",)):
     matches exactly ("LDS" is the 4-byte shared load, "LDS.128" the
     16-byte one), or by prefix when it ends in "*"; never-executed `@!PT`
     placeholders are skipped."""
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    tool = shutil.which("cuobjdump") or os.path.join(home, "bin", "cuobjdump")
-    if not os.path.exists(tool):
+    sass = _sass(lib_path)
+    if sass is None:
         return None
-    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
     names = (function,) if isinstance(function, str) else function
     counts, inside = dict.fromkeys(ops, 0), False
     for line in sass.splitlines():
@@ -2855,6 +2870,9 @@ def check_flash_backward(dev, gen) -> dict:
     log(f"  flash backward at every FLASH_CASES row, fp32 and bf16: max abs "
         f"err {err:.3g}, bitwise repeats, LSE outputs bitwise")
 
+    # the bf16 kernels' three load routes: TMA (contiguous rows and the
+    # fused views), 16-byte cp.async (a head-major view: its strides do
+    # not grow with its dims, so no tensor map) and element loads (odd)
     B, S, H, K, D = FLASH_VIEW_SHAPE
     qkv = torch.randn((B, S, (H + 2 * K) * D), generator=gen,
                       device=dev).bfloat16()
@@ -2864,20 +2882,22 @@ def check_flash_backward(dev, gen) -> dict:
     buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)
     q_odd = buf[1:].view(q.shape)
     q_odd.copy_(q)
+    q_heads = q.transpose(1, 2).contiguous().transpose(1, 2)
     do = torch.randn((B, S, H, D), generator=gen, device=dev).bfloat16()
     o, lse = flash_forward(q.contiguous(), k.contiguous(), v.contiguous(),
                            return_lse=True)
     want = flash_attention_backward(q.contiguous(), k.contiguous(),
                                     v.contiguous(), o, do, lse)
     for name, args in (("fused-projection views", (q, k, v)),
+                       ("a head-major view", (q_heads, k, v)),
                        ("odd offset", (q_odd, k, v))):
         got = flash_attention_backward(*args, o, do, lse)
         require(all(torch.equal(a, b) for a, b in zip(got, want)),
                 f"flash backward {name}: not bit for bit the contiguous "
                 f"copies' result")
-    log("  flash backward on views of a fused projection and at an odd "
-        "offset: bit for bit the contiguous result")
-    del qkv, q, k, v, buf, q_odd, do, o, lse, want, got
+    log("  flash backward on views of a fused projection, a head-major "
+        "view and at an odd offset: bit for bit the contiguous result")
+    del qkv, q, k, v, buf, q_odd, q_heads, do, o, lse, want, got
 
     # the autograd path (LSE forward, then the backward kernel) against
     # autograd of the plain version
@@ -2937,12 +2957,26 @@ def check_flash_backward(dev, gen) -> dict:
                     log(f"  flash backward {'bf16' if bf else 'fp32'} "
                         f"{name} {'prefix' if prefix else 'causal/full'} "
                         f"instance for D <= {D}: {describe(a)}")
+                    require(not bf or a["local_bytes"] == 0,
+                            f"flash backward bf16 {name} at D <= {D}: "
+                            f"{a['local_bytes']} B of spills")
             for lse in (0, 1):
                 a = _lib.kernel_attributes("rt_flash_attention_attributes",
                                            bf, D, 0, lse)
                 log(f"  flash forward {'bf16' if bf else 'fp32'} "
                     f"{'LSE' if lse else 'plain'} instance for D <= {D}: "
                     f"{describe(a)}")
+    # the bf16 dK/dV and dQ kernels run their products on wgmma
+    hgmma = {}
+    for name in ("dkdv_wgmma_kernel", "dq_wgmma_kernel"):
+        sass = sass_counts(str(_lib.build_library()), name)
+        hgmma[name] = None if sass is None else sass["HGMMA*"]
+        if hgmma[name] is None:
+            log(f"  HGMMA in {name}'s SASS: not checked (no cuobjdump)")
+        else:
+            log(f"  HGMMA in {name}'s SASS: {hgmma[name]} instructions")
+            require(hgmma[name] > 0, f"the bf16 flash backward's {name} has "
+                    f"no HGMMA instruction")
 
     out = []
     for name, (B, S, T, H, K, D), causal, P in FLASH_BWD_SHAPES:
@@ -3004,7 +3038,7 @@ def check_flash_backward(dev, gen) -> dict:
                 shape=first["shape"],
                 extra=dict(registers=dkdv["registers"],
                            local_bytes=dkdv["local_bytes"],
-                           train_shapes=out[1:],
+                           hgmma=hgmma, train_shapes=out[1:],
                            autograd_bf16=[dict(what=k, max_abs_err=v[0],
                                                rel_l2=v[1])
                                           for k, v in auto.items()]))
@@ -3322,7 +3356,9 @@ def time_kernels(root: str) -> dict:
     out["kmeans_update"] = kernel_ms(lambda: kmeans_update(x, c, valid),
                                      reps=100)
     out["kmeans_assign"] = kernel_ms(lambda: kmeans_assign(x, c), reps=100)
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_backward, flash_forward,
+    )
     for name, (B, S, H, K, D) in (("flash_smollm", FLASH_CASES[0][:2]
                                    + FLASH_CASES[0][3:6]),
                                   ("flash_qwen3_moe", MOE_FLASH_SHAPE)):
@@ -3331,6 +3367,18 @@ def time_kernels(root: str) -> dict:
                               device=dev).bfloat16() for _ in range(2))
         out[name] = kernel_ms(lambda: flash_attention(q, kk, vv), reps=20)
         del q, kk, vv
+    # the bf16 flash backward at the training shapes (the same entry point
+    # since it was added)
+    for name, (B, S, T, H, K, D), causal, P in FLASH_BWD_SHAPES:
+        q, kk, vv = _flash_inputs(gen, dev, B, S, T, H, K, D, torch.bfloat16)
+        do = torch.randn((B, S, H, D), generator=gen, device=dev).bfloat16()
+        o, lse = flash_forward(q, kk, vv, causal=causal, prefix_len=P,
+                               return_lse=True)
+        out["flash_backward_" + name.replace(" ", "_")] = kernel_ms(
+            lambda: flash_attention_backward(q, kk, vv, o, do, lse,
+                                             causal=causal, prefix_len=P),
+            reps=5)
+        del q, kk, vv, do, o, lse
     # shared loads and FMAs of the kernels' SASS (the backward's and the
     # k-means kernels by their names before and since their redesigns)
     lib = str(_lib.build_library())
@@ -3345,6 +3393,14 @@ def time_kernels(root: str) -> dict:
         ("assign_rows_kernel", "assign_rows_kernel"),
         ("update_rows_kernel", "update_rows_kernel"),
         ("update_join_kernel", "update_join_kernel"))}
+    # the flash backward's kernels by their names before and since their
+    # redesign (the FMA kernels are fp32 only since)
+    out["sass"].update({name: sass_counts(lib, fn, SASS_OPS + ("HGMMA*",))
+                        for name, fn in (
+                            ("flash_dkdv_kernel", "dkdv_kernel"),
+                            ("flash_dq_kernel", "dq_kernel"),
+                            ("flash_dkdv_wgmma_kernel", "dkdv_wgmma_kernel"),
+                            ("flash_dq_wgmma_kernel", "dq_wgmma_kernel"))})
     return out
 
 

@@ -128,48 +128,72 @@
 //     past S), delta = rowsum(dO o), dS = p (dO.v - delta),
 //     dq = scale dS k, dk = scale dS^T q, dv = p^T dO,
 // dk and dv summed over the G query heads of each kv head. The masks are
-// the forward's, the PREFIX flag among them. delta comes from the stored
-// o (JAX takes it from the fp32 output before the cast): the same in
-// fp32, o's rounding apart in bf16. Arithmetic is fp32 for both dtypes
-// (bf16 inputs are widened as they are loaded), with no TF32 and no
-// atomics: each output element is summed by one thread in a fixed order,
-// so two runs give the same bits (the Trainer's exact resume needs them).
-//   * a pre-pass writes delta (fp32, (B, H, S)), a warp a row;
-//   * dkdv_kernel: one block of 256 threads (16 x 16) per (BK-key tile, kv
-//     head, batch row) keeps dK and dV of the tile (BK x D fp32) in
-//     registers and loops over the G query heads and the 64-row query
-//     tiles that see a key of the tile: from the tile's diagonal under the
-//     causal rule (from 0 when the tile starts inside the prefix), up to
-//     the window's reach past its last key. Each pair of tiles recomputes
-//     S and dP from transposed fp32 copies of q (scaled), dO, k and v in
-//     shared memory (rows padded to 65 or 33 floats), writes P and dS to
-//     shared memory, then dV += P^T dO and dK += dS^T q;
-//   * dq_kernel: one block per (64-query tile, head, batch row), heavy
-//     causal tiles first, loops over the forward's key tiles and keeps dQ
-//     (64 x D) in registers;
-//   * BK = 64 keys, 32 at D > 128, where 64-row fp32 copies of all four
-//     operands would not fit the 227 KB of shared memory a block may have
-//     (218,112 bytes at D 256; static_asserts in `launch` hold every
-//     instance to it, and rt_flash_attention_backward_attributes reports
-//     the bytes).
+// the forward's, the PREFIX flag among them, and every product is summed
+// in a fixed order with no atomics, so two runs give the same bits (the
+// Trainer's exact resume needs them). delta comes from the stored o (JAX
+// takes it from the fp32 output before the cast): the same in fp32, o's
+// rounding apart in bf16. A pre-pass writes delta (fp32, (B, H, S)), a
+// warp a row; then a dK/dV kernel (a block per key tile, kv head and
+// batch row, looping over the G query heads and the 64-row query tiles
+// that see the tile: from its diagonal under the causal rule, from 0 when
+// it starts inside the prefix, up to the window's reach past its last
+// key) and a dQ kernel (a block per 64-query tile, head and batch row,
+// heavy causal tiles first, looping over the forward's key tiles), each
+// keeping its gradient in registers and writing it once.
+//
 // What bounds it on the H100: at smollm-135m's training shape (B 8, S
 // 2048, H 9, K 3, D 64, causal) it must move about 100 MB (q, k, v, o, dO
 // read once, dq, dk, dv written once, lse and delta: 0.03 ms at 3.35
 // TB/s) and do 10 D operations per visible pair (5 products), 96.7 GFLOP:
-// 0.098 ms at the bf16 tensor-core rate. So the operations bound it. This
-// first design does 7 D FMAs a pair on the FMA pipes (fp32 peak 67
-// TFLOP/s), and its inner loops issue one shared load per two FMAs: it
-// takes 6.83 ms there (PERF.md), 11x SDPA's backward. Left to a redesign:
-// the five products on wgmma (bf16 operands from swizzled shared memory,
-// fp32 accumulators: S^T and dP^T per key tile as in FA3's backward), Q,
-// dO and the row stats by TMA into a ring of stages, dQ accumulated
-// across key tiles without atomics (a second pass, or one dQ block per
-// query tile as here), and rows with no visible key as the forward has
-// them (the test shapes stay out of that regime, as the forward's do).
+// 0.098 ms at the bf16 tensor-core rate. So the operations bound it.
+//
+// bf16 (bwd::dkdv_wgmma_kernel, bwd::dq_wgmma_kernel): the products on the
+// tensor cores, as FA3's backward computes them. Per 64 x 64 (key, query)
+// tile the dK/dV kernel takes S^T = K Q^T and dP^T = V dO^T by wgmma
+// (both operands K-major in the 128-byte swizzled layout of the forward's
+// `wg::` helpers), P^T = 2^(S^T scale log2(e) - lse log2(e)) (0 where
+// masked; the rule only on tiles that reach past the diagonal, the window
+// or the edges), dS^T = P^T (dP^T - delta) in fp32 registers, then dV +=
+// P^T dO and dK += dS^T Q by wgmma with P^T and dS^T as register A
+// operands and dO, Q MN-major through the descriptor's transpose bit; the
+// dQ kernel recomputes S and dP (7 products a pair against the least 5:
+// the price of a dQ without atomics) and does dQ += dS K. P^T and dS^T go
+// to the tensor cores in two bf16 parts (hi + lo, a second product on the
+// residual): one bf16 rounding broke the bf16 gates (1e-2 + 1e-2) at
+// single dV, dK elements of long causal rows on the card, and the CPU
+// model of the arithmetic (tests/test_torch_lm_train.py::_wgmma_model)
+// fails them without the low part. The streamed tiles come by TMA into a
+// ring of two stages (see tma_stage), unaligned views by load_tile. A block
+// holds 64 rows and one warpgroup at D <= 128 (three blocks an SM at D 64,
+// two at D 128); at D 256 two warpgroups split the 256 columns of dK, dV
+// (dQ) and swap S and dP through shared memory, one block an SM
+// (231,440 bytes). Registers on the H100, 0 spills: dK/dV 165-167, 239-240,
+// 242-244; dQ 122-125, 154-157, 143-145 at D <= 64, 128, 256. Tried on the
+// card and dropped (smollm's shape, A/B in one call, probe builds not
+// kept): two warpgroups of 64 keys sharing a block's loads, in lockstep
+// behind its barriers (slower than a warpgroup a block); issuing the next
+// step's S / dP ahead of this one's gradients (ptxas serialised every
+// wgmma, C7515: slower); the exponentials overlapping the dP product
+// inside a step (no gain); rings of three and four stages (slower: fewer
+// blocks an SM); 16-byte cp.async for the streamed tiles (their issue
+// took a larger share of a D 64 step than any product: slower than TMA).
+//
+// fp32 (bwd::dkdv_kernel, bwd::dq_kernel): PR 17's kernels, unchanged:
+// tensor cores would need TF32, which breaks the fp32 bound (1e-4 + 1e-3).
+// fp32 FMAs on the SIMT pipes: one block of 256 threads (16 x 16) a BK-key
+// tile (64 keys, 32 at D > 128, where fp32 copies of four 64-row operands
+// would not fit 227 KB: static_asserts in `launch` hold every instance to
+// it) recomputes S and dP from transposed fp32 copies of q (scaled), dO,
+// k and v in shared memory (rows padded to 65 or 33 floats); 7 D FMAs a
+// visible pair at one shared load per two FMAs: 6.83 ms at smollm's shape
+// (PERF.md). Rows with no visible key get p = 0 in both (the forward
+// averages their keys; the test shapes stay out of that regime).
+#include <cuda.h>
 #include <cuda_bf16.h>
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -819,10 +843,6 @@ template <>
 __device__ __forceinline__ float from_f<float>(float x) {
   return x;
 }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // delta[b, h, i] = sum_d dO[b, i, h, d] O[b, i, h, d] in fp32: a warp a
 // row, lanes over d, summed by shuffles (the same bits every run).
@@ -1194,6 +1214,646 @@ cudaError_t dispatch(const T* q, const T* k, const T* v, const T* dout, const fl
                                window, prefix_len, scale, stream);
 }
 
+// ---- bf16: the five products on wgmma ----
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// (qpos, kpos) is a visible pair of stored rows and existing keys.
+template <bool PREFIX>
+__device__ __forceinline__ bool visible(int qpos, int kpos, int S, int Tk, int causal, int window,
+                                        int prefix_len) {
+  bool vis = qpos < S && kpos < Tk;
+  if (causal) vis = vis && (kpos <= qpos || (PREFIX && kpos < prefix_len));
+  if (window > 0) vis = vis && (qpos - kpos < window);
+  return vis;
+}
+
+// A pair of fp32 values (x0 in the low half) in two bf16 parts: hi =
+// bf16(x), lo = bf16(x - hi), so that hi + lo is x within 2^-16 of it. One
+// bf16 rounding of P^T or dS^T moves single dV, dK elements of long causal
+// rows by up to the bf16 gates' bound (atol 1e-2 + rtol 1e-2) on the card;
+// the low part's second product takes that away. Elements x, x + 1 (x = 8
+// kk + 2 r) of an m64n64 accumulator fragment are register r of the A
+// operand of k16 step kk (its columns 16 kk .. 16 kk + 15 are the step's k
+// range, as in the forward's P V).
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// lse and delta of rows r0 .. r0 + 63 of row block bh ((B, H, S) fp32)
+// into sL[0 .. 63] and sL[64 .. 127] by 4-byte cp.async, 0 past S.
+__device__ __forceinline__ void load_stats(uint32_t sL, const float* lse, const float* delta,
+                                           int64_t bh, int r0, int S, int tid) {
+  if (tid >= 128) return;
+  const int pos = r0 + (tid & 63);
+  const float* src = tid < 64 ? lse : delta;
+  const bool ok = pos < S;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(sL + 4 * tid),
+               "l"(ok ? src + bh * S + pos : src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+// Writes rows (row, row + 8) x this warpgroup's DCW column blocks (from
+// block c0) of an m64 accumulator, times mul, in bf16: dst + r * rs is row
+// r; rows at or past nrows are dropped.
+template <int DCW>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, int64_t rs, const float (&acc)[DCW][32],
+                                           int row, int nrows, int c0, int lane, int D,
+                                           float mul) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row + 8 * i >= nrows) continue;
+    __nv_bfloat16* out = dst + static_cast<int64_t>(row + 8 * i) * rs;
+#pragma unroll
+    for (int c = 0; c < DCW; ++c)
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+        const int col = (c0 + c) * 64 + nb * 8 + (lane & 3) * 2;
+        const float lo = acc[c][nb * 4 + 2 * i] * mul;
+        const float hi = acc[c][nb * 4 + 2 * i + 1] * mul;
+        if (col + 1 < D && (D & 1) == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(out + col) = __floats2bfloat162_rn(lo, hi);
+        } else {
+          if (col < D) out[col] = __float2bfloat16(lo);
+          if (col + 1 < D) out[col + 1] = __float2bfloat16(hi);
+        }
+      }
+  }
+}
+
+// A block owns 64 rows (keys of dK/dV, queries of dQ). SPLIT false: one
+// warpgroup holds every column of their gradient, and several blocks share
+// an SM, each at its own step (two warpgroups in one block, sharing its
+// loads, ran in lockstep behind its barriers: slower on the H100). At D
+// 64 the dK/dV kernel is held to 168 registers, three blocks an SM
+// (faster than two, and 0 spills once dS is split into its fragments
+// pair by pair); true (D 256): two warpgroups, warpgroup 0 computes S (or S^T),
+// warpgroup 1 dP (dP^T), they swap the two fp32 fragments through shared
+// memory (the same thread of each holds the same elements), and each
+// keeps half the columns of the gradient.
+constexpr uint32_t kSwapBytes = 2 * 32 * 128 * 4;  // two fp32 m64n64 fragments
+
+// The streamed tiles (Q and dO for dK/dV, K and V for dQ) come by TMA when
+// every row is 16-byte aligned and the views' strides grow with their dims
+// (`tma`): one thread asks for each 64 x 64 box of a stage, and an
+// mbarrier a stage counts the bytes in. Issuing them by 16-byte cp.async
+// from every thread took a larger share of a D 64 step than any product
+// on the H100 (per-phase clock64 stamps in a probe build). A tensor map
+// is encoded on the host each call (the views are strided), over dims
+// (D, heads, rows, batch) with 64 x 1 x 64 x 1 boxes in the 128-byte
+// swizzled layout: the layout load_tile writes, so both routes give the
+// same bits. The other tiles, loaded once a block, and every tile of an
+// unaligned view go by load_tile.
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// The one arrival of the stage's phase, and the bytes its copies bring.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+// The 64 x 64 box at (column x, head y, row z, batch w) of a map into dst.
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map, uint32_t bar, int x,
+                                        int y, int z, int w) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z), "r"(w), "r"(bar)
+      : "memory");
+}
+// Both 64-row tiles of a stage (DP / 64 boxes each) at row r0 of head h.
+template <int DP>
+__device__ __forceinline__ void tma_stage(uint32_t dst, const CUtensorMap* a, const CUtensorMap* b,
+                                          uint32_t bar, int h, int r0, int batch) {
+  constexpr uint32_t kTile = 64 * DP * 2;
+  mbar_expect_tx(bar, 2 * kTile);
+#pragma unroll
+  for (int c = 0; c < DP / 64; ++c) {
+    tma_box(dst + c * 64 * wg::kRowBytes, a, bar, c * 64, h, r0, batch);
+    tma_box(dst + kTile + c * 64 * wg::kRowBytes, b, bar, c * 64, h, r0, batch);
+  }
+}
+
+template <int DP, bool SPLIT>
+constexpr size_t dkdv_wgmma_smem() {
+  // K, V of the block's keys; two stages of Q, dO; the swap buffers; two
+  // stages of lse, delta; two mbarriers; slack to align to the swizzle atom
+  return 6 * static_cast<size_t>(64 * DP * 2) + (SPLIT ? kSwapBytes : 0) + 2 * 128 * 4 + 16 +
+         wg::kAtomBytes;
+}
+
+template <int DP, bool SPLIT>
+constexpr size_t dq_wgmma_smem() {
+  // Q, dO of the block's rows; two stages of K, V; the swap buffers; two
+  // mbarriers; slack
+  return 6 * static_cast<size_t>(64 * DP * 2) + (SPLIT ? kSwapBytes : 0) + 16 + wg::kAtomBytes;
+}
+
+// The S / dP pair of one tile in both layouts: SPLIT hands warpgroup 0's
+// fragment (in a) to warpgroup 1 and back through swap, so that on return
+// s holds warpgroup 0's product and dp warpgroup 1's in both; else a and
+// the second product are simply s and dp.
+template <bool SPLIT>
+__device__ __forceinline__ void swap_pair(float (&s)[32], float (&dp)[32], float* swap, int wgi,
+                                          int t) {
+  if constexpr (SPLIT) {
+#pragma unroll
+    for (int x = 0; x < 32; ++x) swap[wgi * 4096 + x * 128 + t] = s[x];
+    __syncthreads();
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const float other = swap[(1 - wgi) * 4096 + x * 128 + t];
+      dp[x] = wgi == 0 ? other : s[x];
+      s[x] = wgi == 0 ? s[x] : other;
+    }
+  }
+}
+
+// dK and dV of one (b, kv head, 64-key tile): loops over the G query
+// heads of the kv head and the 64-row query tiles that see a key of the
+// tile (PR 17's bounds), Q, dO, lse and delta in a ring of two stages.
+// Per tile: S^T = K Q^T and dP^T = V dO^T (wgmma, both K-major), P^T =
+// 2^(S^T scale log2(e) - lse log2(e)) (0 where masked), dS^T = P^T (dP^T -
+// delta), then dV += P^T dO and dK += dS^T Q (wgmma, P^T and dS^T in two
+// bf16 parts as register A operands, dO and Q MN-major). dK, dV stay in
+// fp32 registers, written once (dK times scale).
+template <int DP, bool SPLIT, bool PREFIX>
+__global__ void __launch_bounds__(SPLIT ? 256 : 128, SPLIT ? 1 : (DP == 64 ? 3 : 2))
+dkdv_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                  const float* __restrict__ lse, const float* __restrict__ delta,
+                  __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S, int Tk,
+                  int H, int K, int G, int D, int qsb, int qss, int qsh, int ksb, int kss,
+                  int ksh, int vsb, int vss, int vsh, int dsb, int dss, int dsh, int causal,
+                  int window, int prefix_len, int vec, int tma, float scale, float scale_log2,
+                  const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_o) {
+  constexpr int NT = SPLIT ? 256 : 128;
+  constexpr int DC = DP / 64;
+  constexpr int DCW = SPLIT ? DC / 2 : DC;  // column blocks of dK, dV a warpgroup keeps
+  static_assert(!SPLIT || DC % 2 == 0, "the split halves the column blocks");
+  constexpr uint32_t kQBytes = 64 * DP * 2;  // a 64-row tile of q, dO, k or v
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = wg::smem_u32(smem_raw);
+  const uint32_t sK = (raw + wg::kAtomBytes - 1) & ~(wg::kAtomBytes - 1u);
+  const uint32_t sV = sK + kQBytes;
+  const uint32_t sQ0 = sV + kQBytes;  // stage st: Q at sQ0 + 2 st kQBytes, dO after it
+  const uint32_t sSwap = sQ0 + 4 * kQBytes;
+  const uint32_t sStats = sSwap + (SPLIT ? kSwapBytes : 0);  // stage st: 128 floats
+  const uint32_t sBar = sStats + 2 * 512;                     // stage st: an mbarrier
+  float* swap = reinterpret_cast<float*>(smem_raw + (sSwap - raw));
+  const float* stats = reinterpret_cast<const float*>(smem_raw + (sStats - raw));
+
+  const int tid = threadIdx.x;
+  const int wgi = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int kh = blockIdx.x % K;
+  const int b = blockIdx.x / K;
+  const int k0 = blockIdx.y * 64;  // under the causal rule the first key tiles are the heaviest
+  const int krow = k0 + warp * 16 + lane / 4;  // this thread's keys: krow, krow + 8
+  const int c0 = SPLIT ? wgi * DCW : 0;        // its first column block
+  const __nv_bfloat16* kb = k + static_cast<int64_t>(b) * ksb + static_cast<int64_t>(kh) * ksh;
+  const __nv_bfloat16* vb = v + static_cast<int64_t>(b) * vsb + static_cast<int64_t>(kh) * vsh;
+
+  // query rows that see some key of the tile: from its diagonal under the
+  // causal rule (every row when it starts inside the prefix), up to the
+  // window's reach past its last key
+  int q_begin = 0;
+  if (causal && !(PREFIX && k0 < prefix_len)) q_begin = k0;
+  int q_end = S;
+  if (window > 0) q_end = min(q_end, k0 + 63 + window);
+  const int n_q = q_end > q_begin ? (q_end - q_begin + 63) / 64 : 0;
+  const int n = G * n_q;  // (head, query tile) steps, heads outer
+
+  auto load_stage = [&](int u) {
+    const int h = kh * G + u / n_q;
+    const int q0 = q_begin + (u % n_q) * 64;
+    const uint32_t sQs = sQ0 + (u & 1) * 2 * kQBytes;
+    if (tma) {
+      if (tid == 0) tma_stage<DP>(sQs, &tm_q, &tm_o, sBar + (u & 1) * 8, h, q0, b);
+    } else {
+      wg::load_tile<64, DP, NT>(sQs,
+                                q + static_cast<int64_t>(b) * qsb + static_cast<int64_t>(h) * qsh,
+                                q0, S, qss, D, vec, tid);
+      wg::load_tile<64, DP, NT>(
+          sQs + kQBytes, dout + static_cast<int64_t>(b) * dsb + static_cast<int64_t>(h) * dsh, q0,
+          S, dss, D, vec, tid);
+    }
+    load_stats(sStats + (u & 1) * 512, lse, delta, static_cast<int64_t>(b) * H + h, q0, S, tid);
+  };
+  if (tma && tid == 0) {
+    mbar_init(sBar);
+    mbar_init(sBar + 8);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  wg::load_tile<64, DP, NT>(sK, kb, k0, Tk, kss, D, vec, tid);
+  wg::load_tile<64, DP, NT>(sV, vb, k0, Tk, vss, D, vec, tid);
+  if (n > 0) load_stage(0);
+  wg::cp_async_commit();
+
+  float ak[DCW][32], av[DCW][32];
+#pragma unroll
+  for (int c = 0; c < DCW; ++c)
+#pragma unroll
+    for (int x = 0; x < 32; ++x) ak[c][x] = av[c][x] = 0.f;
+
+  for (int u = 0; u < n; ++u) {
+    const int q0 = q_begin + (u % n_q) * 64;
+    const uint32_t sQs = sQ0 + (u & 1) * 2 * kQBytes;
+    const uint32_t sOs = sQs + kQBytes;
+    const float* sL = stats + (u & 1) * 128;
+    wg::cp_async_wait_all();  // this step's tiles have landed (this thread's part)
+    wg::fence_async_shared();
+    // every thread's part has landed, and every warpgroup is done with the
+    // previous step, whose stage the next step's loads now refill
+    __syncthreads();
+    if (tma) mbar_wait(sBar + (u & 1) * 8, (u >> 1) & 1);  // and this step's boxes
+    if (u + 1 < n) {
+      load_stage(u + 1);
+      wg::cp_async_commit();
+    }
+    // the bounds skip no tile that a key of this one sees; the rule applies
+    // where the tile reaches past the diagonal (beyond the prefix), the
+    // window's edge, S or T
+    const bool need_mask = q0 + 64 > S || k0 + 64 > Tk ||
+                           (causal && k0 + 63 > q0 && (!PREFIX || k0 + 64 > prefix_len)) ||
+                           (window > 0 && q0 + 63 - k0 >= window);
+    float s[32], dp[32];
+    wg::fence_regs(s);
+    wg::fence_regs(dp);
+    wg::wgmma_fence();
+    if constexpr (SPLIT) {  // S^T in warpgroup 0, dP^T in 1: the same code, other tiles
+      wg::issue_qk<DP, 64, 64>(s, wgi ? sV : sK, wgi ? sOs : sQs);
+    } else {
+      wg::issue_qk<DP, 64, 64>(s, sK, sQs);
+      wg::issue_qk<DP, 64, 64>(dp, sV, sOs);
+    }
+    wg::wgmma_commit();
+    wg::wgmma_wait_all();
+    wg::fence_regs(s);
+    wg::fence_regs(dp);
+    // P^T in place of S^T: rows are keys, columns queries q0 + nb 8 +
+    // (lane & 3) 2 + e of this thread
+    if (!SPLIT || wgi == 0) {
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const int col = (x >> 2) * 8 + (lane & 3) * 2 + (x & 1);
+        float p = wg::ex2(fmaf(s[x], scale_log2, -sL[col] * kLog2e));
+        if (need_mask && !visible<PREFIX>(q0 + col, krow + 8 * ((x >> 1) & 1), S, Tk, causal,
+                                          window, prefix_len))
+          p = 0.f;
+        s[x] = p;
+      }
+    }
+    swap_pair<SPLIT>(s, dp, swap, wgi, tid % 128);
+    // dS^T = P^T (dP^T - delta), pair by pair into its fragments beside
+    // P^T's (each pair of P^T and dP^T dies as its fragments are made)
+    uint32_t p_hi[4][4], p_lo[4][4], ds_hi[4][4], ds_lo[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int x = 8 * kk + 2 * r;
+        const float* sD = sL + 64 + (x >> 2) * 8 + (lane & 3) * 2;
+        split_bf16(s[x], s[x + 1], p_hi[kk][r], p_lo[kk][r]);
+        split_bf16(s[x] * (dp[x] - sD[0]), s[x + 1] * (dp[x + 1] - sD[1]), ds_hi[kk][r],
+                   ds_lo[kk][r]);
+      }
+#pragma unroll
+    for (int c = 0; c < DCW; ++c) {
+      wg::fence_regs(av[c]);
+      wg::fence_regs(ak[c]);
+    }
+    wg::wgmma_fence();
+    wg::issue_pv<DCW, 64>(av, p_hi, sOs + c0 * 64 * wg::kRowBytes);
+    wg::issue_pv<DCW, 64>(av, p_lo, sOs + c0 * 64 * wg::kRowBytes);
+    wg::issue_pv<DCW, 64>(ak, ds_hi, sQs + c0 * 64 * wg::kRowBytes);
+    wg::issue_pv<DCW, 64>(ak, ds_lo, sQs + c0 * 64 * wg::kRowBytes);
+    wg::wgmma_commit();
+    wg::wgmma_wait_all();
+#pragma unroll
+    for (int c = 0; c < DCW; ++c) {
+      wg::fence_regs(av[c]);
+      wg::fence_regs(ak[c]);
+    }
+  }
+  wg::cp_async_wait_all();  // no copy in flight at exit (n == 0)
+
+  const int64_t at = (static_cast<int64_t>(b) * Tk * K + kh) * D;
+  store_rows<DCW>(dk + at, static_cast<int64_t>(K) * D, ak, krow, Tk, c0, lane, D, scale);
+  store_rows<DCW>(dv + at, static_cast<int64_t>(K) * D, av, krow, Tk, c0, lane, D, 1.f);
+}
+
+// dQ of one (b, head, 64-query tile): loops over the forward's key
+// tiles of 64 (K, V in a ring of two stages): S = Q K^T and dP = dO V^T
+// (wgmma, K-major), P = 2^(S scale log2(e) - lse log2(e)) (0 where
+// masked), dS = P (dP - delta), dQ += dS K (wgmma, dS in two bf16 parts
+// as register A operands, K MN-major). dQ stays in fp32 registers, written
+// once, times scale: no atomics, the same bits every run.
+template <int DP, bool SPLIT, bool PREFIX>
+__global__ void __launch_bounds__(SPLIT ? 256 : 128, SPLIT ? 1 : 2)
+dq_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                __nv_bfloat16* __restrict__ dq, int S, int Tk, int H, int G, int D, int qsb,
+                int qss, int qsh, int ksb, int kss, int ksh, int vsb, int vss, int vsh, int dsb,
+                int dss, int dsh, int causal, int window, int prefix_len, int vec, int tma,
+                float scale, float scale_log2, const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v) {
+  constexpr int NT = SPLIT ? 256 : 128;
+  constexpr int DC = DP / 64;
+  constexpr int DCW = SPLIT ? DC / 2 : DC;
+  static_assert(!SPLIT || DC % 2 == 0, "the split halves the column blocks");
+  constexpr uint32_t kKBytes = 64 * DP * 2;  // a 64-row tile of q, dO, k or v
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = wg::smem_u32(smem_raw);
+  const uint32_t sQ = (raw + wg::kAtomBytes - 1) & ~(wg::kAtomBytes - 1u);
+  const uint32_t sO = sQ + kKBytes;
+  const uint32_t sK0 = sO + kKBytes;  // stage st: K at sK0 + 2 st kKBytes, V after it
+  const uint32_t sSwap = sK0 + 4 * kKBytes;
+  const uint32_t sBar = sSwap + (SPLIT ? kSwapBytes : 0);  // stage st: an mbarrier
+  float* swap = reinterpret_cast<float*>(smem_raw + (sSwap - raw));
+
+  const int tid = threadIdx.x;
+  const int wgi = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int h = blockIdx.x % H;
+  const int b = blockIdx.x / H;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;  // heavy tiles first
+  const int q0 = qt * 64;
+  const int qrow = q0 + warp * 16 + lane / 4;  // this thread's rows: qrow, qrow + 8
+  const int c0 = SPLIT ? wgi * DCW : 0;
+  const __nv_bfloat16* kb = k + static_cast<int64_t>(b) * ksb + static_cast<int64_t>(h / G) * ksh;
+  const __nv_bfloat16* vb = v + static_cast<int64_t>(b) * vsb + static_cast<int64_t>(h / G) * vsh;
+
+  // key tiles with any visible key for some row of this tile (the forward's)
+  int k_end = Tk;
+  if (causal) k_end = min(k_end, PREFIX ? max(min(S, q0 + 64), prefix_len) : min(S, q0 + 64));
+  int k_begin = 0;
+  if (window > 0) {
+    const int lo = q0 - window + 1;  // first key row q0 can see
+    if (lo > 0) k_begin = (lo / 64) * 64;
+  }
+  const int n = k_end > k_begin ? (k_end - k_begin + 63) / 64 : 0;
+
+  // K and V of key tile u into its stage
+  auto load_stage = [&](int u) {
+    const uint32_t sKs = sK0 + (u & 1) * 2 * kKBytes;
+    const int k0 = k_begin + u * 64;
+    if (tma) {
+      if (tid == 0) tma_stage<DP>(sKs, &tm_k, &tm_v, sBar + (u & 1) * 8, h / G, k0, b);
+    } else {
+      wg::load_tile<64, DP, NT>(sKs, kb, k0, Tk, kss, D, vec, tid);
+      wg::load_tile<64, DP, NT>(sKs + kKBytes, vb, k0, Tk, vss, D, vec, tid);
+    }
+  };
+  if (tma && tid == 0) {
+    mbar_init(sBar);
+    mbar_init(sBar + 8);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  wg::load_tile<64, DP, NT>(sQ, q + static_cast<int64_t>(b) * qsb + static_cast<int64_t>(h) * qsh,
+                            q0, S, qss, D, vec, tid);
+  wg::load_tile<64, DP, NT>(sO,
+                            dout + static_cast<int64_t>(b) * dsb + static_cast<int64_t>(h) * dsh,
+                            q0, S, dss, D, vec, tid);
+  if (n > 0) load_stage(0);
+  wg::cp_async_commit();
+  // lse log2(e) and delta of this thread's rows (0 past S)
+  float l2[2], dl[2];
+  const int64_t bh = static_cast<int64_t>(b) * H + h;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qpos = qrow + 8 * i;
+    l2[i] = qpos < S ? lse[bh * S + qpos] * kLog2e : 0.f;
+    dl[i] = qpos < S ? delta[bh * S + qpos] : 0.f;
+  }
+
+  float acc[DCW][32];
+#pragma unroll
+  for (int c = 0; c < DCW; ++c)
+#pragma unroll
+    for (int x = 0; x < 32; ++x) acc[c][x] = 0.f;
+
+  for (int u = 0; u < n; ++u) {
+    const int k0 = k_begin + u * 64;
+    const uint32_t sKs = sK0 + (u & 1) * 2 * kKBytes;
+    const uint32_t sVs = sKs + kKBytes;
+    wg::cp_async_wait_all();
+    wg::fence_async_shared();
+    __syncthreads();
+    if (tma) mbar_wait(sBar + (u & 1) * 8, (u >> 1) & 1);
+    if (u + 1 < n) {
+      load_stage(u + 1);
+      wg::cp_async_commit();
+    }
+    // rows past S are computed on zeros and dropped
+    const bool need_mask = k0 + 64 > Tk ||
+                           (causal && k0 + 63 > q0 && (!PREFIX || k0 + 64 > prefix_len)) ||
+                           (window > 0 && q0 + 63 - k0 >= window);
+    float s[32], dp[32];
+    wg::fence_regs(s);
+    wg::fence_regs(dp);
+    wg::wgmma_fence();
+    if constexpr (SPLIT) {  // S in warpgroup 0, dP in 1
+      wg::issue_qk<DP, 64, 64>(s, wgi ? sO : sQ, wgi ? sVs : sKs);
+    } else {
+      wg::issue_qk<DP, 64, 64>(s, sQ, sKs);
+      wg::issue_qk<DP, 64, 64>(dp, sO, sVs);
+    }
+    wg::wgmma_commit();
+    wg::wgmma_wait_all();
+    wg::fence_regs(s);
+    wg::fence_regs(dp);
+    if (!SPLIT || wgi == 0) {
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const int i = (x >> 1) & 1;
+        float p = wg::ex2(fmaf(s[x], scale_log2, -l2[i]));
+        if (need_mask && !visible<PREFIX>(qrow + 8 * i,
+                                          k0 + (x >> 2) * 8 + (lane & 3) * 2 + (x & 1), S, Tk,
+                                          causal, window, prefix_len))
+          p = 0.f;
+        s[x] = p;
+      }
+    }
+    swap_pair<SPLIT>(s, dp, swap, wgi, tid % 128);
+    // dS = P (dP - delta), pair by pair into its fragments
+    uint32_t ds_hi[4][4], ds_lo[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int x = 8 * kk + 2 * r;
+        const float d = dl[r & 1];  // x's row: qrow + 8 (r & 1)
+        split_bf16(s[x] * (dp[x] - d), s[x + 1] * (dp[x + 1] - d), ds_hi[kk][r], ds_lo[kk][r]);
+      }
+#pragma unroll
+    for (int c = 0; c < DCW; ++c) wg::fence_regs(acc[c]);
+    wg::wgmma_fence();
+    wg::issue_pv<DCW, 64>(acc, ds_hi, sKs + c0 * 64 * wg::kRowBytes);
+    wg::issue_pv<DCW, 64>(acc, ds_lo, sKs + c0 * 64 * wg::kRowBytes);
+    wg::wgmma_commit();
+    wg::wgmma_wait_all();
+#pragma unroll
+    for (int c = 0; c < DCW; ++c) wg::fence_regs(acc[c]);
+  }
+  wg::cp_async_wait_all();
+
+  store_rows<DCW>(dq + (static_cast<int64_t>(b) * S * H + h) * D, static_cast<int64_t>(H) * D,
+                  acc, qrow, S, c0, lane, D, scale);
+}
+
+// Whether the head dim's instance splits the columns between its two
+// warpgroups (D 256: 64 x 256 fp32 of dK and of dV would not fit one's
+// registers).
+template <int DP>
+constexpr bool wgmma_split() {
+  return DP > 128;
+}
+
+// Every row of a (n0, n1, n2, D) bf16 view with element strides s0, s1,
+// s2 starts 16-byte aligned (the strides of dims of size 1 unread), as
+// kernels/_lib.py::rows_aligned_16 decides for the forward.
+inline bool rows_aligned_16(const void* p, int D, int n0, int s0, int n1, int s1, int n2, int s2) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && D % 8 == 0 && (n0 <= 1 || s0 % 8 == 0) &&
+         (n1 <= 1 || s1 % 8 == 0) && (n2 <= 1 || s2 % 8 == 0);
+}
+
+// The tensor maps of the streamed tiles, when `tma`.
+struct TileMaps {
+  CUtensorMap q, o, k, v;
+  int tma;
+};
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver (through the runtime: the library
+// links no libcuda), or null.
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// The map of a (batch n3, rows n2, heads n1, D) bf16 view with element
+// strides s3, s2, s1 over dims (D, heads, rows, batch), 64 x 1 x 64 x 1
+// boxes, 128-byte swizzle, zeros past the edges. False (and no map) unless
+// each dim's stride covers the dims inside it (a dim of size 1 takes the
+// packed stride), as a tensor map wants.
+inline bool encode_map(CUtensorMap* m, const void* p, int D, int n1, int s1, int n2, int s2,
+                       int n3, int s3) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(n1),
+                              static_cast<cuuint64_t>(n2), static_cast<cuuint64_t>(n3)};
+  const int64_t strides[3] = {s1, s2, s3};
+  cuuint64_t bytes[3];
+  uint64_t extent = static_cast<uint64_t>(D) * 2;  // bytes the inner dims span
+  for (int i = 0; i < 3; ++i) {
+    uint64_t b = static_cast<uint64_t>(strides[i]) * 2;
+    if (dims[i + 1] <= 1) b = (extent + 15) / 16 * 16;
+    if (strides[i] < 0 || b % 16 != 0 || b < extent || b >= (1ull << 40)) return false;
+    bytes[i] = b;
+    extent = b * dims[i + 1];
+  }
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims, bytes, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DP, bool PREFIX>
+cudaError_t launch_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                         const __nv_bfloat16* dout, const float* lse, const float* delta,
+                         __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv, int B, int S,
+                         int Tk, int H, int K, int D, int qsb, int qss, int qsh, int ksb, int kss,
+                         int ksh, int vsb, int vss, int vsh, int dsb, int dss, int dsh,
+                         int causal, int window, int prefix_len, int vec, const TileMaps& maps,
+                         float scale, cudaStream_t stream) {
+  constexpr bool SPLIT = wgmma_split<DP>();
+  constexpr int NT = SPLIT ? 256 : 128;
+  static_assert(dkdv_wgmma_smem<DP, SPLIT>() <= kMaxSmem, "dK/dV tiles exceed shared memory");
+  static_assert(dq_wgmma_smem<DP, SPLIT>() <= kMaxSmem, "dQ tiles exceed shared memory");
+  const int G = H / K;
+  const float scale_log2 = scale * kLog2e;
+  const int n_k = (Tk + 63) / 64;
+  const int n_q = (S + 63) / 64;
+  if (n_k > 65535 || n_q > 65535 || static_cast<int64_t>(B) * H > 0x7fffffff)
+    return cudaErrorInvalidValue;
+  if (Tk > 0) {
+    auto kernel = dkdv_wgmma_kernel<DP, SPLIT, PREFIX>;
+    constexpr size_t smem = dkdv_wgmma_smem<DP, SPLIT>();
+    cudaError_t err = rt::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(B * K, n_k), NT, smem, stream>>>(
+        q, k, v, dout, lse, delta, dk, dv, S, Tk, H, K, G, D, qsb, qss, qsh, ksb, kss, ksh, vsb,
+        vss, vsh, dsb, dss, dsh, causal, window, prefix_len, vec, maps.tma, scale, scale_log2,
+        maps.q, maps.o);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  auto kernel = dq_wgmma_kernel<DP, SPLIT, PREFIX>;
+  constexpr size_t smem = dq_wgmma_smem<DP, SPLIT>();
+  cudaError_t err = rt::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(B * H, n_q), NT, smem, stream>>>(
+      q, k, v, dout, lse, delta, dq, S, Tk, H, G, D, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh,
+      dsb, dss, dsh, causal, window, prefix_len, vec, maps.tma, scale, scale_log2, maps.k,
+      maps.v);
+  return cudaGetLastError();
+}
+
+template <bool PREFIX>
+cudaError_t dispatch_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                           const __nv_bfloat16* v, const __nv_bfloat16* dout, const float* lse,
+                           const float* delta, __nv_bfloat16* dq, __nv_bfloat16* dk,
+                           __nv_bfloat16* dv, int B, int S, int Tk, int H, int K, int D, int qsb,
+                           int qss, int qsh, int ksb, int kss, int ksh, int vsb, int vss, int vsh,
+                           int dsb, int dss, int dsh, int causal, int window, int prefix_len,
+                           int vec, const TileMaps& maps, float scale, cudaStream_t stream) {
+  if (D <= 64)
+    return launch_wgmma<64, PREFIX>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, Tk, H, K, D, qsb,
+                                    qss, qsh, ksb, kss, ksh, vsb, vss, vsh, dsb, dss, dsh, causal,
+                                    window, prefix_len, vec, maps, scale, stream);
+  if (D <= 128)
+    return launch_wgmma<128, PREFIX>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, Tk, H, K, D,
+                                     qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, dsb, dss, dsh,
+                                     causal, window, prefix_len, vec, maps, scale, stream);
+  return launch_wgmma<256, PREFIX>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, Tk, H, K, D, qsb,
+                                   qss, qsh, ksb, kss, ksh, vsb, vss, vsh, dsb, dss, dsh, causal,
+                                   window, prefix_len, vec, maps, scale, stream);
+}
+
 // The pre-pass, then dK/dV, then dQ, on `stream`; delta is scratch of
 // B H S floats.
 template <typename T>
@@ -1221,13 +1881,32 @@ int backward(const void* q_, const void* k_, const void* v_, const void* o_, con
   T* dq = static_cast<T*>(dq_);
   T* dk = static_cast<T*>(dk_);
   T* dv = static_cast<T*>(dv_);
-  if (causal && prefix_len > 0)
-    return dispatch<true, T>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, Tk, H, K, D, qsb, qss,
-                             qsh, ksb, kss, ksh, vsb, vss, vsh, dsb, dss, dsh, causal, window,
-                             prefix_len, scale, stream);
-  return dispatch<false, T>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, Tk, H, K, D, qsb, qss,
-                            qsh, ksb, kss, ksh, vsb, vss, vsh, dsb, dss, dsh, causal, window, 0,
-                            scale, stream);
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    const int vec = rows_aligned_16(q, D, B, qsb, S, qss, H, qsh) &&
+                    rows_aligned_16(k, D, B, ksb, Tk, kss, K, ksh) &&
+                    rows_aligned_16(v, D, B, vsb, Tk, vss, K, vsh) &&
+                    rows_aligned_16(dout, D, B, dsb, S, dss, H, dsh);
+    TileMaps maps{};
+    maps.tma = vec && encode_map(&maps.q, q, D, H, qsh, S, qss, B, qsb) &&
+               encode_map(&maps.o, dout, D, H, dsh, S, dss, B, dsb) &&
+               encode_map(&maps.k, k, D, K, ksh, Tk, kss, B, ksb) &&
+               encode_map(&maps.v, v, D, K, vsh, Tk, vss, B, vsb);
+    if (causal && prefix_len > 0)
+      return dispatch_wgmma<true>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, Tk, H, K, D, qsb,
+                                  qss, qsh, ksb, kss, ksh, vsb, vss, vsh, dsb, dss, dsh, causal,
+                                  window, prefix_len, vec, maps, scale, stream);
+    return dispatch_wgmma<false>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, Tk, H, K, D, qsb,
+                                 qss, qsh, ksb, kss, ksh, vsb, vss, vsh, dsb, dss, dsh, causal,
+                                 window, 0, vec, maps, scale, stream);
+  } else {  // fp32: PR 17's FMA kernels
+    if (causal && prefix_len > 0)
+      return dispatch<true, T>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, Tk, H, K, D, qsb, qss,
+                               qsh, ksb, kss, ksh, vsb, vss, vsh, dsb, dss, dsh, causal, window,
+                               prefix_len, scale, stream);
+    return dispatch<false, T>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, Tk, H, K, D, qsb, qss,
+                              qsh, ksb, kss, ksh, vsb, vss, vsh, dsb, dss, dsh, causal, window, 0,
+                              scale, stream);
+  }
 }
 
 }  // namespace bwd
@@ -1372,6 +2051,24 @@ int backward_attributes(int D, int kernel, int* out) {
   return backward_instance_attributes<16, PREFIX, T>(kernel, out);
 }
 
+template <int DP, bool PREFIX>
+int wgmma_instance_attributes(int kernel, int* out) {
+  constexpr bool SPLIT = bwd::wgmma_split<DP>();
+  if (kernel == 0) return attributes(bwd::delta_kernel<__nv_bfloat16>, 0, out);
+  if (kernel == 1)
+    return attributes(bwd::dkdv_wgmma_kernel<DP, SPLIT, PREFIX>,
+                      bwd::dkdv_wgmma_smem<DP, SPLIT>(), out);
+  return attributes(bwd::dq_wgmma_kernel<DP, SPLIT, PREFIX>, bwd::dq_wgmma_smem<DP, SPLIT>(),
+                    out);
+}
+
+template <bool PREFIX>
+int wgmma_attributes(int D, int kernel, int* out) {
+  if (D <= 64) return wgmma_instance_attributes<64, PREFIX>(kernel, out);
+  if (D <= 128) return wgmma_instance_attributes<128, PREFIX>(kernel, out);
+  return wgmma_instance_attributes<256, PREFIX>(kernel, out);
+}
+
 }  // namespace
 
 // The forward kernel a launch at head dim D takes (bf16 != 0: the wgmma
@@ -1394,8 +2091,8 @@ extern "C" int rt_flash_attention_attributes(int bf16, int D, int prefix, int ls
 extern "C" int rt_flash_attention_backward_attributes(int bf16, int D, int prefix, int kernel,
                                                       int* out) {
   if (D <= 0 || D > 256 || kernel < 0 || kernel > 2) return cudaErrorInvalidValue;
-  if (bf16) return prefix ? backward_attributes<true, __nv_bfloat16>(D, kernel, out)
-                          : backward_attributes<false, __nv_bfloat16>(D, kernel, out);
+  if (bf16) return prefix ? wgmma_attributes<true>(D, kernel, out)
+                          : wgmma_attributes<false>(D, kernel, out);
   return prefix ? backward_attributes<true, float>(D, kernel, out)
                 : backward_attributes<false, float>(D, kernel, out);
 }

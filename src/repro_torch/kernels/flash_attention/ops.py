@@ -14,8 +14,10 @@ dtype: bf16 runs on the tensor cores (`wgmma`), fp32 on plain fp32 FMAs
 kernel loads its tiles by 16-byte copies when every row of q, k and v
 starts 16-byte aligned, and element by element otherwise
 (`_lib.rows_aligned_16`). Each can also write the log-sum-exp of every
-row (its `LSE` instances), which the backward kernels (namespace `bwd`,
-fp32 FMAs for both dtypes) read.
+row (its `LSE` instances), which the backward kernels (namespace `bwd`)
+read: bf16 on the tensor cores (`wgmma`, P and dS in two bf16 parts,
+the streamed tiles by TMA when the rows are 16-byte aligned), fp32 on
+plain fp32 FMAs.
 
 `flash_attention` is differentiable on both devices. CPU tensors take the
 plain version, through autograd. On CUDA, when grad mode is on and q, k
@@ -129,8 +131,9 @@ def flash_attention_backward(q, k, v, o, do, lse, causal: bool = True,
 
     CPU tensors take the plain version (`attention_backward_reference`);
     CUDA tensors launch the backward kernels (a delta pre-pass, dK/dV,
-    dQ; fp32 arithmetic, no atomics: the same bits every run), q, k, v,
-    o and do read through their strides."""
+    dQ; bf16 products on `wgmma` with fp32 sums, fp32 on FMAs; no
+    atomics: the same bits every run), q, k, v, o and do read through
+    their strides."""
     if _lib.device_kind(q, k, v, o, do, lse) == "cpu":
         return attention_backward_reference(q, k, v, o, do, lse, causal,
                                             window, prefix_len)

@@ -514,7 +514,9 @@ def test_flash_raises_on_grad_fp16_and_wide_heads(cuda):
 
 
 # (B, S, T, H, K, D, causal, window, prefix_len): causal, full, window,
-# prefix (cutting a key tile, with a window), S != T, ragged T, GQA, D 80
+# prefix (cutting a key tile, with a window), S != T, ragged T, GQA, D 80;
+# the last row: D 256 (two warpgroups splitting the columns in bf16) over
+# 8 query heads and a ragged cross T
 FLASH_BWD_CASES = [
     (2, 130, 130, 4, 2, 64, True, 0, 0),
     (1, 200, 300, 4, 2, 100, False, 0, 0),
@@ -523,7 +525,8 @@ FLASH_BWD_CASES = [
     (1, 300, 300, 8, 1, 256, True, 0, 100),
     (1, 300, 300, 8, 2, 80, True, 64, 150),
     (1, 200, 200, 4, 4, 128, True, 0, 0),
-    (1, 150, 150, 4, 1, 256, False, 0, 0)]
+    (1, 150, 150, 4, 1, 256, False, 0, 0),
+    (1, 130, 333, 8, 1, 256, False, 0, 0)]
 
 
 def _bwd_inputs(dev, B, S, T, H, K, D, dt, seed):
@@ -620,10 +623,29 @@ def test_flash_lse_instances_keep_the_output_and_repeat(cuda, D, P, dtype):
     assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
+@pytest.mark.parametrize("D", [64, 256])
+def test_flash_backward_load_routes_are_bitwise(cuda, D):
+    """The bf16 backward's three ways of loading a tile give the same bits:
+    TMA (contiguous rows), 16-byte cp.async (a head-major view, whose
+    strides do not grow with its dims: no tensor map) and element loads
+    (q at an odd offset)."""
+    q, k, v, do = _bwd_inputs(cuda, 2, 200, 200, 4, 2, D, torch.bfloat16, D)
+    o, lse = flash_forward(q, k, v, prefix_len=40, return_lse=True)
+    want = flash_attention_backward(q, k, v, o, do, lse, prefix_len=40)
+    heads = q.transpose(1, 2).contiguous().transpose(1, 2)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
+    odd = buf[1:].view(q.shape)
+    odd.copy_(q)
+    for name, view in (("head-major", heads), ("odd offset", odd)):
+        assert torch.equal(view, q)
+        got = flash_attention_backward(view, k, v, o, do, lse, prefix_len=40)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), name
+
+
 def test_flash_backward_resources_fit_a_block(cuda):
     """Each backward instance's dynamic shared bytes, as its attributes
-    entry reports them, fit a block of the H100 (232,448 bytes);
-    registers and spills are printed."""
+    entry reports them, fit a block of the H100 (232,448 bytes), and no
+    bf16 (wgmma) instance spills; registers and spills are printed."""
     from repro_torch.kernels import _lib
     for bf16 in (0, 1):
         for D in (64, 128, 256):
@@ -634,6 +656,8 @@ def test_flash_backward_resources_fit_a_block(cuda):
                         prefix, kernel)
                     print(bf16, D, prefix, kernel, a)
                     assert 0 < a["dynamic_smem"] <= 232448
+                    if bf16:
+                        assert a["local_bytes"] == 0, (D, prefix, kernel)
             for lse in (0, 1):
                 a = _lib.kernel_attributes("rt_flash_attention_attributes",
                                            bf16, D, 0, lse)

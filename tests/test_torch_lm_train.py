@@ -1,6 +1,8 @@
 """The port's LM-zoo training on the CPU against the JAX package: the
 plain flash backward against `jax.vjp` of `_chunked_attention`, a numpy
-model of the backward kernels' tile loops, `chunked_xent`, `lm_loss` and
+model of the fp32 backward kernels' tile loops, a CPU model of the bf16
+(wgmma) kernels' tiles and arithmetic against both, `chunked_xent`,
+`lm_loss` and
 every gradient against `jax.grad` of JAX's `lm_loss` for all eleven
 archs (scaled down, fp32), the remat policies, Trainer steps against
 JAX's Trainer, exact resume, checkpoints in the stacked layout both
@@ -132,12 +134,13 @@ def test_backward_reference_keeps_bf16():
 
 
 # ---------------------------------------------------------------------------
-# a numpy model of the backward kernels' tile loops
+# a numpy model of the fp32 backward kernels' tile loops
 # ---------------------------------------------------------------------------
 
 def _bwd_tiles(S, T, causal, window, P, BK, ignore_prefix=False):
-    """The (query tile, key tile) pairs each backward kernel of
-    `csrc/flash_attention.cu` visits: dK/dV loops over query tiles from
+    """The (query tile, key tile) pairs each fp32 backward kernel of
+    `csrc/flash_attention.cu` (`bwd::dkdv_kernel`, `bwd::dq_kernel`)
+    visits: dK/dV loops over query tiles from
     the key tile's diagonal (from 0 when it starts inside the prefix) up
     to the window's reach past its last key; dQ over the forward's key
     tiles. Tiles of 64 queries and BK keys. `ignore_prefix` is a mutation
@@ -196,6 +199,238 @@ def test_backward_tile_loops_cover_the_mask(S, T, causal, window, P, BK):
     if causal and 64 <= P < T:
         assert _uncovered(S, T, causal, window, P, BK,
                           ignore_prefix=True) > 0
+
+
+# ---------------------------------------------------------------------------
+# a model of the bf16 backward kernels on wgmma: tiles and arithmetic
+# ---------------------------------------------------------------------------
+
+def _wgmma_tiles(S, T, causal, window, P, ignore_prefix=False):
+    """The steps of the bf16 kernels (`bwd::dkdv_wgmma_kernel`,
+    `bwd::dq_wgmma_kernel`), in their order, from their loop bounds and
+    `need_mask` tests: a dK/dV block (64 keys) loops over the 64-row query
+    tiles from its diagonal (from 0 when it starts inside the prefix) up to
+    the window's reach, giving (k0, q0, need_mask) per head; a dQ block (64
+    rows) over the forward's 64-key tiles, giving (q0, k0, need_mask). Every
+    step sees a visible pair, so neither kernel skips one. `ignore_prefix`
+    is a mutation (the causal bounds alone)."""
+    P = P if causal and not ignore_prefix else 0
+    dkdv, dq = [], []
+    for k0 in range(0, T, 64):
+        q_begin = k0 if causal and not (P > 0 and k0 < P) else 0
+        q_end = S if window <= 0 else min(S, k0 + 63 + window)
+        for q0 in range(q_begin, q_end, 64):
+            dkdv.append((k0, q0, (
+                q0 + 64 > S or k0 + 64 > T
+                or (causal and k0 + 63 > q0 and k0 + 64 > P)
+                or (window > 0 and q0 + 63 - k0 >= window))))
+    for q0 in range(0, S, 64):
+        k_end = T
+        if causal:
+            k_end = min(k_end, max(min(S, q0 + 64), P) if P > 0
+                        else min(S, q0 + 64))
+        k_begin = 0
+        if window > 0 and q0 - window + 1 > 0:
+            k_begin = ((q0 - window + 1) // 64) * 64
+        for k0 in range(k_begin, k_end, 64):
+            dq.append((q0, k0, (
+                k0 + 64 > T
+                or (causal and k0 + 63 > q0 and k0 + 64 > P)
+                or (window > 0 and q0 + 63 - k0 >= window))))
+    return dkdv, dq
+
+
+def _visible(qpos, kpos, S, T, causal, window, P):
+    vis = (qpos < S) & (kpos < T)
+    if causal:
+        vis &= (kpos <= qpos) | (kpos < P)
+    if window > 0:
+        vis &= qpos - kpos < window
+    return vis
+
+
+def _rows(x, r0, n):
+    """Rows r0 .. r0 + 63 of x (B, n, ...) along dim 1, zeros past n."""
+    out = x.new_zeros((x.shape[0], 64) + tuple(x.shape[2:]))
+    out[:, :max(0, min(64, n - r0))] = x[:, r0:r0 + 64]
+    return out
+
+
+def _wgmma_model(q, k, v, o, do, lse, causal, window, P, mutate=None):
+    """torch (CPU) model of the bf16 kernels' arithmetic over their tiles
+    (`_wgmma_tiles`; D 256's column split changes no sum): delta = rowsum(dO
+    o) from the stored o; per 64 x 64 tile S^T and dP^T (fp32 sums of bf16
+    values), P^T = 2^(S^T scale log2(e) - lse log2(e)) with the rule
+    applied only where the kernel applies it, dS^T = P^T (dP^T - delta);
+    dV += P^T dO, dK += dS^T Q and dQ += dS K each as two products of bf16
+    parts (hi = bf16(x), lo = bf16(x - hi)), fp32 sums, dK and dQ times
+    scale, one rounding to bf16. `mutate`: "hi_only" drops the low parts
+    (one bf16 rounding of P^T and dS^T); "ignore_prefix" drops the prefix
+    rule from the loop bounds; "unmasked" never applies the rule."""
+    B, S, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    P = P if causal else 0
+    scale, log2e = D ** -0.5, 1.4426950408889634
+    f = [t.float() for t in (q, k, v, do)]
+    qf, kf, vf, dof = f
+    delta = (dof * o.float()).sum(-1)                       # (B, S, H)
+    lse2 = lse.float().permute(0, 2, 1) * log2e             # (B, S, H)
+    bf = lambda x: x.bfloat16().float()                     # noqa: E731
+
+    def mm(a, b):   # a @ b from a's bf16 parts, hi then lo
+        hi = bf(a)
+        return hi @ b if mutate == "hi_only" else hi @ b + bf(a - hi) @ b
+    dkdv, dq_tiles = _wgmma_tiles(S, T, causal, window, P,
+                                  ignore_prefix=mutate == "ignore_prefix")
+    masked = mutate != "unmasked"
+    dk = torch.zeros(B, T + 64, K, D)
+    dv = torch.zeros(B, T + 64, K, D)
+    dq = torch.zeros(B, S + 64, H, D)
+    ar = torch.arange(64)
+    for kh in range(K):
+        for h in range(kh * G, (kh + 1) * G):
+            for kw0, q0, need in dkdv:
+                kt, vt = _rows(kf[:, :, kh], kw0, T), _rows(vf[:, :, kh], kw0, T)
+                qt, dot = _rows(qf[:, :, h], q0, S), _rows(dof[:, :, h], q0, S)
+                l2 = _rows(lse2[:, :, h], q0, S)[:, None, :]
+                dl = _rows(delta[:, :, h], q0, S)[:, None, :]
+                st = kt @ qt.transpose(1, 2)                 # (B, keys, queries)
+                p = torch.exp2(st * (scale * log2e) - l2)
+                if need and masked:
+                    p = torch.where(_visible((q0 + ar)[None, :], (kw0 + ar)[:, None],
+                                             S, T, causal, window, P), p, 0.0)
+                ds = p * (vt @ dot.transpose(1, 2) - dl)
+                dv[:, kw0:kw0 + 64, kh] += mm(p, dot)
+                dk[:, kw0:kw0 + 64, kh] += mm(ds, qt)
+    for h in range(H):
+        kh = h // G
+        for qw0, k0, need in dq_tiles:
+            qt, dot = _rows(qf[:, :, h], qw0, S), _rows(dof[:, :, h], qw0, S)
+            kt, vt = _rows(kf[:, :, kh], k0, T), _rows(vf[:, :, kh], k0, T)
+            l2 = _rows(lse2[:, :, h], qw0, S)[:, :, None]
+            dl = _rows(delta[:, :, h], qw0, S)[:, :, None]
+            p = torch.exp2(qt @ kt.transpose(1, 2) * (scale * log2e) - l2)
+            if need and masked:
+                p = torch.where(_visible((qw0 + ar)[:, None], (k0 + ar)[None, :],
+                                         S, T, causal, window, P), p, 0.0)
+            dq[:, qw0:qw0 + 64, h] += mm(p * (dot @ vt.transpose(1, 2) - dl), kt)
+    return ((dq[:, :S] * scale).bfloat16(), (dk[:, :T] * scale).bfloat16(),
+            dv[:, :T].bfloat16())
+
+
+def _bf16_close(got, want):
+    """The card's bf16 gates (chip_smoke's `flash_err`): |got - want| <=
+    1e-2 + 1e-2 |want| everywhere and a relative L2 error of 1e-2."""
+    if not isinstance(want, torch.Tensor):
+        want = torch.from_numpy(np.array(want, np.float32))
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    rel = float((got - want).norm() / want.norm().clamp(min=1e-30))
+    return bool((diff <= 1e-2 + 1e-2 * want.abs()).all()) and rel <= 1e-2
+
+
+# the card tests' FLASH_BWD_CASES (tests/test_torch_gpu.py):
+# (B, S, T, H, K, D, causal, window, prefix_len)
+WGMMA_CASES = [
+    (2, 130, 130, 4, 2, 64, True, 0, 0),
+    (1, 200, 300, 4, 2, 100, False, 0, 0),
+    (1, 257, 257, 6, 3, 64, True, 100, 0),
+    (1, 96, 1500, 6, 6, 64, False, 0, 0),
+    (1, 300, 300, 8, 1, 256, True, 0, 100),
+    (1, 300, 300, 8, 2, 80, True, 64, 150),
+    (1, 200, 200, 4, 4, 128, True, 0, 0),
+    (1, 150, 150, 4, 1, 256, False, 0, 0),
+    (1, 130, 333, 8, 1, 256, False, 0, 0)]
+
+
+def _wgmma_inputs(B, S, T, H, K, D, causal, window, P, seed):
+    """bf16 q, k, v, dO from a seeded numpy draw, with the plain forward's
+    stored bf16 o and fp32 log-sum-exp."""
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (torch.from_numpy(a).bfloat16()
+                   for a in _qkv(rng, B, S, T, H, K, D))
+    o, lse = attention_reference(q, k, v, causal=causal, window=window,
+                                 prefix_len=P, return_lse=True)
+    return q, k, v, do, o, lse
+
+
+@pytest.mark.parametrize("B,S,T,H,K,D,causal,window,P", WGMMA_CASES)
+def test_wgmma_backward_model_matches_plain_and_jax(B, S, T, H, K, D, causal,
+                                                    window, P):
+    """The bf16 kernels' arithmetic and tiles (`_wgmma_model`: P^T and
+    dS^T in two bf16 parts before their products) against
+    `attention_backward_reference` on the same bf16 q, k, v, o, dO and lse,
+    and against `jax.vjp` of `_chunked_attention` on the same values,
+    within the card's bf16 gates (1e-2 + 1e-2, relative L2 1e-2)."""
+    q, k, v, do, o, lse = _wgmma_inputs(B, S, T, H, K, D, causal, window, P,
+                                        S + T + D)
+    got = _wgmma_model(q, k, v, o, do, lse, causal, window, P)
+    kw = dict(causal=causal, window=window, prefix_len=P)
+    plain = attention_backward_reference(q, k, v, o, do, lse, **kw)
+    mode = "prefix" if causal and P else "causal" if causal else "full"
+    bias = jattn._mask_bias(mode, jnp.arange(S), jnp.arange(T), window, P)
+    _, vjp = jax.vjp(lambda a, b, c: jattn._chunked_attention(a, b, c, bias,
+                                                              32),
+                     *(jnp.asarray(t.float().numpy()) for t in (q, k, v)))
+    want = vjp(jnp.asarray(do.float().numpy()))
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, plain, want):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape, name
+        assert _bf16_close(a, b), f"{name} against the plain backward"
+        assert _bf16_close(a, c), f"{name} against jax.vjp"
+
+
+@pytest.mark.parametrize("mutate,case", [
+    ("hi_only", WGMMA_CASES[2]),
+    ("ignore_prefix", WGMMA_CASES[4]),
+    ("ignore_prefix", WGMMA_CASES[5]),
+    ("unmasked", WGMMA_CASES[0])])
+def test_wgmma_backward_model_mutations_fail(mutate, case):
+    """On the inputs of `test_wgmma_backward_model_matches_plain_and_jax`,
+    dropping the low bf16 parts (at a windowed causal row: single dV
+    elements of early keys move past the bound), dropping the prefix rule
+    from the new bounds, or never applying the mask each break the bf16
+    gates the kernel is held to."""
+    q, k, v, do, o, lse = _wgmma_inputs(*case, sum(case[1:3]) + case[5])
+    got = _wgmma_model(q, k, v, o, do, lse, *case[6:], mutate=mutate)
+    kw = dict(causal=case[6], window=case[7], prefix_len=case[8])
+    plain = attention_backward_reference(q, k, v, o, do, lse, **kw)
+    assert not all(_bf16_close(a, b) for a, b in zip(got, plain))
+
+
+@pytest.mark.parametrize("S,T,causal,window,P", [
+    (300, 300, True, 0, 0), (300, 300, True, 0, 100), (260, 260, True, 70, 150),
+    (130, 1500, False, 0, 0), (200, 200, False, 50, 0), (333, 333, True, 0, 1000),
+    (500, 500, True, 128, 0), (100, 100, True, 0, 31), (2048, 2048, True, 0, 256),
+    (1500, 1500, False, 0, 0), (448, 1500, False, 0, 0), (1000, 1000, True, 128, 200)])
+def test_wgmma_tiles_cover_the_mask_once(S, T, causal, window, P):
+    """Every visible pair of the plain mask lies in exactly one step of
+    each bf16 kernel, every step holds a visible pair, every step that
+    applies no rule holds only visible pairs, and without the prefix in
+    the bounds some pairs are missed."""
+    qpos = np.arange(S)[:, None]
+    kpos = np.arange(T)[None, :]
+    vis = _visible(qpos, kpos, S, T, causal, window, P if causal else 0)
+
+    def counts(ignore_prefix=False):
+        dkdv, dq = _wgmma_tiles(S, T, causal, window, P, ignore_prefix)
+        out = []
+        for tiles, key_first in ((dkdv, True), (dq, False)):
+            seen = np.zeros((S + 64, T + 64), int)
+            for a, b, need in tiles:
+                k0, q0 = (a, b) if key_first else (b, a)
+                seen[q0:q0 + 64, k0:k0 + 64] += 1
+                assert vis[q0:q0 + 64, k0:k0 + 64].any()
+                if not need:   # dQ leaves rows past S unmasked: never stored
+                    assert k0 + 64 <= T and (q0 + 64 <= S or not key_first)
+                    assert vis[q0:q0 + 64, k0:k0 + 64].all()
+            out.append(seen[:S, :T])
+        return out
+
+    for seen in counts():
+        assert (seen[vis] == 1).all() and seen.max() <= 1
+    if causal and 64 <= P < T:
+        assert any((seen[vis] == 0).any() for seen in counts(True))
 
 
 # ---------------------------------------------------------------------------
