@@ -145,14 +145,37 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
      steps of whisper-tiny (8 x (1500 frames + 448 tokens)) and
      paligemma-3b at 2 layers (4 x (256 patches + 768 tokens)); then,
      after the path's launches are read, the step-10 resume witness
-     (bitwise; deterministic algorithms from (c) on).
+     (bitwise; deterministic algorithms from (c) on);
+ 11. bf16 Stage 1 / Stage 2 (dtype "bfloat16"): (a) the bf16 instances of
+     wkv, its backward and both set-attention kernels bit for bit the fp32
+     instances on the upcast inputs (the serving and training shapes of
+     phase 2, ragged N and M, N and M past one tile, dh 37, 40, 44 and
+     128), against their plain versions at the JAX suite's bf16 bounds
+     (plus one bf16 spacing where both sides round a bf16 output), each
+     timed beside its fp32 instance, with its registers, spills and
+     shared bytes (against the plans); (b) the default configs at bf16 on
+     the CPU against the card: BBEs of 64 blocks, signatures of fp32 BBEs
+     (fp32 activations on bf16 weights, within 1e-5) and of bf16 BBEs,
+     Stage-1 and Stage-2 gradients per leaf, the card's fp32 evaluation
+     of the same weights as the yardstick; (c) phase 4's serving path at
+     bf16 (the BBE index fp32), each stage's wall time beside phase 4's,
+     all 36 wkv launches the bf16 instance, Stage 2 on the fp32 one; (d)
+     6 Stage-1 pre-training steps of 64 x 128 tokens at bf16, 12 wkv
+     forward and 12 backward launches a step, all bf16, beside phase 5b's
+     fp32 figures, then the step-3 resume, bitwise; (e) 3 Stage-2 steps of
+     64 triplets on a bf16 BBE matrix, 9 set-attention forward and 9
+     backward launches a step, all bf16.
 The line before the last is the JSON kernel summary: `launches` counts
 each kernel on its own path (serving; training for the set-attention
 backward; Stage-1 training for the wkv backward; the zoo for flash; the
 zoo's training for the flash backward), `launches_by_path` on each path
 that launched it (serve, lifecycle, simpoint, train, stage1_training,
 zoo, zoo_recurrent, zoo_moe, zoo_encdec, zoo_vlm, zoo_train); the
-launches of comparisons and witness runs count on none. wkv's entry also carries `zoo_shapes`, phase 7a's numbers at
+launches of comparisons and witness runs count on none. The records of
+wkv, its backward and both set-attention kernels carry `bf16`, phase
+11's numbers of their bf16 instances (ms beside the fp32 instance's,
+bound, error, registers, spills, launches by path with the bf16
+instance's among them: serve_bf16, stage1_training_bf16, stage2_bf16). wkv's entry also carries `zoo_shapes`, phase 7a's numbers at
 the decode and prefill shapes, and flash's `moe_shape`, phase 8a's, and
 `modal_shapes`, phase 9a's. The last line is {"ok": true, "device":
 {...}}. Exits non-zero without CUDA.
@@ -160,9 +183,12 @@ the decode and prefill shapes, and flash's `moe_shape`, phase 8a's, and
     python3 chip_smoke.py --moe
     python3 chip_smoke.py --modal
     python3 chip_smoke.py --lm-train
+    python3 chip_smoke.py --bf16
 
-run the setup and phase 8 alone, 6a's flash cases and phase 9, or phase
-10, and
+run the setup and phase 8 alone, 6a's flash cases and phase 9, phase
+10, or phase 11 (after the world's generation; it then prints its own
+JSON line, {"bf16": ...}, and takes fp32 steps itself for 11d's
+comparison), and
 
     python3 chip_smoke.py --profile-moe
 
@@ -317,6 +343,39 @@ ROUTING_ULPS = 8
 # SASS opcodes counted in the register-tiled kernels: 4- and 16-byte
 # shared loads against the FMAs they feed
 SASS_OPS = ("LDS", "LDS.128", "FFMA", "FMUL", "SHFL*")
+# phase 11 (bf16 Stage 1 / Stage 2):
+# The JAX suite's bf16 bounds of each kernel against its plain version
+# (atol, rtol; tests/test_kernels.py: wkv :48, set attention :145, its
+# gradients :247)
+BF16_KERNEL_BOUNDS = {"wkv": (5e-2, 1e-3), "wkv_backward": (5e-2, 1e-3),
+                      "set_attention": (3e-2, 1e-3),
+                      "set_attention_backward": (5e-2, 1e-3)}
+# a bf16 output of a kernel and of its plain version each round their fp32
+# value once, so where the two fp32 values straddle a rounding boundary
+# they differ by one bf16 spacing, at most 2^-7 of the value: added to the
+# rtol of those comparisons (the suite's own cases are small enough that
+# its atol covers it; Stage-1 training's gradients are not)
+BF16_SPACING = 2.0 ** -7
+# 11b: the full-width bf16 models CPU vs card stage by stage (the
+# embedding, each block or MAB, the head), each stage given the CPU's input
+# and, backwards, the CPU's cotangent: its output within BF16_MODULE_REL
+# (relative L2: 2^-9, half of bf16's unit roundoff; the two devices round
+# the same values but where their fp32 sums differ in the last place, and
+# one flip of an L2 norm's rounding moves its whole row), its gradients
+# per leaf within BF16_GRAD_REL and their median leaf within
+# BF16_MEDIAN_REL (the CPU tests' bounds against JAX). The card's fp32
+# evaluation of the same stages, rounded to bf16, must fail them. (End to
+# end, 12 bf16 layers carry the devices' summation orders as far as the
+# rounding itself: printed, not bounded.)
+BF16_MODULE_REL = 2.0 ** -9
+BF16_GRAD_REL = 2e-2
+BF16_MEDIAN_REL = 1e-2
+BF16_BLOCKS = 64          # 11b: blocks encoded on both devices
+BF16_STAGE1_STEPS = 6     # 11d: pre-training steps, a checkpoint every 3
+BF16_STAGE2_STEPS = 3     # 11e: Stage-2 steps on a bf16 BBE matrix
+# what phases 4 and 5b measured in fp32 in this process, printed beside
+# phase 11's figures (absent when phase 11 runs alone)
+FP32_FIGURES = {}
 
 
 def log(msg: str) -> None:
@@ -374,11 +433,13 @@ def kernel_ms(fn, reps: int):
     return device_ms(fn), cuda_ms(fn, reps)
 
 
-def bound(nbytes: float, flops: float, peak: float = PEAK_FP32_FLOP_PER_S):
+def bound(nbytes: float, flops: float, peak: float = PEAK_FP32_FLOP_PER_S,
+          flops_bf16: float = 0.0):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over `peak` (fp32 unless given)."""
+    operations over their peaks: `flops` over `peak` (fp32 unless given)
+    plus `flops_bf16`, products of bf16 operands, over the bf16 peak."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
+    t_ops = (flops / peak + flops_bf16 / PEAK_BF16_FLOP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -486,7 +547,7 @@ def check_wkv(dev, gen):
     from repro_torch.kernels.wkv.ops import kernel_plan
     attrs = {}
     for d in (32, 64, 128):
-        attrs[d] = a = _lib.kernel_attributes("rt_wkv_attributes", d)
+        attrs[d] = a = _lib.kernel_attributes("rt_wkv_attributes", 0, d)
         log(f"  wkv kernel, dh <= {d}: {describe(a)}")
         require(a["static_smem"] == kernel_plan(d)["shared_bytes"],
                 f"wkv dh {d}: shared bytes differ from kernel_plan's")
@@ -556,7 +617,8 @@ def check_wkv_backward(dev, gen):
 
     attrs = {}
     for d in (32, 64, 128):
-        attrs[d] = a = _lib.kernel_attributes("rt_wkv_backward_attributes", d)
+        attrs[d] = a = _lib.kernel_attributes("rt_wkv_backward_attributes", 0,
+                                                 d)
         log(f"  wkv_backward kernel, dh <= {d}: {describe(a)}")
         require(a["dynamic_smem"] == backward_plan(d)["shared_bytes"],
                 f"wkv_backward dh {d}: shared bytes differ from "
@@ -648,7 +710,7 @@ def check_set_attention(dev, gen):
     attrs = {}
     for what, shape in (("SAB", (64, 64, 64)), ("PMA", (1, 64, 64))):
         attrs[what] = a = _lib.kernel_attributes(
-            "rt_set_attention_forward_attributes", *shape)
+            "rt_set_attention_forward_attributes", 0, *shape)
         log(f"  set_attention {what} kernel: {describe(a)}")
 
     B, H, N, M, dh = 512, 4, 64, 64, 64
@@ -756,7 +818,7 @@ def check_set_attention_backward(dev, gen):
     attrs = {}
     for what, shape in (("SAB", (64, 64, 64)), ("PMA", (1, 64, 64))):
         attrs[what] = a = _lib.kernel_attributes(
-            "rt_set_attention_backward_attributes", *shape)
+            "rt_set_attention_backward_attributes", 0, *shape)
         log(f"  set_attention_backward {what} kernel "
             f"({backward_plan(*shape)['route']}): {describe(a)}")
         require(a["dynamic_smem"] == backward_plan(*shape)["shared_bytes"],
@@ -1064,15 +1126,21 @@ def make_world():
     return programs, blocks, intervals, cpis
 
 
-def main_path(programs, blocks, intervals, cpis):
+def main_path(programs, blocks, intervals, cpis, dtype="float32",
+              stages=None):
+    """The serving path at the default configs of `dtype`; each stage's
+    wall seconds go into `stages`."""
     from repro_torch.api import SemanticBBVService, ServiceConfig
+    from repro_torch.core.bbe import BBEConfig
+    from repro_torch.core.signature import SignatureConfig
     names = [p.name for p in programs]
     held_out = names[-1]
-    stages = {}
+    stages = {} if stages is None else stages
 
     t = time.perf_counter()
-    svc = SemanticBBVService.create(ServiceConfig(seed=SEED, k=14),
-                                    device="cuda")
+    svc = SemanticBBVService.create(ServiceConfig(
+        seed=SEED, k=14, bbe=BBEConfig(dtype=dtype),
+        sig=SignatureConfig(dtype=dtype)), device="cuda")
     torch.cuda.synchronize()
     stages["create"] = time.perf_counter() - t
 
@@ -1100,14 +1168,16 @@ def main_path(programs, blocks, intervals, cpis):
 
     store = svc.store
     sigs = np.asarray(store.signatures)
-    require(sigs.shape == (len(names) * N_INTERVALS, 128),
+    sig_dim = svc.pipe.sig_cfg.sig_dim
+    require(sigs.shape == (len(names) * N_INTERVALS, sig_dim),
             f"store holds {sigs.shape}")
     require(bool(np.isfinite(sigs).all()), "non-finite signatures")
     norms = np.linalg.norm(sigs, axis=-1)
     require(bool(np.all(np.abs(norms - 1.0) < 1e-4)),
             f"signatures not unit-norm: {norms.min()}..{norms.max()}")
     require(len(svc.bbe_table) == n_bbe == len(blocks), "BBE table size")
-    require(kb.k == 14 and kb.archetypes.shape == (14, 128), "archetypes")
+    require(kb.k == 14 and kb.archetypes.shape == (14, sig_dim),
+            "archetypes")
     for n, e in ests.items():
         require(np.isfinite(e.est_cpi), f"{n}: est_cpi {e.est_cpi}")
         require(e.accuracy is not None and 0.0 <= e.accuracy <= 1.0,
@@ -1635,8 +1705,13 @@ def train_stage1(dev="cuda") -> dict:
     trainer = Trainer(pretrain_loss, encoder, tc)
     step_s, batch_s, losses = _stage1_run(trainer, pre, STAGE1_STEPS,
                                           cfg.num_layers, "pretrain")
+    peak = torch.cuda.max_memory_allocated()
     _stage1_report("pre-training", step_s, batch_s, losses, STAGE1_BATCH,
-                   cfg.max_len, torch.cuda.max_memory_allocated())
+                   cfg.max_len, peak)
+    med = float(np.median(step_s))
+    FP32_FIGURES["stage1"] = dict(
+        step_ms=1e3 * med, tokens_per_s=STAGE1_BATCH * cfg.max_len / med,
+        peak_gib=peak / 2 ** 30, where="phase 5b")
     final = {n: p.detach().clone() for n, p in trainer.state.params.items()}
     del trainer
     _peak_reset()
@@ -3319,6 +3394,716 @@ def lm_train_phase(dev, gen, drive) -> dict:
     return r
 
 
+# --------------------------------------------------------------- phase 11
+
+
+def _rel_l2(got, want) -> float:
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).norm() / want.norm().clamp(min=1e-30))
+
+
+def _same_bits(got, want32, what: str) -> None:
+    """A bf16 instance's output against the fp32 instance's on the
+    upcast inputs: bit for bit, once the fp32 output is rounded to the
+    bf16 output's dtype (fp32 outputs are compared as they are)."""
+    want = want32.to(got.dtype)
+    if not torch.equal(got, want):
+        d = (got.float() - want.float()).abs().max().item()
+        raise AssertionError(f"{what}: not bitwise the fp32 instance's "
+                             f"(max diff {d:.3g})")
+
+
+def _bf16_attrs(entry, *shape, plan_bytes=None, what=""):
+    """The bf16 instance's resources; its shared bytes against the plan."""
+    from repro_torch.kernels import _lib
+    a = _lib.kernel_attributes(entry, 1, *shape)
+    log(f"  {what} bf16 instance: {describe(a)}")
+    if plan_bytes is not None:
+        got = a["dynamic_smem"] or a["static_smem"]
+        require(got == plan_bytes, f"{what} bf16: shared bytes {got}, the "
+                f"plan says {plan_bytes}")
+    return a
+
+
+def check_bf16_wkv(dev, gen) -> dict:
+    """(11a) wkv's bf16 instances (bf16 r, k, v; fp32 w, beta, state):
+    bitwise the fp32 instances on the upcast inputs, at the main path's
+    shapes, dh 40 (16-byte route), 44 and 37 (element route) and 128, S 1;
+    against the plain versions at the JAX suite's bf16 bound; timed beside
+    the fp32 instances."""
+    from repro_torch.kernels.wkv import (
+        wkv, wkv_backward, wkv_backward_reference, wkv_reference,
+    )
+    from repro_torch.kernels.wkv.ops import _forward, backward_plan, kernel_plan
+    bf = torch.bfloat16
+
+    def inputs(B, S, H, dh):
+        r, k, v, dy = (torch.randn((B, S, H, dh), generator=gen, device=dev)
+                       for _ in range(4))
+        k = k / k.norm(dim=-1, keepdim=True).clamp(min=1e-6)
+        w = 0.7 + 0.3 * torch.rand((B, S, H, dh), generator=gen, device=dev)
+        beta = torch.rand((B, S, H), generator=gen, device=dev)
+        s0, dsf = (0.1 * torch.randn((B, H, dh, dh), generator=gen,
+                                     device=dev) for _ in range(2))
+        return (r.to(bf), k.to(bf), v.to(bf)), w, beta, s0, dy, dsf
+
+    atol, rtol = BF16_KERNEL_BOUNDS["wkv"]
+    err_f = err_b = 0.0
+    for shape in [(256, 128, 6, 64), (3, 37, 2, 44), (2, 20, 2, 37),
+                  (2, 33, 2, 40), (2, 129, 2, 128), (2, 1, 3, 64)]:
+        rkv, w, beta, s0, dy, dsf = inputs(*shape)
+        rkv32 = tuple(t.float() for t in rkv)
+        for state in (None, s0):
+            y, sf = wkv(*rkv, w, beta, state)
+            y32, sf32 = wkv(*rkv32, w, beta, state)
+            require(y.dtype == sf.dtype == torch.float32,
+                    f"wkv bf16 {shape}: y {y.dtype}, state {sf.dtype}")
+            _same_bits(y, y32, f"wkv bf16 y {shape}")
+            _same_bits(sf, sf32, f"wkv bf16 state {shape}")
+            y_ref, sf_ref = wkv_reference(*rkv, w, beta, state)
+            err_f = max(err_f, max_err(y, y_ref, atol, rtol,
+                                       f"wkv bf16 y {shape}"),
+                        max_err(sf, sf_ref, atol, rtol,
+                                f"wkv bf16 state {shape}"))
+        y, sf, states = _forward(*rkv, w, beta, s0, save=True)
+        _, _, states32 = _forward(*rkv32, w, beta, s0, save=True)
+        if states is not None:      # the kernels write them, the CPU not
+            _same_bits(states, states32, f"wkv bf16 states {shape}")
+        out = wkv_backward(*rkv, w, beta, s0, states, dy, dsf)
+        out32 = wkv_backward(*rkv32, w, beta, s0, states32, dy, dsf)
+        ref = wkv_backward_reference(*rkv, w, beta, s0, dy, dsf)
+        for name, a, a32, b in zip(("dr", "dk", "dv", "dw", "dbeta",
+                                    "dstate"), out, out32, ref):
+            want_dt = bf if name in ("dr", "dk", "dv") else torch.float32
+            require(a.dtype == want_dt == b.dtype,
+                    f"wkv_backward bf16 {name} {shape}: {a.dtype}, plain "
+                    f"{b.dtype}")
+            _same_bits(a, a32, f"wkv_backward bf16 {name} {shape}")
+            spacing = BF16_SPACING if a.dtype == bf else 0.0
+            err_b = max(err_b, max_err(a.float(), b.float(), atol,
+                                       rtol + spacing,
+                                       f"wkv_backward bf16 {name} {shape}"))
+
+    out = {}
+    attrs = _bf16_attrs("rt_wkv_attributes", 64, what="wkv (dh <= 64)",
+                        plan_bytes=kernel_plan(64, bf)["shared_bytes"])
+    battrs = _bf16_attrs("rt_wkv_backward_attributes", 64,
+                         what="wkv_backward (dh <= 64)",
+                         plan_bytes=backward_plan(64, bf)["shared_bytes"])
+    for d in (32, 128):
+        _bf16_attrs("rt_wkv_attributes", d, what=f"wkv (dh <= {d})",
+                    plan_bytes=kernel_plan(d, bf)["shared_bytes"])
+        _bf16_attrs("rt_wkv_backward_attributes", d,
+                    what=f"wkv_backward (dh <= {d})",
+                    plan_bytes=backward_plan(d, bf)["shared_bytes"])
+
+    B, S, H, dh = 256, 128, 6, 64            # phase 2's serving shape
+    rkv, w, beta, _, _, _ = inputs(B, S, H, dh)
+    rkv32 = tuple(t.float() for t in rkv)
+    ms = device_ms(lambda: wkv(*rkv, w, beta))
+    ms32 = device_ms(lambda: wkv(*rkv32, w, beta))
+    plain_ms = cuda_ms(lambda: wkv_reference(*rkv, w, beta), reps=3,
+                       warmup=1)
+    n = B * S * H * dh
+    nbytes = 2 * 3 * n + 4 * (n + B * S * H) + 4 * (n + B * H * dh * dh)
+    b = bound(nbytes, 7 * B * H * S * dh * dh)
+    out["wkv"] = dict(max_abs_err=err_f, ms=ms, fp32_ms=ms32,
+                      plain_ms=plain_ms, library_ms=None, bound_ms=b[0],
+                      bound_by=b[1], shape=f"B={B} S={S} H={H} dh={dh}",
+                      registers=attrs["registers"],
+                      local_bytes=attrs["local_bytes"])
+    B, S = 64, 128                           # phase 2's training shape
+    rkv, w, beta, _, dy, dsf = inputs(B, S, H, dh)
+    rkv32 = tuple(t.float() for t in rkv)
+    _, _, states = _forward(*rkv, w, beta, None, save=True)
+    ms = device_ms(lambda: wkv_backward(*rkv, w, beta, None, states, dy, dsf))
+    ms32 = device_ms(lambda: wkv_backward(*rkv32, w, beta, None, states, dy,
+                                          dsf))
+    plain_ms = cuda_ms(lambda: wkv_backward_reference(*rkv, w, beta, None,
+                                                      dy, dsf), reps=3,
+                       warmup=1)
+    n = B * S * H * dh
+    # reads r k v (bf16), w dy, beta, the states and dsf; writes dr dk dv
+    # (bf16), dw, dbeta and dS_0
+    nbytes = (2 * 3 * n + 4 * (2 * n + B * S * H + n * dh + B * H * dh * dh)
+              + 2 * 3 * n + 4 * (n + B * S * H + B * H * dh * dh))
+    b = bound(nbytes, 22 * n * dh)
+    out["wkv_backward"] = dict(max_abs_err=err_b, ms=ms, fp32_ms=ms32,
+                               plain_ms=plain_ms, library_ms=None,
+                               bound_ms=b[0], bound_by=b[1],
+                               shape=f"B={B} S={S} H={H} dh={dh}",
+                               registers=battrs["registers"],
+                               local_bytes=battrs["local_bytes"])
+    for name, r in out.items():
+        log(f"  {name} bf16 [{r['shape']}]: max_abs_err "
+            f"{r['max_abs_err']:.3g} (plain version), ms {r['ms']:.4f} "
+            f"(fp32 instance {r['fp32_ms']:.4f}), plain_ms "
+            f"{r['plain_ms']:.4f}, bound_ms {r['bound_ms']:.4f} "
+            f"({r['bound_by']})")
+    return out
+
+
+def check_bf16_set_attention(dev, gen) -> dict:
+    """(11a) the set-attention bf16 instances (bf16 q, k, v, dO; fp32
+    bias; P kept fp32): bitwise the fp32 instances on the upcast inputs
+    at the SAB and PMA shapes of serving and training, ragged N and M, N
+    and M past one tile (the backward's fp32 scratch), dh 37 (element
+    route); against the plain versions at the JAX suite's bf16 bounds;
+    timed beside the fp32 instances."""
+    from repro_torch.kernels.set_attention import (
+        masked_set_attention, set_attention_backward,
+        set_attention_backward_reference, set_attention_reference,
+    )
+    from repro_torch.kernels.set_attention.ops import backward_plan
+    bf = torch.bfloat16
+
+    def inputs(B, H, N, M, dh, empty_rows=1):
+        q, do = (torch.randn((B, H, N, dh), generator=gen, device=dev).to(bf)
+                 for _ in range(2))
+        k, v = (torch.randn((B, H, M, dh), generator=gen, device=dev).to(bf)
+                for _ in range(2))
+        bias = torch.rand((B, M), generator=gen, device=dev)
+        mask = torch.rand((B, M), generator=gen, device=dev) < 0.45
+        mask[:, 0] = True
+        mask[B - empty_rows:] = False            # fully masked rows
+        return (q, k, v), bias, mask, do
+
+    fa, fr = BF16_KERNEL_BOUNDS["set_attention"]
+    ba, br = BF16_KERNEL_BOUNDS["set_attention_backward"]
+    err_f = err_b = 0.0
+    for shape in [(512, 4, 64, 64, 64), (512, 4, 1, 64, 64),
+                  (64, 4, 64, 64, 64), (64, 4, 1, 64, 64), (3, 2, 7, 13, 44),
+                  (2, 3, 5, 33, 37), (2, 2, 7, 130, 16), (2, 2, 130, 70, 36),
+                  (2, 2, 1, 300, 44), (2, 2, 70, 13, 128)]:
+        qkv, bias, mask, do = inputs(*shape)
+        qkv32 = tuple(t.float() for t in qkv)
+        o = masked_set_attention(*qkv, bias, mask)
+        require(o.dtype == bf, f"set_attention bf16 {shape}: {o.dtype}")
+        _same_bits(o, masked_set_attention(*qkv32, bias, mask),
+                   f"set_attention bf16 {shape}")
+        err_f = max(err_f, max_err(o.float(), set_attention_reference(
+            *qkv, bias, mask).float(), fa, fr + BF16_SPACING,
+            f"set_attention bf16 {shape}"))
+        got = set_attention_backward(*qkv, bias, mask, do)
+        got32 = set_attention_backward(*qkv32, bias, mask, do.float())
+        ref = set_attention_backward_reference(*qkv, bias, mask, do)
+        for name, a, a32, b in zip(("dq", "dk", "dv", "db"), got, got32, ref):
+            want_dt = torch.float32 if name == "db" else bf
+            require(a.dtype == want_dt == b.dtype,
+                    f"set_attention_backward bf16 {name} {shape}: "
+                    f"{a.dtype}, plain {b.dtype}")
+            _same_bits(a, a32, f"set_attention_backward bf16 {name} {shape}")
+            err_b = max(err_b, max_err(
+                a.float(), b.float(), ba,
+                br + (BF16_SPACING if a.dtype == bf else 0.0),
+                f"set_attention_backward bf16 {name} {shape}"))
+
+    attrs = {}
+    for what, shape in (("SAB", (64, 64, 64)), ("PMA", (1, 64, 64))):
+        attrs[what] = (
+            _bf16_attrs("rt_set_attention_forward_attributes", *shape,
+                        what=f"set_attention {what}"),
+            _bf16_attrs("rt_set_attention_backward_attributes", *shape,
+                        what=f"set_attention_backward {what}",
+                        plan_bytes=backward_plan(*shape, bf)["shared_bytes"]))
+
+    def timed(fn, plain, qkv, *rest):
+        qkv32 = tuple(t.float() for t in qkv)
+        rest32 = tuple(t.float() if t.dtype == bf else t for t in rest)
+        return (device_ms(lambda: fn(*qkv, *rest)),
+                device_ms(lambda: fn(*qkv32, *rest32)),
+                cuda_ms(lambda: plain(*qkv, *rest), reps=20))
+
+    def sdpa_ms(qkv, bias, mask, do):
+        """One PyTorch call computing the same function in bf16 (the
+        yardstick: forward, or its q/k/v backward), as phase 2 times it."""
+        import torch.nn.functional as F
+        from repro_torch.kernels.set_attention import NEG_INF
+        attn_mask = (bias + torch.where(mask, 0.0, NEG_INF)).to(bf)[
+            :, None, None, :]
+        if do is None:
+            return cuda_ms(lambda: F.scaled_dot_product_attention(
+                *qkv, attn_mask=attn_mask), reps=50)
+        leaves = [t.clone().requires_grad_(True) for t in qkv]
+        o = F.scaled_dot_product_attention(*leaves, attn_mask=attn_mask)
+        return cuda_ms(lambda: torch.autograd.grad(o, leaves, do,
+                                                   retain_graph=True), reps=50)
+
+    out = {}
+    for name, fn, plain, B in (
+            ("set_attention", masked_set_attention, set_attention_reference,
+             512),
+            ("set_attention_backward", set_attention_backward,
+             set_attention_backward_reference, 64)):
+        rec = {}
+        for what, N in (("SAB", 64), ("PMA", 1)):
+            H, M, dh = 4, 64, 64
+            qkv, bias, mask, do = inputs(B, H, N, M, dh, 2)
+            rest = (bias, mask) + ((do,) if name != "set_attention" else ())
+            ms, ms32, plain_ms = timed(fn, plain, qkv, *rest)
+            library_ms = sdpa_ms(qkv, bias, mask,
+                                 do if name != "set_attention" else None)
+            # products of two bf16 operands (Q K^T; the backward's Q K^T
+            # and dO V^T) count at the bf16 peak, those with the fp32 P
+            # or dS (P V; dV, dQ, dK) and the softmax at the fp32 peak
+            if name == "set_attention":     # q k v in, o out (bf16)
+                nbytes = 2 * (2 * B * H * N * dh + 2 * B * H * M * dh)
+                flops = B * H * (2 * N * M * dh + 5 * N * M)
+                flops16 = B * H * 2 * N * M * dh
+            else:                           # q dO k v in, dq dk dv out
+                nbytes = (2 * (2 * B * H * N * dh + 2 * B * H * M * dh)
+                          + 2 * (B * H * N * dh + 2 * B * H * M * dh)
+                          + 4 * B * H * M)
+                flops = B * H * (6 * N * M * dh + 12 * N * M)
+                flops16 = B * H * 4 * N * M * dh
+            b = bound(nbytes + 5 * B * M, flops,   # + the bias and mask
+                      flops_bf16=flops16)
+            a = attrs[what][0 if name == "set_attention" else 1]
+            rec[what] = dict(ms=ms, fp32_ms=ms32, plain_ms=plain_ms,
+                             library_ms=library_ms, bound_ms=b[0],
+                             bound_by=b[1], registers=a["registers"],
+                             local_bytes=a["local_bytes"],
+                             shape=f"B={B} H={H} N={N} M={M} dh={dh}")
+        out[name] = dict(max_abs_err=err_f if name == "set_attention"
+                         else err_b, **rec["SAB"],
+                         pma={k: v for k, v in rec["PMA"].items()})
+        for what, r in rec.items():
+            log(f"  {name} bf16 {what} [{r['shape']}]: ms {r['ms']:.4f} "
+                f"(fp32 instance {r['fp32_ms']:.4f}), plain_ms "
+                f"{r['plain_ms']:.4f}, library_ms {r['library_ms']:.4f} "
+                f"(SDPA, bf16), bound_ms {r['bound_ms']:.4f} "
+                f"({r['bound_by']})")
+        log(f"  {name} bf16: max_abs_err {out[name]['max_abs_err']:.3g} "
+            "(plain version)")
+    return out
+
+
+def _as_fp32(model, cfg):
+    """A model of `cfg` (fp32) holding the values of `model`'s bf16
+    weights: the port's fp32 path on the same weights."""
+    twin = type(model)(cfg).to(next(model.parameters()).device)
+    twin.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
+    return twin
+
+
+def _stage_vjp(model, fn, prefixes, x, g, dev, fp32=False):
+    """One stage on `dev`: its output for input `x` and, with the
+    cotangent `g`, the gradients of its leaves (names starting with
+    `prefixes`) and of `x`, all on the CPU. The fp32 evaluation reads x
+    and g in fp32."""
+    leaves = {n: p for n, p in model.named_parameters()
+              if n.startswith(prefixes)}
+    if x is not None:
+        x = (x.float() if fp32 else x).to(dev).detach()
+    if g is None:
+        with torch.no_grad():
+            return fn(model, x).cpu(), {}, None
+    if x is not None:
+        x.requires_grad_(True)
+    out = fn(model, x)
+    inputs = list(leaves.values()) + ([x] if x is not None else [])
+    gs = torch.autograd.grad(out, inputs, g.to(dev).to(out.dtype),
+                             allow_unused=True, materialize_grads=True)
+    grads = {n: t.detach().cpu() for n, t in zip(leaves, gs)}
+    gx = gs[-1].detach().cpu() if x is not None else None
+    return out.detach().cpu(), grads, gx
+
+
+def _layerwise(what, stages, cpu, card, fp32, dev, backward):
+    """`stages`: [(name, fn(model, x), leaf prefixes)], each stage's input
+    the previous one's output. The CPU runs the chain (and, when
+    `backward`, the cotangents back from the last stage's scalar); the
+    card and its fp32 evaluation run each stage alone on the CPU's input
+    and cotangent, the fp32 evaluation's results rounded to the bf16
+    path's dtypes. Returns {"card"|"fp32": (the largest output relative
+    L2 and its stage, the largest leaf relative L2 and its leaf, the
+    median leaf)}; the card's must lie within the bounds, the fp32
+    evaluation's outside one of them."""
+    xs = [None]
+    with torch.no_grad():
+        for _, fn, _ in stages:
+            xs.append(fn(cpu, xs[-1]))
+    cots = [None] * len(stages)
+    refs = [(x, {}, None) for x in xs[1:]]
+    if backward:
+        g = torch.ones(())
+        for i in reversed(range(len(stages))):
+            cots[i] = g
+            refs[i] = _stage_vjp(cpu, stages[i][1], stages[i][2], xs[i], g,
+                                 "cpu")
+            g = refs[i][2]
+    res = {}
+    for tag, model in (("card", card), ("fp32", fp32)):
+        out_e, leaf_e = [], {}
+        for i, (name, fn, prefixes) in enumerate(stages):
+            ref, ref_g, ref_gx = refs[i]
+            got, grads, gx = _stage_vjp(model, fn, prefixes, xs[i], cots[i],
+                                        dev, fp32=tag == "fp32")
+            require(tag == "fp32" or got.dtype == ref.dtype,
+                    f"{what} {name}: output {got.dtype}, the CPU's "
+                    f"{ref.dtype}")
+            got = got.to(ref.dtype)
+            out_e.append((_rel_l2(got, ref), name,
+                          (got != ref).float().mean().item()))
+            pairs = [(n, gr, ref_g[n]) for n, gr in grads.items()]
+            if gx is not None:
+                pairs.append((f"{name} input", gx, ref_gx))
+            for n, gr, want in pairs:
+                require(tag == "fp32" or gr.dtype == want.dtype,
+                        f"{what} {n}: gradient {gr.dtype}, the CPU's "
+                        f"{want.dtype}")
+                if want.abs().max() > 0:
+                    leaf_e[n] = _rel_l2(gr.to(want.dtype), want)
+        worst = (max(leaf_e.items(), key=lambda kv: kv[1]) if leaf_e
+                 else ("-", 0.0))
+        res[tag] = (max(out_e), worst, float(np.median(
+            list(leaf_e.values()))) if leaf_e else 0.0)
+    (o, (ln, le), med), (o32, (ln32, le32), med32) = res["card"], res["fp32"]
+    log(f"  {what}, {len(stages)} stages CPU vs card: outputs largest "
+        f"relative L2 {o[0]:.3g} ({o[1]}, {100 * o[2]:.2f}% of its "
+        f"elements not the CPU's; fp32 evaluation {o32[0]:.3g}, {o32[1]}, "
+        f"{100 * o32[2]:.1f}%)" + (f"; gradients largest {le:.3g} ({ln}; fp32 "
+                        f"{le32:.3g}, {ln32}), median leaf {med:.3g} "
+                        f"(fp32 {med32:.3g})" if backward else ""))
+    require(o[0] <= BF16_MODULE_REL, f"{what} {o[1]}: output relative L2 "
+            f"{o[0]:.3g} > {BF16_MODULE_REL}")
+    if backward:
+        require(le <= BF16_GRAD_REL and med <= BF16_MEDIAN_REL,
+                f"{what}: gradient of {ln} relative L2 {le:.3g}, median "
+                f"leaf {med:.3g} (bounds {BF16_GRAD_REL}, {BF16_MEDIAN_REL})")
+    require(o32[0] > BF16_MODULE_REL or (backward and (
+        le32 > BF16_GRAD_REL or med32 > BF16_MEDIAN_REL)),
+        f"{what}: the fp32 evaluation passes the bf16 bounds")
+    return res
+
+
+def cross_check_bf16(programs, intervals, cpis, card_dev="cuda"):
+    """(11b) the default configs at dtype "bfloat16" from one seed on the
+    CPU (plain versions) and on the card (the bf16 instances), stage by
+    stage (`_layerwise`): BBEs of BF16_BLOCKS blocks; the pre-training
+    loss of a batch of 4 and its gradients; signatures of 8 triplets of
+    bf16 BBEs, the Stage-2 loss and its gradients; each against bounds
+    that the card's fp32 evaluation fails. Signatures of fp32 BBEs (fp32
+    activations on bf16 weights) end to end within 1e-5."""
+    from types import SimpleNamespace
+    from repro_torch.core.bbe import BBEConfig, BBEEncoder, pretrain_loss
+    from repro_torch.core.losses import combined_stage2_loss, l2_normalize
+    from repro_torch.core.pipeline import BBEIndex, batch_set_ids
+    from repro_torch.core.signature import SignatureConfig, SignatureModel
+    from repro_torch.core.tokenizer import default_tokenizer
+    from repro_torch.data.corpus import SyntheticBinaryCorp
+    from repro_torch.train import triplet_row_batch
+    bbe_cfg, sig_cfg = BBEConfig(dtype="bfloat16"), SignatureConfig(
+        dtype="bfloat16")
+    blocks = [b for p in programs for b in p.unique_blocks][:BF16_BLOCKS]
+    toks = torch.from_numpy(default_tokenizer().encode_blocks(
+        blocks, bbe_cfg.max_len)).long()
+    corp = SyntheticBinaryCorp(n_functions=500, max_len=bbe_cfg.max_len)
+    pre = torch.from_numpy(corp.pretrain_batch(0, 4)["tokens"]).long()
+    enc = BBEEncoder(bbe_cfg, seed=SEED)
+    enc_card = BBEEncoder(bbe_cfg, seed=SEED).to(card_dev)
+    models = (enc, enc_card, _as_fp32(enc_card, BBEConfig()), card_dev)
+    body = [(f"block {i}", lambda m, x, i=i: m.blocks[i](x),
+             (f"blocks.{i}.",)) for i in range(bbe_cfg.num_layers)]
+
+    def embed(tokens):
+        return ("embedding", lambda m, _: m.embed(
+            tokens.to(m.out_proj.device)), ("embeds.",))
+
+    def pool(m, x):                  # as BBEEncoder.forward
+        pooled = m.pool(m.final_norm(x), toks[..., 0].to(x.device) != 0)
+        return l2_normalize(pooled @ m.out_proj.to(pooled.dtype))
+
+    def heads(m, x):                 # pretrain_loss after the backbone
+        tail = SimpleNamespace(backbone=lambda _: m.final_norm(x),
+                               ntp_head=m.ntp_head, nip_head=m.nip_head,
+                               cfg=m.cfg)
+        return pretrain_loss(tail, {"tokens": pre.to(x.device)})[0]
+
+    out = dict(bbe=_layerwise(
+        "bf16 BBEs", [embed(toks)] + body
+        + [("pool", pool, ("final_norm.", "pool.", "out_proj"))],
+        *models, backward=False))
+    out["stage1"] = _layerwise(
+        "bf16 pre-training loss", [embed(pre)] + body
+        + [("heads", heads, ("final_norm.", "ntp_head.", "nip_head."))],
+        *models, backward=True)
+    with torch.no_grad():
+        e1 = _rel_l2(enc_card(toks.to(card_dev)).float(), enc(toks).float())
+    del enc, enc_card, models
+
+    rng = np.random.RandomState(SEED)
+    table = {b.bid: rng.randn(sig_cfg.bbe_dim).astype(np.float32)
+             for p in programs for b in p.unique_blocks}
+    index = BBEIndex(table)
+    ext = torch.from_numpy(index.ext)
+    ivs = intervals[programs[0].name][:24]
+    rows, freqs, mask = (torch.from_numpy(a) for a in
+                         batch_set_ids(ivs, index, sig_cfg.max_set))
+    model = SignatureModel(sig_cfg, seed=SEED)
+    model_card = SignatureModel(sig_cfg, seed=SEED).to(card_dev)
+    with torch.no_grad():
+        s32 = [m(ext.to(d)[rows.long().to(d)], freqs.to(d), mask.to(d))[0]
+               .float().cpu() for m, d in ((model, "cpu"),
+                                           (model_card, card_dev))]
+    e32 = (s32[1] - s32[0]).abs().max().item()
+    require(e32 <= 1e-5, f"signatures of fp32 BBEs on bf16 weights, CPU vs "
+            f"card: {e32:.3g} > 1e-5")
+    names = [p.name for p in programs[:-1]]
+    sets, anchor_cpis = stage2_triplets(names, intervals, cpis,
+                                        _phases(names, intervals), 0, 8)
+    rb = triplet_row_batch(sets, anchor_cpis, index, sig_cfg.max_set,
+                           device="cpu")
+    roles = ("anchor", "positive", "negative")
+    # the three roles' sets as one batch (each set is computed alone)
+    bbes = ext.to(torch.bfloat16)[torch.cat([rb[r]["rows"]
+                                             for r in roles]).long()]
+    fq = torch.cat([rb[r]["freqs"] for r in roles])
+    mk = torch.cat([rb[r]["mask"] for r in roles])
+    logw = torch.log1p(fq.float())      # as SetTransformer.forward
+    kb = logw / torch.clamp(logw.amax(dim=-1, keepdim=True), min=1e-6)
+    B = len(rb["cpi"])
+
+    def on(x, t):
+        return t.to(x.device)
+
+    def in_proj(m, _):
+        """The BBEs in the model's dtype (the fp32 evaluation reads the
+        bf16 values in fp32) with the log-frequency channel."""
+        w = m.set_transformer.in_proj.w
+        x = bbes.to(w.device).to(w.dtype)
+        return m.set_transformer.in_proj(torch.cat(
+            [x, on(x, kb)[..., None].to(x.dtype)], dim=-1))
+
+    def sab(i):
+        return lambda m, h: m.set_transformer.sabs[i](h, h, on(h, kb),
+                                                      on(h, mk))
+
+    def pma(m, h):                   # as SetTransformer and SignatureModel
+        st = m.set_transformer
+        seeds = st.seeds[None].expand(h.shape[0], -1, -1).to(h.dtype)
+        pooled = st.pma(seeds, h, on(h, kb), on(h, mk))
+        return l2_normalize(st.out_proj(pooled.reshape(h.shape[0], -1)))
+
+    def losses(m, s):                # as stage2_loss
+        return combined_stage2_loss(
+            s[:B], s[B:2 * B], s[2 * B:], m.cpi_head(s[:B]),
+            on(s, rb["cpi"]), w_r=sig_cfg.w_r, w_c=sig_cfg.w_c)[0]
+
+    out["stage2"] = _layerwise(
+        "bf16 Stage 2 on bf16 BBEs",
+        [("in_proj", in_proj, ("set_transformer.in_proj.",))]
+        + [(f"sab {i}", sab(i), (f"set_transformer.sabs.{i}.",))
+           for i in range(sig_cfg.num_sabs)]
+        + [("pma", pma, ("set_transformer.pma.", "set_transformer.seeds",
+                         "set_transformer.out_proj.")),
+           ("losses", losses, ("cpi_head.",))],
+        model, model_card, _as_fp32(model_card, SignatureConfig()),
+        card_dev, backward=True)
+    with torch.no_grad():
+        e2 = _rel_l2(model_card(bbes.to(card_dev), fq.to(card_dev),
+                                mk.to(card_dev))[0].float(),
+                     model(bbes, fq, mk)[0].float())
+    log(f"  bf16 full width end to end (not bounded): BBEs relative L2 "
+        f"{e1:.3g} CPU vs card ({len(blocks)} blocks), signatures of bf16 "
+        f"BBEs {e2:.3g}; signatures of fp32 BBEs max abs {e32:.3g}")
+    return dict(out, sig_fp32_bbes=e32, end_to_end=dict(bbe=e1, sig=e2))
+
+
+def serve_bf16(programs, blocks, intervals, cpis):
+    """(11c) the serving path of phase 4 with both models at dtype
+    "bfloat16" (the BBE index stays fp32, so Stage 2 runs fp32
+    activations on bf16 weights, as JAX's pipeline does)."""
+    stages = {}
+    svc = main_path(programs, blocks, intervals, cpis, dtype="bfloat16",
+                    stages=stages)
+    fp32 = FP32_FIGURES.get("serve", {})
+    for stage, sec in stages.items():
+        log(f"  bf16 stage {stage}: {sec:.3f} s (phase 4, fp32: "
+            + (f"{fp32[stage]:.3f} s)" if stage in fp32 else "not run)"))
+    return svc, stages
+
+
+def train_stage1_bf16(dev="cuda") -> dict:
+    """(11d) Stage-1 pre-training at the paper's width with dtype
+    "bfloat16": BF16_STAGE1_STEPS steps of STAGE1_BATCH x 128 tokens, a
+    checkpoint every 3; 12 wkv forward and 12 backward launches a step,
+    all of them the bf16 instances."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.core.bbe import BBEConfig, BBEEncoder, pretrain_loss
+    from repro_torch.kernels.wkv import wkv, wkv_backward
+    from repro_torch.train import Trainer
+    cfg = BBEConfig(dtype="bfloat16")
+    pre, _ = _stage1_loaders(cfg, dev)
+    ckdir = os.path.join(HERE, "build", "chip_smoke_stage1_bf16")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    tc = TrainConfig(learning_rate=2e-3, total_steps=BF16_STAGE1_STEPS,
+                     warmup_steps=2, checkpoint_every=3,
+                     checkpoint_dir=os.path.join(ckdir, "run"))
+    encoder = BBEEncoder(cfg, seed=SEED).to(dev)
+    n_params = sum(p.numel() for p in encoder.parameters())
+    require(n_params == STAGE1_PARAMS, f"{n_params} Stage-1 parameters")
+    dtypes = {str(p.dtype) for p in encoder.parameters()}
+    require(dtypes == {"torch.bfloat16", "torch.float32"},
+            f"bf16 encoder leaf dtypes {dtypes}")
+    _peak_reset()
+    trainer = Trainer(pretrain_loss, encoder, tc)
+    b0 = wkv.launches_bf16, wkv_backward.launches_bf16
+    step_s, batch_s, losses = _stage1_run(trainer, pre, BF16_STAGE1_STEPS,
+                                          cfg.num_layers, "bf16 pretrain")
+    n16 = (wkv.launches_bf16 - b0[0], wkv_backward.launches_bf16 - b0[1])
+    want = cfg.num_layers * BF16_STAGE1_STEPS
+    require(n16 == (want, want), f"bf16 pre-training launched the bf16 "
+            f"instances {n16} times, not {want} each")
+    peak = torch.cuda.max_memory_allocated()
+    _stage1_report("bf16 pre-training", step_s, batch_s, losses,
+                   STAGE1_BATCH, cfg.max_len, peak)
+    final = {n: p.detach().clone() for n, p in trainer.state.params.items()}
+    del trainer, encoder
+    return dict(cfg=cfg, tc=tc, final=final, loader=pre, dev=dev,
+                step_ms=1e3 * float(np.median(step_s)),
+                tokens_per_s=STAGE1_BATCH * cfg.max_len
+                / float(np.median(step_s)), peak_gib=peak / 2 ** 30)
+
+
+def stage1_bf16_witness(run: dict) -> None:
+    """Prints the bf16 step beside phase 5b's fp32 figures (when 5b ran in
+    this process), then restores a fresh bf16 Trainer from the step-3
+    checkpoint and runs it to the end: bitwise the uninterrupted run's
+    weights."""
+    from repro_torch.core.bbe import BBEEncoder, pretrain_loss
+    from repro_torch.train import Trainer
+    fp32 = FP32_FIGURES.get("stage1")
+    log(f"  bf16 pre-training step median {run['step_ms']:.2f} ms, "
+        f"{run['tokens_per_s']:.0f} tokens/s, peak "
+        f"{run['peak_gib']:.3f} GiB; fp32 (phase 5b): " + (
+            f"{fp32['step_ms']:.2f} ms, {fp32['tokens_per_s']:.0f} "
+            f"tokens/s, peak {fp32['peak_gib']:.3f} GiB" if fp32
+            else "not run"))
+    tc = run["tc"]
+    resumed = os.path.join(os.path.dirname(tc.checkpoint_dir), "resumed")
+    os.makedirs(resumed)
+    shutil.copytree(os.path.join(tc.checkpoint_dir, "step_0000000003"),
+                    os.path.join(resumed, "step_0000000003"))
+    trainer = Trainer(pretrain_loss,
+                      BBEEncoder(run["cfg"], seed=SEED).to(run["dev"]),
+                      dataclasses.replace(tc, checkpoint_dir=resumed))
+    trainer.fit(run["loader"], BF16_STAGE1_STEPS,
+                log_every=BF16_STAGE1_STEPS)
+    differ = [n for n, p in run["final"].items()
+              if not torch.equal(p, trainer.state.params[n])]
+    require(not differ, f"bf16 stage-1 resume from step 3 is not bitwise "
+            f"equal: {differ[:5]}")
+    log(f"  bf16 stage-1 resume from the step-3 checkpoint: bitwise equal "
+        f"({len(run['final'])} parameters, bf16 leaves but w_bias)")
+
+
+def train_stage2_bf16(svc, programs, intervals, cpis) -> None:
+    """(11e) Stage-2 training on a bf16 BBE matrix (the bf16 service's
+    BBEs, rounded to bf16): BF16_STAGE2_STEPS steps of TRAIN_BATCH
+    triplets, 9 set-attention forward and 9 backward launches a step, all
+    of them the bf16 instances."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.core.signature import SignatureModel
+    from repro_torch.kernels.set_attention import (
+        masked_set_attention, set_attention_backward,
+    )
+    from repro_torch.train import Stage2Engine, triplet_row_batch
+    names = [p.name for p in programs[:-1]]
+    pipe = svc.pipe
+    cfg = pipe.sig_cfg
+    index, matrix = pipe._table_index(svc.bbe_table)
+    phases = _phases(names, intervals)
+    tc = TrainConfig(learning_rate=1e-3, total_steps=BF16_STAGE2_STEPS,
+                     warmup_steps=1, checkpoint_every=0,
+                     checkpoint_dir=os.path.join(HERE, "build", "unused"))
+    eng = Stage2Engine(cfg, SignatureModel(cfg, seed=SEED).to(matrix.device),
+                       matrix.to(torch.bfloat16), tc)
+    require(eng.matrix.dtype == torch.bfloat16, "the engine's BBE matrix "
+            f"is {eng.matrix.dtype}")
+    for step in range(BF16_STAGE2_STEPS):
+        sets, anchor_cpis = stage2_triplets(names, intervals, cpis, phases,
+                                            step, TRAIN_BATCH)
+        batch = triplet_row_batch(sets, anchor_cpis, index, cfg.max_set,
+                                  device=matrix.device)
+        n0 = (masked_set_attention.launches_bf16,
+              set_attention_backward.launches_bf16,
+              masked_set_attention.launches, set_attention_backward.launches)
+        t = time.perf_counter()
+        m = eng.step(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        n = (masked_set_attention.launches_bf16 - n0[0],
+             set_attention_backward.launches_bf16 - n0[1],
+             masked_set_attention.launches - n0[2],
+             set_attention_backward.launches - n0[3])
+        require(n == (9, 9, 9, 9), f"bf16 stage-2 step {step}: set-attention "
+                f"launches (bf16 fwd, bf16 bwd, fwd, bwd) {n}, not 9 each")
+        require(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
+                f"bf16 stage-2 step {step}: loss {m['loss']}")
+        log(f"  bf16 stage-2 step {step}: loss {m['loss']:.5f} grad_norm "
+            f"{m['grad_norm']:.4f} wall {1e3 * wall:.2f} ms")
+
+
+def bf16_phase(dev, gen, programs, blocks, intervals, cpis) -> dict:
+    """Phase 11: (a) the bf16 kernel instances, (b) CPU against the card at
+    full width, (c) the serving path, (d) Stage-1 training and (e) Stage 2
+    on bf16 BBEs, each path's launches of the four kernels (and of their
+    bf16 instances) counted exactly. Returns {kernel: its bf16 record}."""
+    from repro_torch.kernels.set_attention import (
+        masked_set_attention, set_attention_backward,
+    )
+    from repro_torch.kernels.wkv import wkv, wkv_backward
+    wrappers = {"wkv": wkv, "wkv_backward": wkv_backward,
+                "set_attention": masked_set_attention,
+                "set_attention_backward": set_attention_backward}
+    t0 = time.perf_counter()
+    rec = check_bf16_wkv(dev, gen)
+    rec.update(check_bf16_set_attention(dev, gen))
+    t_a = time.perf_counter() - t0
+    cross = cross_check_bf16(programs, intervals, cpis, dev)
+    t_b = time.perf_counter() - t0 - t_a
+    by_path = {name: {} for name in wrappers}
+
+    def drive(path, fn):
+        for w in wrappers.values():
+            w.launches = w.launches_bf16 = 0
+        out = fn()
+        for name, w in wrappers.items():
+            if w.launches:
+                by_path[name][path] = dict(launches=w.launches,
+                                           bf16=w.launches_bf16)
+        return out
+
+    from repro_torch.core.bbe import BBEConfig
+    layers = BBEConfig().num_layers
+    svc, _ = drive("serve_bf16", lambda: serve_bf16(programs, blocks,
+                                                    intervals, cpis))
+    batches = -(-len(blocks) // svc.cfg.encode_batch)
+    want = layers * batches
+    got = by_path["wkv"].get("serve_bf16")
+    require(got == dict(launches=want, bf16=want),
+            f"serve_bf16: wkv launches {got}, not {want}, all bf16")
+    require(by_path["set_attention"]["serve_bf16"]["bf16"] == 0,
+            "serve_bf16: Stage 2 on the fp32 BBE index took a bf16 instance")
+    torch.use_deterministic_algorithms(True)
+    try:
+        run = drive("stage1_training_bf16", lambda: train_stage1_bf16(dev))
+        stage1_bf16_witness(run)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    drive("stage2_bf16", lambda: train_stage2_bf16(svc, programs, intervals,
+                                                   cpis))
+    log("  bf16 launches by path: " + json.dumps(by_path))
+    for name in wrappers:
+        rec[name]["launches_by_path"] = by_path[name]
+    rec["cross_check"] = cross
+    del svc, run
+    log(f"bf16 phase: {time.perf_counter() - t0:.3f} s (11a {t_a:.1f} s, "
+        f"11b {t_b:.1f} s)")
+    return rec
+
+
 def time_kernels(root: str) -> dict:
     """Device and wrapper ms of wkv (the encoder's shape), of the
     set-attention backward (Stage-2 training's SAB and PMA shapes) and of
@@ -3405,30 +4190,35 @@ def time_kernels(root: str) -> dict:
 
 
 def profile_stage1() -> int:
-    """Where a Stage-1 pre-training step of phase 5b goes: 3 steps under
-    torch.profiler after 3 warm-up steps (batches made beforehand). Prints
-    the host wall a step, the kernels a step, the device's busy time a
-    step (the union of kernel intervals) and its share of the wall, the
-    device time by kind (matmul, wkv, other) and the top kernels."""
+    """Where a Stage-1 pre-training step of phases 5b (fp32) and 11d
+    (bf16) goes: for each dtype, 3 steps under torch.profiler after 3
+    warm-up steps (batches made beforehand). Prints the host wall a step,
+    the kernels a step, the device's busy time a step (the union of
+    kernel intervals) and its share of the wall, the device time by kind
+    (matmul, wkv, other) and the top kernels."""
     from repro_torch.config import TrainConfig
     from repro_torch.core.bbe import BBEConfig, BBEEncoder, pretrain_loss
     from repro_torch.kernels import _lib
     from repro_torch.train import Trainer
     _lib.load_library()
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = BBEConfig()
-    pre, _ = _stage1_loaders(cfg, "cuda")
-    batches = [pre(s) for s in range(6)]
-    trainer = Trainer(pretrain_loss, BBEEncoder(cfg, seed=SEED).to("cuda"),
-                      TrainConfig(learning_rate=2e-3, total_steps=20,
-                                  warmup_steps=2, checkpoint_every=0))
-    for b in batches[:3]:
-        trainer.step(b)
-    torch.cuda.synchronize()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     log(_card_name())
-    _profile(lambda: [trainer.step(b) for b in batches[3:]],
-             len(batches) - 3, f"stage-1 pre-training step ({STAGE1_BATCH} "
-             f"x {cfg.max_len} tokens", "wkv_")
+    for dtype in ("float32", "bfloat16"):
+        cfg = BBEConfig(dtype=dtype)
+        pre, _ = _stage1_loaders(cfg, "cuda")
+        batches = [pre(s) for s in range(6)]
+        trainer = Trainer(pretrain_loss,
+                          BBEEncoder(cfg, seed=SEED).to("cuda"),
+                          TrainConfig(learning_rate=2e-3, total_steps=20,
+                                      warmup_steps=2, checkpoint_every=0))
+        for b in batches[:3]:
+            trainer.step(b)
+        torch.cuda.synchronize()
+        _profile(lambda: [trainer.step(b) for b in batches[3:]],
+                 len(batches) - 3, f"stage-1 pre-training step, {dtype} "
+                 f"({STAGE1_BATCH} x {cfg.max_len} tokens", "wkv_")
+        del trainer
     return 0
 
 
@@ -3560,6 +4350,7 @@ def main() -> int:
     moe_only = sys.argv[1:] == ["--moe"]
     modal_only = sys.argv[1:] == ["--modal"]
     train_only = sys.argv[1:] == ["--lm-train"]
+    bf16_only = sys.argv[1:] == ["--bf16"]
     # cuBLAS takes its workspace layout when CUDA starts: the fixed one
     # that deterministic algorithms (phase 5) need
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -3577,9 +4368,11 @@ def main() -> int:
     )
     from repro_torch.kernels.wkv import wkv, wkv_backward
 
-    # plain versions on the card must be true fp32 (no TF32)
+    # plain versions on the card must be true fp32 (no TF32), and bf16
+    # matrix products sum in fp32, as on the CPU
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     # 1. setup
     card = _card_name()
@@ -3637,6 +4430,15 @@ def main() -> int:
         f"{sum(map(len, intervals.values()))} intervals "
         f"({time.perf_counter() - t:.1f} s on the host)")
     n_valid_build = (len(programs) - 1) * N_INTERVALS
+    if bf16_only:
+        # phase 11 alone
+        rec = bf16_phase(dev, gen, programs, blocks, intervals, cpis)
+        log(card)
+        log(json.dumps({"bf16": rec}))
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # 2. kernels against their plain versions
     wrappers = {"wkv": wkv, "wkv_backward": wkv_backward,
@@ -3683,7 +4485,9 @@ def main() -> int:
 
     by_path = {}
     t = time.perf_counter()
-    svc = drive("serve", lambda: main_path(programs, blocks, intervals, cpis))
+    svc = drive("serve", lambda: main_path(
+        programs, blocks, intervals, cpis,
+        stages=FP32_FIGURES.setdefault("serve", {})))
     log(f"main path: {time.perf_counter() - t:.3f} s")
     for name in ("wkv", "set_attention", "kmeans_assign", "kmeans_update"):
         require(by_path.get(name, {}).get("serve", 0) > 0,
@@ -3805,6 +4609,14 @@ def main() -> int:
         n = by_path.get(name, {}).get("zoo_train", 0)
         require(n == want, f"{name} launched {n} times on the zoo_train "
                 f"path, not {want}")
+
+    # 11. bf16 Stage 1 / Stage 2: the bf16 instances of wkv and set
+    # attention, CPU vs card, and the serving, Stage-1 and Stage-2 training
+    # paths at dtype "bfloat16", each with its own launch counts
+    rec = bf16_phase(dev, gen, programs, blocks, intervals, cpis)
+    for name in ("wkv", "wkv_backward", "set_attention",
+                 "set_attention_backward"):
+        results[name]["extra"]["bf16"] = rec[name]
 
     meta = {
         "wkv": ("src/repro_torch/csrc/wkv.cu",

@@ -27,9 +27,12 @@ bf16 leaves (numpy's `ml_dtypes.bfloat16`) cross as their bits, never
 through float.
 
 Loading is strict: a missing or extra leaf, or a shape that differs,
-raises. The Stage-1/2 loaders take float32 leaves only: a bf16 tree (a
-config with dtype "bfloat16") raises NotImplementedError, as the modules
-do, and any other dtype TypeError. Nothing here imports jax.
+raises, and so does a leaf whose dtype is not the module's for it
+(TypeError, naming both): a Stage-1/2 tree holds its config's dtype
+(float32 or bfloat16) in every leaf but the Stage-1 `w_bias`, fp32 in
+every model, so a bf16 tree loads into a bf16 config only. bf16 leaves
+(numpy's `ml_dtypes.bfloat16`) cross as their bits. Nothing here imports
+jax.
 
 Checkpoint directories cross in both directions through the shared
 on-disk format (`repro_torch.train.checkpoint`): the key of a leaf is
@@ -59,7 +62,6 @@ from repro_torch.core.bbe import BBEConfig, BBEEncoder
 from repro_torch.config import ModelConfig, TrainConfig
 from repro_torch.core.signature import SignatureConfig, SignatureModel
 from repro_torch.device import Device, resolve_device
-from repro_torch.models.layers import require_float32
 from repro_torch.models.transformer import (
     LM, period_of, stacked_key, unstack_lm_layers,
 )
@@ -85,18 +87,17 @@ def _load(module: nn.Module, flat: Dict[str, np.ndarray]) -> nn.Module:
     if missing or extra:
         raise KeyError(f"parameter tree does not match the module: missing "
                        f"{missing[:5]}, unexpected {extra[:5]}")
+    loaded = {}
     for key, value in flat.items():
-        if tuple(value.shape) != tuple(state[key].shape):
-            raise ValueError(f"{key}: tree shape {value.shape} vs module "
+        t = _leaf_tensor(value)
+        if tuple(t.shape) != tuple(state[key].shape):
+            raise ValueError(f"{key}: tree shape {tuple(t.shape)} vs module "
                              f"shape {tuple(state[key].shape)}")
-        if value.dtype != np.float32:
-            if value.dtype.name == "bfloat16":
-                require_float32(f"leaf {key} dtype", "bfloat16")
+        if t.dtype != state[key].dtype:
             raise TypeError(f"{key}: tree dtype {value.dtype}, the module "
-                            f"holds float32")
-    module.load_state_dict(
-        {k: torch.from_numpy(np.array(v)) for k, v in flat.items()},
-        strict=True)
+                            f"holds {state[key].dtype}")
+        loaded[key] = t
+    module.load_state_dict(loaded, strict=True)
     return module
 
 
@@ -121,7 +122,7 @@ def signature_params_from_jax(tree: Dict[str, Any], cfg: SignatureConfig
 def _leaf_tensor(value: np.ndarray) -> torch.Tensor:
     """numpy leaf -> CPU tensor of the same dtype; bf16 by its bits."""
     if value.dtype.name == "bfloat16":
-        bits = np.ascontiguousarray(value).view(np.int16)
+        bits = np.array(value).view(np.int16)      # a writable copy
         return torch.from_numpy(bits).view(torch.bfloat16)
     return torch.from_numpy(np.array(value))
 
@@ -173,14 +174,33 @@ def _named(model: nn.Module) -> Dict[str, torch.Tensor]:
     return {k.replace(".", "/"): v for k, v in model.state_dict().items()}
 
 
+# a leaf's dtype as a manifest records it; the JAX writer records a bf16
+# leaf as "uint16" (its bits), the port's as "bfloat16"
+_SAVED_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "uint16": torch.bfloat16}
+
+
+def _restore_params(path: str, template: Dict[str, torch.Tensor]):
+    """`checkpoint.restore_checkpoint` of the leaves of `template`, after
+    checking that each was saved in its template's dtype (TypeError,
+    naming both, as `_load` raises): the restore would cast it."""
+    saved = checkpoint.read_manifest(path)["dtypes"]
+    for key, t in template.items():
+        got = _SAVED_DTYPES.get(saved.get(key))
+        if key in saved and got != t.dtype:
+            raise TypeError(f"{key}: checkpoint dtype {saved[key]}, the "
+                            f"module holds {t.dtype}")
+    return checkpoint.restore_checkpoint(path, template)[0]
+
+
 def bbe_params_from_checkpoint(path: str, cfg: BBEConfig) -> BBEEncoder:
     """Stage-1 encoder (CPU) with the "params/..." leaves of the checkpoint
     directory `path` (a `step_*` directory of either package), its
-    `blocks` stacked along a leading `num_layers` axis."""
+    `blocks` stacked along a leading `num_layers` axis. Each leaf must
+    have been saved in the module's dtype for it."""
     model = BBEEncoder(cfg)
     named = {"params/" + k: v for k, v in _named(model).items()}
-    tree, _, _ = checkpoint.restore_checkpoint(path,
-                                               model.pack_checkpoint(named))
+    tree = _restore_params(path, model.pack_checkpoint(named))
     flat = model.unpack_checkpoint(tree, named)
     model.load_state_dict({k[len("params/"):].replace("/", "."): v
                            for k, v in flat.items()}, strict=True)
@@ -206,12 +226,13 @@ def save_bbe_checkpoint(model: BBEEncoder, directory: str, step: int = 0,
 def signature_params_from_checkpoint(path: str, cfg: SignatureConfig
                                      ) -> SignatureModel:
     """Stage-2 model (CPU) with the "params/..." leaves of the checkpoint
-    directory `path` (a `step_*` directory of either package)."""
+    directory `path` (a `step_*` directory of either package), each saved
+    in the module's dtype for it."""
     model = SignatureModel(cfg)
-    tree, _, _ = checkpoint.restore_checkpoint(path,
-                                               {"params": _named(model)})
-    model.load_state_dict({k.replace("/", "."): v
-                           for k, v in tree["params"].items()}, strict=True)
+    named = {"params/" + k: v for k, v in _named(model).items()}
+    tree = _restore_params(path, named)
+    model.load_state_dict({k[len("params/"):].replace("/", "."): v
+                           for k, v in tree.items()}, strict=True)
     return model
 
 

@@ -26,13 +26,12 @@ import re
 from typing import Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.losses import l2_normalize, triplet_loss
 from repro_torch.core.tokenizer import MultiDimTokenizer, default_tokenizer
 from repro_torch.models.layers import (
-    RMSNorm, init_array, param, require_float32,
+    RMSNorm, gelu, init_array, param, torch_dtype,
 )
 from repro_torch.models.rwkv import RWKVBlock
 from repro_torch.utils.tree import stack_leaves, unstack_leaves
@@ -47,7 +46,7 @@ class BBEConfig:
     bbe_dim: int = 256          # final embedding size
     nip_horizon: int = 8
     max_len: int = 128
-    dtype: str = "float32"      # only "float32" is ported (else raises)
+    dtype: str = "float32"      # or "bfloat16": parameters and activations
 
     @property
     def d_model(self) -> int:
@@ -55,18 +54,22 @@ class BBEConfig:
 
 
 class AttentionPool(nn.Module):
-    """Self-attention pooling (paper eq. 1-2)."""
+    """Self-attention pooling (paper eq. 1-2): weights cast to h's dtype,
+    the softmax in fp32, alpha cast back to h's dtype, as
+    `repro.core.bbe.attention_pool`."""
 
-    def __init__(self, gen: torch.Generator, d: int):
+    def __init__(self, gen: torch.Generator, d: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.Wa = param(init_array(gen, (d, d)))
-        self.ba = param(torch.zeros(d))
-        self.ua = param(init_array(gen, (d,), 0.1))
+        self.Wa = param(init_array(gen, (d, d)), dtype)
+        self.ba = param(torch.zeros(d), dtype)
+        self.ua = param(init_array(gen, (d,), 0.1), dtype)
 
     def forward(self, h, valid):
         """h: (B,L,d); valid: (B,L) -> (B,d)."""
-        e = torch.tanh(h @ self.Wa + self.ba) @ self.ua            # (B, L)
-        e = torch.where(valid, e.float(), -2.0 ** 30)
+        dt = h.dtype
+        e = torch.tanh(h @ self.Wa.to(dt) + self.ba.to(dt)) @ self.ua.to(dt)
+        e = torch.where(valid, e.float(), -2.0 ** 30)              # (B, L)
         alpha = torch.softmax(e, dim=-1)
         return torch.einsum("bl,bld->bd", alpha.to(h.dtype), h)
 
@@ -74,14 +77,16 @@ class AttentionPool(nn.Module):
 class MLPHead(nn.Module):
     """Pre-training head (NTP / NIP)."""
 
-    def __init__(self, gen: torch.Generator, d: int, d_out: int):
+    def __init__(self, gen: torch.Generator, d: int, d_out: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.w1 = param(init_array(gen, (d, d)))
-        self.w2 = param(init_array(gen, (d, d_out)))
+        self.w1 = param(init_array(gen, (d, d)), dtype)
+        self.w2 = param(init_array(gen, (d, d_out)), dtype)
 
     def forward(self, h):
         # jax.nn.gelu defaults to the tanh approximation; torch's does not
-        return F.gelu(h @ self.w1, approximate="tanh") @ self.w2
+        dt = h.dtype
+        return gelu(h @ self.w1.to(dt)) @ self.w2.to(dt)
 
 
 # checkpoint key of a per-layer leaf: "<prefix>blocks/<layer>/<leaf>"
@@ -115,12 +120,14 @@ def unstack_layers(flat: Dict[str, torch.Tensor], like: Dict[str, object]
 
 
 class BBEEncoder(nn.Module):
-    """Stage-1 encoder; parameter names follow `repro.core.bbe.bbe_init`."""
+    """Stage-1 encoder; parameter names and dtypes follow
+    `repro.core.bbe.bbe_init`: every leaf in `cfg.dtype` but the fp32
+    `w_bias` of each time-mix."""
 
     def __init__(self, cfg: BBEConfig, seed: int = 0,
                  tok: Optional[MultiDimTokenizer] = None):
         super().__init__()
-        require_float32("BBEConfig.dtype", cfg.dtype)
+        dtype = torch_dtype(cfg.dtype)
         tok = tok or default_tokenizer()
         sizes = tok.spec.dim_sizes
         if len(sizes) != len(cfg.dim_embeds):
@@ -130,31 +137,41 @@ class BBEEncoder(nn.Module):
         gen = torch.Generator().manual_seed(seed)
         d = cfg.d_model
         self.embeds = nn.ParameterList(
-            [param(init_array(gen, (v, w), 0.02))
+            [param(init_array(gen, (v, w), 0.02), dtype)
              for v, w in zip(sizes, cfg.dim_embeds)])
         self.blocks = nn.ModuleList(
-            [RWKVBlock(gen, d, cfg.num_heads) for _ in range(cfg.num_layers)])
-        self.final_norm = RMSNorm(d)
-        self.pool = AttentionPool(gen, d)
-        self.out_proj = param(init_array(gen, (d, cfg.bbe_dim)))
-        self.ntp_head = MLPHead(gen, d, sizes[0])
-        self.nip_head = MLPHead(gen, d, cfg.nip_horizon * sizes[0])
+            [RWKVBlock(gen, d, cfg.num_heads, dtype)
+             for _ in range(cfg.num_layers)])
+        self.final_norm = RMSNorm(d, dtype)
+        self.pool = AttentionPool(gen, d, dtype)
+        self.out_proj = param(init_array(gen, (d, cfg.bbe_dim)), dtype)
+        self.ntp_head = MLPHead(gen, d, sizes[0], dtype)
+        self.nip_head = MLPHead(gen, d, cfg.nip_horizon * sizes[0], dtype)
 
-    def backbone(self, tokens):
-        """tokens: (B, L, 6) integer -> hidden states (B, L, d_model).
-        Token ids are clamped into each table, as `jnp.take(mode="clip")`."""
+    def embed(self, tokens):
+        """tokens: (B, L, 6) integer -> the scaled, concatenated embeddings
+        (B, L, d_model) in `cfg.dtype`. Token ids are clamped into each
+        table, as `jnp.take(mode="clip")`."""
         feats = [tbl[tokens[..., i].clamp(0, tbl.shape[0] - 1)]
                  for i, tbl in enumerate(self.embeds)]
-        x = torch.cat(feats, dim=-1) * (self.cfg.d_model ** 0.5)
+        x = torch.cat(feats, dim=-1)
+        # JAX rounds the weakly typed scale to x's dtype before the product
+        return x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype)
+
+    def backbone(self, tokens):
+        """tokens: (B, L, 6) integer -> hidden states (B, L, d_model) in
+        `cfg.dtype`."""
+        x = self.embed(tokens)
         for block in self.blocks:
             x = block(x)
         return self.final_norm(x)
 
     def forward(self, tokens, pad_id: int = 0):
-        """tokens: (B, L, 6) -> L2-normalized BBE (B, bbe_dim)."""
+        """tokens: (B, L, 6) -> L2-normalized BBE (B, bbe_dim) in
+        `cfg.dtype`."""
         valid = tokens[..., 0] != pad_id
         pooled = self.pool(self.backbone(tokens), valid)
-        return l2_normalize(pooled @ self.out_proj)
+        return l2_normalize(pooled @ self.out_proj.to(pooled.dtype))
 
     # checkpoints in the JAX layout (the Trainer's hooks)
     def pack_checkpoint(self, flat: Dict[str, torch.Tensor]

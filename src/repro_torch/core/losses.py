@@ -10,8 +10,12 @@ import torch
 
 
 def l2_normalize(x, eps: float = 1e-8):
-    return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True),
-                           min=eps)
+    """x / max(||x||, eps) in x's dtype, rounded where JAX's compiled
+    `jnp.linalg.norm` rounds: the sum of squares in fp32, then to x's
+    dtype, and its root."""
+    x32 = x.float()
+    sq = torch.sum(x32 * x32, dim=-1, keepdim=True)
+    return x / torch.clamp(torch.sqrt(sq.to(x.dtype)), min=eps)
 
 
 def triplet_loss(anchor, positive, negative, margin: float = 0.5):

@@ -190,7 +190,8 @@ class SemanticBBVPipeline:
     @torch.inference_mode()
     def encode_tokens(self, tokens: np.ndarray, batch: int = 256
                       ) -> np.ndarray:
-        """tokens: (N, L, 6) -> BBEs (N, bbe_dim), in batches of `batch`.
+        """tokens: (N, L, 6) -> BBEs (N, bbe_dim) fp32, in batches of
+        `batch`.
 
         Every chunk, including the last partial one, is padded to the
         static (batch, L, 6) shape, as the JAX pipeline does."""
@@ -206,7 +207,9 @@ class SemanticBBVPipeline:
             outs.append(self.encoder(tok)[:got])
         if not outs:
             return np.zeros((0, self.bbe_cfg.bbe_dim), np.float32)
-        return torch.cat(outs).cpu().numpy()
+        # bf16 BBEs (dtype "bfloat16") come back widened to fp32, exactly:
+        # the BBE index holds fp32, as JAX's does
+        return torch.cat(outs).float().cpu().numpy()
 
     def encode_blocks(self, blocks: Sequence[BasicBlock], batch: int = 256
                       ) -> Dict[int, np.ndarray]:

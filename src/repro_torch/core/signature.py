@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.losses import combined_stage2_loss, l2_normalize
-from repro_torch.models.layers import init_array, param, require_float32
+from repro_torch.models.layers import init_array, param, torch_dtype
 from repro_torch.models.set_transformer import SetTransformer
 
 
@@ -30,41 +30,48 @@ class SignatureConfig:
     max_set: int = 64            # max distinct blocks per interval batch row
     w_r: float = 1.0             # CPI regression weight
     w_c: float = 0.5             # consistency weight
-    dtype: str = "float32"       # only "float32" is ported (else raises)
+    dtype: str = "float32"       # or "bfloat16": the parameters
 
 
 class CPIHead(nn.Module):
-    def __init__(self, gen: torch.Generator, sig_dim: int, d_model: int):
+    """log1p-CPI regression head; its weights take the signature's dtype,
+    as `signature_apply` casts them."""
+
+    def __init__(self, gen: torch.Generator, sig_dim: int, d_model: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.w1 = param(init_array(gen, (sig_dim, d_model)))
-        self.b1 = param(torch.zeros(d_model))
-        self.w2 = param(init_array(gen, (d_model, 1)))
-        self.b2 = param(torch.zeros(1))
+        self.w1 = param(init_array(gen, (sig_dim, d_model)), dtype)
+        self.b1 = param(torch.zeros(d_model), dtype)
+        self.w2 = param(init_array(gen, (d_model, 1)), dtype)
+        self.b2 = param(torch.zeros(1), dtype)
 
     def forward(self, sig):
-        z = torch.tanh(sig @ self.w1 + self.b1)
-        return (z @ self.w2 + self.b2)[..., 0]
+        dt = sig.dtype
+        z = torch.tanh(sig @ self.w1.to(dt) + self.b1.to(dt))
+        return (z @ self.w2.to(dt) + self.b2.to(dt))[..., 0]
 
 
 class SignatureModel(nn.Module):
-    """Stage-2 model; parameter names follow
-    `repro.core.signature.signature_init`."""
+    """Stage-2 model; parameter names and dtypes follow
+    `repro.core.signature.signature_init` (every leaf in `cfg.dtype`)."""
 
     def __init__(self, cfg: SignatureConfig, seed: int = 0):
         super().__init__()
-        require_float32("SignatureConfig.dtype", cfg.dtype)
+        dtype = torch_dtype(cfg.dtype)
         self.cfg = cfg
         gen = torch.Generator().manual_seed(seed)
         self.set_transformer = SetTransformer(
             gen, d_in=cfg.bbe_dim + 1,  # +1 log-frequency channel
             d_model=cfg.d_model, d_out=cfg.sig_dim, num_heads=cfg.num_heads,
-            num_sabs=cfg.num_sabs, num_seeds=cfg.num_seeds)
-        self.cpi_head = CPIHead(gen, cfg.sig_dim, cfg.d_model)
+            num_sabs=cfg.num_sabs, num_seeds=cfg.num_seeds, dtype=dtype)
+        self.cpi_head = CPIHead(gen, cfg.sig_dim, cfg.d_model, dtype)
 
     def forward(self, bbes, freqs, mask):
-        """bbes: (B, N, bbe_dim); freqs: (B, N) execution counts; mask:
-        (B, N). Returns (signature (B, sig_dim) L2-normalized, cpi_pred
-        (B,) log1p-CPI)."""
+        """bbes: (B, N, bbe_dim) fp32 or bf16; freqs: (B, N) execution
+        counts; mask: (B, N). Returns (signature (B, sig_dim)
+        L2-normalized, cpi_pred (B,) log1p-CPI), as JAX returns them: in
+        the dtype that the BBEs promote with the parameters' (fp32 BBEs
+        give fp32 on bf16 weights, bf16 BBEs bf16)."""
         sig = l2_normalize(self.set_transformer(bbes, weights=freqs,
                                                 mask=mask))
         return sig, self.cpi_head(sig)

@@ -1,6 +1,8 @@
-// Helpers shared by the port's CUDA kernels (plain C interface, fp32).
+// Helpers shared by the port's CUDA kernels (plain C interface; fp32
+// arithmetic, fp32 or bf16 storage).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -54,6 +56,55 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int PENDING>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// Element conversions of the kernels that store fp32 or bf16 and compute in
+// fp32: a bf16 value widens exactly; a result rounds once, to nearest even
+// (as a cast in either framework).
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// Four consecutive elements at p (aligned to four elements: 16 bytes in
+// fp32, 8 in bf16) as a float4, from shared or global memory; ldg4 reads
+// through the read-only cache.
+__device__ __forceinline__ float4 widen4(uint2 u) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  return widen4(*reinterpret_cast<const uint2*>(p));
+}
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 ldg4(const __nv_bfloat16* p) {
+  return widen4(__ldg(reinterpret_cast<const uint2*>(p)));
+}
+// The four values x at p (aligned as for load4), each rounded once.
+__device__ __forceinline__ void store4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(x.x, x.y);  // .x in the low half
+  const __nv_bfloat162 b = __floats2bfloat162_rn(x.z, x.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&a);
+  u.y = *reinterpret_cast<const uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
 }
 
 // Lets a kernel take more than the default 48 KB of dynamic shared memory.

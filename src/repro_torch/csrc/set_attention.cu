@@ -99,7 +99,22 @@
 //     on it);
 //   * plain fp32 FMAs, fp32 accumulation, no TF32; any N, M >= 1 and
 //     dh <= 256, as the forward.
+//
+// bf16 (Stage 2 on bf16 BBEs, as the JAX kernel takes them): every kernel is
+// also instanced on the element type T of q, k, v, o (and dO, dq, dk, dv).
+// A bf16 instance widens each element exactly as it loads it (into the
+// same fp32 shared tiles and registers; the vector route reads 4 elements,
+// 8 bytes, where the fp32 one reads a float4), runs the fp32 instance's
+// arithmetic in its order, keeps the bias, P and dS in fp32 (the numerics
+// policy of the JAX kernel's docstring) and rounds each output once. Where the tiled
+// backward sums an output over tiles in place (N or M > 64), the bf16
+// instance keeps the partial sums in an fp32 scratch the wrapper gives it
+// and rounds the last sum. So a bf16 instance on x equals the fp32 instance
+// on x.float(), its outputs rounded, bit for bit. The backward's staging
+// is synchronous in bf16 (plain loads, widened, then stored), where fp32
+// copies by cp.async.
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -127,35 +142,37 @@ constexpr int kSmallN = 4;      // N up to this: one warp per (b, h)
 constexpr int kWarps = kThreads / 32;
 
 // dst[d * kLd + r] = src[r * dh + d] for r < rows, 0 for rows <= r < kTile
-// (scalar loads: rows that are not 16-byte aligned).
-__device__ __forceinline__ void load_transposed(float* dst, const float* __restrict__ src,
-                                                int rows, int dh) {
+// (scalar loads: rows that are not aligned to 4 elements).
+template <typename T>
+__device__ __forceinline__ void load_transposed(float* dst, const T* __restrict__ src, int rows,
+                                                int dh) {
   for (int i = threadIdx.x; i < kTile * dh; i += kThreads) {
     const int r = i / dh;
     const int d = i - r * dh;
-    dst[d * kLd + r] = r < rows ? src[r * dh + d] : 0.f;
+    dst[d * kLd + r] = r < rows ? rt::to_f32(src[r * dh + d]) : 0.f;
   }
 }
 
 // dst[r * ldv + d] = src[r * dh + d] for r < rows, 0 for rows <= r < kTile
 // (scalar loads).
-__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, int rows,
-                                          int dh, int ldv) {
+template <typename T>
+__device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src, int rows, int dh,
+                                          int ldv) {
   for (int i = threadIdx.x; i < kTile * dh; i += kThreads) {
     const int r = i / dh;
     const int d = i - r * dh;
-    dst[r * ldv + d] = r < rows ? src[r * dh + d] : 0.f;
+    dst[r * ldv + d] = r < rows ? rt::to_f32(src[r * dh + d]) : 0.f;
   }
 }
 
-// The same loads by 16 bytes (dh % 4 == 0, aligned rows) for a key tile
-// (and, when sQt is given, the query tile): q, k and v of two chunks a
-// thread are all in flight before the first store (four spill at 3 blocks
-// an SM).
-__device__ __forceinline__ void load_tiles_vec(float* sQt, const float* __restrict__ qs,
-                                               int q_rows, float* sKt,
-                                               const float* __restrict__ ks, float* sV,
-                                               const float* __restrict__ vs, int kv_rows, int dh,
+// The same loads 4 elements at a time (dh % 4 == 0, rows aligned to 4
+// elements: float4s, or 8 bytes of bf16) for a key tile (and, when sQt is
+// given, the query tile): q, k and v of two chunks a thread are all in
+// flight before the first store (four spill at 3 blocks an SM).
+template <typename T>
+__device__ __forceinline__ void load_tiles_vec(float* sQt, const T* __restrict__ qs, int q_rows,
+                                               float* sKt, const T* __restrict__ ks, float* sV,
+                                               const T* __restrict__ vs, int kv_rows, int dh,
                                                int ldv) {
   const int d4n = dh / 4;
   const int total = kTile * d4n;
@@ -168,9 +185,9 @@ __device__ __forceinline__ void load_tiles_vec(float* sQt, const float* __restri
       const int r = i / d4n;
       const int off = r * dh + 4 * (i - r * d4n);
       const bool in = i < total;
-      xq[u] = sQt && in && r < q_rows ? __ldg(reinterpret_cast<const float4*>(qs + off)) : zero;
-      xk[u] = in && r < kv_rows ? __ldg(reinterpret_cast<const float4*>(ks + off)) : zero;
-      xv[u] = in && r < kv_rows ? __ldg(reinterpret_cast<const float4*>(vs + off)) : zero;
+      xq[u] = sQt && in && r < q_rows ? rt::ldg4(qs + off) : zero;
+      xk[u] = in && r < kv_rows ? rt::ldg4(ks + off) : zero;
+      xv[u] = in && r < kv_rows ? rt::ldg4(vs + off) : zero;
     }
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
@@ -200,13 +217,13 @@ inline size_t tiled_floats(int dh) {
          static_cast<size_t>(kTile) * ldv;
 }
 
-// DC: blocks of 64 head-dim columns (dh <= 64 DC); MINB: blocks an SM.
-template <int DC, int MINB>
+// T: element type of q, k, v, o; DC: blocks of 64 head-dim columns (dh <=
+// 64 DC); MINB: blocks an SM.
+template <typename T, int DC, int MINB>
 __global__ void __launch_bounds__(kThreads, MINB)
-tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const float* __restrict__ bias,
-             const uint8_t* __restrict__ mask, float* __restrict__ o, int H, int N, int M,
-             int dh, float scale, int vec) {
+tiled_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+             const float* __restrict__ bias, const uint8_t* __restrict__ mask, T* __restrict__ o,
+             int H, int N, int M, int dh, float scale, int vec) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int ldv = (dh + 3) & ~3;
@@ -218,10 +235,10 @@ tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int ty = threadIdx.x >> 4;
   const int bh = blockIdx.x;
   const int b = bh / H;
-  const float* qp = q + static_cast<size_t>(bh) * N * dh;
-  const float* kp = k + static_cast<size_t>(bh) * M * dh;
-  const float* vp = v + static_cast<size_t>(bh) * M * dh;
-  float* op = o + static_cast<size_t>(bh) * N * dh;
+  const T* qp = q + static_cast<size_t>(bh) * N * dh;
+  const T* kp = k + static_cast<size_t>(bh) * M * dh;
+  const T* vp = v + static_cast<size_t>(bh) * M * dh;
+  T* op = o + static_cast<size_t>(bh) * N * dh;
   const float* bp = bias ? bias + static_cast<size_t>(b) * M : nullptr;
   const uint8_t* mp = mask ? mask + static_cast<size_t>(b) * M : nullptr;
 
@@ -239,9 +256,9 @@ tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
       // the previous key tile's P and v (and, with a new query tile, the
       // previous q^T) are read
       __syncthreads();
-      const float* qs = qp + static_cast<size_t>(n0) * dh;
-      const float* ks = kp + static_cast<size_t>(m0) * dh;
-      const float* vs = vp + static_cast<size_t>(m0) * dh;
+      const T* qs = qp + static_cast<size_t>(n0) * dh;
+      const T* ks = kp + static_cast<size_t>(m0) * dh;
+      const T* vs = vp + static_cast<size_t>(m0) * dh;
       if (vec) {
         load_tiles_vec(m0 == 0 ? sQt : nullptr, qs, min(kTile, N - n0), sKP, ks, sV, vs, mm, dh,
                        ldv);
@@ -334,7 +351,7 @@ tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < 4; ++i) {
       const int n = n0 + 4 * ty + i;
       if (n >= N) continue;
-      float* orow = op + static_cast<size_t>(n) * dh;
+      T* orow = op + static_cast<size_t>(n) * dh;
 #pragma unroll
       for (int c = 0; c < DC; ++c) {
         const int col = 64 * c + 4 * tx;
@@ -343,11 +360,11 @@ tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) r[e] = acc[i][4 * c + e] / l[i];
         if (vec) {
-          *reinterpret_cast<float4*>(orow + col) = make_float4(r[0], r[1], r[2], r[3]);
+          rt::store4(orow + col, make_float4(r[0], r[1], r[2], r[3]));
         } else {
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            if (col + e < dh) orow[col + e] = r[e];
+            if (col + e < dh) orow[col + e] = rt::from_f32<T>(r[e]);
         }
       }
     }
@@ -367,11 +384,11 @@ __host__ __device__ __forceinline__ size_t small_n_warp_floats(int N, int M, int
 // off its neighbours' banks) and the lanes split P v by (key parity group,
 // float4 column), reading v coalesced; the groups' partial sums are added
 // in group order.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-small_n_kernel(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, const float* __restrict__ bias,
-               const uint8_t* __restrict__ mask, float* __restrict__ o, int BH, int H, int N,
-               int M, int dh, float scale, int vec) {
+small_n_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+               const float* __restrict__ bias, const uint8_t* __restrict__ mask,
+               T* __restrict__ o, int BH, int H, int N, int M, int dh, float scale, int vec) {
   extern __shared__ float4 smem4[];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -383,14 +400,14 @@ small_n_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* sq = sk + 32 * ldk;                                        // (N, dh)
   float* sp = sq + N * dh;                                          // (N, M)
   const int b = bh / H;
-  const float* qp = q + static_cast<size_t>(bh) * N * dh;
-  const float* kp = k + static_cast<size_t>(bh) * M * dh;
-  const float* vp = v + static_cast<size_t>(bh) * M * dh;
-  float* op = o + static_cast<size_t>(bh) * N * dh;
+  const T* qp = q + static_cast<size_t>(bh) * N * dh;
+  const T* kp = k + static_cast<size_t>(bh) * M * dh;
+  const T* vp = v + static_cast<size_t>(bh) * M * dh;
+  T* op = o + static_cast<size_t>(bh) * N * dh;
   const float* bp = bias ? bias + static_cast<size_t>(b) * M : nullptr;
   const uint8_t* mp = mask ? mask + static_cast<size_t>(b) * M : nullptr;
 
-  for (int i = lane; i < N * dh; i += 32) sq[i] = qp[i];
+  for (int i = lane; i < N * dh; i += 32) sq[i] = rt::to_f32(qp[i]);
   for (int m0 = 0; m0 < M; m0 += 32) {
     const int m = m0 + lane;
     float acc[kSmallN] = {0.f, 0.f, 0.f, 0.f};
@@ -401,8 +418,7 @@ small_n_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const int r = i / d4n;
         const int d = 4 * (i - r * d4n);
         *reinterpret_cast<float4*>(sk + r * ldk + d) =
-            m0 + r < M ? __ldg(reinterpret_cast<const float4*>(kp + (m0 + r) * dh + d))
-                       : make_float4(0.f, 0.f, 0.f, 0.f);
+            m0 + r < M ? rt::ldg4(kp + (m0 + r) * dh + d) : make_float4(0.f, 0.f, 0.f, 0.f);
       }
       __syncwarp();
       for (int d = 0; d < dh; d += 4) {
@@ -421,7 +437,7 @@ small_n_kernel(const float* __restrict__ q, const float* __restrict__ k,
       __syncwarp();  // sq is written
       if (m < M)
         for (int d = 0; d < dh; ++d) {
-          const float x = kp[static_cast<size_t>(m) * dh + d];
+          const float x = rt::to_f32(kp[static_cast<size_t>(m) * dh + d]);
 #pragma unroll
           for (int n = 0; n < kSmallN; ++n)
             if (n < N) acc[n] = fmaf(sq[n * dh + d], x, acc[n]);
@@ -456,14 +472,14 @@ small_n_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int d = lane; d < dh; d += 32) {
       float acc[kSmallN] = {0.f, 0.f, 0.f, 0.f};
       for (int m = 0; m < M; ++m) {
-        const float x = vp[static_cast<size_t>(m) * dh + d];
+        const float x = rt::to_f32(vp[static_cast<size_t>(m) * dh + d]);
 #pragma unroll
         for (int n = 0; n < kSmallN; ++n)
           if (n < N) acc[n] = fmaf(sp[n * M + m], x, acc[n]);
       }
 #pragma unroll
       for (int n = 0; n < kSmallN; ++n)
-        if (n < N) op[n * dh + d] = acc[n] / l[n];
+        if (n < N) op[n * dh + d] = rt::from_f32<T>(acc[n] / l[n]);
     }
     return;
   }
@@ -482,7 +498,7 @@ small_n_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (active) {
 #pragma unroll 4
       for (int m = g; m < M; m += groups) {
-        const float4 x = __ldg(reinterpret_cast<const float4*>(vp + static_cast<size_t>(m) * dh) + col);
+        const float4 x = rt::ldg4(vp + static_cast<size_t>(m) * dh + 4 * col);
 #pragma unroll
         for (int n = 0; n < kSmallN; ++n) {
           if (n >= N) break;
@@ -506,8 +522,8 @@ small_n_kernel(const float* __restrict__ q, const float* __restrict__ k,
         t.w += __shfl_sync(0xffffffffu, acc[n].w, src);
       }
       if (g == 0 && col < d4n)
-        reinterpret_cast<float4*>(op + n * dh)[col] =
-            make_float4(t.x / l[n], t.y / l[n], t.z / l[n], t.w / l[n]);
+        rt::store4(op + n * dh + 4 * col,
+                   make_float4(t.x / l[n], t.y / l[n], t.z / l[n], t.w / l[n]));
     }
   }
 }
@@ -544,12 +560,31 @@ constexpr size_t kMaxSmem = 232448;         // 227 KB, a block's most
 // rows[t] and past dh: by 16-byte cp.async when vec (dh % 4 == 0, aligned
 // rows), all of a thread's copies in flight at once and committed as one
 // group, which the caller waits for; else element by element. The
-// caller's barrier publishes them.
-__device__ __forceinline__ void load_chunks(float* const (&dst)[4], const float* const (&src)[4],
+// caller's barrier publishes them. bf16 tiles are widened on the way: 8-byte
+// loads of 4 elements when vec (then an empty commit group), else element
+// loads.
+template <typename T>
+__device__ __forceinline__ void load_chunks(float* const (&dst)[4], const T* const (&src)[4],
                                             const int (&rows)[4], int t0, int t1, int dh,
                                             int c0, int vec) {
   const int w = min(kTile, dh - c0);
-  if (vec) {
+  if (vec && !std::is_same<T, float>::value) {
+#pragma unroll
+    for (int u = 0; u < kTile * kTile / 4 / kThreads; ++u) {
+      const int i = threadIdx.x + u * kThreads;
+      const int r = i >> 4;
+      const int c = 4 * (i & 15);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        if (t < t0 || t >= t1) continue;
+        const bool in = r < rows[t] && c < w;
+        *reinterpret_cast<float4*>(dst[t] + r * kLd + c) =
+            in ? rt::ldg4(src[t] + static_cast<size_t>(r) * dh + c0 + c)
+               : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+    rt::cp_async_commit();
+  } else if (vec) {
 #pragma unroll
     for (int u = 0; u < kTile * kTile / 4 / kThreads; ++u) {
       const int i = threadIdx.x + u * kThreads;
@@ -572,7 +607,8 @@ __device__ __forceinline__ void load_chunks(float* const (&dst)[4], const float*
       for (int t = 0; t < 4; ++t)
         if (t >= t0 && t < t1)
           dst[t][r * kLd + c] =
-              r < rows[t] && c < w ? src[t][static_cast<size_t>(r) * dh + c0 + c] : 0.f;
+              r < rows[t] && c < w ? rt::to_f32(src[t][static_cast<size_t>(r) * dh + c0 + c])
+                                   : 0.f;
     }
   }
 }
@@ -630,12 +666,45 @@ __device__ __forceinline__ void put4(float* p, int col, int dh, const float (&x)
   }
 }
 
-// N > kSmallN (and the rest): see the note at the top of the file.
+// put4 into a bf16 output row p whose partial sums over tiles live in the
+// fp32 row acc (null when one tile writes the output): the sum
+// goes to acc until the last tile, which rounds it once into p. Its fp32
+// sums are the fp32 instance's.
+__device__ __forceinline__ void put4(__nv_bfloat16* p, float* acc, int col, int dh,
+                                     const float (&x)[4], int vec, bool accumulate, bool last) {
+  float y[4] = {x[0], x[1], x[2], x[3]};
+  if (accumulate) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (col + e < dh) y[e] = x[e] + acc[col + e];
+  }
+  if (!last) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (col + e < dh) acc[col + e] = y[e];
+  } else if (vec) {
+    rt::store4(p + col, make_float4(y[0], y[1], y[2], y[3]));
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (col + e < dh) p[col + e] = __float2bfloat16_rn(y[e]);
+  }
+}
+__device__ __forceinline__ void put4(float* p, float*, int col, int dh, const float (&x)[4],
+                                     int vec, bool accumulate, bool) {
+  put4(p, col, dh, x, vec, accumulate);
+}
+
+// N > kSmallN (and the rest): see the note at the top of the file. T:
+// element type of q, k, v, dout, dq, dk, dv; scratch: the bf16 instance's fp32
+// partial sums of dq (B, H, N, dh), then dk and dv (B, H, M, dh), when N or M
+// is past one tile (else null).
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-tiled_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+tiled_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              const float* __restrict__ bias, const uint8_t* __restrict__ mask,
-             const float* __restrict__ dout, float* dq, float* dk, float* dv, float* db, int H,
-             int N, int M, int dh, float scale, int vec) {
+             const T* __restrict__ dout, T* dq, T* dk, T* dv, float* db, float* scratch,
+             int H, int N, int M, int dh, float scale, int vec) {
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
   float* sDO = sQ + kTileFloats;
@@ -648,16 +717,21 @@ tiled_kernel(const float* __restrict__ q, const float* __restrict__ k, const flo
   const int ty = threadIdx.x >> 4;
   const int bh = blockIdx.x;
   const int b = bh / H;
-  const float* qp = q + static_cast<size_t>(bh) * N * dh;
-  const float* dop = dout + static_cast<size_t>(bh) * N * dh;
-  const float* kp = k + static_cast<size_t>(bh) * M * dh;
-  const float* vp = v + static_cast<size_t>(bh) * M * dh;
-  float* dqp = dq + static_cast<size_t>(bh) * N * dh;
-  float* dkp = dk + static_cast<size_t>(bh) * M * dh;
-  float* dvp = dv + static_cast<size_t>(bh) * M * dh;
+  const T* qp = q + static_cast<size_t>(bh) * N * dh;
+  const T* dop = dout + static_cast<size_t>(bh) * N * dh;
+  const T* kp = k + static_cast<size_t>(bh) * M * dh;
+  const T* vp = v + static_cast<size_t>(bh) * M * dh;
+  T* dqp = dq + static_cast<size_t>(bh) * N * dh;
+  T* dkp = dk + static_cast<size_t>(bh) * M * dh;
+  T* dvp = dv + static_cast<size_t>(bh) * M * dh;
   float* dbp = db + static_cast<size_t>(bh) * M;
   const float* bp = bias ? bias + static_cast<size_t>(b) * M : nullptr;
   const uint8_t* mp = mask ? mask + static_cast<size_t>(b) * M : nullptr;
+  const size_t BH = static_cast<size_t>(gridDim.x);
+  // the bf16 instance's fp32 partial sums of dq, dk, dv (or null)
+  float* sq32 = scratch ? scratch + static_cast<size_t>(bh) * N * dh : nullptr;
+  float* sk32 = scratch ? scratch + BH * N * dh + static_cast<size_t>(bh) * M * dh : nullptr;
+  float* sv32 = scratch ? scratch + BH * (N + M) * dh + static_cast<size_t>(bh) * M * dh : nullptr;
   const int nkt = (M + kTile - 1) / kTile;
   const int ndc = (dh + kTile - 1) / kTile;
 
@@ -672,10 +746,9 @@ tiled_kernel(const float* __restrict__ q, const float* __restrict__ k, const flo
     float* const dst[4] = {sQ, sK, sDO, sV};
     const int rows[4] = {min(kTile, N - n0), min(kTile, M - m0), min(kTile, N - n0),
                          min(kTile, M - m0)};
-    const float* const src[4] = {qp + static_cast<size_t>(n0) * dh,
-                                 kp + static_cast<size_t>(m0) * dh,
-                                 dop + static_cast<size_t>(n0) * dh,
-                                 vp + static_cast<size_t>(m0) * dh};
+    const T* const src[4] = {qp + static_cast<size_t>(n0) * dh, kp + static_cast<size_t>(m0) * dh,
+                             dop + static_cast<size_t>(n0) * dh,
+                             vp + static_cast<size_t>(m0) * dh};
     for (int c0 = 0; c0 < dh; c0 += kTile) {
       __syncthreads();  // every thread is done with the previous chunks
       load_chunks(dst, src, rows, 0, 2, dh, c0, vec);  // q, k
@@ -785,9 +858,9 @@ tiled_kernel(const float* __restrict__ q, const float* __restrict__ k, const flo
       for (int c0 = 0; c0 < dh; c0 += kTile) {
         if (ndc > 1) {
           float* const dst[4] = {sQ, sDO, sK, sV};
-          const float* const src[4] = {qp + static_cast<size_t>(n0) * dh,
-                                       dop + static_cast<size_t>(n0) * dh,
-                                       kp + static_cast<size_t>(m0) * dh, nullptr};
+          const T* const src[4] = {qp + static_cast<size_t>(n0) * dh,
+                                   dop + static_cast<size_t>(n0) * dh,
+                                   kp + static_cast<size_t>(m0) * dh, nullptr};
           const int rows[4] = {nn, nn, mm, 0};
           __syncthreads();
           load_chunks(dst, src, rows, 0, 3, dh, c0, vec);
@@ -832,7 +905,9 @@ tiled_kernel(const float* __restrict__ q, const float* __restrict__ k, const flo
             if (n >= N) continue;
             const float x[4] = {acc[i][0] * scale, acc[i][1] * scale, acc[i][2] * scale,
                                 acc[i][3] * scale};
-            put4(dqp + static_cast<size_t>(n) * dh, col, dh, x, vec, m0 > 0);
+            put4(dqp + static_cast<size_t>(n) * dh,
+                 sq32 ? sq32 + static_cast<size_t>(n) * dh : nullptr, col, dh, x, vec, m0 > 0,
+                 m0 + kTile >= M);
           }
         }
 
@@ -868,8 +943,13 @@ tiled_kernel(const float* __restrict__ q, const float* __restrict__ k, const flo
             if (m >= M) continue;
             const float xk[4] = {ak[i][0] * scale, ak[i][1] * scale, ak[i][2] * scale,
                                  ak[i][3] * scale};
-            put4(dkp + static_cast<size_t>(m) * dh, col, dh, xk, vec, n0 > 0);
-            put4(dvp + static_cast<size_t>(m) * dh, col, dh, av[i], vec, n0 > 0);
+            const bool last = n0 + kTile >= N;
+            put4(dkp + static_cast<size_t>(m) * dh,
+                 sk32 ? sk32 + static_cast<size_t>(m) * dh : nullptr, col, dh, xk, vec, n0 > 0,
+                 last);
+            put4(dvp + static_cast<size_t>(m) * dh,
+                 sv32 ? sv32 + static_cast<size_t>(m) * dh : nullptr, col, dh, av[i], vec, n0 > 0,
+                 last);
           }
         }
       }
@@ -885,12 +965,13 @@ __host__ __device__ __forceinline__ size_t small_n_floats(int N, int M, int dh) 
 
 // N <= kSmallN while small_n_floats fit in 227 KB: one block of
 // kSmallThreads per (b, h), see the note at the top of the file.
+template <typename T>
 __global__ void __launch_bounds__(kSmallThreads)
-small_n_kernel(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, const float* __restrict__ bias,
-               const uint8_t* __restrict__ mask, const float* __restrict__ dout,
-               float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
-               float* __restrict__ db, int H, int N, int M, int dh, float scale, int vec) {
+small_n_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+               const float* __restrict__ bias, const uint8_t* __restrict__ mask,
+               const T* __restrict__ dout, T* __restrict__ dq, T* __restrict__ dk,
+               T* __restrict__ dv, float* __restrict__ db, int H, int N, int M, int dh,
+               float scale, int vec) {
   extern __shared__ float4 smem4[];
   const int ldk = dh + 4;
   float* sk = reinterpret_cast<float*>(smem4);  // (kTile, ldk)
@@ -902,20 +983,31 @@ small_n_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x;
   const int bh = blockIdx.x;
   const int b = bh / H;
-  const float* qp = q + static_cast<size_t>(bh) * N * dh;
-  const float* dop = dout + static_cast<size_t>(bh) * N * dh;
-  const float* kp = k + static_cast<size_t>(bh) * M * dh;
-  const float* vp = v + static_cast<size_t>(bh) * M * dh;
-  float* dqp = dq + static_cast<size_t>(bh) * N * dh;
-  float* dkp = dk + static_cast<size_t>(bh) * M * dh;
-  float* dvp = dv + static_cast<size_t>(bh) * M * dh;
+  const T* qp = q + static_cast<size_t>(bh) * N * dh;
+  const T* dop = dout + static_cast<size_t>(bh) * N * dh;
+  const T* kp = k + static_cast<size_t>(bh) * M * dh;
+  const T* vp = v + static_cast<size_t>(bh) * M * dh;
+  T* dqp = dq + static_cast<size_t>(bh) * N * dh;
+  T* dkp = dk + static_cast<size_t>(bh) * M * dh;
+  T* dvp = dv + static_cast<size_t>(bh) * M * dh;
   const float* bp = bias ? bias + static_cast<size_t>(b) * M : nullptr;
   const uint8_t* mp = mask ? mask + static_cast<size_t>(b) * M : nullptr;
   const int d4n = dh / 4;
 
-  // rows m0 .. m0 + 63 of k (and v) into sk (sv), zero past M
+  // rows m0 .. m0 + 63 of k (and v) into sk (sv), zero past M; bf16 rows
+  // widened by 8-byte loads of 4 elements
   auto stage = [&](int m0, bool with_v) {
-    if (vec) {
+    if (vec && !std::is_same<T, float>::value) {
+      for (int i = tid; i < kTile * d4n; i += kSmallThreads) {
+        const int r = i / d4n;
+        const int d = 4 * (i - r * d4n);
+        const bool in = m0 + r < M;
+        const size_t off = in ? static_cast<size_t>(m0 + r) * dh + d : 0;
+        const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+        *reinterpret_cast<float4*>(sk + r * ldk + d) = in ? rt::ldg4(kp + off) : zero;
+        if (with_v) *reinterpret_cast<float4*>(sv + r * ldk + d) = in ? rt::ldg4(vp + off) : zero;
+      }
+    } else if (vec) {
       for (int i = tid; i < kTile * d4n; i += kSmallThreads) {
         const int r = i / d4n;
         const int d = 4 * (i - r * d4n);
@@ -931,15 +1023,16 @@ small_n_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const int r = i / dh;
         const int d = i - r * dh;
         const bool in = m0 + r < M;
-        sk[r * ldk + d] = in ? kp[static_cast<size_t>(m0 + r) * dh + d] : 0.f;
-        if (with_v) sv[r * ldk + d] = in ? vp[static_cast<size_t>(m0 + r) * dh + d] : 0.f;
+        sk[r * ldk + d] = in ? rt::to_f32(kp[static_cast<size_t>(m0 + r) * dh + d]) : 0.f;
+        if (with_v)
+          sv[r * ldk + d] = in ? rt::to_f32(vp[static_cast<size_t>(m0 + r) * dh + d]) : 0.f;
       }
     }
   };
 
   for (int i = tid; i < N * dh; i += kSmallThreads) {
-    sq[i] = qp[i];
-    sdo[i] = dop[i];
+    sq[i] = rt::to_f32(qp[i]);
+    sdo[i] = rt::to_f32(dop[i]);
   }
   // scores (threads 0-63) and dP (threads 64-127), a thread a key
   const int key = tid & (kTile - 1);
@@ -1039,9 +1132,9 @@ small_n_kernel(const float* __restrict__ q, const float* __restrict__ k,
         av.z = fmaf(p, o.z, av.z);
         av.w = fmaf(p, o.w, av.w);
       }
-      reinterpret_cast<float4*>(dkp + static_cast<size_t>(m) * dh)[c] =
-          make_float4(ak.x * scale, ak.y * scale, ak.z * scale, ak.w * scale);
-      reinterpret_cast<float4*>(dvp + static_cast<size_t>(m) * dh)[c] = av;
+      rt::store4(dkp + static_cast<size_t>(m) * dh + 4 * c,
+                 make_float4(ak.x * scale, ak.y * scale, ak.z * scale, ak.w * scale));
+      rt::store4(dvp + static_cast<size_t>(m) * dh + 4 * c, av);
     }
   } else {
     for (int i = tid; i < M * dh; i += kSmallThreads) {
@@ -1054,8 +1147,8 @@ small_n_kernel(const float* __restrict__ q, const float* __restrict__ k,
           ak = fmaf(sds[n * M + m], sq[n * dh + d], ak);
           av = fmaf(sp[n * M + m], sdo[n * dh + d], av);
         }
-      dkp[static_cast<size_t>(m) * dh + d] = ak * scale;
-      dvp[static_cast<size_t>(m) * dh + d] = av;
+      dkp[static_cast<size_t>(m) * dh + d] = rt::from_f32<T>(ak * scale);
+      dvp[static_cast<size_t>(m) * dh + d] = rt::from_f32<T>(av);
     }
   }
 
@@ -1102,10 +1195,11 @@ small_n_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int i = tid + u * kSmallThreads;
     if (i >= nout) break;
     if (vec)
-      reinterpret_cast<float4*>(dqp)[i] =
-          make_float4(aq[u][0] * scale, aq[u][1] * scale, aq[u][2] * scale, aq[u][3] * scale);
+      rt::store4(dqp + 4 * i,
+                 make_float4(aq[u][0] * scale, aq[u][1] * scale, aq[u][2] * scale,
+                             aq[u][3] * scale));
     else
-      dqp[i] = aq[u][0] * scale;
+      dqp[i] = rt::from_f32<T>(aq[u][0] * scale);
   }
 }
 
@@ -1115,10 +1209,10 @@ small_n_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 namespace {
 
-template <typename Kernel>
-cudaError_t launch_tiled(Kernel kernel, const float* q, const float* k, const float* v,
-                         const float* bias, const uint8_t* mask, float* o, int B, int H, int N,
-                         int M, int dh, float scale, int vec, cudaStream_t stream) {
+template <typename Kernel, typename T>
+cudaError_t launch_tiled(Kernel kernel, const T* q, const T* k, const T* v, const float* bias,
+                         const uint8_t* mask, T* o, int B, int H, int N, int M, int dh,
+                         float scale, int vec, cudaStream_t stream) {
   const size_t smem = sizeof(float) * fwd::tiled_floats(dh);
   cudaError_t err = rt::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -1127,104 +1221,145 @@ cudaError_t launch_tiled(Kernel kernel, const float* q, const float* k, const fl
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// q, o: (B, H, N, dh); k, v: (B, H, M, dh); bias: (B, M) fp32 or null;
-// mask: (B, M) uint8 (nonzero = valid key) or null. fp32, contiguous;
-// dh <= 256. vec != 0: dh % 4 == 0 and q, k, v, o 16-byte aligned.
-extern "C" int rt_set_attention_forward(const float* q, const float* k, const float* v,
-                                        const float* bias, const uint8_t* mask, float* o,
-                                        int B, int H, int N, int M, int dh, int vec, float scale,
-                                        cudaStream_t stream) {
-  if (B * H == 0 || N == 0) return cudaSuccess;
-  if (M <= 0 || dh <= 0 || dh > 256) return cudaErrorInvalidValue;
+template <typename T>
+cudaError_t forward(const T* q, const T* k, const T* v, const float* bias, const uint8_t* mask,
+                    T* o, int B, int H, int N, int M, int dh, int vec, float scale,
+                    cudaStream_t stream) {
   if (N <= fwd::kSmallN) {
     // k rows, q and the scores of each warp, as many warps as fit
     const int warps = fwd::small_n_warps(N, M, dh);
     if (warps == 0) return cudaErrorInvalidValue;
     const size_t smem = fwd::small_n_bytes(N, M, dh);
-    cudaError_t err = rt::allow_smem(fwd::small_n_kernel, smem);
+    cudaError_t err = rt::allow_smem(fwd::small_n_kernel<T>, smem);
     if (err != cudaSuccess) return err;
     const int blocks = (B * H + warps - 1) / warps;
-    fwd::small_n_kernel<<<blocks, 32 * warps, smem, stream>>>(q, k, v, bias, mask, o, B * H, H,
-                                                              N, M, dh, scale, vec);
+    fwd::small_n_kernel<T><<<blocks, 32 * warps, smem, stream>>>(q, k, v, bias, mask, o,
+                                                                 B * H, H, N, M, dh, scale, vec);
     return cudaGetLastError();
   }
   if (dh <= 64)
-    return launch_tiled(fwd::tiled_kernel<1, 3>, q, k, v, bias, mask, o, B, H, N, M, dh, scale,
-                        vec, stream);
+    return launch_tiled(fwd::tiled_kernel<T, 1, 3>, q, k, v, bias, mask, o, B, H, N, M, dh,
+                        scale, vec, stream);
   if (dh <= 128)
-    return launch_tiled(fwd::tiled_kernel<2, 2>, q, k, v, bias, mask, o, B, H, N, M, dh, scale,
-                        vec, stream);
-  return launch_tiled(fwd::tiled_kernel<4, 1>, q, k, v, bias, mask, o, B, H, N, M, dh, scale,
+    return launch_tiled(fwd::tiled_kernel<T, 2, 2>, q, k, v, bias, mask, o, B, H, N, M, dh,
+                        scale, vec, stream);
+  return launch_tiled(fwd::tiled_kernel<T, 4, 1>, q, k, v, bias, mask, o, B, H, N, M, dh, scale,
                       vec, stream);
 }
 
-// The kernel a forward launch at (N, M, dh) takes: out = {registers a
-// thread, static shared bytes, dynamic shared bytes a block, local (spill)
-// bytes a thread}.
-extern "C" int rt_set_attention_forward_attributes(int N, int M, int dh, int* out) {
+template <typename T>
+cudaError_t forward_attributes(int N, int dh, cudaFuncAttributes* a) {
+  if (N <= fwd::kSmallN) return cudaFuncGetAttributes(a, fwd::small_n_kernel<T>);
+  if (dh <= 64) return cudaFuncGetAttributes(a, fwd::tiled_kernel<T, 1, 3>);
+  if (dh <= 128) return cudaFuncGetAttributes(a, fwd::tiled_kernel<T, 2, 2>);
+  return cudaFuncGetAttributes(a, fwd::tiled_kernel<T, 4, 1>);
+}
+
+template <typename T>
+cudaError_t backward(const T* q, const T* k, const T* v, const float* bias, const uint8_t* mask,
+                     const T* dout, T* dq, T* dk, T* dv, float* db, float* acc, int B, int H,
+                     int N, int M, int dh, int vec, float scale, cudaStream_t stream) {
+  const size_t small = sizeof(float) * bwd::small_n_floats(N, M, dh);
+  if (N <= bwd::kSmallN && small <= bwd::kMaxSmem) {
+    cudaError_t err = rt::allow_smem(bwd::small_n_kernel<T>, small);
+    if (err != cudaSuccess) return err;
+    bwd::small_n_kernel<T><<<B * H, bwd::kSmallThreads, small, stream>>>(
+        q, k, v, bias, mask, dout, dq, dk, dv, db, H, N, M, dh, scale, vec);
+    return cudaGetLastError();
+  }
+  // a bf16 output summed over tiles needs its fp32 scratch
+  if (!std::is_same<T, float>::value && (N > bwd::kTile || M > bwd::kTile) && !acc)
+    return cudaErrorInvalidValue;
+  cudaError_t err = rt::allow_smem(bwd::tiled_kernel<T>, bwd::kTiledBytes);
+  if (err != cudaSuccess) return err;
+  bwd::tiled_kernel<T><<<B * H, bwd::kThreads, bwd::kTiledBytes, stream>>>(
+      q, k, v, bias, mask, dout, dq, dk, dv, db, acc, H, N, M, dh, scale, vec);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t backward_attributes(int N, int M, int dh, cudaFuncAttributes* a, size_t* smem) {
+  *smem = sizeof(float) * bwd::small_n_floats(N, M, dh);
+  if (N <= bwd::kSmallN && *smem <= bwd::kMaxSmem)
+    return cudaFuncGetAttributes(a, bwd::small_n_kernel<T>);
+  *smem = bwd::kTiledBytes;
+  return cudaFuncGetAttributes(a, bwd::tiled_kernel<T>);
+}
+
+using bf16_t = __nv_bfloat16;
+
+}  // namespace
+
+// q, o: (B, H, N, dh); k, v: (B, H, M, dh), all fp32 (bf16 == 0) or all
+// bf16; bias: (B, M) fp32 or null; mask: (B, M) uint8 (nonzero = valid
+// key) or null. Contiguous; dh <= 256. vec != 0: dh % 4 == 0 and q, k, v,
+// o aligned to 4 elements (16 bytes in fp32, 8 in bf16).
+extern "C" int rt_set_attention_forward(const void* q, const void* k, const void* v,
+                                        const float* bias, const uint8_t* mask, void* o, int B,
+                                        int H, int N, int M, int dh, int vec, int bf16,
+                                        float scale, cudaStream_t stream) {
+  if (B * H == 0 || N == 0) return cudaSuccess;
+  if (M <= 0 || dh <= 0 || dh > 256) return cudaErrorInvalidValue;
+  if (bf16)
+    return forward(static_cast<const bf16_t*>(q), static_cast<const bf16_t*>(k),
+                   static_cast<const bf16_t*>(v), bias, mask, static_cast<bf16_t*>(o), B, H, N,
+                   M, dh, vec, scale, stream);
+  return forward(static_cast<const float*>(q), static_cast<const float*>(k),
+                 static_cast<const float*>(v), bias, mask, static_cast<float*>(o), B, H, N, M,
+                 dh, vec, scale, stream);
+}
+
+// The kernel a forward launch at (N, M, dh) on fp32 (bf16 == 0) or bf16
+// inputs takes: out = {registers a thread, static shared bytes, dynamic
+// shared bytes a block, local (spill) bytes a thread}.
+extern "C" int rt_set_attention_forward_attributes(int bf16, int N, int M, int dh, int* out) {
   if (N <= 0 || M <= 0 || dh <= 0 || dh > 256) return cudaErrorInvalidValue;
   cudaFuncAttributes a;
-  cudaError_t err;
-  size_t smem = sizeof(float) * fwd::tiled_floats(dh);
-  if (N <= fwd::kSmallN) {
-    err = cudaFuncGetAttributes(&a, fwd::small_n_kernel);
-    smem = fwd::small_n_bytes(N, M, dh);
-  } else if (dh <= 64) {
-    err = cudaFuncGetAttributes(&a, fwd::tiled_kernel<1, 3>);
-  } else if (dh <= 128) {
-    err = cudaFuncGetAttributes(&a, fwd::tiled_kernel<2, 2>);
-  } else {
-    err = cudaFuncGetAttributes(&a, fwd::tiled_kernel<4, 1>);
-  }
+  const cudaError_t err =
+      bf16 ? forward_attributes<bf16_t>(N, dh, &a) : forward_attributes<float>(N, dh, &a);
   if (err != cudaSuccess) return err;
   out[0] = a.numRegs;
   out[1] = static_cast<int>(a.sharedSizeBytes);
-  out[2] = static_cast<int>(smem);
+  out[2] = static_cast<int>(N <= fwd::kSmallN ? fwd::small_n_bytes(N, M, dh)
+                                              : sizeof(float) * fwd::tiled_floats(dh));
   out[3] = static_cast<int>(a.localSizeBytes);
   return cudaSuccess;
 }
 
-// Inputs as the forward's, plus dout: (B, H, N, dh). Outputs dq: (B, H, N, dh);
-// dk, dv: (B, H, M, dh); db: (B, H, M), the key-bias gradient of each head.
-// dh <= 256. vec != 0: dh % 4 == 0 and q, k, v, dout, dq, dk, dv 16-byte
-// aligned. N <= 4 takes small_n_kernel while its shared memory fits in
+// Inputs as the forward's, plus dout: (B, H, N, dh). Outputs dq: (B, H, N,
+// dh); dk, dv: (B, H, M, dh), in the inputs' dtype; db: (B, H, M) fp32, the
+// key-bias gradient of each head. acc: for bf16 on the tiled route with N
+// or M > 64, an fp32 scratch of B H (N + 2 M) dh floats (else null). dh <=
+// 256. vec != 0: dh % 4 == 0 and q, k, v, dout, dq, dk, dv aligned to 4
+// elements. N <= 4 takes small_n_kernel while its shared memory fits in
 // 227 KB, everything else the tiled kernel.
-extern "C" int rt_set_attention_backward(const float* q, const float* k, const float* v,
-                                         const float* bias, const uint8_t* mask,
-                                         const float* dout, float* dq, float* dk, float* dv,
-                                         float* db, int B, int H, int N, int M, int dh, int vec,
+extern "C" int rt_set_attention_backward(const void* q, const void* k, const void* v,
+                                         const float* bias, const uint8_t* mask, const void* dout,
+                                         void* dq, void* dk, void* dv, float* db, float* acc,
+                                         int B, int H, int N, int M, int dh, int vec, int bf16,
                                          float scale, cudaStream_t stream) {
   if (B * H == 0 || N == 0) return cudaSuccess;
   if (M <= 0 || dh <= 0 || dh > bwd::kMaxHeadDim) return cudaErrorInvalidValue;
-  const size_t small = sizeof(float) * bwd::small_n_floats(N, M, dh);
-  if (N <= bwd::kSmallN && small <= bwd::kMaxSmem) {
-    cudaError_t err = rt::allow_smem(bwd::small_n_kernel, small);
-    if (err != cudaSuccess) return err;
-    bwd::small_n_kernel<<<B * H, bwd::kSmallThreads, small, stream>>>(
-        q, k, v, bias, mask, dout, dq, dk, dv, db, H, N, M, dh, scale, vec);
-    return cudaGetLastError();
-  }
-  cudaError_t err = rt::allow_smem(bwd::tiled_kernel, bwd::kTiledBytes);
-  if (err != cudaSuccess) return err;
-  bwd::tiled_kernel<<<B * H, bwd::kThreads, bwd::kTiledBytes, stream>>>(
-      q, k, v, bias, mask, dout, dq, dk, dv, db, H, N, M, dh, scale, vec);
-  return cudaGetLastError();
+  if (bf16)
+    return backward(static_cast<const bf16_t*>(q), static_cast<const bf16_t*>(k),
+                    static_cast<const bf16_t*>(v), bias, mask,
+                    static_cast<const bf16_t*>(dout), static_cast<bf16_t*>(dq),
+                    static_cast<bf16_t*>(dk), static_cast<bf16_t*>(dv), db, acc, B, H, N, M, dh,
+                    vec, scale, stream);
+  return backward(static_cast<const float*>(q), static_cast<const float*>(k),
+                  static_cast<const float*>(v), bias, mask, static_cast<const float*>(dout),
+                  static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), db,
+                  nullptr, B, H, N, M, dh, vec, scale, stream);
 }
 
-// The kernel a backward launch at (N, M, dh) takes: out as the forward's.
-extern "C" int rt_set_attention_backward_attributes(int N, int M, int dh, int* out) {
+// The kernel a backward launch at (N, M, dh) on fp32 (bf16 == 0) or bf16
+// inputs takes: out as the forward's.
+extern "C" int rt_set_attention_backward_attributes(int bf16, int N, int M, int dh, int* out) {
   if (N <= 0 || M <= 0 || dh <= 0 || dh > bwd::kMaxHeadDim) return cudaErrorInvalidValue;
   cudaFuncAttributes a;
-  cudaError_t err;
-  size_t smem = sizeof(float) * bwd::small_n_floats(N, M, dh);
-  if (N <= bwd::kSmallN && smem <= bwd::kMaxSmem) {
-    err = cudaFuncGetAttributes(&a, bwd::small_n_kernel);
-  } else {
-    smem = bwd::kTiledBytes;
-    err = cudaFuncGetAttributes(&a, bwd::tiled_kernel);
-  }
+  size_t smem = 0;
+  const cudaError_t err = bf16 ? backward_attributes<bf16_t>(N, M, dh, &a, &smem)
+                               : backward_attributes<float>(N, M, dh, &a, &smem);
   if (err != cudaSuccess) return err;
   out[0] = a.numRegs;
   out[1] = static_cast<int>(a.sharedSizeBytes);

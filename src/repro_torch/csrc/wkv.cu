@@ -35,7 +35,19 @@
 //     of S stays zero, so padding changes nothing.
 // Sums over the k dimension run in another order than the plain version's
 // (a row group's rows, then the butterfly): within atol 1e-4 + rtol 1e-3.
+//
+// bf16 (the Stage-1 encoder at dtype "bfloat16", whose r, k and v are
+// bf16 and whose decays and beta are fp32, as in the JAX model): every
+// kernel is also instanced on the element type T of r, k and v. The bf16
+// instances stage the bf16 rows as they are (a 16-byte cp.async carries 8
+// of them, so the vector route needs dh % 8 == 0; the element route copies
+// them by plain loads) and widen each element exactly at its read, then
+// run the fp32 instance's arithmetic in its order; y and the states stay
+// fp32, and the backward rounds dr, dk and dv once. So a bf16 instance on
+// x equals the fp32 instance on x.float(), its bf16 outputs rounded, bit
+// for bit.
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -44,36 +56,83 @@ namespace {
 constexpr int kChunk = 8;  // tokens a stage
 constexpr int kCols = 4;   // value columns a thread (a multiple of 4)
 
-// DHP: head dim padded; RG: row groups (threads sharing a column group).
-template <int DHP, int RG>
-struct Shape {
+// A stage of kChunk tokens, in bytes: the w rows (fp32), the k, r and v
+// rows (T: element type of r, k, v), beta (fp32); DHP: head dim padded.
+template <typename T, int DHP>
+struct Stage {
+  static constexpr int kKrv = 4 * kChunk * DHP;  // byte offset of the k, r, v rows
+  static constexpr int kBeta = kKrv + 3 * kChunk * DHP * static_cast<int>(sizeof(T));
+  static constexpr int kBytes = kBeta + 4 * kChunk;
+  static_assert(kBeta % 16 == 0 && kBytes % 16 == 0, "stage alignment");
+};
+
+// RG: row groups (threads sharing a column group).
+template <typename T, int DHP, int RG>
+struct Shape : Stage<T, DHP> {
   static constexpr int kRows = DHP / RG;             // rows of S a thread
   static constexpr int kThreads = RG * DHP / kCols;  // threads a block
-  static constexpr int kStage = 4 * kChunk * DHP + kChunk;  // w, k, r, v rows; beta
   static_assert(kRows % 4 == 0 && kCols % 4 == 0 && 32 % RG == 0 && kThreads % 32 == 0,
                 "tile");
 };
 
-// Stages tokens t0 .. t0 + nt - 1 of w, k, r, v (rows of dh floats) and beta
-// into buf: 16-byte copies when vec, else 4-byte ones. Columns past dh are
-// never written (they hold the zeros of the kernel's start).
-template <int DHP, int THREADS>
-__device__ __forceinline__ void stage_chunk(float* buf, const float* w, const float* k,
-                                            const float* r, const float* v,
+// Stages tokens t0 .. t0 + nt - 1 of w (fp32), k, r, v (T: rows of dh) and
+// beta into buf: 16-byte copies when vec, else 4-byte ones (w, beta, fp32
+// rows) and plain element copies (bf16 rows). The fp32 instance keeps its
+// own loops (those of the kernel before the bf16 instances). Columns past
+// dh are never written (they hold the zeros of the kernel's start).
+template <typename T, int DHP, int THREADS>
+__device__ __forceinline__ void stage_chunk(unsigned char* buf, const float* w, const T* k,
+                                            const T* r, const T* v,
                                             const float* __restrict__ beta, size_t base,
                                             size_t tok_stride, size_t beta_base, int beta_stride,
                                             int t0, int nt, int dh, int vec) {
-  if (vec) {
-    const int d4n = dh / 4;
-    const int per_tok = 4 * d4n;
+  using Sh = Stage<T, DHP>;
+  float* bw = reinterpret_cast<float*>(buf);
+  T* bkrv = reinterpret_cast<T*>(buf + Sh::kKrv);
+  if constexpr (std::is_same<T, float>::value) {
+    // w, k, r, v rows lie back to back: four rows of dh floats a token
+    if (vec) {
+      const int d4n = dh / 4;
+      const int per_tok = 4 * d4n;
+      for (int i = threadIdx.x; i < nt * per_tok; i += THREADS) {
+        const int t = i / per_tok;
+        const int rem = i - t * per_tok;
+        const int a = rem / d4n;
+        const int d = 4 * (rem - a * d4n);
+        const float* src = a == 0 ? w : a == 1 ? k : a == 2 ? r : v;  // no local array
+        rt::cp_async16(bw + (a * kChunk + t) * DHP + d,
+                       src + base + static_cast<size_t>(t0 + t) * tok_stride + d);
+      }
+    } else {
+      const int per_tok = 4 * dh;
+      for (int i = threadIdx.x; i < nt * per_tok; i += THREADS) {
+        const int t = i / per_tok;
+        const int rem = i - t * per_tok;
+        const int a = rem / dh;
+        const int d = rem - a * dh;
+        const float* src = a == 0 ? w : a == 1 ? k : a == 2 ? r : v;
+        rt::cp_async4(bw + (a * kChunk + t) * DHP + d,
+                      src + base + static_cast<size_t>(t0 + t) * tok_stride + d);
+      }
+    }
+  } else if (vec) {
+    constexpr int kPer16 = 16 / static_cast<int>(sizeof(T));  // elements a 16-byte copy
+    const int d4n = dh / 4;                                   // w's copies a row
+    const int dtn = dh / kPer16;                              // k's, r's, v's
+    const int per_tok = d4n + 3 * dtn;
     for (int i = threadIdx.x; i < nt * per_tok; i += THREADS) {
       const int t = i / per_tok;
       const int rem = i - t * per_tok;
-      const int a = rem / d4n;
-      const int d = 4 * (rem - a * d4n);
-      const float* src = a == 0 ? w : a == 1 ? k : a == 2 ? r : v;  // no local array
-      rt::cp_async16(buf + (a * kChunk + t) * DHP + d,
-                     src + base + static_cast<size_t>(t0 + t) * tok_stride + d);
+      const size_t row = base + static_cast<size_t>(t0 + t) * tok_stride;
+      if (rem < d4n) {
+        const int d = 4 * rem;
+        rt::cp_async16(bw + t * DHP + d, w + row + d);
+      } else {
+        const int a = (rem - d4n) / dtn;  // 0 k, 1 r, 2 v
+        const int d = kPer16 * (rem - d4n - a * dtn);
+        const T* src = a == 0 ? k : a == 1 ? r : v;  // no local array
+        rt::cp_async16(bkrv + (a * kChunk + t) * DHP + d, src + row + d);
+      }
     }
   } else {
     const int per_tok = 4 * dh;
@@ -82,14 +141,18 @@ __device__ __forceinline__ void stage_chunk(float* buf, const float* w, const fl
       const int rem = i - t * per_tok;
       const int a = rem / dh;
       const int d = rem - a * dh;
-      const float* src = a == 0 ? w : a == 1 ? k : a == 2 ? r : v;
-      rt::cp_async4(buf + (a * kChunk + t) * DHP + d,
-                    src + base + static_cast<size_t>(t0 + t) * tok_stride + d);
+      const size_t at = base + static_cast<size_t>(t0 + t) * tok_stride + d;
+      if (a == 0) {
+        rt::cp_async4(bw + t * DHP + d, w + at);
+      } else {
+        const T* src = a == 1 ? k : a == 2 ? r : v;
+        bkrv[((a - 1) * kChunk + t) * DHP + d] = src[at];
+      }
     }
   }
+  float* bb = reinterpret_cast<float*>(buf + Sh::kBeta);
   for (int t = threadIdx.x; t < nt; t += THREADS)
-    rt::cp_async4(buf + 4 * kChunk * DHP + t,
-                  beta + beta_base + static_cast<size_t>(t0 + t) * beta_stride);
+    rt::cp_async4(bb + t, beta + beta_base + static_cast<size_t>(t0 + t) * beta_stride);
 }
 
 // Writes a thread's tile of the state (rows 4 (rg + RG q) + e, columns
@@ -121,18 +184,17 @@ __device__ __forceinline__ void store_tile(float* dst, const float (&st)[kRows][
 }
 
 // SAVE: also write S_{t-1} of token t to states (B, S, H, dh, dh).
-template <int DHP, int RG, int MINB, bool SAVE>
-__global__ void __launch_bounds__(Shape<DHP, RG>::kThreads, MINB)
-wkv_forward_kernel(const float* __restrict__ r, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ w,
-                   const float* __restrict__ beta, const float* __restrict__ s0,
-                   float* __restrict__ y, float* __restrict__ sf, float* __restrict__ states,
-                   int S, int H, int dh, int vec) {
-  using Sh = Shape<DHP, RG>;
+template <typename T, int DHP, int RG, int MINB, bool SAVE>
+__global__ void __launch_bounds__(Shape<T, DHP, RG>::kThreads, MINB)
+wkv_forward_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
+                   const float* __restrict__ w, const float* __restrict__ beta,
+                   const float* __restrict__ s0, float* __restrict__ y, float* __restrict__ sf,
+                   float* __restrict__ states, int S, int H, int dh, int vec) {
+  using Sh = Shape<T, DHP, RG>;
   constexpr int kRows = Sh::kRows;
   constexpr int kQ = kRows / 4;   // float4 row groups a thread
   constexpr int kC4 = kCols / 4;  // float4 column groups a thread
-  __shared__ __align__(16) float stage[2][Sh::kStage];
+  __shared__ __align__(16) unsigned char stage[2][Sh::kBytes];
 
   const int bh = blockIdx.x;
   const int b = bh / H;
@@ -142,7 +204,8 @@ wkv_forward_kernel(const float* __restrict__ r, const float* __restrict__ k,
   const int col = kCols * cg;
 
   // padding columns (and rows) of both stages stay zero
-  for (int i = threadIdx.x; i < 2 * Sh::kStage; i += Sh::kThreads) (&stage[0][0])[i] = 0.f;
+  for (int i = threadIdx.x; i < 2 * Sh::kBytes / 4; i += Sh::kThreads)
+    reinterpret_cast<float*>(&stage[0][0])[i] = 0.f;
 
   float st[kRows][kCols];  // S[4 (rg + RG q) + e][col + j]
   const float* s0p = s0 ? s0 + static_cast<size_t>(bh) * dh * dh : nullptr;
@@ -176,8 +239,8 @@ wkv_forward_kernel(const float* __restrict__ r, const float* __restrict__ k,
   const int nch = (S + kChunk - 1) / kChunk;
 
   __syncthreads();  // the zeros land before any copy into the same words
-  stage_chunk<DHP, Sh::kThreads>(stage[0], w, k, r, v, beta, base, tok_stride, beta_base, H, 0,
-                                 min(kChunk, S), dh, vec);
+  stage_chunk<T, DHP, Sh::kThreads>(stage[0], w, k, r, v, beta, base, tok_stride, beta_base, H,
+                                    0, min(kChunk, S), dh, vec);
   rt::cp_async_commit();
 
   for (int ch = 0; ch < nch; ++ch) {
@@ -185,9 +248,9 @@ wkv_forward_kernel(const float* __restrict__ r, const float* __restrict__ k,
     const int nt = min(kChunk, S - t0);
     if (ch + 1 < nch) {
       // the other buffer was released by the barrier that ended chunk ch - 1
-      stage_chunk<DHP, Sh::kThreads>(stage[(ch + 1) & 1], w, k, r, v, beta, base,
-                                     tok_stride, beta_base, H, t0 + kChunk,
-                                     min(kChunk, S - t0 - kChunk), dh, vec);
+      stage_chunk<T, DHP, Sh::kThreads>(stage[(ch + 1) & 1], w, k, r, v, beta, base,
+                                        tok_stride, beta_base, H, t0 + kChunk,
+                                        min(kChunk, S - t0 - kChunk), dh, vec);
       rt::cp_async_commit();
       rt::cp_async_wait<1>();
     } else {
@@ -195,7 +258,9 @@ wkv_forward_kernel(const float* __restrict__ r, const float* __restrict__ k,
     }
     __syncthreads();  // every thread's copies of chunk ch have landed
 
-    const float* buf = stage[ch & 1];
+    const float* buf = reinterpret_cast<const float*>(stage[ch & 1]);
+    const T* krv = reinterpret_cast<const T*>(stage[ch & 1] + Sh::kKrv);
+    const float* bb = reinterpret_cast<const float*>(stage[ch & 1] + Sh::kBeta);
     for (int c = 0; c < nt; ++c) {
       if constexpr (SAVE)
         store_tile<RG, kRows>(
@@ -203,10 +268,10 @@ wkv_forward_kernel(const float* __restrict__ r, const float* __restrict__ k,
                          dh * dh,
             st, rg, col, dh, vec);
       const float4* sw4 = reinterpret_cast<const float4*>(buf + c * DHP);
-      const float4* sk4 = reinterpret_cast<const float4*>(buf + (kChunk + c) * DHP);
-      const float4* sr4 = reinterpret_cast<const float4*>(buf + (2 * kChunk + c) * DHP);
-      const float* sv = buf + (3 * kChunk + c) * DHP + col;
-      const float bt = buf[4 * kChunk * DHP + c];
+      const T* sk = krv + c * DHP;  // rows widened 4 elements at a time
+      const T* sr = krv + (kChunk + c) * DHP;
+      const T* sv = krv + (2 * kChunk + c) * DHP + col;
+      const float bt = bb[c];
 
       float a[kCols];  // (S^T k)[col + j] after the decay, this row group
 #pragma unroll
@@ -214,7 +279,7 @@ wkv_forward_kernel(const float* __restrict__ r, const float* __restrict__ k,
 #pragma unroll
       for (int q = 0; q < kQ; ++q) {
         const float4 w4 = sw4[rg + RG * q];
-        const float4 k4 = sk4[rg + RG * q];
+        const float4 k4 = rt::load4(sk + 4 * (rg + RG * q));
         const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
         const float kv[4] = {k4.x, k4.y, k4.z, k4.w};
 #pragma unroll
@@ -233,7 +298,7 @@ wkv_forward_kernel(const float* __restrict__ r, const float* __restrict__ k,
       float bd[kCols];
 #pragma unroll
       for (int c4 = 0; c4 < kC4; ++c4) {
-        const float4 v4 = reinterpret_cast<const float4*>(sv)[c4];
+        const float4 v4 = rt::load4(sv + 4 * c4);
         bd[4 * c4] = bt * (v4.x - a[4 * c4]);
         bd[4 * c4 + 1] = bt * (v4.y - a[4 * c4 + 1]);
         bd[4 * c4 + 2] = bt * (v4.z - a[4 * c4 + 2]);
@@ -245,8 +310,8 @@ wkv_forward_kernel(const float* __restrict__ r, const float* __restrict__ k,
       for (int j = 0; j < kCols; ++j) yv[j] = 0.f;
 #pragma unroll
       for (int q = 0; q < kQ; ++q) {
-        const float4 k4 = sk4[rg + RG * q];
-        const float4 r4 = sr4[rg + RG * q];
+        const float4 k4 = rt::load4(sk + 4 * (rg + RG * q));
+        const float4 r4 = rt::load4(sr + 4 * (rg + RG * q));
         const float kv[4] = {k4.x, k4.y, k4.z, k4.w};
         const float rv[4] = {r4.x, r4.y, r4.z, r4.w};
 #pragma unroll
@@ -309,60 +374,80 @@ wkv_forward_kernel(const float* __restrict__ r, const float* __restrict__ k,
 }
 
 // One instance of the kernel: its launch and its attributes.
-template <int DHP, int RG, int MINB>
+template <typename T, int DHP, int RG, int MINB>
 struct Instance {
-  static cudaError_t launch(const float* r, const float* k, const float* v, const float* w,
+  static cudaError_t launch(const void* r, const void* k, const void* v, const float* w,
                             const float* beta, const float* s0, float* y, float* sf,
                             float* states, int B, int S, int H, int dh, int vec,
                             cudaStream_t stream) {
+    const T* rt_ = static_cast<const T*>(r);
+    const T* kt = static_cast<const T*>(k);
+    const T* vt = static_cast<const T*>(v);
+    constexpr int kThreads = Shape<T, DHP, RG>::kThreads;
     if (states)
-      wkv_forward_kernel<DHP, RG, MINB, true><<<B * H, Shape<DHP, RG>::kThreads, 0, stream>>>(
-          r, k, v, w, beta, s0, y, sf, states, S, H, dh, vec);
+      wkv_forward_kernel<T, DHP, RG, MINB, true><<<B * H, kThreads, 0, stream>>>(
+          rt_, kt, vt, w, beta, s0, y, sf, states, S, H, dh, vec);
     else
-      wkv_forward_kernel<DHP, RG, MINB, false><<<B * H, Shape<DHP, RG>::kThreads, 0, stream>>>(
-          r, k, v, w, beta, s0, y, sf, nullptr, S, H, dh, vec);
+      wkv_forward_kernel<T, DHP, RG, MINB, false><<<B * H, kThreads, 0, stream>>>(
+          rt_, kt, vt, w, beta, s0, y, sf, nullptr, S, H, dh, vec);
     return cudaGetLastError();
   }
   static cudaError_t attributes(cudaFuncAttributes* a) {
-    return cudaFuncGetAttributes(a, wkv_forward_kernel<DHP, RG, MINB, false>);
+    return cudaFuncGetAttributes(a, wkv_forward_kernel<T, DHP, RG, MINB, false>);
   }
 };
 
 // The instances, by head dim: dh <= 32 (32 threads, 8 rows x 4 columns a
 // thread), <= 64 (64 threads, 16 x 4), <= 128 (256 threads, 16 x 4, 8 row
-// groups).
-using Dh32 = Instance<32, 4, 16>;
-using Dh64 = Instance<64, 4, 8>;
-using Dh128 = Instance<128, 8, 2>;
+// groups); each for fp32 and for bf16 r, k, v.
+template <typename T>
+struct Instances {
+  using Dh32 = Instance<T, 32, 4, 16>;
+  using Dh64 = Instance<T, 64, 4, 8>;
+  using Dh128 = Instance<T, 128, 8, 2>;
+  static cudaError_t launch(const void* r, const void* k, const void* v, const float* w,
+                            const float* beta, const float* s0, float* y, float* sf,
+                            float* states, int B, int S, int H, int dh, int vec,
+                            cudaStream_t stream) {
+    if (dh <= 32)
+      return Dh32::launch(r, k, v, w, beta, s0, y, sf, states, B, S, H, dh, vec, stream);
+    if (dh <= 64)
+      return Dh64::launch(r, k, v, w, beta, s0, y, sf, states, B, S, H, dh, vec, stream);
+    return Dh128::launch(r, k, v, w, beta, s0, y, sf, states, B, S, H, dh, vec, stream);
+  }
+  static cudaError_t attributes(int dh, cudaFuncAttributes* a) {
+    return dh <= 32 ? Dh32::attributes(a) : dh <= 64 ? Dh64::attributes(a) : Dh128::attributes(a);
+  }
+};
 
 }  // namespace
 
-// r, k, v, w, y: (B, S, H, dh); beta: (B, S, H); s0 (may be null: zero
-// state) and sf: (B, H, dh, dh); states (null: not written): (B, S, H, dh,
-// dh), S_{t-1} of each token. All fp32, contiguous. dh <= 128.
-// vec != 0: dh % 4 == 0 and r, k, v, w, y, s0, sf, states 16-byte aligned.
-extern "C" int rt_wkv_forward(const float* r, const float* k, const float* v, const float* w,
+// r, k, v: (B, S, H, dh), fp32 (bf16 == 0) or bf16; w, y: (B, S, H, dh)
+// fp32; beta: (B, S, H) fp32; s0 (may be null: zero state) and sf: (B, H,
+// dh, dh) fp32; states (null: not written): (B, S, H, dh, dh) fp32,
+// S_{t-1} of each token. Contiguous; dh <= 128. vec != 0: r, k, v, w, y,
+// s0, sf, states 16-byte aligned and dh % 4 == 0 (fp32) or dh % 8 == 0
+// (bf16).
+extern "C" int rt_wkv_forward(const void* r, const void* k, const void* v, const float* w,
                               const float* beta, const float* s0, float* y, float* sf,
-                              float* states, int B, int S, int H, int dh, int vec,
+                              float* states, int B, int S, int H, int dh, int vec, int bf16,
                               cudaStream_t stream) {
   if (B * H == 0 || S == 0) return cudaSuccess;
   if (dh <= 0 || dh > 128) return cudaErrorInvalidValue;
-  if (dh <= 32)
-    return Dh32::launch(r, k, v, w, beta, s0, y, sf, states, B, S, H, dh, vec, stream);
-  if (dh <= 64)
-    return Dh64::launch(r, k, v, w, beta, s0, y, sf, states, B, S, H, dh, vec, stream);
-  return Dh128::launch(r, k, v, w, beta, s0, y, sf, states, B, S, H, dh, vec, stream);
+  if (bf16)
+    return Instances<__nv_bfloat16>::launch(r, k, v, w, beta, s0, y, sf, states, B, S, H, dh,
+                                            vec, stream);
+  return Instances<float>::launch(r, k, v, w, beta, s0, y, sf, states, B, S, H, dh, vec, stream);
 }
 
-// The serving kernel (no states) a launch at head dim dh takes: out =
-// {registers a thread, static shared bytes, dynamic shared bytes a block,
-// local (spill) bytes a thread}.
-extern "C" int rt_wkv_attributes(int dh, int* out) {
+// The serving kernel (no states) a launch at head dim dh on fp32 (bf16 ==
+// 0) or bf16 r, k, v takes: out = {registers a thread, static shared bytes,
+// dynamic shared bytes a block, local (spill) bytes a thread}.
+extern "C" int rt_wkv_attributes(int bf16, int dh, int* out) {
   if (dh <= 0 || dh > 128) return cudaErrorInvalidValue;
   cudaFuncAttributes a;
-  const cudaError_t err = dh <= 32   ? Dh32::attributes(&a)
-                          : dh <= 64 ? Dh64::attributes(&a)
-                                     : Dh128::attributes(&a);
+  const cudaError_t err = bf16 ? Instances<__nv_bfloat16>::attributes(dh, &a)
+                               : Instances<float>::attributes(dh, &a);
   if (err != cudaSuccess) return err;
   out[0] = a.numRegs;
   out[1] = static_cast<int>(a.sharedSizeBytes);
@@ -410,8 +495,10 @@ namespace bwd {
 
 constexpr int kCols = 4;  // value columns a thread
 
-// DHP: head dim padded (32, 64, 128); ROWS: rows of G a thread.
-template <int DHP, int ROWS>
+// T: element type of r, k, v (and dr, dk, dv); DHP: head dim padded (32,
+// 64, 128); ROWS: rows of G a thread. A slot holds, in bytes: the state
+// rows (fp32, stride kStride), w (fp32), k, r, v (T), dy (fp32), beta.
+template <typename T, int DHP, int ROWS>
 struct Shape {
   static constexpr int kDHP = DHP;
   static constexpr int kRows = ROWS;
@@ -420,67 +507,103 @@ struct Shape {
   static constexpr int kThreads = kRG * kCG;
   static constexpr int kWarps = kThreads / 32;
   static constexpr int kStride = DHP + 4;       // a state row in shared, floats
-  static constexpr int kVecs = DHP * kStride;   // offset of w, k, r, v, dy rows
-  static constexpr int kSlot = kVecs + 5 * DHP + 4;  // + beta, 16-byte padded
+  static constexpr int kW = 4 * DHP * kStride;  // byte offsets in a slot: w,
+  static constexpr int kKrv = kW + 4 * DHP;     // k, r, v,
+  static constexpr int kDy = kKrv + 3 * DHP * static_cast<int>(sizeof(T));  // dy,
+  static constexpr int kBeta = kDy + 4 * DHP;   // beta (16-byte padded)
+  static constexpr int kSlotBytes = kBeta + 16;
   // two slots, then the row partials [3][kWarps][DHP] and dbeta's [kWarps]
-  static constexpr int kFloats = 2 * kSlot + 3 * kWarps * DHP + kWarps;
-  static constexpr int kBytes = 4 * kFloats;
+  static constexpr int kBytes = 2 * kSlotBytes + 4 * (3 * kWarps * DHP + kWarps);
   static_assert(32 % kRG == 0 && kThreads % 32 == 0 && kCG * kCols == DHP, "tile");
+  static_assert(kDy % 16 == 0 && kSlotBytes % 16 == 0, "slot alignment");
 };
 
-// Stages token t of the saved state and of w, k, r, v, dy, beta into slot.
-// Entries past dh are never written (they hold the zeros of the start).
-template <class Sh>
-__device__ __forceinline__ void stage_token(float* slot, const float* __restrict__ states,
-                                            const float* w, const float* k, const float* r,
-                                            const float* v, const float* dy,
-                                            const float* __restrict__ beta, size_t sbase,
-                                            size_t vbase, size_t bidx, int dh, int vec) {
+// Stages token t of the saved state and of w, k, r, v, dy, beta into slot:
+// 16-byte copies when vec, else 4-byte ones (fp32 entries) and plain element
+// copies (bf16 rows). Entries past dh are never written (they hold the
+// zeros of the start).
+template <typename T, class Sh>
+__device__ __forceinline__ void stage_token(unsigned char* slot, const float* __restrict__ states,
+                                            const float* w, const T* k, const T* r, const T* v,
+                                            const float* dy, const float* __restrict__ beta,
+                                            size_t sbase, size_t vbase, size_t bidx, int dh,
+                                            int vec) {
+  float* ss = reinterpret_cast<float*>(slot);
+  float* sw = reinterpret_cast<float*>(slot + Sh::kW);
+  T* skrv = reinterpret_cast<T*>(slot + Sh::kKrv);
+  float* sdy = reinterpret_cast<float*>(slot + Sh::kDy);
   if (vec) {
+    constexpr int kPer16 = 16 / static_cast<int>(sizeof(T));  // elements a 16-byte copy
     const int d4 = dh / 4;
+    const int dtn = dh / kPer16;
     for (int i = threadIdx.x; i < dh * d4; i += Sh::kThreads) {
       const int row = i / d4;
       const int c = 4 * (i - row * d4);
-      rt::cp_async16(slot + row * Sh::kStride + c, states + sbase + static_cast<size_t>(row) * dh + c);
+      rt::cp_async16(ss + row * Sh::kStride + c, states + sbase + static_cast<size_t>(row) * dh + c);
     }
-    for (int i = threadIdx.x; i < 5 * d4; i += Sh::kThreads) {
-      const int a = i / d4;
-      const int c = 4 * (i - a * d4);
-      const float* src = a == 0 ? w : a == 1 ? k : a == 2 ? r : a == 3 ? v : dy;
-      rt::cp_async16(slot + Sh::kVecs + a * Sh::kDHP + c, src + vbase + c);
+    if constexpr (std::is_same<T, float>::value) {
+      // w, k, r, v, dy lie back to back: one row of dh floats each
+      for (int i = threadIdx.x; i < 5 * d4; i += Sh::kThreads) {
+        const int a = i / d4;
+        const int c = 4 * (i - a * d4);
+        const float* src = a == 0 ? w : a == 1 ? k : a == 2 ? r : a == 3 ? v : dy;
+        rt::cp_async16(sw + a * Sh::kDHP + c, src + vbase + c);
+      }
+    } else {
+      for (int i = threadIdx.x; i < 2 * d4 + 3 * dtn; i += Sh::kThreads) {
+        if (i < d4) {
+          rt::cp_async16(sw + 4 * i, w + vbase + 4 * i);
+        } else if (i < d4 + 3 * dtn) {
+          const int a = (i - d4) / dtn;  // 0 k, 1 r, 2 v
+          const int c = kPer16 * (i - d4 - a * dtn);
+          const T* src = a == 0 ? k : a == 1 ? r : v;
+          rt::cp_async16(skrv + a * Sh::kDHP + c, src + vbase + c);
+        } else {
+          const int c = 4 * (i - d4 - 3 * dtn);
+          rt::cp_async16(sdy + c, dy + vbase + c);
+        }
+      }
     }
   } else {
     for (int i = threadIdx.x; i < dh * dh; i += Sh::kThreads) {
       const int row = i / dh;
       const int c = i - row * dh;
-      rt::cp_async4(slot + row * Sh::kStride + c, states + sbase + i);
+      rt::cp_async4(ss + row * Sh::kStride + c, states + sbase + i);
     }
     for (int i = threadIdx.x; i < 5 * dh; i += Sh::kThreads) {
-      const int a = i / dh;
+      const int a = i / dh;  // 0 w, 1 k, 2 r, 3 v, 4 dy
       const int c = i - a * dh;
-      const float* src = a == 0 ? w : a == 1 ? k : a == 2 ? r : a == 3 ? v : dy;
-      rt::cp_async4(slot + Sh::kVecs + a * Sh::kDHP + c, src + vbase + c);
+      if constexpr (std::is_same<T, float>::value) {
+        const float* src = a == 0 ? w : a == 1 ? k : a == 2 ? r : a == 3 ? v : dy;
+        rt::cp_async4(sw + a * Sh::kDHP + c, src + vbase + c);
+      } else if (a == 0) {
+        rt::cp_async4(sw + c, w + vbase + c);
+      } else if (a == 4) {
+        rt::cp_async4(sdy + c, dy + vbase + c);
+      } else {
+        const T* src = a == 1 ? k : a == 2 ? r : v;
+        skrv[(a - 1) * Sh::kDHP + c] = src[vbase + c];
+      }
     }
   }
-  if (threadIdx.x == 0) rt::cp_async4(slot + Sh::kVecs + 5 * Sh::kDHP, beta + bidx);
+  if (threadIdx.x == 0) rt::cp_async4(slot + Sh::kBeta, beta + bidx);
 }
 
-template <int DHP, int ROWS, int MINB>
-__global__ void __launch_bounds__(Shape<DHP, ROWS>::kThreads, MINB)
-wkv_backward_kernel(const float* __restrict__ r, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ w,
-                    const float* __restrict__ beta, const float* __restrict__ states,
-                    const float* __restrict__ dy, const float* __restrict__ dsf,
-                    float* __restrict__ dr, float* __restrict__ dk, float* __restrict__ dv,
-                    float* __restrict__ dw, float* __restrict__ dbeta, float* __restrict__ ds0,
-                    int S, int H, int dh, int vec) {
-  using Sh = Shape<DHP, ROWS>;
+template <typename T, int DHP, int ROWS, int MINB>
+__global__ void __launch_bounds__(Shape<T, DHP, ROWS>::kThreads, MINB)
+wkv_backward_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
+                    const float* __restrict__ w, const float* __restrict__ beta,
+                    const float* __restrict__ states, const float* __restrict__ dy,
+                    const float* __restrict__ dsf, T* __restrict__ dr, T* __restrict__ dk,
+                    T* __restrict__ dv, float* __restrict__ dw, float* __restrict__ dbeta,
+                    float* __restrict__ ds0, int S, int H, int dh, int vec) {
+  using Sh = Shape<T, DHP, ROWS>;
   constexpr int R = ROWS;
   constexpr int RG = Sh::kRG;
   constexpr int W = Sh::kWarps;
-  extern __shared__ __align__(16) float smem[];
-  float* part = smem + 2 * Sh::kSlot;  // [3][W][DHP] row partials
-  float* bpart = part + 3 * W * DHP;   // [W] dbeta partials
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* part = reinterpret_cast<float*>(smem + 2 * Sh::kSlotBytes);  // [3][W][DHP] row partials
+  float* bpart = part + 3 * W * DHP;                                  // [W] dbeta partials
 
   const int bh = blockIdx.x;
   const int b = bh / H;
@@ -492,7 +615,8 @@ wkv_backward_kernel(const float* __restrict__ r, const float* __restrict__ k,
   const int warp = tid >> 5;
 
   // padding rows and columns of both slots stay zero
-  for (int i = tid; i < 2 * Sh::kSlot; i += Sh::kThreads) smem[i] = 0.f;
+  for (int i = tid; i < 2 * Sh::kSlotBytes / 4; i += Sh::kThreads)
+    reinterpret_cast<float*>(smem)[i] = 0.f;
 
   float g[R][kCols];  // G[rg + RG m][col + c]
   const float* gp = dsf ? dsf + static_cast<size_t>(bh) * dh * dh : nullptr;
@@ -510,17 +634,17 @@ wkv_backward_kernel(const float* __restrict__ r, const float* __restrict__ k,
   const size_t bbase = static_cast<size_t>(b) * S * H + h;
 
   __syncthreads();  // the zeros land before any copy into the same words
-  stage_token<Sh>(smem, states, w, k, r, v, dy, beta, sbase + (S - 1) * tok * dh,
-                  vbase + (S - 1) * tok, bbase + static_cast<size_t>(S - 1) * H, dh, vec);
+  stage_token<T, Sh>(smem, states, w, k, r, v, dy, beta, sbase + (S - 1) * tok * dh,
+                     vbase + (S - 1) * tok, bbase + static_cast<size_t>(S - 1) * H, dh, vec);
   rt::cp_async_commit();
 
   for (int n = 0; n < S; ++n) {
     const int t = S - 1 - n;
     if (n + 1 < S) {
       // the other slot was released by the barrier that ended token t + 1
-      stage_token<Sh>(smem + ((n + 1) & 1) * Sh::kSlot, states, w, k, r, v, dy, beta,
-                      sbase + (t - 1) * tok * dh, vbase + (t - 1) * tok,
-                      bbase + static_cast<size_t>(t - 1) * H, dh, vec);
+      stage_token<T, Sh>(smem + ((n + 1) & 1) * Sh::kSlotBytes, states, w, k, r, v, dy, beta,
+                         sbase + (t - 1) * tok * dh, vbase + (t - 1) * tok,
+                         bbase + static_cast<size_t>(t - 1) * H, dh, vec);
       rt::cp_async_commit();
       rt::cp_async_wait<1>();
     } else {
@@ -528,13 +652,15 @@ wkv_backward_kernel(const float* __restrict__ r, const float* __restrict__ k,
     }
     __syncthreads();  // token t has landed for every thread
 
-    const float* sl = smem + (n & 1) * Sh::kSlot;
-    const float* sw = sl + Sh::kVecs;
-    const float* sk = sw + DHP;
-    const float* sr = sk + DHP;
-    const float4 v4 = *reinterpret_cast<const float4*>(sr + DHP + col);
-    const float4 y4 = *reinterpret_cast<const float4*>(sr + 2 * DHP + col);
-    const float bt = sr[3 * DHP];
+    const unsigned char* slot = smem + (n & 1) * Sh::kSlotBytes;
+    const float* sl = reinterpret_cast<const float*>(slot);
+    const float* sw = reinterpret_cast<const float*>(slot + Sh::kW);
+    const T* sk = reinterpret_cast<const T*>(slot + Sh::kKrv);
+    const T* sr = sk + DHP;
+    const float4 v4 = rt::load4(sr + DHP + col);
+    const float4 y4 = *reinterpret_cast<const float4*>(
+        reinterpret_cast<const float*>(slot + Sh::kDy) + col);
+    const float bt = *reinterpret_cast<const float*>(slot + Sh::kBeta);
     const float vv[kCols] = {v4.x, v4.y, v4.z, v4.w};
     const float dyv[kCols] = {y4.x, y4.y, y4.z, y4.w};
 
@@ -545,7 +671,7 @@ wkv_backward_kernel(const float* __restrict__ r, const float* __restrict__ k,
 #pragma unroll
     for (int m = 0; m < R; ++m) {
       const int i = rg + RG * m;
-      const float wi = sw[i], ki = sk[i], ri = sr[i];
+      const float wi = sw[i], ki = rt::to_f32(sk[i]), ri = rt::to_f32(sr[i]);
       const float4 s4 = *reinterpret_cast<const float4*>(sl + i * Sh::kStride + col);
       const float sp[kCols] = {s4.x, s4.y, s4.z, s4.w};
 #pragma unroll
@@ -577,7 +703,7 @@ wkv_backward_kernel(const float* __restrict__ r, const float* __restrict__ k,
 #pragma unroll
     for (int m = 0; m < R; ++m) {
       const int i = rg + RG * m;
-      const float wi = sw[i], ki = sk[i];
+      const float wi = sw[i], ki = rt::to_f32(sk[i]);
       const float4 s4 = *reinterpret_cast<const float4*>(sl + i * Sh::kStride + col);
       const float sp[kCols] = {s4.x, s4.y, s4.z, s4.w};
       const float bk = bt * ki;
@@ -615,13 +741,13 @@ wkv_backward_kernel(const float* __restrict__ r, const float* __restrict__ k,
       if (lane == 0) bpart[warp] = pb;
     }
     if (rg == 0) {  // dv = ddelta
-      float* o = dv + vbase + t * tok;
+      T* o = dv + vbase + t * tok;
       if (vec && col < dh) {
-        *reinterpret_cast<float4*>(o + col) = make_float4(dd[0], dd[1], dd[2], dd[3]);
+        rt::store4(o + col, make_float4(dd[0], dd[1], dd[2], dd[3]));
       } else {
 #pragma unroll
         for (int c = 0; c < kCols; ++c)
-          if (col + c < dh) o[col + c] = dd[c];
+          if (col + c < dh) o[col + c] = rt::from_f32<T>(dd[c]);
       }
     }
     __syncthreads();  // the partials are in; slot n & 1 is free for token t - 2
@@ -634,8 +760,15 @@ wkv_backward_kernel(const float* __restrict__ r, const float* __restrict__ k,
       float s = 0.f;
 #pragma unroll
       for (int x = 0; x < W; ++x) s += part[(which * W + x) * DHP + i];
-      float* o = which == 0 ? dr : which == 1 ? dk : dw;
-      o[vbase + t * tok + i] = s;
+      const size_t at = vbase + t * tok + i;
+      if constexpr (std::is_same<T, float>::value) {
+        float* o = which == 0 ? dr : which == 1 ? dk : dw;
+        o[at] = s;
+      } else if (which == 2) {
+        dw[at] = s;
+      } else {
+        (which == 0 ? dr : dk)[at] = rt::from_f32<T>(s);
+      }
     }
     if (tid == 0) {
       float s = 0.f;
@@ -662,69 +795,90 @@ wkv_backward_kernel(const float* __restrict__ r, const float* __restrict__ k,
   }
 }
 
-template <int DHP, int ROWS, int MINB>
+template <typename T, int DHP, int ROWS, int MINB>
 struct Instance {
-  using Sh = Shape<DHP, ROWS>;
-  static cudaError_t launch(const float* r, const float* k, const float* v, const float* w,
+  using Sh = Shape<T, DHP, ROWS>;
+  static cudaError_t launch(const void* r, const void* k, const void* v, const float* w,
                             const float* beta, const float* states, const float* dy,
-                            const float* dsf, float* dr, float* dk, float* dv, float* dw,
+                            const float* dsf, void* dr, void* dk, void* dv, float* dw,
                             float* dbeta, float* ds0, int B, int S, int H, int dh, int vec,
                             cudaStream_t stream) {
-    const cudaError_t err = rt::allow_smem(wkv_backward_kernel<DHP, ROWS, MINB>, Sh::kBytes);
+    const cudaError_t err = rt::allow_smem(wkv_backward_kernel<T, DHP, ROWS, MINB>, Sh::kBytes);
     if (err != cudaSuccess) return err;
-    wkv_backward_kernel<DHP, ROWS, MINB><<<B * H, Sh::kThreads, Sh::kBytes, stream>>>(
-        r, k, v, w, beta, states, dy, dsf, dr, dk, dv, dw, dbeta, ds0, S, H, dh, vec);
+    wkv_backward_kernel<T, DHP, ROWS, MINB><<<B * H, Sh::kThreads, Sh::kBytes, stream>>>(
+        static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v), w, beta,
+        states, dy, dsf, static_cast<T*>(dr), static_cast<T*>(dk), static_cast<T*>(dv), dw,
+        dbeta, ds0, S, H, dh, vec);
     return cudaGetLastError();
   }
   static cudaError_t attributes(cudaFuncAttributes* a) {
-    return cudaFuncGetAttributes(a, wkv_backward_kernel<DHP, ROWS, MINB>);
+    return cudaFuncGetAttributes(a, wkv_backward_kernel<T, DHP, ROWS, MINB>);
   }
 };
 
 // dh <= 32: 64 threads (4 rows x 4 columns a thread); <= 64: 128 threads
-// (8 x 4); <= 128: 512 threads (8 x 4, 16 row groups).
-using Dh32 = Instance<32, 4, 8>;
-using Dh64 = Instance<64, 8, 4>;
-using Dh128 = Instance<128, 8, 1>;
+// (8 x 4); <= 128: 512 threads (8 x 4, 16 row groups); each for fp32 and
+// for bf16 r, k, v.
+template <typename T>
+struct Instances {
+  using Dh32 = Instance<T, 32, 4, 8>;
+  using Dh64 = Instance<T, 64, 8, 4>;
+  using Dh128 = Instance<T, 128, 8, 1>;
+  static cudaError_t launch(const void* r, const void* k, const void* v, const float* w,
+                            const float* beta, const float* states, const float* dy,
+                            const float* dsf, void* dr, void* dk, void* dv, float* dw,
+                            float* dbeta, float* ds0, int B, int S, int H, int dh, int vec,
+                            cudaStream_t stream) {
+    if (dh <= 32)
+      return Dh32::launch(r, k, v, w, beta, states, dy, dsf, dr, dk, dv, dw, dbeta, ds0, B, S,
+                          H, dh, vec, stream);
+    if (dh <= 64)
+      return Dh64::launch(r, k, v, w, beta, states, dy, dsf, dr, dk, dv, dw, dbeta, ds0, B, S,
+                          H, dh, vec, stream);
+    return Dh128::launch(r, k, v, w, beta, states, dy, dsf, dr, dk, dv, dw, dbeta, ds0, B, S, H,
+                         dh, vec, stream);
+  }
+  static cudaError_t attributes(int dh, cudaFuncAttributes* a, int* bytes) {
+    *bytes = dh <= 32 ? Dh32::Sh::kBytes : dh <= 64 ? Dh64::Sh::kBytes : Dh128::Sh::kBytes;
+    return dh <= 32 ? Dh32::attributes(a) : dh <= 64 ? Dh64::attributes(a) : Dh128::attributes(a);
+  }
+};
 
 }  // namespace bwd
 
-// r, k, v, w, dy, dr, dk, dv, dw: (B, S, H, dh); beta, dbeta: (B, S, H);
-// states: (B, S, H, dh, dh) as rt_wkv_forward wrote it; dsf (may be null:
-// zeros) and ds0: (B, H, dh, dh). All fp32, contiguous; S >= 1, dh <= 128.
-// vec != 0: dh % 4 == 0 and every pointer but beta's and dbeta's 16-byte
-// aligned.
-extern "C" int rt_wkv_backward(const float* r, const float* k, const float* v, const float* w,
+// r, k, v, dr, dk, dv: (B, S, H, dh), fp32 (bf16 == 0) or bf16; w, dy, dw:
+// (B, S, H, dh) fp32; beta, dbeta: (B, S, H) fp32; states: (B, S, H, dh,
+// dh) as rt_wkv_forward wrote it; dsf (may be null: zeros) and ds0: (B, H,
+// dh, dh) fp32. Contiguous; S >= 1, dh <= 128. vec != 0: every pointer but
+// beta's and dbeta's 16-byte aligned and dh % 4 == 0 (fp32) or dh % 8 == 0
+// (bf16).
+extern "C" int rt_wkv_backward(const void* r, const void* k, const void* v, const float* w,
                                const float* beta, const float* states, const float* dy,
-                               const float* dsf, float* dr, float* dk, float* dv, float* dw,
+                               const float* dsf, void* dr, void* dk, void* dv, float* dw,
                                float* dbeta, float* ds0, int B, int S, int H, int dh, int vec,
-                               cudaStream_t stream) {
+                               int bf16, cudaStream_t stream) {
   if (B * H == 0) return cudaSuccess;
   if (S <= 0 || dh <= 0 || dh > 128) return cudaErrorInvalidValue;
-  if (dh <= 32)
-    return bwd::Dh32::launch(r, k, v, w, beta, states, dy, dsf, dr, dk, dv, dw, dbeta, ds0, B,
-                             S, H, dh, vec, stream);
-  if (dh <= 64)
-    return bwd::Dh64::launch(r, k, v, w, beta, states, dy, dsf, dr, dk, dv, dw, dbeta, ds0, B,
-                             S, H, dh, vec, stream);
-  return bwd::Dh128::launch(r, k, v, w, beta, states, dy, dsf, dr, dk, dv, dw, dbeta, ds0, B, S,
-                            H, dh, vec, stream);
+  if (bf16)
+    return bwd::Instances<__nv_bfloat16>::launch(r, k, v, w, beta, states, dy, dsf, dr, dk, dv,
+                                                 dw, dbeta, ds0, B, S, H, dh, vec, stream);
+  return bwd::Instances<float>::launch(r, k, v, w, beta, states, dy, dsf, dr, dk, dv, dw, dbeta,
+                                       ds0, B, S, H, dh, vec, stream);
 }
 
-// The backward kernel a launch at head dim dh takes: out = {registers a
-// thread, static shared bytes, dynamic shared bytes a block, local (spill)
-// bytes a thread}.
-extern "C" int rt_wkv_backward_attributes(int dh, int* out) {
+// The backward kernel a launch at head dim dh on fp32 (bf16 == 0) or bf16
+// r, k, v takes: out = {registers a thread, static shared bytes, dynamic
+// shared bytes a block, local (spill) bytes a thread}.
+extern "C" int rt_wkv_backward_attributes(int bf16, int dh, int* out) {
   if (dh <= 0 || dh > 128) return cudaErrorInvalidValue;
   cudaFuncAttributes a;
-  const cudaError_t err = dh <= 32   ? bwd::Dh32::attributes(&a)
-                          : dh <= 64 ? bwd::Dh64::attributes(&a)
-                                     : bwd::Dh128::attributes(&a);
+  int bytes = 0;
+  const cudaError_t err = bf16 ? bwd::Instances<__nv_bfloat16>::attributes(dh, &a, &bytes)
+                               : bwd::Instances<float>::attributes(dh, &a, &bytes);
   if (err != cudaSuccess) return err;
   out[0] = a.numRegs;
   out[1] = static_cast<int>(a.sharedSizeBytes);
-  out[2] = dh <= 32 ? bwd::Dh32::Sh::kBytes : dh <= 64 ? bwd::Dh64::Sh::kBytes
-                                                        : bwd::Dh128::Sh::kBytes;
+  out[2] = bytes;
   out[3] = static_cast<int>(a.localSizeBytes);
   return cudaSuccess;
 }

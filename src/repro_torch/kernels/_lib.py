@@ -37,10 +37,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # (name, argument kinds) of every C entry point: "p" pointer or stream,
 # "i" int, "f" float. Each returns the cudaError_t of its launch.
 _ENTRY_POINTS = {
-    "rt_wkv_forward": "pppppppppiiiiip",
-    "rt_wkv_backward": "p" * 14 + "iiiiip",
-    "rt_set_attention_forward": "ppppppiiiiiifp",
-    "rt_set_attention_backward": "ppppppppppiiiiiifp",
+    # ..., vec, bf16 (the element type of the bf16 instances' inputs), ...
+    "rt_wkv_forward": "p" * 9 + "i" * 6 + "p",
+    "rt_wkv_backward": "p" * 14 + "i" * 6 + "p",
+    "rt_set_attention_forward": "p" * 6 + "i" * 7 + "fp",
+    "rt_set_attention_backward": "p" * 11 + "i" * 7 + "fp",
     "rt_kmeans_assign": "ppiiiippp",
     "rt_kmeans_update": "pppiiiipppp",
     # q k v o lse, B S T H K D, the (b, seq, head) strides of q, k and v,
@@ -54,14 +55,14 @@ _ENTRY_POINTS = {
     "rt_flash_attention_backward_f32": "p" * 10 + "i" * 24 + "fp",
     "rt_flash_attention_backward_bf16": "p" * 10 + "i" * 24 + "fp",
     # (bf16, D, prefix, lse, out[4]), (bf16, D, prefix, kernel, out[4]),
-    # (N, M, dh, out[4]), (dh, out[4]) and (d, K, out[4]): the attributes
-    # of the kernel a launch takes, see kernel_attributes
+    # (bf16, N, M, dh, out[4]), (bf16, dh, out[4]) and (d, K, out[4]): the
+    # attributes of the kernel a launch takes, see kernel_attributes
     "rt_flash_attention_attributes": "iiiip",
     "rt_flash_attention_backward_attributes": "iiiip",
-    "rt_set_attention_forward_attributes": "iiip",
-    "rt_set_attention_backward_attributes": "iiip",
-    "rt_wkv_attributes": "ip",
-    "rt_wkv_backward_attributes": "ip",
+    "rt_set_attention_forward_attributes": "iiiip",
+    "rt_set_attention_backward_attributes": "iiiip",
+    "rt_wkv_attributes": "iip",
+    "rt_wkv_backward_attributes": "iip",
     "rt_kmeans_assign_attributes": "iip",
     "rt_kmeans_update_attributes": "iip",
 }
@@ -160,19 +161,33 @@ def require(t: torch.Tensor, name: str, shape: Sequence[int],
         raise ValueError(f"{name}: must be contiguous")
 
 
-def rows_aligned_16(*tensors: torch.Tensor) -> bool:
-    """True when every row (last dim) of every tensor starts on a 16-byte
-    boundary: the data pointer, the row length and the strides of the
-    leading dims (those of size > 1) are multiples of 16 bytes. The
-    kernels then load and store rows by 16-byte vectors."""
+def float_or_bf16(t: torch.Tensor, name: str) -> int:
+    """1 for a bf16 tensor, 0 for an fp32 one (the `bf16` argument of the
+    entry points with instances of both); raises for any other dtype."""
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: expected float32 or bfloat16, got "
+                        f"{t.dtype}")
+    return int(t.dtype == torch.bfloat16)
+
+
+def rows_aligned(nbytes: int, *tensors: torch.Tensor) -> bool:
+    """True when every row (last dim) of every tensor starts on an
+    `nbytes` boundary: the data pointer, the row length and the strides of
+    the leading dims (those of size > 1) are multiples of `nbytes`. The
+    kernels then load and store rows by vectors of that many bytes."""
     for t in tensors:
         es = t.element_size()
-        if t.data_ptr() % 16 or (t.shape[-1] * es) % 16:
+        if t.data_ptr() % nbytes or (t.shape[-1] * es) % nbytes:
             return False
-        if any((st * es) % 16 for n, st in zip(t.shape[:-1], t.stride()[:-1])
-               if n > 1):
+        if any((st * es) % nbytes
+               for n, st in zip(t.shape[:-1], t.stride()[:-1]) if n > 1):
             return False
     return True
+
+
+def rows_aligned_16(*tensors: torch.Tensor) -> bool:
+    """`rows_aligned` at 16 bytes."""
+    return rows_aligned(16, *tensors)
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

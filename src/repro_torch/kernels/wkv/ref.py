@@ -5,7 +5,9 @@ forward and backward.
     y_t = S_tᵀ r_t
 
 State layout S: (k_dim, v_dim). All math in fp32, one token at a time,
-as `repro.kernels.wkv.ref.wkv_reference` computes it. The backward has no
+as `repro.kernels.wkv.ref.wkv_reference` computes it, whatever the
+inputs' dtype (fp32 or bf16): y, the state and the gradients of w, beta
+and the state are fp32, those of r, k, v come back in their dtypes. The backward has no
 twin in the JAX package, which differentiates the `lax.scan` of
 `repro.models.rwkv.wkv_scan_ref`; it is held to that `jax.grad` and to
 autograd of `wkv_reference` in the tests.
@@ -44,7 +46,8 @@ def wkv_backward_reference(r, k, v, w, beta, state, dy,
     """Cotangents of `wkv_reference(r, k, v, w, beta, state)` for the
     output cotangents dy (B,S,H,dh) and dstate_final (B,H,dh,dh) or None
     (zeros). Returns (dr, dk, dv, dw, dbeta, dstate), dstate the gradient
-    of the initial state (of zeros when `state` is None). fp32.
+    of the initial state (of zeros when `state` is None): dr, dk, dv in
+    the dtypes of r, k, v, each rounded once from fp32; the rest fp32.
 
     An explicit reverse loop over the tokens. Per (b, h), with the
     forward step A = diag(w_t) S_{t-1}, δ = v_t − Aᵀk_t, S_t = A + β_t k_t
@@ -56,6 +59,7 @@ def wkv_backward_reference(r, k, v, w, beta, state, dy,
         G ← diag(w_t) dA
     S_{t-1} is kept from a forward pass; A, δ and S_t are recomputed."""
     B, S, H, dh = r.shape
+    dtypes = (r.dtype, k.dtype, v.dtype)
     r, k, v, w, beta, dy = (a.float() for a in (r, k, v, w, beta, dy))
     Sm = (torch.zeros((B, H, dh, dh), dtype=torch.float32, device=r.device)
           if state is None else state.float())
@@ -86,4 +90,5 @@ def wkv_backward_reference(r, k, v, w, beta, state, dy,
         dA = G - kt[..., :, None] * ddelta[..., None, :]
         dw[:, t] = torch.einsum("bhkv,bhkv->bhk", dA, prev[t])
         G = dA * wt[..., :, None]
+    dr, dk, dv = (g.to(dt) for g, dt in zip((dr, dk, dv), dtypes))
     return dr, dk, dv, dw, dbeta, G

@@ -1,9 +1,9 @@
 """Core layers as `nn.Module`s.
 
-The Stage-1/2 modules (`Dense`, `RMSNorm`, `LayerNorm` by default) hold
-fp32 parameters; the LM zoo's (`Embed`, `MLP`, `RMSNorm(dtype=...)`) hold
-them in the config's `param_dtype` (bf16 for the real configs) and
-follow the JAX code's dtype promotions. Weights keep the JAX package's layout: a dense weight is stored
+Every module holds its parameters in a dtype it is given: fp32 or bf16
+(`BBEConfig.dtype` / `SignatureConfig.dtype` for Stage 1 and Stage 2, the
+config's `param_dtype` for the LM zoo), fp32 by default, and follows the
+JAX code's dtype casts and promotions (`matmul`). Weights keep the JAX package's layout: a dense weight is stored
 (d_in, d_out) and applied as `x @ w`, and parameter names follow the keys
 of the JAX parameter trees, so `repro_torch.bridge` maps a tree onto a
 module by name alone. Initial values are drawn from a CPU
@@ -28,14 +28,9 @@ def init_array(gen: torch.Generator, shape: Sequence[int],
     return torch.randn(tuple(shape), generator=gen).mul_(scale)
 
 
-def require_float32(field: str, dtype: str) -> None:
-    """Raises NotImplementedError unless `dtype` is "float32". The Stage-1
-    and Stage-2 modules hold fp32 parameters and their CUDA kernels take
-    fp32 only: bf16 Stage 1 / Stage 2 is not ported yet."""
-    if dtype != "float32":
-        raise NotImplementedError(
-            f"{field} = {dtype!r}: bf16 Stage 1 / Stage 2 is not ported "
-            f"yet; only \"float32\" is")
+def torch_dtype(name: str) -> torch.dtype:
+    """"bfloat16" / "float32" (a config's dtype field) -> torch dtype."""
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
 
 
 def param(value: torch.Tensor,
@@ -43,18 +38,71 @@ def param(value: torch.Tensor,
     return nn.Parameter(value.to(dtype))
 
 
+def matmul(x, w):
+    """x @ w as JAX computes it for operands of two dtypes: both promoted
+    to `torch.promote_types` of theirs (fp32 activations on bf16 weights
+    give fp32; torch's `@` would refuse the pair)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
+def gelu(x):
+    """`jax.nn.gelu` (its tanh form). In fp32 torch's fused kernel; in bf16
+    (`_LowPrecisionGelu`) JAX's steps, each rounded to bf16, both ways."""
+    if x.dtype == torch.float32:
+        return torch.nn.functional.gelu(x, approximate="tanh")
+    return _LowPrecisionGelu.apply(x)
+
+
+def _gelu_steps(x):
+    """The forward steps of `jax.nn.gelu` in x's dtype, its constants
+    rounded to it: (y, x^2, tanh(.), 0.5 (1 + tanh(.)))."""
+    const = lambda c: torch.tensor(c, dtype=x.dtype)  # noqa: E731
+    x2 = x * x
+    t = torch.tanh(const(math.sqrt(2 / math.pi))
+                   * (x + const(0.044715) * (x2 * x)))
+    half = (t + const(1.0)) * const(0.5)
+    return x * half, x2, t, half
+
+
+class _LowPrecisionGelu(torch.autograd.Function):
+    """`jax.nn.gelu` in bf16 as JAX's compiled code computes it: the
+    forward's steps and the backward's (the transpose JAX derives from
+    them), each rounded to x's dtype in the order of XLA's fusion, so the
+    gradient too is JAX's and not autograd's own order of roundings."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _gelu_steps(x)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        const = lambda c: torch.tensor(c, dtype=x.dtype)  # noqa: E731
+        _, x2, t, half = _gelu_steps(x)
+        go = (x * g) * const(0.5)
+        q = go * (const(1.0) - t)
+        gs = (q + q * t) * const(math.sqrt(2 / math.pi))   # tanh's transpose
+        gp = gs * const(0.044715)
+        return (g * half + gs) + gp * (x2 * const(3.0))
+
+
 class Dense(nn.Module):
-    """x @ w (+ b); w is (d_in, d_out)."""
+    """x @ w (+ b); w is (d_in, d_out). As `repro.models.layers.
+    dense_apply`: the product promoted (`matmul`), the bias added in the
+    product's dtype."""
 
     def __init__(self, gen: torch.Generator, d_in: int, d_out: int,
-                 bias: bool = False, scale: Optional[float] = None):
+                 bias: bool = False, scale: Optional[float] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.w = param(init_array(gen, (d_in, d_out), scale))
-        self.b = param(torch.zeros(d_out)) if bias else None
+        self.w = param(init_array(gen, (d_in, d_out), scale), dtype)
+        self.b = param(torch.zeros(d_out), dtype) if bias else None
 
     def forward(self, x):
-        y = x @ self.w
-        return y if self.b is None else y + self.b
+        y = matmul(x, self.w)
+        return y if self.b is None else y + self.b.to(y.dtype)
 
 
 def rmsnorm(x, scale, eps: float = 1e-6):
@@ -85,10 +133,10 @@ class RMSNorm(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    def __init__(self, d: int):
+    def __init__(self, d: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.scale = param(torch.ones(d))
-        self.bias = param(torch.zeros(d))
+        self.scale = param(torch.ones(d), dtype)
+        self.bias = param(torch.zeros(d), dtype)
 
     def forward(self, x):
         return layernorm(x, self.scale, self.bias)

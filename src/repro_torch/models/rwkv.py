@@ -15,8 +15,11 @@ JAX package, whose Stage-1 path and zoo blocks always take the `lax.scan`
 oracle, the time-mix here always goes through the wkv wrapper: the plain
 version on the CPU, the kernel on CUDA, forward and (when a gradient is
 wanted) backward; the decode step is the kernel at S = 1 with the state
-passed in. Parameters are fp32 (Stage 1) or the zoo config's dtype, but
-for `w_bias`, which JAX keeps in fp32 in every model.
+passed in. Parameters are in `BBEConfig.dtype` (Stage 1) or the zoo
+config's dtype, but for `w_bias`, which JAX keeps in fp32 in every model.
+r, k and v go to wkv in that dtype (the kernel's bf16 instance reads
+them as they are), w and β in fp32; y comes back fp32 and is cast to
+the activations' dtype.
 """
 from __future__ import annotations
 
@@ -78,7 +81,7 @@ class TimeMix(nn.Module):
         zeros when None)."""
         B, S, d = x.shape
         r, k, v, w, beta = self.project(x, token_shift(x, shift))
-        y, sf = wkv(r.float(), k.float(), v.float(), w, beta, state)
+        y, sf = wkv(r, k, v, w, beta, state)
         y = rmsnorm(y.to(x.dtype).reshape(B, S, d), self.ln_x)
         return y @ self.wo, sf
 
@@ -100,16 +103,23 @@ class ChannelMix(nn.Module):
 
 
 class RWKVBlock(nn.Module):
-    def __init__(self, gen: torch.Generator, d_model: int, num_heads: int):
+    def __init__(self, gen: torch.Generator, d_model: int, num_heads: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.time_mix = TimeMix(gen, d_model, num_heads)
-        self.channel_mix = ChannelMix(gen, d_model)
-        self.norm1 = RMSNorm(d_model)
-        self.norm2 = RMSNorm(d_model)
+        self.time_mix = TimeMix(gen, d_model, num_heads, dtype)
+        self.channel_mix = ChannelMix(gen, d_model, dtype)
+        self.norm1 = RMSNorm(d_model, dtype)
+        self.norm2 = RMSNorm(d_model, dtype)
 
     def forward(self, x):
-        x = x + self.time_mix(self.norm1(x))
-        return x + self.channel_mix(self.norm2(x))
+        """x + time-mix, then + channel-mix. norm2 reads the first sum in
+        fp32, unrounded, as JAX's compiled Stage-1 scan computes it (XLA
+        keeps that fp32 sum, its excess precision; the residual takes it
+        rounded): the same thing in fp32, one rounding fewer in bf16."""
+        h = x.float() + self.time_mix(self.norm1(x)).float()
+        x = h.to(x.dtype)
+        n2 = rmsnorm(h, self.norm2.scale, self.norm2.eps)
+        return x + self.channel_mix(n2.to(x.dtype))
 
 
 # ---------------------------------------------------------------------------

@@ -54,13 +54,10 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm
-from repro_torch.models.layers import MLP, Embed, RMSNorm, embed, unembed
+from repro_torch.models.layers import (
+    MLP, Embed, RMSNorm, embed, torch_dtype, unembed,
+)
 from repro_torch.utils.tree import stack_leaves, unstack_leaves
-
-def torch_dtype(name: str) -> torch.dtype:
-    """"bfloat16" / "float32" (a config's dtype field) -> torch dtype."""
-    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
-
 
 # ---------------------------------------------------------------------------
 # period structure

@@ -46,10 +46,12 @@ def lr_schedule(step, *, base_lr: float, warmup_steps: int, total_steps: int,
 def global_norm_clip(grads: Tensors, max_norm: float
                      ) -> Tuple[Tensors, torch.Tensor]:
     """Scales every gradient by min(1, max_norm / global norm). Returns
-    (clipped grads, global norm before clipping)."""
+    (clipped grads, global norm before clipping). The scale is fp32, so a
+    bf16 gradient comes back fp32, as JAX promotes it."""
     g = tree_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(g, min=1e-9), max=1.0)
-    return {k: x * scale for k, x in grads.items()}, g
+    return {k: x.to(torch.promote_types(x.dtype, scale.dtype)) * scale
+            for k, x in grads.items()}, g
 
 
 # ---------------------------------------------------------------------------

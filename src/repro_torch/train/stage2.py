@@ -53,8 +53,8 @@ class Stage2Engine:
     Trains a COPY of `model` (on the model's device), so the caller's
     weights stay as they were, as the JAX engine's `donate=False` default
     leaves the caller's params alone. matrix: (V+1, bbe_dim) BBE matrix
-    with the zero sentinel row appended (`BBEIndex.ext`), moved to the
-    model's device once. batch_fn(step) must return `triplet_row_batch`
+    with the zero sentinel row appended (`BBEIndex.ext`), fp32 or bf16,
+    moved to the model's device once. batch_fn(step) must return `triplet_row_batch`
     output and be deterministic in `step`, so checkpoint restarts replay
     the exact stream (the Trainer contract)."""
 
@@ -63,7 +63,12 @@ class Stage2Engine:
         self.sig_cfg = sig_cfg
         self.model = copy.deepcopy(model).train()
         device = next(self.model.parameters()).device
-        self.matrix = torch.as_tensor(matrix, dtype=torch.float32).to(device)
+        # the matrix keeps bf16 (Stage 2 on bf16 BBEs), as JAX's engine
+        # keeps its dtype; anything else is held in fp32
+        matrix = torch.as_tensor(matrix)
+        if matrix.dtype != torch.bfloat16:
+            matrix = matrix.float()
+        self.matrix = matrix.to(device)
 
         def loss_fn(m, batch):
             return stage2_loss_from_rows(m, sig_cfg, self.matrix, batch)

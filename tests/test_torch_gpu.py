@@ -1218,3 +1218,145 @@ def test_modal_zoo_on_card_matches_cpu(cuda, arch):
     torch.testing.assert_close(card[0], cpu[0], atol=1e-4, rtol=1e-3)
     torch.testing.assert_close(card[2], cpu[2], atol=1e-4, rtol=1e-3)
     assert card[3] == cpu[3]
+
+
+# ---------------------------------------------------------------------------
+# bf16 instances of wkv and set attention
+# ---------------------------------------------------------------------------
+
+def _same_bits(got, want32):
+    """A bf16 instance's output equals the fp32 instance's on the upcast
+    inputs, rounded once to the output's dtype (fp32 outputs as they are)."""
+    assert torch.equal(got, want32.to(got.dtype))
+
+
+def _wkv_bf16_inputs(dev, B, S, H, dh, seed):
+    g = _gen(dev, seed)
+    r, k, v, dy = (torch.randn((B, S, H, dh), generator=g, device=dev)
+                   for _ in range(4))
+    k = k / k.norm(dim=-1, keepdim=True)
+    w = 0.7 + 0.3 * torch.rand((B, S, H, dh), generator=g, device=dev)
+    beta = torch.rand((B, S, H), generator=g, device=dev)
+    s0, dsf = (0.1 * torch.randn((B, H, dh, dh), generator=g, device=dev)
+               for _ in range(2))
+    return (tuple(t.bfloat16() for t in (r, k, v)), w, beta, s0, dy, dsf)
+
+
+@pytest.mark.parametrize("B,S,H,dh", [(4, 128, 6, 64), (3, 37, 2, 44),
+                                      (2, 33, 2, 40), (2, 17, 2, 7),
+                                      (2, 129, 2, 128), (2, 1, 3, 64)])
+def test_wkv_bf16_instances_bitwise_the_fp32_instances(cuda, B, S, H, dh):
+    """bf16 r, k, v (the 16-byte route at dh % 8 == 0, element loads
+    else): y, the final state and the states the forward saves equal the
+    fp32 instance's on the upcast inputs; dr, dk, dv (bf16) and dw,
+    dbeta, dS_0 (fp32) equal the fp32 backward's, rounded. Both counters
+    move once a launch."""
+    from repro_torch.kernels.wkv import wkv_backward
+    from repro_torch.kernels.wkv.ops import _forward
+    rkv, w, beta, s0, dy, dsf = _wkv_bf16_inputs(cuda, B, S, H, dh, S + dh)
+    rkv32 = tuple(t.float() for t in rkv)
+    n0 = (wkv.launches, wkv.launches_bf16)
+    y, sf, states = _forward(*rkv, w, beta, s0, save=True)
+    assert (wkv.launches, wkv.launches_bf16) == (n0[0] + 1, n0[1] + 1)
+    assert y.dtype == sf.dtype == states.dtype == torch.float32
+    y32, sf32, states32 = _forward(*rkv32, w, beta, s0, save=True)
+    assert wkv.launches_bf16 == n0[1] + 1          # fp32: the other instance
+    for a, b in ((y, y32), (sf, sf32), (states, states32)):
+        _same_bits(a, b)
+    n0 = (wkv_backward.launches, wkv_backward.launches_bf16)
+    got = wkv_backward(*rkv, w, beta, s0, states, dy, dsf)
+    assert (wkv_backward.launches, wkv_backward.launches_bf16) == (
+        n0[0] + 1, n0[1] + 1)
+    want = wkv_backward(*rkv32, w, beta, s0, states32, dy, dsf)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == (torch.bfloat16 if i < 3 else torch.float32)
+        _same_bits(a, b)
+
+
+@pytest.mark.parametrize("B,H,N,M,dh", [(8, 4, 64, 64, 64), (8, 4, 1, 64, 64),
+                                        (3, 2, 7, 13, 44), (2, 3, 5, 33, 37),
+                                        (2, 2, 7, 130, 16),
+                                        (2, 2, 130, 70, 36),
+                                        (2, 2, 1, 300, 44),
+                                        (2, 2, 70, 13, 128)])
+def test_set_attention_bf16_instances_bitwise_the_fp32_instances(
+        cuda, B, H, N, M, dh):
+    """bf16 q, k, v, dO (8-byte loads at dh % 4 == 0, element loads else;
+    N or M past one tile takes the backward's fp32 scratch): the output
+    and dq, dk, dv (bf16) and db (fp32) equal the fp32 instances' on the
+    upcast inputs, rounded once. Both counters move once a launch."""
+    g = _gen(cuda, N * M + dh)
+    q, do = (torch.randn((B, H, N, dh), generator=g, device=cuda).bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn((B, H, M, dh), generator=g, device=cuda).bfloat16()
+            for _ in range(2))
+    bias = torch.rand((B, M), generator=g, device=cuda)
+    mask = torch.rand((B, M), generator=g, device=cuda) < 0.5
+    mask[:, 0] = True
+    mask[-1] = False
+    n0 = (masked_set_attention.launches, masked_set_attention.launches_bf16)
+    o = masked_set_attention(q, k, v, bias, mask)
+    assert (masked_set_attention.launches,
+            masked_set_attention.launches_bf16) == (n0[0] + 1, n0[1] + 1)
+    assert o.dtype == torch.bfloat16
+    _same_bits(o, masked_set_attention(q.float(), k.float(), v.float(), bias,
+                                       mask))
+    n0 = (set_attention_backward.launches,
+          set_attention_backward.launches_bf16)
+    got = set_attention_backward(q, k, v, bias, mask, do)
+    assert (set_attention_backward.launches,
+            set_attention_backward.launches_bf16) == (n0[0] + 1, n0[1] + 1)
+    want = set_attention_backward(q.float(), k.float(), v.float(), bias, mask,
+                                  do.float())
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == (torch.float32 if i == 3 else torch.bfloat16)
+        _same_bits(a, b)
+
+
+def test_bf16_autograd_runs_the_bf16_instances(cuda):
+    """Autograd through both wrappers on bf16 inputs launches only the
+    bf16 instances, forward and backward, and gives gradients in the
+    inputs' dtypes."""
+    from repro_torch.kernels.wkv import wkv_backward
+    rkv, w, beta, _, _, _ = _wkv_bf16_inputs(cuda, 2, 16, 2, 64, 1)
+    leaves = [t.clone().requires_grad_(True) for t in (*rkv, w, beta)]
+    counters = (wkv, wkv_backward, masked_set_attention,
+                set_attention_backward)
+    n0 = [(c.launches, c.launches_bf16) for c in counters]
+    y, _ = wkv(*leaves)
+    grads = torch.autograd.grad(y.sum(), leaves)
+    assert [g.dtype for g in grads] == [torch.bfloat16] * 3 + [torch.float32] * 2
+    g = _gen(cuda, 2)
+    q, k, v = (torch.randn((2, 2, 9, 32), generator=g, device=cuda).bfloat16()
+               .requires_grad_(True) for _ in range(3))
+    o = masked_set_attention(q, k, v)
+    grads = torch.autograd.grad(o.float().sum(), (q, k, v))
+    torch.cuda.synchronize()
+    assert all(t.dtype == torch.bfloat16 for t in grads)
+    for c, (a, b) in zip(counters, n0):
+        assert c.launches - a == c.launches_bf16 - b == 1, c.__name__
+
+
+@pytest.mark.parametrize("dh", [16, 64, 100, 128])
+def test_wkv_bf16_attributes_match_the_plans(cuda, dh):
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.wkv.ops import backward_plan, kernel_plan
+    for bf16, dtype in ((0, torch.float32), (1, torch.bfloat16)):
+        a = _lib.kernel_attributes("rt_wkv_attributes", bf16, dh)
+        assert a["static_smem"] == kernel_plan(dh, dtype)["shared_bytes"]
+        b = _lib.kernel_attributes("rt_wkv_backward_attributes", bf16, dh)
+        assert b["dynamic_smem"] == backward_plan(dh, dtype)["shared_bytes"]
+
+
+@pytest.mark.parametrize("N,M,dh", [(64, 64, 64), (1, 64, 64), (5, 13, 16),
+                                    (130, 130, 44)])
+def test_set_attention_bf16_attributes_match_the_plan(cuda, N, M, dh):
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.set_attention.ops import backward_plan
+    for bf16, dtype in ((0, torch.float32), (1, torch.bfloat16)):
+        a = _lib.kernel_attributes("rt_set_attention_backward_attributes",
+                                   bf16, N, M, dh)
+        assert a["dynamic_smem"] == backward_plan(N, M, dh,
+                                                  dtype)["shared_bytes"]

@@ -154,12 +154,13 @@ def test_seeded_init_is_reproducible_and_shaped_like_jax():
 
 
 # ---------------------------------------------------------------------------
-# dtype: only fp32 Stage 1 / Stage 2 is ported
+# dtype "bfloat16": every route a user takes builds JAX's bf16 models
 # ---------------------------------------------------------------------------
 
 def _bf16_route(which, route):
-    """Builds the Stage-1 ("bbe") or Stage-2 ("signature") model with
-    dtype "bfloat16" through one route a user would take."""
+    """(port module, JAX tree, JAX config) for the Stage-1 ("bbe") or
+    Stage-2 ("signature") model with dtype "bfloat16", the module built
+    through one route a user would take."""
     from repro_torch.api import SemanticBBVService, ServiceConfig
     from repro_torch.core.pipeline import SemanticBBVPipeline
     from repro_torch.core.signature import SignatureModel
@@ -167,42 +168,83 @@ def _bf16_route(which, route):
         kw, jmod, init = TINY_BBE, jbbe, jbbe.bbe_init
         cfg, Model = BBEConfig(**kw, dtype="bfloat16"), BBEEncoder
         load = bridge.bbe_params_from_jax
-        cfgs = dict(bbe_cfg=cfg)
+        cfgs = dict(bbe_cfg=cfg, sig_cfg=SignatureConfig(**TINY_SIG))
+        attr = "encoder"
     else:
         kw, jmod, init = TINY_SIG, jsig, jsig.signature_init
         cfg, Model = SignatureConfig(**kw, dtype="bfloat16"), SignatureModel
         load = bridge.signature_params_from_jax
-        cfgs = dict(sig_cfg=cfg)
-    if route == "module":
-        return Model(cfg)
+        cfgs = dict(bbe_cfg=BBEConfig(**TINY_BBE), sig_cfg=cfg)
+        attr = "sig_model"
+    jcfg = dataclasses.replace(getattr(jmod, type(cfg).__name__)(**kw),
+                               dtype="bfloat16")
+    tree = _np_tree(init(jax.random.PRNGKey(0), jcfg)[0])
     if route in ("bridge", "bridge-fp32-config"):
-        jcfg = dataclasses.replace(getattr(jmod, type(cfg).__name__)(**kw),
-                                   dtype="bfloat16")
-        tree = _np_tree(init(jax.random.PRNGKey(0), jcfg)[0])
-        assert "bfloat16" in {a.dtype.name
-                              for a in jax.tree_util.tree_leaves(tree)}
         fp32 = dataclasses.replace(cfg, dtype="float32")
-        return load(tree, cfg if route == "bridge" else fp32)
-    if which == "bbe":
-        cfgs["sig_cfg"] = SignatureConfig(**TINY_SIG)
+        return load(tree, cfg if route == "bridge" else fp32), tree, jcfg
+    if route == "module":
+        model = Model(cfg)
+    elif route == "pipeline":
+        model = getattr(SemanticBBVPipeline.create(**cfgs, device="cpu"),
+                        attr)
     else:
-        cfgs["bbe_cfg"] = BBEConfig(**TINY_BBE)
-    if route == "pipeline":
-        return SemanticBBVPipeline.create(**cfgs, device="cpu")
-    return SemanticBBVService.create(ServiceConfig(
-        bbe=cfgs["bbe_cfg"], sig=cfgs["sig_cfg"]), device="cpu")
+        svc = SemanticBBVService.create(ServiceConfig(
+            bbe=cfgs["bbe_cfg"], sig=cfgs["sig_cfg"]), device="cpu")
+        model = getattr(svc.pipe, attr)
+    # JAX's weights into the module the route built (seeded otherwise)
+    model.load_state_dict(load(tree, cfg).state_dict())
+    return model, tree, jcfg
 
 
 @pytest.mark.parametrize("route", ["module", "bridge", "bridge-fp32-config",
                                    "pipeline", "service"])
 @pytest.mark.parametrize("which", ["bbe", "signature"])
-def test_bf16_stage1_stage2_raise(which, route):
-    """JAX builds bf16 BBEs and signatures for dtype "bfloat16"; the port
-    has only fp32 (modules and kernels), so every route raises instead of
-    returning fp32 without a word. A bf16 JAX tree raises even where the
-    port's config says float32."""
-    with pytest.raises(NotImplementedError, match="bf16 Stage 1 / Stage 2"):
-        _bf16_route(which, route)
+def test_bf16_stage1_stage2_routes(which, route):
+    """dtype "bfloat16" through each route: the module's leaves have the
+    dtypes of JAX's tree (bf16, Stage 1's `w_bias` fp32), and its outputs
+    match JAX's on JAX's weights (bf16 BBEs within the Stage-1 bf16
+    bounds; fp32 signatures of fp32 BBEs on bf16 weights within 1e-5). A
+    bf16 tree into an fp32 config raises TypeError naming both dtypes."""
+    if route == "bridge-fp32-config":
+        with pytest.raises(TypeError, match="bfloat16.*float32"):
+            _bf16_route(which, route)
+        return
+    model, tree, jcfg = _bf16_route(which, route)
+    want = dict(bridge._flatten({k: v for k, v in tree.items()
+                                 if k != "blocks"}))
+    for key, leaf in bridge._flatten(tree.get("blocks", {})):
+        want.update({f"blocks.{n}.{key}": leaf[n]
+                     for n in range(jcfg.num_layers)})
+    leaves = {k: str(v.dtype) for k, v in model.state_dict().items()}
+    assert leaves == {k: f"torch.{v.dtype.name}" for k, v in want.items()}
+    assert set(leaves.values()) == ({"torch.bfloat16", "torch.float32"}
+                                    if which == "bbe" else {"torch.bfloat16"})
+    rng = np.random.RandomState(7)
+    params = jax.tree_util.tree_map(jnp.asarray, tree)
+    if which == "bbe":
+        toks = _tokens(rng, 2, jcfg.max_len, pad_from=jcfg.max_len - 5)
+        want = jbbe.encode_bbe(params, jcfg, jnp.asarray(toks),
+                               impl="pallas_interpret")
+        with torch.no_grad():
+            got = encode_bbe(model, torch.from_numpy(toks))
+        assert got.dtype == torch.bfloat16
+        got, want = got.float().numpy(), np.asarray(want, np.float32)
+        assert np.abs(got - want).max() <= 1e-2
+        assert np.linalg.norm(got - want) / np.linalg.norm(want) <= 5e-3
+        return
+    B, N = 2, jcfg.max_set
+    bbes = rng.randn(B, N, jcfg.bbe_dim).astype(np.float32)
+    freqs = rng.uniform(1, 500, (B, N)).astype(np.float32)
+    mask = rng.rand(B, N) > 0.4
+    mask[:, 0] = True
+    sig_j, _ = jsig.signature_apply(params, jcfg, jnp.asarray(bbes),
+                                    jnp.asarray(freqs), jnp.asarray(mask),
+                                    impl="pallas_interpret")
+    with torch.no_grad():
+        sig, _ = signature_apply(model, *map(torch.from_numpy,
+                                             (bbes, freqs, mask)))
+    assert sig.dtype == torch.float32
+    np.testing.assert_allclose(sig.numpy(), np.asarray(sig_j), atol=1e-5)
 
 
 def test_bridge_rejects_a_float64_tree():
