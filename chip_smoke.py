@@ -165,14 +165,35 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
      fp32 figures, then the step-3 resume, bitwise; (e) 3 Stage-2 steps of
      64 triplets on a bf16 BBE matrix, 9 set-attention forward and 9
      backward launches a step, all bf16.
+ 12. multi-device training and clustering, and the bf16 k-means: (a)
+     the bf16 instances of both k-means kernels bit for bit the fp32
+     instances on the upcast rows (JAX's bf16 case 256 x 16 with K 5, the
+     build's shape 32,768 x 128 with K 14, ragged N, d 13 and 20: the
+     element route), against their plain versions at JAX's bf16 bounds,
+     timed beside the fp32 instances, with their registers, spills and
+     shared bytes (against `kmeans_plan`); then one NCCL process group of
+     one rank (a FileStore under build/chip_smoke_mesh) and a (1, 1)
+     ("data", "model") mesh on the card: (b) `KnowledgeBase.build(k=14,
+     mesh=)` on phase 4's store and `kmeans_device(mesh=)`: centroids,
+     labels and representatives bitwise the unsharded build's, with its
+     k-means launches; (c) 3 `Stage2Engine` steps of 64 triplets and 2
+     Stage-1 pre-training steps of phase 5b's configuration under the
+     mesh, bitwise the same steps without it (deterministic algorithms);
+     (d) the Stage-2 checkpoint written under the mesh restored by an
+     engine without one, bitwise; (e) `compress_tree` (int8 error
+     feedback) on the card bitwise the CPU's on one step's gradients.
+     Only the mesh runs count, on the "mesh" path; phase 12's seconds and
+     the whole run's are printed.
 The line before the last is the JSON kernel summary: `launches` counts
 each kernel on its own path (serving; training for the set-attention
 backward; Stage-1 training for the wkv backward; the zoo for flash; the
 zoo's training for the flash backward), `launches_by_path` on each path
 that launched it (serve, lifecycle, simpoint, train, stage1_training,
-zoo, zoo_recurrent, zoo_moe, zoo_encdec, zoo_vlm, zoo_train); the
+zoo, zoo_recurrent, zoo_moe, zoo_encdec, zoo_vlm, zoo_train, mesh); the
 launches of comparisons and witness runs count on none. The records of
-wkv, its backward and both set-attention kernels carry `bf16`, phase
+the two k-means kernels carry `bf16`, phase 12a's numbers of their bf16
+instances (no path feeds them bf16 rows: the store is fp32). The records
+of wkv, its backward and both set-attention kernels carry `bf16`, phase
 11's numbers of their bf16 instances (ms beside the fp32 instance's,
 bound, error, registers, spills, launches by path with the bf16
 instance's among them: serve_bf16, stage1_training_bf16, stage2_bf16). wkv's entry also carries `zoo_shapes`, phase 7a's numbers at
@@ -184,11 +205,13 @@ the decode and prefill shapes, and flash's `moe_shape`, phase 8a's, and
     python3 chip_smoke.py --modal
     python3 chip_smoke.py --lm-train
     python3 chip_smoke.py --bf16
+    python3 chip_smoke.py --mesh
 
 run the setup and phase 8 alone, 6a's flash cases and phase 9, phase
-10, or phase 11 (after the world's generation; it then prints its own
+10, phase 11 (after the world's generation; it then prints its own
 JSON line, {"bf16": ...}, and takes fp32 steps itself for 11d's
-comparison), and
+comparison), or phase 12 (after the world and phase 4's serving path;
+it prints its own JSON line, {"mesh": ...}), and
 
     python3 chip_smoke.py --profile-moe
 
@@ -892,7 +915,7 @@ def kmeans_resources(name: str, d: int = 128, k: int = 14) -> dict:
     `kmeans_plan`'s."""
     from repro_torch.kernels import _lib
     from repro_torch.kernels.kmeans_assign.ops import kmeans_plan
-    a = _lib.kernel_attributes(f"rt_kmeans_{name}_attributes", d, k)
+    a = _lib.kernel_attributes(f"rt_kmeans_{name}_attributes", 0, d, k)
     log(f"  kmeans_{name} kernel (d={d} K={k}): {describe(a)}")
     require(a["static_smem"] + a["dynamic_smem"]
             == kmeans_plan(1, d, k)["shared_bytes"],
@@ -4104,6 +4127,316 @@ def bf16_phase(dev, gen, programs, blocks, intervals, cpis) -> dict:
     return rec
 
 
+# --------------------------------------------------------------- phase 12
+
+# (N, d, K, valid): JAX's bf16 case, the build's shape (a prefix of the
+# build's live rows, then holes), ragged N, d 13 and 20 (rows that are no
+# whole 16-byte vectors: the element route), K past one tile
+KM_BF16_CASES = [(256, 16, 5, None), (32768, 128, 14, "build"),
+                 (32768, 128, 14, "holes"), (4099, 128, 14, "holes"),
+                 (1000, 13, 9, "holes"), (777, 20, 30, None),
+                 (300, 200, 4, "holes")]
+# JAX's bf16 bounds against the plain version (tests/test_kernels.py):
+# labels exact; dist2 atol 1.0 / rtol 1e-2; sums and inertia atol 1.0 /
+# rtol 5e-2
+KM_BF16_D2 = (1.0, 1e-2)
+KM_BF16_SUMS = (1.0, 5e-2)
+MESH_STAGE2_STEPS = 3
+MESH_STAGE1_STEPS = 2
+
+
+def check_bf16_kmeans(dev, gen, n_valid_build: int) -> dict:
+    """(12a) The bf16 instances of both k-means kernels: bitwise the fp32
+    instances on the upcast rows (and on widened bf16 centroids), against
+    the plain versions at JAX's bf16 bounds, timed beside the fp32
+    instances at the build's shape, their resources against the plan.
+    Returns {kernel: its bf16 record}."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.kmeans_assign import (
+        kmeans_assign, kmeans_assign_reference, kmeans_update,
+        kmeans_update_reference,
+    )
+    from repro_torch.kernels.kmeans_assign.ops import kmeans_plan
+    bf = torch.bfloat16
+    err_a = err_u = 0.0
+    for n, d, k, mask in KM_BF16_CASES:
+        x32, c = _clustered(n, d, k, gen, dev)
+        x = x32.to(bf)
+        up = x.float()
+        if mask == "holes":
+            valid = (torch.rand((n,), generator=gen, device=dev) < 0.7).float()
+        elif mask == "build":
+            valid = (torch.arange(n, device=dev) < n_valid_build).float()
+        else:
+            valid = None
+        what = f"(N={n} d={d} K={k})"
+        a, d2 = kmeans_assign(x, c)
+        a32, d232 = kmeans_assign(up, c)
+        require(torch.equal(a, a32) and torch.equal(d2, d232),
+                f"kmeans_assign bf16 {what}: not bitwise the fp32 instance")
+        a_ref, d2_ref = kmeans_assign_reference(x, c)
+        require(torch.equal(a, a_ref), f"kmeans_assign bf16 {what}: labels "
+                "differ from the plain version's")
+        err_a = max(err_a, max_err(d2, d2_ref, *KM_BF16_D2,
+                                   f"kmeans_assign bf16 d2 {what}"))
+        got, got32 = kmeans_update(x, c, valid), kmeans_update(up, c, valid)
+        require(all(torch.equal(p, q) for p, q in zip(got, got32)),
+                f"kmeans_update bf16 {what}: not bitwise the fp32 instance")
+        cb = c.to(bf)
+        require(all(torch.equal(p, q) for p, q in zip(
+            kmeans_update(x, cb, valid), kmeans_update(up, cb.float(),
+                                                       valid))),
+                f"kmeans_update bf16 {what}: bf16 centroids not widened "
+                "exactly")
+        ref = kmeans_update_reference(
+            x, c, torch.ones((n,), device=dev) if valid is None else valid)
+        require(torch.equal(got[1], ref[1]),
+                f"kmeans_update bf16 {what}: counts differ")
+        err_u = max(err_u, max_err(got[0], ref[0], *KM_BF16_SUMS,
+                                   f"kmeans_update bf16 sums {what}"),
+                    max_err(got[2], ref[2][0], *KM_BF16_SUMS,
+                            f"kmeans_update bf16 inertia {what}"))
+    log(f"  k-means bf16 instances: bitwise the fp32 instances at "
+        f"{len(KM_BF16_CASES)} shapes; max err vs plain: assign d2 "
+        f"{err_a:.3g}, update {err_u:.3g}")
+    n, d, k = 32768, 128, 14
+    x32, c = _clustered(n, d, k, gen, dev)
+    x, up = x32.to(bf), x32.to(bf).float()
+    valid = (torch.arange(n, device=dev) < n_valid_build).float()
+    nv = n_valid_build
+    out = {}
+    for name, fn, ref, err, nbytes, flops in (
+            ("kmeans_assign", lambda t: kmeans_assign(t, c),
+             lambda: kmeans_assign_reference(x, c), err_a,
+             2 * n * d + 4 * k * d + 8 * n,
+             n * (2 * k * d + 2 * d + 3 * k)),
+            ("kmeans_update", lambda t: kmeans_update(t, c, valid),
+             lambda: kmeans_update_reference(x, c, valid), err_u,
+             2 * nv * d + 4 * n + 4 * k * d + 4 * (k * d + k + 1),
+             nv * (2 * k * d + 2 * d + 3 * k + d))):
+        entry = f"rt_{name}_attributes"
+        a = _lib.kernel_attributes(entry, 1, d, k)
+        plan = kmeans_plan(1, d, k, bf)["shared_bytes"]
+        log(f"  {name} bf16 instance (d={d} K={k}): {describe(a)}; plan "
+            f"{plan} shared bytes")
+        require(a["dynamic_smem"] == plan and a["static_smem"] == 0,
+                f"{name} bf16: shared bytes differ from kmeans_plan's")
+        for dd, kk in ((13, 9), (20, 30), (200, 4)):
+            b = _lib.kernel_attributes(entry, 1, dd, kk)
+            require(b["dynamic_smem"] == kmeans_plan(1, dd, kk, bf)[
+                "shared_bytes"], f"{name} bf16 (d={dd} K={kk}): shared "
+                "bytes differ from kmeans_plan's")
+        ms, ms32 = device_ms(lambda: fn(x)), device_ms(lambda: fn(up))
+        plain_ms = cuda_ms(ref, reps=20)
+        b = bound(nbytes, flops)
+        out[name] = dict(max_abs_err=err, ms=ms, fp32_ms=ms32,
+                         plain_ms=plain_ms, library_ms=None, bound_ms=b[0],
+                         bound_by=b[1],
+                         shape=f"N={n} (valid {nv}) d={d} K={k}",
+                         registers=a["registers"],
+                         local_bytes=a["local_bytes"], shared_bytes=plan,
+                         launches_by_path={})
+        log(f"  {name} bf16 [{out[name]['shape']}]: max_abs_err {err:.3g} "
+            f"(plain version), ms {ms:.4f} (fp32 instance {ms32:.4f}), "
+            f"plain_ms {plain_ms:.4f}, bound_ms {b[0]:.4f} ({b[1]})")
+    return out
+
+
+def _same_state(a: dict, b: dict, what: str) -> None:
+    from repro_torch.train import checkpoint as ckpt
+    fa, fb = ckpt._flatten(a), ckpt._flatten(b)
+    require(sorted(fa) == sorted(fb), f"{what}: other leaves")
+    differ = [k for k in fa if not torch.equal(fa[k], fb[k])]
+    require(not differ, f"{what}: not bitwise equal at {differ[:5]}")
+
+
+def mesh_runs(svc, programs, intervals, cpis, mesh, ddir, dev):
+    """(12b, 12c) The k-means build, Stage-2 and Stage-1 steps, under
+    `mesh` (None: the same runs unsharded). Returns what 12b-12e compare,
+    and the engine and Stage-2 batch function."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.core.bbe import BBEConfig, BBEEncoder, pretrain_loss
+    from repro_torch.core.clustering import kmeans_device
+    from repro_torch.kernels.kmeans_assign import kmeans_assign, kmeans_update
+    from repro_torch.train import Stage2Engine, Trainer, triplet_row_batch
+    tag = "mesh" if mesh is not None else "plain"
+    out = {"wall": {}}
+
+    def timed(what, fn):
+        sync(dev)
+        t = time.perf_counter()
+        r = fn()
+        sync(dev)
+        out["wall"].setdefault(what, []).append(time.perf_counter() - t)
+        return r
+
+    kb, store = svc.kb, svc.store
+    u0, a0 = kmeans_update.launches, kmeans_assign.launches
+    timed("build", lambda: kb.build(k=14, seed=svc.cfg.kmeans_seed,
+                                    mesh=mesh))
+    out["build_launches"] = (kmeans_update.launches - u0,
+                             kmeans_assign.launches - a0)
+    out["archetypes"] = kb.archetypes.copy()
+    out["reps"] = kb.rep_global_idx.copy()
+    out["fingerprints"] = {p: f.copy() for p, f in kb.fingerprints.items()}
+    valid = store.device_valid if store.has_tombstones else None
+    out["labels"] = kmeans_device(store.device_matrix, 14,
+                                  seed=svc.cfg.kmeans_seed,
+                                  n_valid=len(store), valid_mask=valid,
+                                  mesh=mesh)
+
+    names = [p.name for p in programs[:-1]]
+    pipe = svc.pipe
+    cfg = pipe.sig_cfg
+    index, matrix = pipe._table_index(svc.bbe_table)
+    phases = _phases(names, intervals)
+
+    def batch_fn(step):
+        sets, anchor_cpis = stage2_triplets(names, intervals, cpis, phases,
+                                            step, TRAIN_BATCH)
+        return triplet_row_batch(sets, anchor_cpis, index, cfg.max_set,
+                                 device=matrix.device)
+
+    tc = TrainConfig(learning_rate=1e-3, total_steps=TRAIN_STEPS,
+                     warmup_steps=2, checkpoint_every=0,
+                     checkpoint_dir=os.path.join(ddir, f"stage2_{tag}"))
+    eng = Stage2Engine(cfg, pipe.sig_model, matrix, tc, mesh=mesh)
+    out["stage2_metrics"] = [timed("stage2_step", lambda: eng.step(
+        batch_fn(s))) for s in range(MESH_STAGE2_STEPS)]
+    out["stage2_state"] = {"params": {k: v.detach().clone() for k, v in
+                                      eng.params.items()},
+                           "opt": eng.trainer._full_opt_state()}
+    if mesh is not None:
+        eng.maybe_checkpoint(force=True)
+
+    bcfg = BBEConfig()
+    pre, _ = _stage1_loaders(bcfg, dev)
+    tr = Trainer(pretrain_loss, BBEEncoder(bcfg, seed=SEED).to(dev),
+                 TrainConfig(learning_rate=2e-3, total_steps=STAGE1_STEPS,
+                             warmup_steps=max(2, STAGE1_STEPS // 20),
+                             checkpoint_every=0,
+                             checkpoint_dir=os.path.join(ddir, "stage1")),
+                 mesh=mesh)
+    out["stage1_metrics"] = [timed("stage1_step", lambda: tr.step(pre(s)))
+                             for s in range(MESH_STAGE1_STEPS)]
+    out["stage1_params"] = {k: v.detach().clone()
+                            for k, v in tr.state.params.items()}
+    del tr
+    return out, eng, batch_fn
+
+
+def mesh_phase(svc, programs, intervals, cpis, drive,
+               dev=torch.device("cuda")) -> dict:
+    """Phase 12 (b)-(e) on one rank (NCCL on the card, gloo on the CPU): the
+    same runs without a mesh and under a (1, 1) ("data", "model") mesh,
+    bitwise; only the mesh runs count, on the "mesh" path. Returns the
+    phase's record."""
+    import torch.distributed as dist
+    from repro_torch.core.signature import stage2_loss_from_rows
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import Stage2Engine
+    from repro_torch.train.compression import compress_tree
+    ddir = os.path.join(HERE, "build", "chip_smoke_mesh")
+    shutil.rmtree(ddir, ignore_errors=True)
+    os.makedirs(ddir)
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl" if dev.type == "cuda" else "gloo",
+        store=dist.FileStore(os.path.join(ddir, "store"), 1), rank=0,
+        world_size=1)
+    rec = {}
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        require(mesh.device_type == dev.type, f"mesh on {mesh.device_type}")
+        # each group's communicator starts at its first collective: start
+        # them here, so that the timed runs below do not hold it
+        for i in range(mesh.ndim):
+            dist.all_reduce(torch.zeros(1, device=dev), group=mesh.get_group(i))
+        sync(dev)
+        t_init = time.perf_counter() - t0
+        torch.use_deterministic_algorithms(True)
+        try:
+            plain, eng_p, batch_fn = mesh_runs(svc, programs, intervals,
+                                               cpis, None, ddir, dev)
+            got, eng_m, _ = drive("mesh", lambda: mesh_runs(
+                svc, programs, intervals, cpis, mesh, ddir, dev))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        # 12b
+        require(got["build_launches"] == plain["build_launches"],
+                f"k-means launches a build: {got['build_launches']} under "
+                f"the mesh, {plain['build_launches']} without")
+        for key in ("archetypes", "reps"):
+            require(np.array_equal(got[key], plain[key]),
+                    f"KnowledgeBase.build(mesh=): {key} differ")
+        require(got["fingerprints"].keys() == plain["fingerprints"].keys()
+                and all(np.array_equal(v, plain["fingerprints"][k])
+                        for k, v in got["fingerprints"].items()),
+                "KnowledgeBase.build(mesh=): fingerprints differ")
+        for i, what in enumerate(("centroids", "labels")):
+            require(np.array_equal(got["labels"][i], plain["labels"][i]),
+                    f"kmeans_device(mesh=): {what} differ")
+        require(got["labels"][2] == plain["labels"][2],
+                "kmeans_device(mesh=): inertia differs")
+        log(f"  12b: the k-means build under the mesh bitwise the unsharded "
+            f"one (centroids, labels, representatives, fingerprints); "
+            f"kmeans_update/kmeans_assign launches a build "
+            f"{got['build_launches']}")
+        # 12c
+        for key in ("stage2_metrics", "stage1_metrics"):
+            require(got[key] == plain[key], f"{key}: {got[key]} under the "
+                    f"mesh, {plain[key]} without")
+        _same_state(got["stage2_state"], plain["stage2_state"],
+                    "Stage-2 steps under the mesh")
+        _same_state(got["stage1_params"], plain["stage1_params"],
+                    "Stage-1 steps under the mesh")
+        log(f"  12c: {MESH_STAGE2_STEPS} Stage-2 and {MESH_STAGE1_STEPS} "
+            f"Stage-1 steps under the mesh bitwise the unsharded steps "
+            f"(params, optimizer state, metrics)")
+        walls = {k: (1e3 * min(got["wall"][k]), 1e3 * min(plain["wall"][k]))
+                 for k in got["wall"]}
+        log("  wall ms, mesh / unsharded (least of the calls): " + ", ".join(
+            f"{k} {m:.2f} / {p:.2f}" for k, (m, p) in walls.items()))
+        # 12d
+        eng_r = Stage2Engine(eng_p.sig_cfg, svc.pipe.sig_model,
+                             eng_p.matrix, eng_m.trainer.cfg)
+        require(eng_r.restore() and eng_r.step_count == MESH_STAGE2_STEPS,
+                "the mesh checkpoint did not restore")
+        _same_state({"params": dict(eng_r.params),
+                     "opt": eng_r.trainer.state.opt_state},
+                    got["stage2_state"], "the mesh checkpoint restored "
+                    "without a mesh")
+        log("  12d: the checkpoint written under the mesh restores without "
+            "one, bitwise")
+        # 12e
+        batch = batch_fn(MESH_STAGE2_STEPS)
+        loss, _ = stage2_loss_from_rows(eng_r.model, eng_r.sig_cfg,
+                                        eng_r.matrix, batch)
+        names = list(eng_r.params)
+        grads = dict(zip(names, torch.autograd.grad(
+            loss, [eng_r.params[n] for n in names])))
+        err = err_cpu = None
+        for _ in range(2):
+            q, sc, err = compress_tree(grads, err)
+            qc, scc, err_cpu = compress_tree(
+                {k: g.cpu() for k, g in grads.items()}, err_cpu)
+            for k in names:
+                require(torch.equal(q[k].cpu(), qc[k])
+                        and torch.equal(sc[k].cpu(), scc[k])
+                        and torch.equal(err[k].cpu(), err_cpu[k]),
+                        f"compress_tree on the card differs from the "
+                        f"CPU's at {k}")
+        log(f"  12e: compress_tree on the card bitwise the CPU's ({len(names)}"
+            f" gradient leaves, two error-feedback steps)")
+        rec = dict(pg_init_s=t_init, build_launches=got["build_launches"],
+                   wall_ms=walls, seconds=time.perf_counter() - t0)
+    finally:
+        dist.destroy_process_group()
+    return rec
+
+
 def time_kernels(root: str) -> dict:
     """Device and wrapper ms of wkv (the encoder's shape), of the
     set-attention backward (Stage-2 training's SAB and PMA shapes) and of
@@ -4351,6 +4684,8 @@ def main() -> int:
     modal_only = sys.argv[1:] == ["--modal"]
     train_only = sys.argv[1:] == ["--lm-train"]
     bf16_only = sys.argv[1:] == ["--bf16"]
+    mesh_only = sys.argv[1:] == ["--mesh"]
+    t_run = time.perf_counter()
     # cuBLAS takes its workspace layout when CUDA starts: the fixed one
     # that deterministic algorithms (phase 5) need
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -4435,6 +4770,41 @@ def main() -> int:
         rec = bf16_phase(dev, gen, programs, blocks, intervals, cpis)
         log(card)
         log(json.dumps({"bf16": rec}))
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
+    if mesh_only:
+        # phase 12 alone, after phase 4's serving path
+        from repro_torch.kernels.set_attention import (
+            masked_set_attention, set_attention_backward,
+        )
+        wrappers = {"wkv": wkv, "wkv_backward": wkv_backward,
+                    "set_attention": masked_set_attention,
+                    "set_attention_backward": set_attention_backward,
+                    "kmeans_assign": kmeans_assign,
+                    "kmeans_update": kmeans_update}
+        by_path = {}
+
+        def drive_only(path, fn):
+            for w in wrappers.values():
+                w.launches = 0
+            out = fn()
+            for name, w in wrappers.items():
+                if w.launches:
+                    by_path.setdefault(name, {})[path] = w.launches
+            return out
+
+        svc = main_path(programs, blocks, intervals, cpis)
+        t12 = time.perf_counter()
+        km = check_bf16_kmeans(dev, gen, n_valid_build)
+        rec = mesh_phase(svc, programs, intervals, cpis, drive_only)
+        log(f"phase 12: {time.perf_counter() - t12:.1f} s; launches on the "
+            f"mesh path: {json.dumps(by_path)}")
+        log(card)
+        log(json.dumps({"mesh": dict(rec, kmeans_bf16=km,
+                                     launches_by_path=by_path)}))
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -4618,6 +4988,20 @@ def main() -> int:
                  "set_attention_backward"):
         results[name]["extra"]["bf16"] = rec[name]
 
+    # 12. the bf16 k-means instances, then the k-means build, Stage-2 and
+    # Stage-1 steps under a one-rank NCCL mesh, bitwise the unsharded runs
+    t12 = time.perf_counter()
+    km = check_bf16_kmeans(dev, gen, n_valid_build)
+    for name in ("kmeans_assign", "kmeans_update"):
+        results[name]["extra"]["bf16"] = km[name]
+    results["kmeans_assign"]["extra"]["mesh"] = mesh_phase(
+        svc, programs, intervals, cpis, drive)
+    for name in ("kmeans_assign", "kmeans_update", "set_attention",
+                 "set_attention_backward", "wkv", "wkv_backward"):
+        require(by_path.get(name, {}).get("mesh", 0) > 0,
+                f"kernel {name} was not launched on the mesh path")
+    log(f"phase 12: {time.perf_counter() - t12:.1f} s")
+
     meta = {
         "wkv": ("src/repro_torch/csrc/wkv.cu",
                 "src/repro/kernels/wkv/wkv.py:28"),
@@ -4657,6 +5041,7 @@ def main() -> int:
         for name, r in results.items()]
     log("kernels: " + " ".join(f"{k['name']}={k['launches']}"
                                for k in kernels))
+    log(f"whole run: {time.perf_counter() - t_run:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

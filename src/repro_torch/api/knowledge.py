@@ -109,10 +109,12 @@ class KnowledgeBase:
 
     # -------------------------------------------------------------- build
     def build(self, k: int = 14, seed: int = 0, *,
-              init_centroids=None) -> "KnowledgeBase":
+              init_centroids=None, mesh=None) -> "KnowledgeBase":
         """Universal clustering over every live row of the store, on the
         store's device. `init_centroids` ((restarts, k, d)) replaces the
-        kmeans++ seeding of each restart (see `kmeans_device`)."""
+        kmeans++ seeding of each restart (see `kmeans_device`). `mesh`:
+        the store's rows sharded over its data axes (every rank builds);
+        the sharded build draws the unsharded build's seeds."""
         if self.store.n_alive == 0:
             raise RuntimeError("cannot build a KnowledgeBase over an "
                                "empty SignatureStore (no live rows)")
@@ -120,7 +122,8 @@ class KnowledgeBase:
         if not self.store.has_tombstones:
             cents, assign, _ = kmeans_device(
                 self.store.device_matrix, k, seed=seed,
-                n_valid=len(self.store), init_centroids=init_centroids)
+                n_valid=len(self.store), init_centroids=init_centroids,
+                mesh=mesh)
             reps = representatives(x, cents, assign)
         else:
             # dead rows get zero mass through the device validity mask
@@ -128,7 +131,7 @@ class KnowledgeBase:
             cents, assign, _ = kmeans_device(
                 self.store.device_matrix, k, seed=seed,
                 n_valid=len(self.store), valid_mask=self.store.device_valid,
-                init_centroids=init_centroids)
+                init_centroids=init_centroids, mesh=mesh)
             reps = alive[representatives(x[alive], cents, assign[alive])]
         self.k = int(cents.shape[0])
         self.seed = seed

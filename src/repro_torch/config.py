@@ -7,7 +7,8 @@ configuration reads the same in both packages.
   `grad_compression`, `seed` and `label_smoothing` are read by neither
   package's Trainer.
 * `ModelConfig` (+ `MoEConfig`) describes an LM of the zoo,
-  `ShapeConfig` a workload shape. Arch configs live in
+  `ShapeConfig` a workload shape (`SHAPES`: the assigned ones),
+  `MeshConfig` the production mesh. Arch configs live in
   `repro_torch/configs/<id>.py` and register themselves in `ARCHS`;
   `get_arch` resolves an id. Every arch of the zoo is ported
   (`PORTED_ARCHS`): the dense attention-only decoders, the recurrent
@@ -19,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from repro_torch.utils.registry import Registry
 
@@ -92,8 +93,9 @@ class ModelConfig:
     # norm
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
-    # per-arch logical->mesh rule overrides (read by the distributed slice,
-    # not ported yet)
+    # per-arch logical->mesh rule overrides (e.g. grok-1: 8 experts cannot
+    # fill a 16-way model axis, so shard each expert's d_ff instead); read
+    # by `repro_torch.distributed.sharding.arch_rules`
     sharding_overrides: Optional[Tuple[Tuple[str, Any], ...]] = None
     notes: str = ""
 
@@ -123,9 +125,38 @@ class ShapeConfig:
     kind: str  # "train" | "prefill" | "decode"
 
 
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
 # ---------------------------------------------------------------------------
-# Runtime
+# Mesh / runtime
 # ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The production mesh: 16 x 16 ("data", "model") a pod, two pods
+    with a leading "pod" axis (`repro_torch.launch.mesh`)."""
+    multi_pod: bool = False
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (2, 16, 16) if self.multi_pod else (16, 16)
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        return ("pod", "data", "model") if self.multi_pod else ("data", "model")
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
 
 @dataclass(frozen=True)
 class TrainConfig:
@@ -178,6 +209,20 @@ def get_arch(arch_id: str) -> ModelConfig:
         # lazy-import the config module so it self-registers
         importlib.import_module(f"repro_torch.configs.{key}")
     return ARCHS[key]()
+
+
+def list_archs() -> List[str]:
+    """Every registered arch id (canonical, sorted), after importing each
+    config module of `repro_torch.configs`."""
+    import importlib
+    import pkgutil
+
+    import repro_torch.configs as cfgs
+
+    for m in pkgutil.iter_modules(cfgs.__path__):
+        if not m.name.startswith("_"):
+            importlib.import_module(f"repro_torch.configs.{m.name}")
+    return ARCHS.names()
 
 
 def scaled_down(cfg: ModelConfig, num_layers: int = 2, d_model: int = 64,

@@ -30,11 +30,12 @@ from torch import nn
 
 from repro_torch.core.losses import l2_normalize, triplet_loss
 from repro_torch.core.tokenizer import MultiDimTokenizer, default_tokenizer
+from repro_torch.distributed.collectives import share, total
 from repro_torch.models.layers import (
-    RMSNorm, gelu, init_array, param, torch_dtype,
+    RMSNorm, gelu, init_array, param, rmsnorm_specs, torch_dtype,
 )
-from repro_torch.models.rwkv import RWKVBlock
-from repro_torch.utils.tree import stack_leaves, unstack_leaves
+from repro_torch.models.rwkv import RWKVBlock, rwkv_block_specs
+from repro_torch.utils.tree import prefixed, stack_leaves, unstack_leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,6 +174,9 @@ class BBEEncoder(nn.Module):
         pooled = self.pool(self.backbone(tokens), valid)
         return l2_normalize(pooled @ self.out_proj.to(pooled.dtype))
 
+    def param_specs(self) -> dict:
+        return bbe_specs(self.cfg, len(self.embeds))
+
     # checkpoints in the JAX layout (the Trainer's hooks)
     def pack_checkpoint(self, flat: Dict[str, torch.Tensor]
                         ) -> Dict[str, torch.Tensor]:
@@ -181,6 +185,23 @@ class BBEEncoder(nn.Module):
     def unpack_checkpoint(self, flat: Dict[str, torch.Tensor],
                           like: Dict[str, object]) -> Dict[str, torch.Tensor]:
         return unstack_layers(flat, like)
+
+
+def bbe_specs(cfg: BBEConfig, n_dims: int = 0) -> dict:
+    """Logical-axis specs of every parameter of `BBEEncoder(cfg)` by
+    "/"-joined name (`bbe_init`'s; per layer without the stacked
+    "layers" axis). n_dims: token dimensions (default len(dim_embeds))."""
+    specs = {f"embeds/{i}": ("vocab", "embed")
+             for i in range(n_dims or len(cfg.dim_embeds))}
+    for i in range(cfg.num_layers):
+        specs.update(prefixed(f"blocks/{i}", rwkv_block_specs()))
+    specs.update(prefixed("final_norm", rmsnorm_specs()))
+    specs.update({"pool/Wa": ("embed", "heads"), "pool/ba": ("heads",),
+                  "pool/ua": ("heads",), "out_proj": ("embed", None)})
+    for head in ("ntp_head", "nip_head"):
+        specs.update({f"{head}/w1": ("embed", "ff"),
+                      f"{head}/w2": ("ff", "vocab")})
+    return specs
 
 
 def encode_bbe(encoder: BBEEncoder, tokens, pad_id: int = 0):
@@ -202,7 +223,9 @@ def _cross_entropy(logits, target):
 def pretrain_loss(encoder: BBEEncoder, batch, sep_id: int = 3,
                   pad_id: int = 0):
     """Joint NTP + NIP loss on batch["tokens"] (B, L, 6).
-    Returns (loss, {"ntp", "nip"})."""
+    Returns (loss, {"ntp", "nip"}). Each term is a sum over valid targets
+    over their count; inside a data-parallel step the count is the
+    global batch's."""
     tokens = batch["tokens"]
     B, L, _ = tokens.shape
     h = encoder.backbone(tokens)
@@ -212,7 +235,7 @@ def pretrain_loss(encoder: BBEEncoder, batch, sep_id: int = 3,
     # --- NTP: predict asm id of token t+1 from state at t
     ce = _cross_entropy(encoder.ntp_head(h[:, :-1]), asm[:, 1:])
     v = (valid[:, 1:] & valid[:, :-1]).float()
-    ntp = torch.sum(ce * v) / torch.clamp(v.sum(), min=1.0)
+    ntp = torch.sum(ce * v) / torch.clamp(total(v.sum()), min=1.0)
 
     # --- NIP: at SEP tokens predict the next instruction's token sequence
     Hm = encoder.cfg.nip_horizon
@@ -227,7 +250,7 @@ def pretrain_loss(encoder: BBEEncoder, batch, sep_id: int = 3,
     at_sep = (asm == sep_id) & valid
     vmask = (at_sep[..., None] & ~beyond & (tgt != pad_id)).float()
     ce = _cross_entropy(nip_logits, tgt)
-    nip = torch.sum(ce * vmask) / torch.clamp(vmask.sum(), min=1.0)
+    nip = torch.sum(ce * vmask) / torch.clamp(total(vmask.sum()), min=1.0)
     return ntp + nip, {"ntp": ntp, "nip": nip}
 
 
@@ -237,6 +260,6 @@ def finetune_triplet_loss(encoder: BBEEncoder, batch, margin: float = 0.5):
     a, p, n = (encoder(batch[role])
                for role in ("anchor", "positive", "negative"))
     loss = triplet_loss(a, p, n, margin)
-    d_ap = torch.mean(torch.sum(torch.square(a - p), -1))
-    d_an = torch.mean(torch.sum(torch.square(a - n), -1))
+    d_ap = share(torch.mean(torch.sum(torch.square(a - p), -1)))
+    d_an = share(torch.mean(torch.sum(torch.square(a - n), -1)))
     return loss, {"d_ap": d_ap, "d_an": d_an}

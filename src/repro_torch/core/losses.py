@@ -3,10 +3,18 @@
 its gradients are held to `jax.grad` of the JAX package's losses.
 
 L_total = L_triplet + w_r · L_CPI_Huber + w_c · L_consistency
+
+Inside a data-parallel step (`repro_torch.distributed.collectives`) the
+rows are this rank's share of the global batch and each loss is this
+rank's share of the global one: the means are shared, and the
+consistency term pairs this rank's anchors with every anchor of the
+global batch (gathered with autograd) over the global pair count.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.distributed.collectives import gather_rows, share, total
 
 
 def l2_normalize(x, eps: float = 1e-8):
@@ -23,7 +31,7 @@ def triplet_loss(anchor, positive, negative, margin: float = 0.5):
     a, p, n = (l2_normalize(x.float()) for x in (anchor, positive, negative))
     d_ap = torch.sum(torch.square(a - p), dim=-1)
     d_an = torch.sum(torch.square(a - n), dim=-1)
-    return torch.mean(torch.clamp(d_ap - d_an + margin, min=0.0))
+    return share(torch.mean(torch.clamp(d_ap - d_an + margin, min=0.0)))
 
 
 def huber_loss(pred, target, delta: float = 1.0):
@@ -31,19 +39,24 @@ def huber_loss(pred, target, delta: float = 1.0):
     err = pred.float() - target.float()
     abs_err = torch.abs(err)
     quad = torch.clamp(abs_err, max=delta)
-    return torch.mean(0.5 * quad ** 2 + delta * (abs_err - quad))
+    return share(torch.mean(0.5 * quad ** 2 + delta * (abs_err - quad)))
 
 
 def cpi_consistency_loss(signatures, cpis, tau: float = 1.0):
-    """mean_{i≠j} exp(-||s_i - s_j||² / τ) · |log1p CPI_i − log1p CPI_j|."""
-    s = l2_normalize(signatures.float())
-    d2 = torch.sum(torch.square(s[:, None] - s[None, :]), dim=-1)
+    """mean_{i≠j} exp(-||s_i - s_j||² / τ) · |log1p CPI_i − log1p CPI_j|,
+    over this rank's anchors i and every anchor j of the batch."""
+    s_all, lo = gather_rows(l2_normalize(signatures.float()))
+    n = signatures.shape[0]
+    s = s_all if s_all.shape[0] == n else s_all[lo:lo + n]
+    d2 = torch.sum(torch.square(s[:, None] - s_all[None, :]), dim=-1)
     sim = torch.exp(-d2 / tau)
-    lc = torch.log1p(cpis.float())
-    dc = torch.abs(lc[:, None] - lc[None, :])
-    n = s.shape[0]
-    mask = 1.0 - torch.eye(n, device=s.device)
-    return torch.sum(sim * dc * mask) / torch.clamp(mask.sum(), min=1.0)
+    lc_all, _ = gather_rows(torch.log1p(cpis.float()))
+    lc = lc_all[lo:lo + n]
+    dc = torch.abs(lc[:, None] - lc_all[None, :])
+    cols = torch.arange(s_all.shape[0], device=s.device)
+    mask = 1.0 - (cols[lo:lo + n, None] == cols[None, :]).float()
+    return torch.sum(sim * dc * mask) / torch.clamp(total(mask.sum()),
+                                                    min=1.0)
 
 
 def combined_stage2_loss(anchor_sig, pos_sig, neg_sig, cpi_pred, cpi_true,

@@ -16,7 +16,10 @@ from torch import nn
 
 from repro_torch.core.losses import combined_stage2_loss, l2_normalize
 from repro_torch.models.layers import init_array, param, torch_dtype
-from repro_torch.models.set_transformer import SetTransformer
+from repro_torch.models.set_transformer import (
+    SetTransformer, set_transformer_specs,
+)
+from repro_torch.utils.tree import prefixed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +78,17 @@ class SignatureModel(nn.Module):
         sig = l2_normalize(self.set_transformer(bbes, weights=freqs,
                                                 mask=mask))
         return sig, self.cpi_head(sig)
+
+    def param_specs(self) -> dict:
+        return signature_specs(self.cfg)
+
+
+def signature_specs(cfg: SignatureConfig) -> dict:
+    """Logical-axis specs of every parameter of `SignatureModel(cfg)` by
+    "/"-joined name (`signature_init`'s)."""
+    return {**prefixed("set_transformer", set_transformer_specs(cfg.num_sabs)),
+            "cpi_head/w1": ("embed", "ff"), "cpi_head/b1": ("ff",),
+            "cpi_head/w2": ("ff", None), "cpi_head/b2": (None,)}
 
 
 def signature_apply(model: SignatureModel, bbes, freqs, mask):

@@ -57,6 +57,16 @@
 //     to a fixed tree or nothing to a sum, and more capacity only appends dead
 //     blocks at the end of each warp's chain. A store that is compacted, grown
 //     or refilled therefore clusters bit for bit alike.
+//
+// bf16 instances (x in bf16, as JAX's kernels take it; the centroids fp32,
+// widened on the device first when they come in bf16): the row tile holds the
+// rows as bf16, copied by 16-byte cp.async of 8 elements when d % 8 == 0 and
+// x is 16-byte aligned, else element by element (zero-padded to a whole 16
+// bytes). Every read of a row widens four elements to a float4 (exact), and
+// the fp32 arithmetic runs in the fp32 instance's order, so a bf16 instance
+// is bitwise its fp32 instance on the upcast rows. The tile's row stride is
+// an odd number of 16-byte units in both instances; the bf16 tile takes about
+// half the bytes.
 #include "common.cuh"
 
 namespace km {
@@ -68,8 +78,16 @@ constexpr int kJoinWarps = 32;          // join kernel: 32 warps x 32 outputs
 constexpr int kJoinOutputs = 32;
 constexpr int kFlagChunk = 1024;        // live flags staged a chunk at a time
 
-// Row stride of the shared row tile, in float4: ceil(d / 4) made odd.
+// Row stride of the fp32 centroid tile (and of the fp32 row tile), in
+// float4: ceil(d / 4) made odd.
 __host__ __device__ inline int stride4(int d) { return ((d + 3) / 4) | 1; }
+
+// Row stride of the row tile in 16-byte units, made odd: ceil(d / 4) fp32
+// float4s, or ceil(d / 8) bf16 octets.
+template <typename T>
+__host__ __device__ inline int row16(int d) {
+  return sizeof(T) == 4 ? stride4(d) : ((d + 7) / 8) | 1;
+}
 
 // Stride between the four quarters of a centroid tile, in float4: its kt / 4
 // rows rounded up to 1 mod 8, so that the quarters start in bank groups 0-3.
@@ -78,11 +96,12 @@ __host__ __device__ inline int quarter4(int d, int kt) {
   return q + ((9 - q % 8) % 8);
 }
 
-// Shared bytes of a launch with K tile kt: the row tile, the centroid tile,
-// kt squared norms, the rows' weights, weighted d2 and labels, two warps' kt
-// counts and inertia, and each warp's list of rows.
+// Shared bytes of a launch with K tile kt and rows of type T: the row tile,
+// the centroid tile, kt squared norms, the rows' weights, weighted d2 and
+// labels, two warps' kt counts and inertia, and each warp's list of rows.
+template <typename T>
 __host__ __device__ inline size_t smem_bytes(int d, int kt) {
-  return sizeof(float) * (static_cast<size_t>(4 * stride4(d)) * kRows +
+  return sizeof(float) * (static_cast<size_t>(4 * row16<T>(d)) * kRows +
                           16 * static_cast<size_t>(quarter4(d, kt)) + kt + 3 * kRows +
                           2 * (kt + 1) + kWarps * kRows);
 }
@@ -92,7 +111,7 @@ __host__ __device__ inline size_t smem_bytes(int d, int kt) {
 inline int k_tile(int K) { return K <= 4 ? 4 : K <= 8 ? 8 : 16; }
 
 struct Smem {
-  float* tile;   // (kRows, 4 * stride4) rows
+  float* tile;   // (kRows, row16 16-byte units) rows, fp32 or bf16
   float* sc;     // 4 quarters of quarter4 float4s: the K tile's centroids
   float* sc2;    // (kt,)
   float* sw;     // (kRows,) row weights, 0 = dead or past N
@@ -102,10 +121,11 @@ struct Smem {
   int* list;     // (kWarps, kRows) each warp's rows of a tile, in order
 };
 
+template <typename T>
 __device__ __forceinline__ Smem carve(float* smem, int d, int kt) {
   Smem s;
   s.tile = smem;
-  s.sc = s.tile + 4 * stride4(d) * kRows;
+  s.sc = s.tile + 4 * row16<T>(d) * kRows;
   s.sc2 = s.sc + 16 * quarter4(d, kt);
   s.sw = s.sc2 + kt;
   s.sd = s.sw + kRows;
@@ -152,13 +172,40 @@ __device__ __forceinline__ void copy_row(float* dst, const float* __restrict__ s
   }
 }
 
+// The same for a bf16 row: n elements into dst (n rounded up to octets),
+// by 16-byte cp.async of 8 elements when vec (n % 8 == 0, 16-byte aligned
+// rows), else by element; zero-fills the tail, or all of it when !real.
+__device__ __forceinline__ void copy_row(__nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src,
+                                         int n, bool real, bool vec, bool, int lane) {
+  const int n8 = (n + 7) / 8;
+  if (vec) {
+    for (int j = lane; j < n8; j += 32) {
+      if (real)
+        rt::cp_async16(dst + 8 * j, src + 8 * j);
+      else
+        *reinterpret_cast<uint4*>(dst + 8 * j) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  } else {
+    unsigned short* d16 = reinterpret_cast<unsigned short*>(dst);
+    const unsigned short* s16 = reinterpret_cast<const unsigned short*>(src);
+    for (int f = lane; f < 8 * n8; f += 32) d16[f] = real && f < n ? s16[f] : 0;
+  }
+}
+
+// Row r of the row tile.
+template <typename T>
+__device__ __forceinline__ T* tile_row(const Smem& s, int d, int r) {
+  return reinterpret_cast<T*>(s.tile + 4 * row16<T>(d) * r);
+}
+
 // Starts copying the block's live rows (sw != 0) into the tile, warp w taking
 // rows w, w + 4, ...; dead rows are zero-filled. One cp.async group.
-__device__ __forceinline__ void load_rows(const float* __restrict__ x, int d, int row0,
+template <typename T>
+__device__ __forceinline__ void load_rows(const T* __restrict__ x, int d, int row0,
                                           bool vec, const Smem& s) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < kRows; r += kWarps)
-    copy_row(s.tile + r * 4 * stride4(d), x + static_cast<size_t>(row0 + r) * d, d,
+    copy_row(tile_row<T>(s, d, r), x + static_cast<size_t>(row0 + r) * d, d,
              s.sw[r] != 0.f, vec, false, lane);
   rt::cp_async_commit();
 }
@@ -210,11 +257,11 @@ __device__ __forceinline__ void dot4(float& acc, float4 a, float4 b) {
 // Rows x0 and x1 against quarter q of a K tile: KT / 4 dot products a row in
 // registers, each over the row's columns in order, and the rows' squared
 // norms; updates each row's best (d2, k) by strict "<" in increasing k
-// (bk < 0: none yet).
-template <int KT>
-__device__ __forceinline__ void nearest_quarter(const float4* x0, const float4* x1,
-                                                const Smem& s, int d, int k0, int K, int q,
-                                                int (&bk)[2], float (&bd)[2]) {
+// (bk < 0: none yet). Rows are read four elements at a time, widened.
+template <typename T, int KT>
+__device__ __forceinline__ void nearest_quarter(const T* x0, const T* x1, const Smem& s,
+                                                int d, int k0, int K, int q, int (&bk)[2],
+                                                float (&bd)[2]) {
   constexpr int KQ = KT / 4;
   const int d4 = (d + 3) / 4;
   const int s4 = stride4(d);
@@ -225,7 +272,7 @@ __device__ __forceinline__ void nearest_quarter(const float4* x0, const float4* 
   float4 p0 = make_float4(0.f, 0.f, 0.f, 0.f), p1 = p0;
 #pragma unroll 4
   for (int j = 0; j < d4; ++j) {
-    const float4 u = x0[j], v = x1[j];
+    const float4 u = rt::load4(x0 + 4 * j), v = rt::load4(x1 + 4 * j);
     p0.x = fmaf(u.x, u.x, p0.x);
     p0.y = fmaf(u.y, u.y, p0.y);
     p0.z = fmaf(u.z, u.z, p0.z);
@@ -275,14 +322,13 @@ __device__ __forceinline__ void join_best(int& bk, float& bd, int m) {
 // Nearest centroid of rows g and g + 32 (g = thread / 4) for every lane of
 // the quad. On entry the rows and the first K tile are in flight. Dead rows
 // end with (0, 0).
-template <int KT>
+template <typename T, int KT>
 __device__ __forceinline__ void assign_rows(const float* __restrict__ c, int K, int d, bool vec,
                                             const Smem& s, int (&bk)[2], float (&bd)[2]) {
   const int g = threadIdx.x / 4, q = threadIdx.x % 4;
   const bool live0 = s.sw[g] != 0.f, live1 = s.sw[g + 32] != 0.f;
-  const float4* tile = reinterpret_cast<const float4*>(s.tile);
-  const float4* x0 = tile + g * stride4(d);
-  const float4* x1 = tile + (g + 32) * stride4(d);
+  const T* x0 = tile_row<T>(s, d, g);
+  const T* x1 = tile_row<T>(s, d, g + 32);
   bk[0] = bk[1] = -1;
   bd[0] = bd[1] = 0.f;
   for (int k0 = 0; k0 < K; k0 += KT) {
@@ -292,7 +338,7 @@ __device__ __forceinline__ void assign_rows(const float* __restrict__ c, int K, 
     }
     rt::cp_async_wait<0>();
     finish_centroids(d, KT, s);
-    if (live0 || live1) nearest_quarter<KT>(x0, x1, s, d, k0, K, q, bk, bd);
+    if (live0 || live1) nearest_quarter<T, KT>(x0, x1, s, d, k0, K, q, bk, bd);
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -303,20 +349,22 @@ __device__ __forceinline__ void assign_rows(const float* __restrict__ c, int K, 
   if (!live1) bk[1] = 0, bd[1] = 0.f;
 }
 
-template <int KT>
+// vec: bit 0, the rows are copied by 16-byte cp.async; bit 1, the centroids.
+template <typename T, int KT>
 __global__ void __launch_bounds__(kThreads)
-assign_rows_kernel(const float* __restrict__ x, const float* __restrict__ c, int N, int d,
-                   int K, int vec, int* __restrict__ assign, float* __restrict__ dist2) {
+assign_rows_kernel(const T* __restrict__ x, const float* __restrict__ c, int N, int d, int K,
+                   int vec, int* __restrict__ assign, float* __restrict__ dist2) {
   extern __shared__ __align__(16) float smem[];
-  const Smem s = carve(smem, d, KT);
+  const Smem s = carve<T>(smem, d, KT);
   const int row0 = blockIdx.x * kRows;
+  const bool xvec = vec & 1, cvec = (vec & 2) != 0;
   if (threadIdx.x < kRows) s.sw[threadIdx.x] = row0 + threadIdx.x < N ? 1.f : 0.f;
   __syncthreads();
-  load_rows(x, d, row0, vec != 0, s);
-  issue_centroids(c, K, d, 0, KT, vec != 0, s);
+  load_rows<T>(x, d, row0, xvec, s);
+  issue_centroids(c, K, d, 0, KT, cvec, s);
   int bk[2];
   float bd[2];
-  assign_rows<KT>(c, K, d, vec != 0, s, bk, bd);
+  assign_rows<T, KT>(c, K, d, cvec, s, bk, bd);
   if (threadIdx.x % 4 == 0) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -333,15 +381,16 @@ assign_rows_kernel(const float* __restrict__ x, const float* __restrict__ c, int
 // inertia) at part + blockIdx.x * (K * d + K + 1), and live[blockIdx.x].
 // valid == nullptr weighs every row 1. CPL: float4 columns a lane owns in
 // the sums (d <= 128: 1, else 2).
-template <int KT, int CPL>
+template <typename T, int KT, int CPL>
 __global__ void __launch_bounds__(kThreads)
-update_rows_kernel(const float* __restrict__ x, const float* __restrict__ c,
+update_rows_kernel(const T* __restrict__ x, const float* __restrict__ c,
                    const float* __restrict__ valid, int N, int d, int K, int vec,
                    float* __restrict__ part, int* __restrict__ live) {
   extern __shared__ __align__(16) float smem[];
-  const Smem s = carve(smem, d, KT);
+  const Smem s = carve<T>(smem, d, KT);
   const int t = threadIdx.x, warp = t / 32, lane = t % 32;
   const int row0 = blockIdx.x * kRows;
+  const bool xvec = vec & 1, cvec = (vec & 2) != 0;
   float w = 0.f;
   if (t < kRows) {
     const int row = row0 + t;
@@ -352,11 +401,11 @@ update_rows_kernel(const float* __restrict__ x, const float* __restrict__ c,
     if (t == 0) live[blockIdx.x] = 0;
     return;
   }
-  load_rows(x, d, row0, vec != 0, s);
-  issue_centroids(c, K, d, 0, KT, vec != 0, s);
+  load_rows<T>(x, d, row0, xvec, s);
+  issue_centroids(c, K, d, 0, KT, cvec, s);
   int bk[2];
   float bd[2];
-  assign_rows<KT>(c, K, d, vec != 0, s, bk, bd);
+  assign_rows<T, KT>(c, K, d, cvec, s, bk, bd);
   if (t % 4 == 0) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -370,8 +419,6 @@ update_rows_kernel(const float* __restrict__ x, const float* __restrict__ c,
   constexpr int KW = KT / 4;              // clusters a warp owns in a tile
   const int O = K * d + K + 1;
   const int d4 = (d + 3) / 4;
-  const int s4 = stride4(d);
-  const float4* tile = reinterpret_cast<const float4*>(s.tile);
   float* pb = part + static_cast<size_t>(blockIdx.x) * O;
   for (int k0 = 0; k0 < K; k0 += KT) {
     // sums: warp w lists its rows (label k0 + w + 4 i) in row order, then
@@ -398,11 +445,11 @@ update_rows_kernel(const float* __restrict__ x, const float* __restrict__ c,
       const int e = s.list[warp * kRows + n];
       const int r = e & 255, own = e >> 8;
       const float wr = s.sw[r];
-      const float4* xr = tile + r * s4;
+      const T* xr = tile_row<T>(s, d, r);
 #pragma unroll
       for (int j = 0; j < CPL; ++j) {
         const int jj = lane + 32 * j;
-        const float4 xv = jj < d4 ? xr[jj] : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float4 xv = jj < d4 ? rt::load4(xr + 4 * jj) : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
         for (int i = 0; i < KW; ++i) {
           if (i == own) {
@@ -484,25 +531,34 @@ update_join_kernel(const float* __restrict__ part, const int* __restrict__ live,
 
 inline int blocks_of(int N) { return (N + kRows - 1) / kRows; }
 
-template <int KT>
-cudaError_t assign_launch(const float* x, const float* c, int N, int d, int K, int vec,
-                          int* a, float* d2, cudaStream_t stream) {
-  const size_t smem = smem_bytes(d, KT);
-  cudaError_t err = rt::allow_smem(assign_rows_kernel<KT>, smem);
+template <typename T, int KT>
+cudaError_t assign_launch(const T* x, const float* c, int N, int d, int K, int vec, int* a,
+                          float* d2, cudaStream_t stream) {
+  const size_t smem = smem_bytes<T>(d, KT);
+  cudaError_t err = rt::allow_smem(assign_rows_kernel<T, KT>, smem);
   if (err != cudaSuccess) return err;
-  assign_rows_kernel<KT><<<blocks_of(N), kThreads, smem, stream>>>(x, c, N, d, K, vec, a, d2);
+  assign_rows_kernel<T, KT><<<blocks_of(N), kThreads, smem, stream>>>(x, c, N, d, K, vec, a, d2);
   return cudaGetLastError();
 }
 
-template <int KT, int CPL>
-cudaError_t update_launch(const float* x, const float* c, const float* valid, int N, int d,
-                          int K, int vec, float* part, int* live, float* out,
-                          cudaStream_t stream) {
-  const size_t smem = smem_bytes(d, KT);
-  cudaError_t err = rt::allow_smem(update_rows_kernel<KT, CPL>, smem);
+template <typename T>
+cudaError_t assign_by_k(const T* x, const float* c, int N, int d, int K, int vec, int* a,
+                        float* d2, cudaStream_t stream) {
+  switch (k_tile(K)) {
+    case 4: return assign_launch<T, 4>(x, c, N, d, K, vec, a, d2, stream);
+    case 8: return assign_launch<T, 8>(x, c, N, d, K, vec, a, d2, stream);
+    default: return assign_launch<T, 16>(x, c, N, d, K, vec, a, d2, stream);
+  }
+}
+
+template <typename T, int KT, int CPL>
+cudaError_t update_launch(const T* x, const float* c, const float* valid, int N, int d, int K,
+                          int vec, float* part, int* live, float* out, cudaStream_t stream) {
+  const size_t smem = smem_bytes<T>(d, KT);
+  cudaError_t err = rt::allow_smem(update_rows_kernel<T, KT, CPL>, smem);
   if (err != cudaSuccess) return err;
   const int nblocks = blocks_of(N);
-  update_rows_kernel<KT, CPL>
+  update_rows_kernel<T, KT, CPL>
       <<<nblocks, kThreads, smem, stream>>>(x, c, valid, N, d, K, vec, part, live);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -512,18 +568,24 @@ cudaError_t update_launch(const float* x, const float* c, const float* valid, in
   return cudaGetLastError();
 }
 
-template <int CPL>
-cudaError_t update_by_k(const float* x, const float* c, const float* valid, int N, int d,
-                        int K, int vec, float* part, int* live, float* out,
-                        cudaStream_t stream) {
+template <typename T, int CPL>
+cudaError_t update_by_k(const T* x, const float* c, const float* valid, int N, int d, int K,
+                        int vec, float* part, int* live, float* out, cudaStream_t stream) {
   switch (k_tile(K)) {
     case 4:
-      return update_launch<4, CPL>(x, c, valid, N, d, K, vec, part, live, out, stream);
+      return update_launch<T, 4, CPL>(x, c, valid, N, d, K, vec, part, live, out, stream);
     case 8:
-      return update_launch<8, CPL>(x, c, valid, N, d, K, vec, part, live, out, stream);
+      return update_launch<T, 8, CPL>(x, c, valid, N, d, K, vec, part, live, out, stream);
     default:
-      return update_launch<16, CPL>(x, c, valid, N, d, K, vec, part, live, out, stream);
+      return update_launch<T, 16, CPL>(x, c, valid, N, d, K, vec, part, live, out, stream);
   }
+}
+
+template <typename T>
+cudaError_t update_rows(const T* x, const float* c, const float* valid, int N, int d, int K,
+                        int vec, float* part, int* live, float* out, cudaStream_t stream) {
+  if (d <= 128) return update_by_k<T, 1>(x, c, valid, N, d, K, vec, part, live, out, stream);
+  return update_by_k<T, 2>(x, c, valid, N, d, K, vec, part, live, out, stream);
 }
 
 // cudaFuncGetAttributes of a kernel into out[4]: registers, static and
@@ -540,56 +602,72 @@ cudaError_t attributes(Kernel kernel, size_t smem, int* out) {
   return cudaSuccess;
 }
 
-}  // namespace km
-
-// x: (N, d); c: (K, d) fp32, contiguous; 1 <= d <= 256, K >= 1. Writes assign
-// (N,) int32 and dist2 (N,) fp32. vec != 0: d % 4 == 0 and x and c 16-byte
-// aligned.
-extern "C" int rt_kmeans_assign(const float* x, const float* c, int N, int d, int K, int vec,
-                                int* assign, float* dist2, cudaStream_t stream) {
-  if (N == 0) return cudaSuccess;
-  if (N < 0 || K <= 0 || d <= 0 || d > 256) return cudaErrorInvalidValue;
-  switch (km::k_tile(K)) {
-    case 4: return km::assign_launch<4>(x, c, N, d, K, vec, assign, dist2, stream);
-    case 8: return km::assign_launch<8>(x, c, N, d, K, vec, assign, dist2, stream);
-    default: return km::assign_launch<16>(x, c, N, d, K, vec, assign, dist2, stream);
-  }
+// The attributes of the instance a launch with (d, K) takes.
+template <typename T>
+cudaError_t assign_attributes(int d, int K, int* out) {
+  const int kt = k_tile(K);
+  const size_t smem = smem_bytes<T>(d, kt);
+  if (kt == 4) return attributes(assign_rows_kernel<T, 4>, smem, out);
+  if (kt == 8) return attributes(assign_rows_kernel<T, 8>, smem, out);
+  return attributes(assign_rows_kernel<T, 16>, smem, out);
 }
 
-// x: (N, d); c: (K, d); valid: (N,) fp32 weights (0 = row ignored) or null
-// (every row weighs 1). Scratch: part (ceil(N / 64), K * d + K + 1) fp32 and
-// live (ceil(N / 64),) int32, neither zeroed. Writes out = [sums (K, d),
-// counts (K,), inertia (1,)]. 1 <= d <= 256, K >= 1, N >= 1; vec as above.
-extern "C" int rt_kmeans_update(const float* x, const float* c, const float* valid, int N,
-                                int d, int K, int vec, float* part, int* live, float* out,
-                                cudaStream_t stream) {
-  if (N <= 0 || K <= 0 || d <= 0 || d > 256) return cudaErrorInvalidValue;
-  if (d <= 128) return km::update_by_k<1>(x, c, valid, N, d, K, vec, part, live, out, stream);
-  return km::update_by_k<2>(x, c, valid, N, d, K, vec, part, live, out, stream);
-}
-
-// The attributes of the kernel a launch with (d, K) takes, and the dynamic
-// shared bytes it asks for: out[4] as km::attributes.
-extern "C" int rt_kmeans_assign_attributes(int d, int K, int* out) {
-  if (K <= 0 || d <= 0 || d > 256) return cudaErrorInvalidValue;
-  const int kt = km::k_tile(K);
-  const size_t smem = km::smem_bytes(d, kt);
-  if (kt == 4) return km::attributes(km::assign_rows_kernel<4>, smem, out);
-  if (kt == 8) return km::attributes(km::assign_rows_kernel<8>, smem, out);
-  return km::attributes(km::assign_rows_kernel<16>, smem, out);
-}
-
-extern "C" int rt_kmeans_update_attributes(int d, int K, int* out) {
-  if (K <= 0 || d <= 0 || d > 256) return cudaErrorInvalidValue;
-  const int kt = km::k_tile(K);
-  const size_t smem = km::smem_bytes(d, kt);
+template <typename T>
+cudaError_t update_attributes(int d, int K, int* out) {
+  const int kt = k_tile(K);
+  const size_t smem = smem_bytes<T>(d, kt);
   const bool wide = d > 128;
   if (kt == 4)
-    return wide ? km::attributes(km::update_rows_kernel<4, 2>, smem, out)
-                : km::attributes(km::update_rows_kernel<4, 1>, smem, out);
+    return wide ? attributes(update_rows_kernel<T, 4, 2>, smem, out)
+                : attributes(update_rows_kernel<T, 4, 1>, smem, out);
   if (kt == 8)
-    return wide ? km::attributes(km::update_rows_kernel<8, 2>, smem, out)
-                : km::attributes(km::update_rows_kernel<8, 1>, smem, out);
-  return wide ? km::attributes(km::update_rows_kernel<16, 2>, smem, out)
-              : km::attributes(km::update_rows_kernel<16, 1>, smem, out);
+    return wide ? attributes(update_rows_kernel<T, 8, 2>, smem, out)
+                : attributes(update_rows_kernel<T, 8, 1>, smem, out);
+  return wide ? attributes(update_rows_kernel<T, 16, 2>, smem, out)
+              : attributes(update_rows_kernel<T, 16, 1>, smem, out);
+}
+
+}  // namespace km
+
+// x: (N, d) fp32 (bf16 == 0) or bf16 (bf16 != 0); c: (K, d) fp32; both
+// contiguous; 1 <= d <= 256, K >= 1. Writes assign (N,) int32 and dist2 (N,)
+// fp32. vec: bit 0, rows by 16-byte copies (d % 4 == 0 in fp32, d % 8 == 0 in
+// bf16, x 16-byte aligned); bit 1, centroids (d % 4 == 0, c 16-byte aligned).
+extern "C" int rt_kmeans_assign(const void* x, const float* c, int N, int d, int K, int vec,
+                                int bf16, int* assign, float* dist2, cudaStream_t stream) {
+  if (N == 0) return cudaSuccess;
+  if (N < 0 || K <= 0 || d <= 0 || d > 256) return cudaErrorInvalidValue;
+  if (bf16)
+    return km::assign_by_k(static_cast<const __nv_bfloat16*>(x), c, N, d, K, vec, assign, dist2,
+                           stream);
+  return km::assign_by_k(static_cast<const float*>(x), c, N, d, K, vec, assign, dist2, stream);
+}
+
+// x, c, bf16, vec as above; valid: (N,) fp32 weights (0 = row ignored) or
+// null (every row weighs 1). Scratch: part (ceil(N / 64), K * d + K + 1) fp32
+// and live (ceil(N / 64),) int32, neither zeroed. Writes out = [sums (K, d),
+// counts (K,), inertia (1,)]. 1 <= d <= 256, K >= 1, N >= 1.
+extern "C" int rt_kmeans_update(const void* x, const float* c, const float* valid, int N, int d,
+                                int K, int vec, int bf16, float* part, int* live, float* out,
+                                cudaStream_t stream) {
+  if (N <= 0 || K <= 0 || d <= 0 || d > 256) return cudaErrorInvalidValue;
+  if (bf16)
+    return km::update_rows(static_cast<const __nv_bfloat16*>(x), c, valid, N, d, K, vec, part,
+                           live, out, stream);
+  return km::update_rows(static_cast<const float*>(x), c, valid, N, d, K, vec, part, live, out,
+                         stream);
+}
+
+// The attributes of the instance a launch with (bf16, d, K) takes, and the
+// dynamic shared bytes it asks for: out[4] as km::attributes.
+extern "C" int rt_kmeans_assign_attributes(int bf16, int d, int K, int* out) {
+  if (K <= 0 || d <= 0 || d > 256) return cudaErrorInvalidValue;
+  return bf16 ? km::assign_attributes<__nv_bfloat16>(d, K, out)
+              : km::assign_attributes<float>(d, K, out);
+}
+
+extern "C" int rt_kmeans_update_attributes(int bf16, int d, int K, int* out) {
+  if (K <= 0 || d <= 0 || d > 256) return cudaErrorInvalidValue;
+  return bf16 ? km::update_attributes<__nv_bfloat16>(d, K, out)
+              : km::update_attributes<float>(d, K, out);
 }

@@ -42,8 +42,8 @@ _ENTRY_POINTS = {
     "rt_wkv_backward": "p" * 14 + "i" * 6 + "p",
     "rt_set_attention_forward": "p" * 6 + "i" * 7 + "fp",
     "rt_set_attention_backward": "p" * 11 + "i" * 7 + "fp",
-    "rt_kmeans_assign": "ppiiiippp",
-    "rt_kmeans_update": "pppiiiipppp",
+    "rt_kmeans_assign": "ppiiiiippp",
+    "rt_kmeans_update": "pppiiiiipppp",
     # q k v o lse, B S T H K D, the (b, seq, head) strides of q, k and v,
     # causal window prefix_len, scale, stream; bf16 also takes vec before
     # the scale
@@ -55,16 +55,17 @@ _ENTRY_POINTS = {
     "rt_flash_attention_backward_f32": "p" * 10 + "i" * 24 + "fp",
     "rt_flash_attention_backward_bf16": "p" * 10 + "i" * 24 + "fp",
     # (bf16, D, prefix, lse, out[4]), (bf16, D, prefix, kernel, out[4]),
-    # (bf16, N, M, dh, out[4]), (bf16, dh, out[4]) and (d, K, out[4]): the
-    # attributes of the kernel a launch takes, see kernel_attributes
+    # (bf16, N, M, dh, out[4]), (bf16, dh, out[4]) and (bf16, d, K,
+    # out[4]): the attributes of the kernel a launch takes, see
+    # kernel_attributes
     "rt_flash_attention_attributes": "iiiip",
     "rt_flash_attention_backward_attributes": "iiiip",
     "rt_set_attention_forward_attributes": "iiiip",
     "rt_set_attention_backward_attributes": "iiiip",
     "rt_wkv_attributes": "iip",
     "rt_wkv_backward_attributes": "iip",
-    "rt_kmeans_assign_attributes": "iip",
-    "rt_kmeans_update_attributes": "iip",
+    "rt_kmeans_assign_attributes": "iiip",
+    "rt_kmeans_update_attributes": "iiip",
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

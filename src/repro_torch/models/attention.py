@@ -175,3 +175,14 @@ def attn_decode(params: Attention, x, cache_k, cache_v, pos, *,
         cache_v[rows, at] = torch.where(keep, cache_v[rows, at], old_v)
     out = out.reshape(B, 1, num_heads * head_dim)
     return out @ params.wo.to(out.dtype), cache_k, cache_v
+
+
+def attn_specs(qkv_bias: bool = False, qk_norm: bool = False) -> dict:
+    """Logical-axis specs of an `Attention`'s parameters (`attn_init`'s)."""
+    specs = {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+             "wv": ("embed", "kv_heads"), "wo": ("heads", "embed")}
+    if qkv_bias:
+        specs.update(bq=("heads",), bk=("kv_heads",), bv=("kv_heads",))
+    if qk_norm:
+        specs.update(q_norm=(None,), k_norm=(None,))
+    return specs

@@ -208,3 +208,37 @@ class MLP(nn.Module):
         h = torch.nn.functional.gelu(x @ self.wi.to(dt) + self.bi.to(dt),
                                      approximate="tanh")
         return h @ self.wo.to(dt) + self.bo.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# logical-axis specs (`repro_torch.distributed.sharding`): flat {"/"-joined
+# parameter name: tuple of logical axes}, from the JAX init functions'
+# spec dicts
+# ---------------------------------------------------------------------------
+
+def dense_specs(bias: bool = False, in_axis: Optional[str] = "embed",
+                out_axis: Optional[str] = "ff") -> dict:
+    specs = {"w": (in_axis, out_axis)}
+    if bias:
+        specs["b"] = (out_axis,)
+    return specs
+
+
+def rmsnorm_specs(axis: str = "embed_act") -> dict:
+    return {"scale": (axis,)}
+
+
+def layernorm_specs(axis: str = "embed_act") -> dict:
+    return {"scale": (axis,), "bias": (axis,)}
+
+
+def embed_specs() -> dict:
+    return {"table": ("vocab", "embed")}
+
+
+def mlp_specs(gated: bool = True) -> dict:
+    if gated:
+        return {"wi": ("embed", "ff"), "wg": ("embed", "ff"),
+                "wo": ("ff", "embed")}
+    return {"wi": ("embed", "ff"), "wo": ("ff", "embed"),
+            "bi": ("ff",), "bo": ("embed",)}

@@ -18,8 +18,9 @@ expert products are plain PyTorch, as they are plain JAX in the
 reference. `loss` is the training objective (`transformer.lm_loss`),
 run with autograd on: on CUDA each attention layer's flash call saves
 its log-sum-exp and its backward launches the flash backward kernel.
-`input_specs`, `param_specs` and `cache_specs` wait for the distributed
-slice.
+`param_specs` and `cache_specs` are the logical-axis specs the Trainer
+and `repro_torch.distributed.sharding` read; `input_specs` describes a
+workload's inputs by meta tensors (shapes and dtypes, no storage).
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, ShapeConfig
 from repro_torch.device import Device, resolve_device
 from repro_torch.models import transformer as tfm
 
@@ -44,6 +45,11 @@ class Model:
         every device), each block moved to `device` as soon as it is
         drawn."""
         return tfm.LM(self.cfg, seed, device=resolve_device(device))
+
+    def param_specs(self) -> Dict[str, tuple]:
+        """{"/"-joined parameter name: logical axes}, read from the config
+        alone (`transformer.lm_param_specs`)."""
+        return tfm.lm_param_specs(self.cfg)
 
     # --------------------------------------------------------------- train
     def loss(self, params: tfm.LM, batch: Dict[str, Any],
@@ -65,8 +71,8 @@ class Model:
                    device: Device = "cuda",
                    enc_len: Optional[int] = None) -> Dict[str, Any]:
         """Zeroed decode cache: KV (and an encoder-decoder's cross KV of
-        `enc_len` positions) in `dtype`, recurrent states in fp32 (no
-        specs: they come with the distributed slice)."""
+        `enc_len` positions) in `dtype`, recurrent states in fp32; its
+        specs are `cache_specs`."""
         return tfm.init_cache(self.cfg, batch, max_seq, dtype,
                               resolve_device(device), enc_len=enc_len)
 
@@ -100,6 +106,55 @@ class Model:
             return tfm.lm_apply(params, self.cfg, tokens,
                                 prefix_embeds=patches, enc_memory=enc_memory,
                                 return_hidden=True)
+
+    # --------------------------------------------------------------- shapes
+    def supports_shape(self, shape: ShapeConfig) -> bool:
+        """long_500k needs sub-quadratic sequence mixing: an all-recurrent
+        stack, or a hybrid whose attention is windowed or at most one
+        layer in eight."""
+        if shape.name == "long_500k":
+            kinds = set(self.cfg.blocks())
+            recurrent = {"mamba", "mlstm", "slstm"}
+            n_attn = sum(1 for k in self.cfg.blocks() if k == "attn")
+            if kinds <= recurrent:
+                return True
+            return bool(kinds & recurrent and (
+                self.cfg.attn_window > 0
+                or n_attn * 8 <= self.cfg.num_layers))
+        return True
+
+    def input_specs(self, shape: ShapeConfig, *, per_device_batch: int = 0
+                    ) -> Dict[str, Any]:
+        """Meta tensors standing in for every model input of a workload:
+        for train/prefill the token batch (+ an encoder-decoder's frames,
+        a VLM's patches, bf16); for decode one new token a row, the cache
+        filled to seq_len (`init_cache` in bf16) and the position."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+
+        def meta(shape_, dtype):
+            return torch.empty(shape_, dtype=dtype, device="meta")
+
+        if shape.kind in ("train", "prefill"):
+            specs: Dict[str, Any] = {"tokens": meta((B, S), torch.int32)}
+            if cfg.encoder_layers:
+                specs["frames"] = meta((B, min(S, 1500), cfg.d_model),
+                                       torch.bfloat16)
+            if cfg.frontend == "vision_patches":
+                specs["patches"] = meta(
+                    (B, cfg.num_prefix_embeddings, cfg.d_model),
+                    torch.bfloat16)
+            return specs
+        return {"tokens": meta((B, 1), torch.int32),
+                "cache": tfm.init_cache(cfg, B, S, torch.bfloat16,
+                                        torch.device("meta")),
+                "pos": meta((), torch.int32)}
+
+    def cache_specs(self, shape: Optional[ShapeConfig] = None
+                    ) -> Dict[str, Dict[str, tuple]]:
+        """Logical-axis specs of the decode cache's tree
+        (`transformer.cache_specs`; the same for every shape)."""
+        return tfm.cache_specs(self.cfg)
 
     # ------------------------------------------------------------ analytics
     def param_count(self) -> int:

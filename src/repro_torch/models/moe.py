@@ -13,7 +13,10 @@ plain tensor algebra: no kernel of the port runs here.
 
 The auxiliary load-balance loss is Switch's: the mean router probability
 of each expert times the share of (token, choice) pairs routed to it,
-counted before drops, times E.
+counted before drops, times E. Inside a data-parallel step both means
+span the global batch (summed over the ranks, the probabilities'
+differentiably), so every rank holds the global aux; the groups are the
+global batch's, which each rank's rows must hold whole (`group_of`).
 
 Top-k ties go to the lower expert index, as `jax.lax.top_k` does: the
 port takes the first k of a stable descending sort (`torch.topk` makes no
@@ -28,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.collectives import active, all_sum, share, total
 from repro_torch.models.layers import init_array, param
 
 
@@ -68,14 +72,31 @@ class Routing(NamedTuple):
     capacity: int
 
 
+def group_of(n_tokens: int, group_size: int = 256) -> int:
+    """The routing group: the largest divisor of the batch's token count
+    not above `group_size`. Inside a data-parallel step the count is the
+    global batch's, and this rank's tokens must be whole groups of it (so
+    that each rank routes the global groups of its rows); else
+    ValueError, never a different routing."""
+    shard = active()
+    n = n_tokens * (1 if shard is None else shard.size)
+    g = min(group_size, n)
+    while n % g:
+        g -= 1
+    if n_tokens % g:
+        raise ValueError(f"MoE routing groups of {g} tokens (of the global "
+                         f"batch's {n}) do not fit this rank's "
+                         f"{n_tokens}: shard the batch so that each rank "
+                         f"holds whole groups")
+    return g
+
+
 def route(router: torch.Tensor, x, top_k: int,
           capacity_factor: float = 1.25, group_size: int = 256) -> Routing:
     """x: (B, S, d) -> the routing of its B*S tokens (`Routing`)."""
     B, S, d = x.shape
     E = router.shape[1]
-    g = min(group_size, B * S)
-    while (B * S) % g:        # the largest divisor of B*S not above it
-        g -= 1
+    g = group_of(B * S, group_size)
     xt = x.reshape(-1, g, d)
     probs = torch.softmax(xt.float() @ router, dim=-1)           # (G,g,E)
     order = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -123,9 +144,10 @@ def moe_apply(params: MoE, x, *, top_k: int, capacity_factor: float = 1.25,
     y = torch.einsum("escf,efd->escd", h, params.wo.to(h.dtype))
     del h
     out = torch.einsum("escd,sgec->sgd", y.float(), combine)
-    # Switch-style load balance: mean router prob x routed fraction
-    me = r.probs.mean(dim=(0, 1))                                # (E,)
-    ce = onehot.float().mean(dim=(0, 1, 2)) * E
+    # Switch-style load balance: mean router prob x routed fraction, both
+    # over the global batch's groups inside a data-parallel step
+    me = all_sum(share(r.probs.mean(dim=(0, 1))))                # (E,)
+    ce = total(share(onehot.float().mean(dim=(0, 1, 2)))) * E
     aux = torch.sum(me * ce)
     return out.reshape(B, S, d).to(dt), aux
 
@@ -178,3 +200,13 @@ def record_routing(model: nn.Module) -> Iterator[List[Routing]]:
     finally:
         for h in handles:
             h.remove()
+
+
+def moe_specs(gated: bool = True) -> dict:
+    """Logical-axis specs of a `MoE`'s parameters (`moe_init`'s)."""
+    specs = {"router": ("embed", None),
+             "wi": ("expert", "embed", "expert_ff"),
+             "wo": ("expert", "expert_ff", "embed")}
+    if gated:
+        specs["wg"] = ("expert", "embed", "expert_ff")
+    return specs

@@ -28,7 +28,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.wkv.ops import wkv
-from repro_torch.models.layers import RMSNorm, init_array, param, rmsnorm
+from repro_torch.models.layers import (
+    RMSNorm, init_array, param, rmsnorm, rmsnorm_specs,
+)
+from repro_torch.utils.tree import prefixed
 
 
 def token_shift(x, shift=None):
@@ -149,3 +152,24 @@ def timemix_decode(params: TimeMix, x, shift, S):
 def channelmix_decode(params: ChannelMix, x, shift):
     """x: (B,1,d). Returns (out, new shift (fp32))."""
     return params(x, shift), x[:, 0].float()
+
+
+# logical-axis specs (`timemix_init`, `channelmix_init`, `rwkv_block_init`)
+
+def timemix_specs() -> dict:
+    return {"mu": (None, "embed_act"), "wr": ("embed", "heads"),
+            "wk": ("embed", "heads"), "wv": ("embed", "heads"),
+            "ww": ("embed", "heads"), "w_bias": (None,),
+            "wbeta": ("embed", None), "wo": ("heads", "embed"),
+            "ln_x": ("embed_act",)}
+
+
+def channelmix_specs() -> dict:
+    return {"mu": ("embed_act",), "wk": ("embed", "ff"), "wv": ("ff", "embed")}
+
+
+def rwkv_block_specs() -> dict:
+    return {**prefixed("norm1", rmsnorm_specs()),
+            **prefixed("time_mix", timemix_specs()),
+            **prefixed("norm2", rmsnorm_specs()),
+            **prefixed("channel_mix", channelmix_specs())}

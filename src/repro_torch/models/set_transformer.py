@@ -21,8 +21,9 @@ from torch import nn
 
 from repro_torch.kernels.set_attention.ops import masked_set_attention
 from repro_torch.models.layers import (
-    Dense, LayerNorm, gelu, init_array, param,
+    Dense, LayerNorm, dense_specs, gelu, init_array, layernorm_specs, param,
 )
+from repro_torch.utils.tree import prefixed
 
 
 class MHA(nn.Module):
@@ -103,3 +104,29 @@ class SetTransformer(nn.Module):
         seeds = self.seeds[None].expand(B, -1, -1).to(h.dtype)
         pooled = self.pma(seeds, h, key_bias, mask)
         return self.out_proj(pooled.reshape(B, -1))
+
+
+# logical-axis specs (`_mha_init`, `_mab_init`, `set_transformer_init`)
+
+def mha_specs() -> dict:
+    specs = {k: ("embed", "heads") for k in ("wq", "wk", "wv")}
+    specs["wo"] = ("heads", "embed")
+    return specs
+
+
+def mab_specs() -> dict:
+    return {**prefixed("mha", mha_specs()),
+            **prefixed("ff1", dense_specs(True, "embed", "ff")),
+            **prefixed("ff2", dense_specs(True, "ff", "embed")),
+            **prefixed("norm1", layernorm_specs()),
+            **prefixed("norm2", layernorm_specs())}
+
+
+def set_transformer_specs(num_sabs: int = 2) -> dict:
+    specs = prefixed("in_proj", dense_specs(True, None, "embed"))
+    for i in range(num_sabs):
+        specs.update(prefixed(f"sabs/{i}", mab_specs()))
+    specs.update(prefixed("pma", mab_specs()))
+    specs["seeds"] = ("pool", "embed")
+    specs.update(prefixed("out_proj", dense_specs(True, "embed", None)))
+    return specs

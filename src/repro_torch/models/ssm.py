@@ -415,3 +415,27 @@ def slstm_decode(params: SLSTM, x, state: dict, num_heads: int):
                              state["c"], state["n"], state["m"], num_heads)
     return _slstm_out(params, h[:, None], x), \
         {"h": h, "c": c, "n": n, "m": m, "conv": conv.float()}
+
+
+# logical-axis specs of the mixers' parameters (the `*_init` spec dicts)
+
+def mamba_specs() -> dict:
+    return {"in_proj": ("embed", "ff"), "conv_w": (None, "ff"),
+            "conv_b": ("ff",), "x_proj": ("ff", None),
+            "dt_proj": (None, "ff"), "dt_bias": ("ff",),
+            "A_log": ("ff", None), "D": ("ff",), "out_proj": ("ff", "embed")}
+
+
+def mlstm_specs() -> dict:
+    return {"up_proj": ("embed", "ff"), "conv_w": (None, "ff"),
+            "conv_b": ("ff",), "wq": ("ff", None, None),
+            "wk": ("ff", None, None), "wv": ("ff", None, None),
+            "w_if": ("ff", None), "b_i": (None,), "b_f": (None,),
+            "out_norm": ("ff",), "down_proj": ("ff", "embed")}
+
+
+def slstm_specs() -> dict:
+    return {"conv_w": (None, "embed"), "conv_b": ("embed",),
+            "w_zifo": ("embed", None), "r_zifo": (None, "heads", None, None),
+            "b_zifo": (None,), "norm": ("embed",),
+            "up": ("embed", "ff"), "down": ("ff", "embed")}

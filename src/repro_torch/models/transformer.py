@@ -50,14 +50,16 @@ from repro_torch.config import (
     BLOCK_ATTN, BLOCK_MAMBA, BLOCK_MLSTM, BLOCK_RWKV, BLOCK_SLSTM,
     ModelConfig,
 )
+from repro_torch.distributed.collectives import share, total
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm
 from repro_torch.models.layers import (
-    MLP, Embed, RMSNorm, embed, torch_dtype, unembed,
+    MLP, Embed, RMSNorm, embed, embed_specs, mlp_specs, rmsnorm_specs,
+    torch_dtype, unembed,
 )
-from repro_torch.utils.tree import stack_leaves, unstack_leaves
+from repro_torch.utils.tree import prefixed, stack_leaves, unstack_leaves
 
 # ---------------------------------------------------------------------------
 # period structure
@@ -171,6 +173,55 @@ class Block(nn.Module):
                 self.mlp = MLP(gen, d, cfg.d_ff, dtype, gated=cfg.mlp_gated)
 
 
+def block_specs(cfg: ModelConfig, kind: str, is_moe: bool = False,
+                cross: bool = False) -> dict:
+    """Logical-axis specs of a `Block`'s parameters (`_block_init`'s)."""
+    specs = prefixed("norm1", rmsnorm_specs())
+    mixer = {BLOCK_ATTN: lambda: attn.attn_specs(cfg.qkv_bias, cfg.qk_norm),
+             BLOCK_MAMBA: ssm.mamba_specs, BLOCK_MLSTM: ssm.mlstm_specs,
+             BLOCK_SLSTM: ssm.slstm_specs,
+             BLOCK_RWKV: rwkv_mod.timemix_specs}
+    if kind not in mixer:
+        raise ValueError(f"unknown block kind {kind}")
+    specs.update(prefixed("mixer", mixer[kind]()))
+    if kind == BLOCK_RWKV:
+        specs.update(prefixed("norm2", rmsnorm_specs()))
+        specs.update(prefixed("channel_mix", rwkv_mod.channelmix_specs()))
+        return specs
+    if cross:
+        specs.update(prefixed("cross_norm", rmsnorm_specs()))
+        specs.update(prefixed("cross", attn.attn_specs()))
+    if (cfg.d_ff > 0 or is_moe) and kind not in (BLOCK_MLSTM, BLOCK_SLSTM):
+        specs.update(prefixed("norm2", rmsnorm_specs()))
+        if is_moe:
+            specs.update(prefixed("moe", moe_mod.moe_specs(cfg.mlp_gated)))
+        else:
+            specs.update(prefixed("mlp", mlp_specs(cfg.mlp_gated)))
+    return specs
+
+
+def lm_param_specs(cfg: ModelConfig) -> dict:
+    """Logical-axis specs of every parameter of `LM(cfg)`, keyed by its
+    "/"-joined name (per layer: JAX's stacked spec without its leading
+    "layers" axis, see `stacked_key`). A tied table is the LM head too, so
+    it is vocab-sharded; an input-only table replicates its vocab
+    ("in_vocab") and FSDP-shards its embed dim."""
+    specs = {"embed/table": (("vocab" if cfg.tie_embeddings else "in_vocab"),
+                             "embed")}
+    for i, kind in enumerate(cfg.blocks()):
+        specs.update(prefixed(f"layers/{i}", block_specs(
+            cfg, kind, cfg.is_moe_layer(i), cfg.cross_attention)))
+    specs.update(prefixed("final_norm", rmsnorm_specs()))
+    if not cfg.tie_embeddings:
+        specs.update(prefixed("lm_head", embed_specs()))
+    for i in range(cfg.encoder_layers):
+        specs.update(prefixed(f"encoder/layers/{i}",
+                              block_specs(cfg, BLOCK_ATTN)))
+    if cfg.encoder_layers:
+        specs.update(prefixed("encoder/norm", rmsnorm_specs()))
+    return specs
+
+
 def _attn_kwargs(cfg: ModelConfig) -> dict:
     return dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
                 head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
@@ -272,6 +323,10 @@ class LM(nn.Module):
     @property
     def head_table(self):
         return (self.embed if self.lm_head is None else self.lm_head).table
+
+    def param_specs(self) -> dict:
+        """{name: logical axes} of every parameter (`lm_param_specs`)."""
+        return lm_param_specs(self.cfg)
 
     # checkpoints in the JAX layout (the Trainer's hooks)
     def pack_checkpoint(self, flat: Dict[str, torch.Tensor]
@@ -414,7 +469,7 @@ def chunked_xent(hidden, table, targets, valid, chunk: int = 512,
             valid[:, rows].float(), label_smoothing, use_reentrant=False)
         tot = tot + part
         cnt = cnt + n
-    return tot / torch.clamp(cnt, min=1.0)
+    return tot / torch.clamp(total(cnt), min=1.0)
 
 
 def lm_loss(params: LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
@@ -424,7 +479,9 @@ def lm_loss(params: LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     patches (B,P,d) put ahead of the text]. The next-token NLL over the
     text (targets are the tokens shifted left; the last position has
     none), hidden rows of the patches dropped, plus `aux_weight` x the MoE
-    aux. Returns (loss, {"nll", "aux"}), fp32 0-d."""
+    aux. Returns (loss, {"nll", "aux"}), fp32 0-d. Inside a data-parallel
+    step the NLL's count of valid targets is the global batch's, and each
+    term is this rank's share of the global one."""
     tokens = batch["tokens"]
     enc_memory = None
     prefix = batch.get("patches")
@@ -440,6 +497,7 @@ def lm_loss(params: LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                   (0, 1))
     nll = chunked_xent(hidden, params.head_table, targets, valid,
                        label_smoothing=label_smoothing)
+    aux = share(aux)        # the MoE aux is global: a rank's share of it
     loss = nll + aux_weight * aux
     return loss, {"nll": nll, "aux": aux}
 
@@ -500,6 +558,37 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                                              dtype=t.dtype, device=device)
                             for key, t in one.items()}
     return cache
+
+
+_STATE_SPECS = {
+    BLOCK_MAMBA: {"conv": ("batch", None, "ff"), "ssm": ("batch", "ff", None)},
+    BLOCK_MLSTM: {"conv": ("batch", None, "ff"),
+                  "C": ("batch", "heads", None, None),
+                  "n": ("batch", "heads", None), "m": ("batch", "heads")},
+    BLOCK_RWKV: {"tm_shift": ("batch", "embed_act"),
+                 "cm_shift": ("batch", "embed_act"),
+                 "S": ("batch", "heads", None, None)},
+    BLOCK_SLSTM: {"h": ("batch", "embed_act"), "c": ("batch", "embed_act"),
+                  "n": ("batch", "embed_act"), "m": ("batch", "embed_act"),
+                  "conv": ("batch", None, "embed_act")},
+}
+
+
+def cache_specs(cfg: ModelConfig) -> Dict[str, Dict[str, tuple]]:
+    """Logical-axis specs of `init_cache`'s tree, {"p<pos>": {leaf:
+    spec}}, as JAX's `init_cache` returns them."""
+    specs = {}
+    for pos in range(period_of(cfg)):
+        kind, _ = layer_signature(cfg, pos)
+        if kind == BLOCK_ATTN:
+            s = {"k": ("batch", "kv_seq", "kv_heads", None),
+                 "v": ("batch", "kv_seq", "kv_heads", None)}
+            if cfg.cross_attention:
+                s["ck"] = s["cv"] = ("batch", None, "kv_heads", None)
+        else:
+            s = _STATE_SPECS[kind]
+        specs[f"p{pos}"] = {k: ("layers",) + v for k, v in s.items()}
+    return specs
 
 
 def _store(state: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],

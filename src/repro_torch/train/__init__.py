@@ -1,6 +1,6 @@
 # Training, port of `repro.train`: optimizers, checkpoints in the JAX
-# package's format, the Trainer and the Stage-2 engine. Still to port:
-# compression.py (int8 error feedback) with the mesh, fault_tolerance.py.
+# package's format, the Trainer (one device or a mesh) and the Stage-2
+# engine; compression.py (int8 error feedback) and fault_tolerance.py.
 from repro_torch.train.optimizer import (
     adamw_init, adamw_update, adafactor_init, adafactor_update,
     make_optimizer, lr_schedule, global_norm_clip,

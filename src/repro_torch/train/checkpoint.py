@@ -231,13 +231,18 @@ def in_jax_key_order(tree: Dict[str, Any]) -> Dict[str, Any]:
     return dict(sorted(tree.items()))
 
 
+def checkpoint_path(directory: str, step: int) -> str:
+    """Where the checkpoint of `step` lies under `directory`."""
+    return os.path.join(directory, f"step_{step:010d}")
+
+
 def save_checkpoint(directory: str, step: int, tree: Any,
                     meta: Optional[Dict] = None, keep: int = 3) -> str:
     """Writes `tree` as `<directory>/step_<step>` (atomically) and keeps
     the newest `keep` checkpoints. Returns the checkpoint's path."""
     os.makedirs(directory, exist_ok=True)
     tmp = os.path.join(directory, f"tmp.{step}")
-    final = os.path.join(directory, f"step_{step:010d}")
+    final = checkpoint_path(directory, step)
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)

@@ -14,13 +14,22 @@ The state layout maps one to one onto JAX's, so checkpoints cross over
 Updates run in fp32 whatever the parameter dtype; the new parameter is
 cast back to it. The JAX package's layer-chunked update
 (`CHUNKED_UPDATE`) is off there and is not ported.
+
+The state specs (`adamw_state_specs`, `adafactor_state_specs`) give each
+moment its parameter's logical axes, so the FSDP rules shard optimizer
+state as they shard weights. Under a mesh the Trainer runs an update on
+this rank's shards: AdamW is elementwise; Adafactor's row and column
+means and its RMS clip read whole rows, columns and tensors, so its
+update takes `shards`, the process groups that split each parameter's
+dims, and sums over them.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.utils.tree import tree_norm
 
@@ -115,23 +124,56 @@ def adafactor_init(params: Tensors) -> dict:
             "count": _count(params)}
 
 
+class Shards:
+    """How a parameter is split over a mesh: its full shape and, for each
+    dim split over mesh axes of size > 1, their process groups. `mean`
+    is the mean over full dims of a local block, summed over those
+    groups; over dims no group splits it is `torch.mean` itself."""
+
+    def __init__(self, shape: Sequence[int], groups: Dict[int, list]):
+        self.shape = tuple(shape)
+        self.groups = groups
+
+    def mean(self, x: torch.Tensor, dims: Sequence[int], x_dim=None,
+             keepdim: bool = False) -> torch.Tensor:
+        """Mean of x over the parameter's `dims` (all of x's dims when
+        x_dim is None, else x's dim `x_dim`)."""
+        groups = [g for d in dims for g in self.groups.get(d, ())]
+        if not groups:
+            return (torch.mean(x) if x_dim is None
+                    else x.mean(x_dim, keepdim=keepdim))
+        s = x.sum() if x_dim is None else x.sum(x_dim, keepdim=keepdim)
+        for g in groups:
+            dist.all_reduce(s, group=g)
+        n = 1
+        for d in dims:
+            n *= self.shape[d]
+        return s / n
+
+
 @torch.no_grad()
 def adafactor_update(grads: Tensors, state: dict, params: Tensors, *, lr,
                      b1: float = 0.9, decay: float = 0.99, eps: float = 1e-30,
-                     weight_decay: float = 0.0, clip_threshold: float = 1.0
+                     weight_decay: float = 0.0, clip_threshold: float = 1.0,
+                     shards: Optional[Dict[str, Shards]] = None
                      ) -> Tuple[Tensors, dict]:
     """Factored (row/column) second moment, RMS update clipping, bf16
-    first moment."""
+    first moment. `shards` ({name: Shards}): the tensors are this rank's
+    blocks of the named parameters, and the means span the whole
+    parameter."""
     count = state["count"] + 1
     new_p, new_slots = {}, {}
     for name, p in params.items():
         slot = state["slots"][name]
+        sh = (shards or {}).get(name) or Shards(p.shape, {})
+        n = p.ndim
         g = grads[name].float()
         g2 = torch.square(g) + eps
         if "vr" in slot:
-            vr = decay * slot["vr"] + (1 - decay) * g2.mean(-1)
-            vc = decay * slot["vc"] + (1 - decay) * g2.mean(-2)
-            row_mean = torch.clamp(vr.mean(-1, keepdim=True), min=eps)
+            vr = decay * slot["vr"] + (1 - decay) * sh.mean(g2, [n - 1], -1)
+            vc = decay * slot["vc"] + (1 - decay) * sh.mean(g2, [n - 2], -2)
+            row_mean = torch.clamp(sh.mean(vr, [n - 2], -1, keepdim=True),
+                                   min=eps)
             denom = (vr[..., None] / row_mean[..., None]) * vc[..., None, :]
             u = g * torch.rsqrt(torch.clamp(denom, min=eps))
             new_slot = {"vr": vr, "vc": vc}
@@ -140,7 +182,7 @@ def adafactor_update(grads: Tensors, state: dict, params: Tensors, *, lr,
             u = g * torch.rsqrt(torch.clamp(v, min=eps))
             new_slot = {"v": v}
         # update clipping (Adafactor's RMS trick)
-        rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
+        rms = torch.sqrt(sh.mean(torch.square(u), range(n)) + 1e-12)
         u = u / torch.clamp(rms / clip_threshold, min=1.0)
         m = b1 * slot["m"].float() + (1 - b1) * u
         step = m
@@ -152,11 +194,29 @@ def adafactor_update(grads: Tensors, state: dict, params: Tensors, *, lr,
     return new_p, {"slots": new_slots, "count": count}
 
 
-def make_optimizer(name: str) -> Tuple[Callable, Callable]:
-    """-> (init_fn, update_fn). The JAX version's third entry, the state
-    sharding specs, waits for the port's mesh."""
+# ---------------------------------------------------------------------------
+# optimizer state sharding specs
+# ---------------------------------------------------------------------------
+
+def adamw_state_specs(param_specs: dict) -> dict:
+    return {"m": param_specs, "v": param_specs, "count": ()}
+
+
+def adafactor_state_specs(param_specs: dict) -> dict:
+    def spec_one(spec):
+        spec = tuple(spec)
+        if len(spec) >= 2:
+            return {"vr": spec[:-1], "vc": spec[:-2] + spec[-1:], "m": spec}
+        return {"v": spec, "m": spec}
+
+    return {"slots": {k: spec_one(s) for k, s in param_specs.items()},
+            "count": ()}
+
+
+def make_optimizer(name: str) -> Tuple[Callable, Callable, Callable]:
+    """-> (init_fn, update_fn, state_specs_fn)"""
     if name == "adamw":
-        return adamw_init, adamw_update
+        return adamw_init, adamw_update, adamw_state_specs
     if name == "adafactor":
-        return adafactor_init, adafactor_update
+        return adafactor_init, adafactor_update, adafactor_state_specs
     raise ValueError(f"unknown optimizer {name}")

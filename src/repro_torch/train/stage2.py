@@ -56,10 +56,13 @@ class Stage2Engine:
     with the zero sentinel row appended (`BBEIndex.ext`), fp32 or bf16,
     moved to the model's device once. batch_fn(step) must return `triplet_row_batch`
     output and be deterministic in `step`, so checkpoint restarts replay
-    the exact stream (the Trainer contract)."""
+    the exact stream (the Trainer contract). `mesh` and `rules` go to the
+    Trainer (data-parallel steps with sharded state, the specs
+    `signature_specs`); every rank then steps on the same global batch."""
 
     def __init__(self, sig_cfg: SignatureConfig, model: SignatureModel,
-                 matrix, cfg: TrainConfig):
+                 matrix, cfg: TrainConfig, mesh=None,
+                 rules: Optional[Dict] = None):
         self.sig_cfg = sig_cfg
         self.model = copy.deepcopy(model).train()
         device = next(self.model.parameters()).device
@@ -73,7 +76,8 @@ class Stage2Engine:
         def loss_fn(m, batch):
             return stage2_loss_from_rows(m, sig_cfg, self.matrix, batch)
 
-        self.trainer = Trainer(loss_fn, self.model, cfg)
+        self.trainer = Trainer(loss_fn, self.model, cfg, mesh=mesh,
+                               rules=rules)
 
     # thin passthroughs: the Trainer owns state, checkpoints, preemption
     @property

@@ -57,3 +57,8 @@ def unstack_leaves(flat: Dict[str, Any], like, where: Where
         at = where(key)
         out[key] = flat[key] if at is None else flat[at[0]][at[1]]
     return out
+
+
+def prefixed(prefix: str, flat: Dict[str, Any]) -> Dict[str, Any]:
+    """{f"{prefix}/{key}": value} of a flat "/"-keyed dict."""
+    return {f"{prefix}/{k}": v for k, v in flat.items()}

@@ -382,18 +382,50 @@ def test_kmeans_update_is_blind_to_dead_rows(cuda, mask):
         assert all(torch.equal(p, q) for p, q in zip(got, want))
 
 
+@pytest.mark.parametrize("N,d,K", [(256, 16, 5), (32768, 128, 14),
+                                   (1000, 13, 9), (777, 20, 30),
+                                   (300, 200, 4)])
+def test_kmeans_bf16_instances_bitwise_fp32(cuda, N, d, K):
+    """bf16 rows (16-byte and element routes, ragged N): labels, d2, sums,
+    counts and inertia bitwise the fp32 instances' on the upcast rows;
+    against the plain version at JAX's bf16 bounds (labels exact, d2
+    atol 1.0 / rtol 1e-2); bf16 centroids are widened first."""
+    g = _gen(cuda, N)
+    x32, c = _km_clustered(cuda, g, N, d, K)
+    x = x32.to(torch.bfloat16)
+    up = x.float()
+    valid = _km_valid(cuda, g, N, "holes")
+    n0 = kmeans_assign.launches_bf16
+    a, d2 = kmeans_assign(x, c)
+    a32, d232 = kmeans_assign(up, c)
+    assert kmeans_assign.launches_bf16 == n0 + 1
+    assert torch.equal(a, a32) and torch.equal(d2, d232)
+    a_ref, d2_ref = kmeans_assign_reference(x, c)
+    assert torch.equal(a, a_ref)
+    torch.testing.assert_close(d2, d2_ref, atol=1.0, rtol=1e-2)
+    out, out32 = kmeans_update(x, c, valid), kmeans_update(up, c, valid)
+    assert all(torch.equal(p, q) for p, q in zip(out, out32))
+    cb = c.to(torch.bfloat16)
+    assert all(torch.equal(p, q) for p, q in zip(
+        kmeans_update(x, cb, valid), kmeans_update(up, cb.float(), valid)))
+
+
 @pytest.mark.parametrize("d,K", [(128, 14), (200, 30), (8, 4), (64, 8),
                                  (7, 5), (256, 9)])
 def test_kmeans_plan_matches_the_kernels(cuda, d, K):
-    """kmeans_plan's shared bytes are what each kernel's launch asks for
-    (cudaFuncGetAttributes through rt_kmeans_*_attributes)."""
+    """kmeans_plan's shared bytes are what each kernel's launch asks for,
+    fp32 and bf16 instances (cudaFuncGetAttributes through
+    rt_kmeans_*_attributes)."""
     from repro_torch.kernels import _lib
     from repro_torch.kernels.kmeans_assign.ops import kmeans_plan
     for entry in ("rt_kmeans_assign_attributes",
                   "rt_kmeans_update_attributes"):
-        a = _lib.kernel_attributes(entry, d, K)
-        assert a["static_smem"] == 0, entry
-        assert a["dynamic_smem"] == kmeans_plan(1, d, K)["shared_bytes"]
+        for dtype in (torch.float32, torch.bfloat16):
+            a = _lib.kernel_attributes(entry, int(dtype == torch.bfloat16),
+                                       d, K)
+            assert a["static_smem"] == 0, entry
+            assert a["dynamic_smem"] == \
+                kmeans_plan(1, d, K, dtype)["shared_bytes"], (entry, dtype)
 
 
 def test_wrappers_check_their_inputs(cuda):

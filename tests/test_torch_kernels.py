@@ -795,6 +795,22 @@ def test_kmeans_plan(N, d, K, blocks, k_tile, stride4, quarter4, shared):
     assert kmeans_plan(18000, 128, 14)["blocks"] == 282 >= 2 * 132
 
 
+@pytest.mark.parametrize("d,row16", [(128, 17), (16, 3), (13, 3), (20, 3),
+                                     (8, 1), (256, 33), (200, 25)])
+def test_kmeans_plan_bf16_row_tile(d, row16):
+    """The bf16 instances stage rows as bf16: the row tile's stride is
+    ceil(d / 8) 16-byte units made odd; the rest of the shared memory is
+    the fp32 instance's (fp32 centroids)."""
+    from repro_torch.kernels.kmeans_assign.ops import kmeans_plan
+    f32 = kmeans_plan(1000, d, 14)
+    bf = kmeans_plan(1000, d, 14, torch.bfloat16)
+    assert bf["row16"] == row16 and row16 % 2 == 1
+    assert f32["row16"] == f32["stride4"] and bf["stride4"] == f32["stride4"]
+    assert f32["shared_bytes"] - bf["shared_bytes"] == \
+        16 * 64 * (f32["row16"] - row16)
+    assert bf["shared_bytes"] < f32["shared_bytes"] or d <= 4
+
+
 @pytest.mark.parametrize("N,d,K", [(0, 8, 4), (8, 0, 4), (8, 257, 4),
                                    (8, 8, 0)])
 def test_kmeans_plan_refuses_a_shape(N, d, K):

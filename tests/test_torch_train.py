@@ -114,7 +114,7 @@ def test_optimizer_updates_match_jax(name):
     within 1e-6 of `repro.train.optimizer`."""
     rng = np.random.RandomState(1)
     params = _named_arrays(rng)
-    init, update = opt.make_optimizer(name)
+    init, update, _ = opt.make_optimizer(name)
     jinit, jupdate, _ = jopt.make_optimizer(name)
     p_t = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
     p_j = {k: jnp.asarray(v) for k, v in params.items()}
