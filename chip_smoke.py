@@ -184,6 +184,22 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
      feedback) on the card bitwise the CPU's on one step's gradients.
      Only the mesh runs count, on the "mesh" path; phase 12's seconds and
      the whole run's are printed.
+ 13. the step count (`repro_torch.analysis.counting`) on the card against
+     the dry-run's meta tensors: (a) smollm-135m's training step of phase
+     10 (8 x 2048, bf16, AdamW), its prefill of phase 6 (8 x 2048), the
+     Stage-1 pre-training step of phase 5b (64 x 128) and the Stage-2
+     step of phase 5 (64 triplets), each counted on the card and on meta
+     at the same shapes (a training step: the Trainer's own `step` on the
+     card, its `advance` on meta): the FLOPs by dtype, the bytes and the
+     kernel records exactly equal (the ops whose bytes differ are named
+     if not), the meta count's peak of live bytes within 512 bytes an
+     allocation plus 1 MiB of the card's max_memory_allocated above its
+     baseline; (b)
+     each step timed apart from its count (the least of 3): its compute
+     and memory terms on the H100 record (`analysis.roofline`),
+     roofline_fraction, the bound's share of the wall and mfu (model FLOPs
+     over the wall at the bf16 peak), each gated in (0, 1.05]. Printed as
+     a JSON line {"roofline": ...}; its launches count on no path.
 The line before the last is the JSON kernel summary: `launches` counts
 each kernel on its own path (serving; training for the set-attention
 backward; Stage-1 training for the wkv backward; the zoo for flash; the
@@ -206,12 +222,14 @@ the decode and prefill shapes, and flash's `moe_shape`, phase 8a's, and
     python3 chip_smoke.py --lm-train
     python3 chip_smoke.py --bf16
     python3 chip_smoke.py --mesh
+    python3 chip_smoke.py --roofline
 
 run the setup and phase 8 alone, 6a's flash cases and phase 9, phase
 10, phase 11 (after the world's generation; it then prints its own
 JSON line, {"bf16": ...}, and takes fp32 steps itself for 11d's
-comparison), or phase 12 (after the world and phase 4's serving path;
-it prints its own JSON line, {"mesh": ...}), and
+comparison), phase 12 (after the world and phase 4's serving path;
+it prints its own JSON line, {"mesh": ...}), or phase 13 (its JSON line,
+{"roofline": ...}), and
 
     python3 chip_smoke.py --profile-moe
 
@@ -254,14 +272,6 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-
-# Published peaks of one H100 SXM (NVIDIA data sheet): memory rate, fp32
-# outside the tensor cores (the rate of the work the Stage-1/2 kernels do,
-# all in fp32) and bf16 on the tensor cores (the least time of the zoo's
-# bf16 attention, whatever units a kernel uses).
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOP_PER_S = 67e12
-PEAK_BF16_FLOP_PER_S = 989e12
 
 SEED = 0
 N_INTERVALS = 1000        # per program, the paper's count
@@ -456,16 +466,6 @@ def kernel_ms(fn, reps: int):
     return device_ms(fn), cuda_ms(fn, reps)
 
 
-def bound(nbytes: float, flops: float, peak: float = PEAK_FP32_FLOP_PER_S,
-          flops_bf16: float = 0.0):
-    """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over their peaks: `flops` over `peak` (fp32 unless given)
-    plus `flops_bf16`, products of bf16 operands, over the bf16 peak."""
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = (flops / peak + flops_bf16 / PEAK_BF16_FLOP_PER_S) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
@@ -530,6 +530,7 @@ def sass_counts(lib_path: str, function, ops=("HGMMA*",)):
 # ---------------------------------------------------------------- phase 2
 
 def check_wkv(dev, gen):
+    from repro_torch.analysis import costs
     from repro_torch.kernels.wkv import wkv, wkv_reference
 
     def inputs(B, S, H, dh, with_state=False):
@@ -583,12 +584,9 @@ def check_wkv(dev, gen):
     args = inputs(B, S, H, dh)
     ms, wrapper_ms = kernel_ms(lambda: wkv(*args), reps=20)
     plain_ms = cuda_ms(lambda: wkv_reference(*args), reps=3, warmup=1)
-    n_seq = 4 * B * S * H * dh + B * S * H            # r k v w, beta
-    nbytes = 4 * (n_seq + B * S * H * dh + B * H * dh * dh)   # + y, S_f
-    flops = 7 * B * H * S * dh * dh
     return dict(err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                 library_ms=None,
-                bound=bound(nbytes, flops),
+                bound=costs.work_bound(costs.wkv(B, S, H, dh)),
                 shape=f"B={B} S={S} H={H} dh={dh}",
                 extra=dict(registers=attrs[64]["registers"],
                            local_bytes=attrs[64]["local_bytes"], sass=sass))
@@ -600,6 +598,7 @@ def check_wkv_backward(dev, gen):
     (B 64, S 128, H 6, dh 64), dh 16, 48 and 128, S 1 and 13. The forward
     that writes the states gives y and the final state bitwise equal to
     the serving forward; two backward launches give the same bits."""
+    from repro_torch.analysis import costs
     from repro_torch.kernels import _lib
     from repro_torch.kernels.wkv import (
         wkv, wkv_backward, wkv_backward_reference,
@@ -663,15 +662,9 @@ def check_wkv_backward(dev, gen):
     fwd_ms = device_ms(lambda: _forward(r, k, v, w, beta, None, save=False))
     log(f"  wkv forward at this shape: ms {fwd_ms:.4f}; writing the states "
         f"(0.81 GB) ms {fwd_states_ms:.4f}")
-    # reads r k v w dy, beta, the states and dsf once; writes dr dk dv dw,
-    # dbeta and dS_0; 22 dh^2 operations a token and head (A formed in both
-    # passes)
-    n_tok = B * S * H * dh
-    nbytes = 4 * (5 * n_tok + B * S * H + B * S * H * dh * dh
-                  + B * H * dh * dh + 4 * n_tok + B * S * H + B * H * dh * dh)
-    flops = 22 * B * S * H * dh * dh
     return dict(err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
-                library_ms=None, bound=bound(nbytes, flops),
+                library_ms=None,
+                bound=costs.work_bound(costs.wkv_backward(B, S, H, dh)),
                 shape=f"B={B} S={S} H={H} dh={dh}",
                 extra=dict(forward_ms=fwd_ms, forward_states_ms=fwd_states_ms,
                            registers=attrs[64]["registers"],
@@ -682,6 +675,7 @@ def check_wkv_backward(dev, gen):
 
 
 def check_set_attention(dev, gen):
+    from repro_torch.analysis import costs
     import torch.nn.functional as F
     from repro_torch.kernels.set_attention import (
         NEG_INF, masked_set_attention, set_attention_reference,
@@ -722,9 +716,7 @@ def check_set_attention(dev, gen):
     pma_ms, pma_wrapper_ms = kernel_ms(lambda: masked_set_attention(*pma),
                                        reps=50)
     pma_plain_ms = cuda_ms(lambda: set_attention_reference(*pma), reps=20)
-    pma_bound = bound(4 * (2 * 512 * 4 * 64 + 2 * 512 * 4 * 64 * 64
-                           + 512 * 64) + 512 * 64,
-                      512 * 4 * (4 * 64 * 64 + 5 * 64))
+    pma_bound = costs.work_bound(costs.set_attention(512, 4, 1, 64, 64))
     log(f"  set_attention PMA [B=512 H=4 N=1 M=64 dh=64]: ms {pma_ms:.4f} "
         f"(wrapper {pma_wrapper_ms:.4f}), "
         f"plain_ms {pma_plain_ms:.4f}, bound_ms {pma_bound[0]:.4f} "
@@ -749,11 +741,9 @@ def check_set_attention(dev, gen):
         f"{e_lib.item():.3g} (yardstick only)")
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=attn_mask), reps=50)
-    nbytes = 4 * (2 * B * H * N * dh + 2 * B * H * M * dh + B * M) + B * M
-    flops = B * H * (4 * N * M * dh + 5 * N * M)
     return dict(err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                 library_ms=library_ms,
-                bound=bound(nbytes, flops),
+                bound=costs.work_bound(costs.set_attention(B, H, N, M, dh)),
                 shape=f"B={B} H={H} N={N} M={M} dh={dh}",
                 extra=dict(pma_ms=pma_ms, pma_wrapper_ms=pma_wrapper_ms,
                            pma_plain_ms=pma_plain_ms,
@@ -765,6 +755,7 @@ def check_set_attention(dev, gen):
 
 
 def check_set_attention_backward(dev, gen):
+    from repro_torch.analysis import costs
     import torch.nn.functional as F
     from repro_torch.kernels.set_attention import (
         NEG_INF, set_attention_backward, set_attention_backward_reference,
@@ -827,13 +818,6 @@ def check_set_attention_backward(dev, gen):
                 f"set_attention_backward {case}: two runs are not bitwise "
                 "equal")
 
-    def cost(B, H, N, M, dh):
-        """(bytes, flops) the backward must move and do."""
-        n_in = 2 * B * H * N * dh + 2 * B * H * M * dh          # q, dO, k, v
-        n_out = B * H * N * dh + 2 * B * H * M * dh + B * H * M  # dq dk dv db
-        return (4 * (n_in + n_out + B * M) + B * M,             # + bias, mask
-                B * H * (10 * N * M * dh + 12 * N * M))  # products + softmax
-
     # resources of both routes, against backward_plan's shared bytes, and
     # the shared loads and FMAs of their SASS
     from repro_torch.kernels import _lib
@@ -860,7 +844,7 @@ def check_set_attention_backward(dev, gen):
                                        reps=100)
     pma_plain_ms = cuda_ms(lambda: set_attention_backward_reference(*pma),
                            reps=20)
-    pma_bound = bound(*cost(*pma_shape))
+    pma_bound = costs.work_bound(costs.set_attention_backward(*pma_shape))
     log(f"  set_attention_backward PMA [B=64 H=4 N=1 M=64 dh=64]: ms "
         f"{pma_ms:.4f} (wrapper {pma_wrapper_ms:.4f}), plain_ms "
         f"{pma_plain_ms:.4f}, bound_ms "
@@ -885,7 +869,8 @@ def check_set_attention_backward(dev, gen):
         log(f"  scaled_dot_product_attention backward unavailable: {e}")
     return dict(err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                 library_ms=library_ms,
-                bound=bound(*cost(B, H, N, M, dh)),
+                bound=costs.work_bound(
+                    costs.set_attention_backward(B, H, N, M, dh)),
                 shape=f"B={B} H={H} N={N} M={M} dh={dh}",
                 extra=dict(pma_ms=pma_ms, pma_wrapper_ms=pma_wrapper_ms,
                            pma_plain_ms=pma_plain_ms,
@@ -924,6 +909,7 @@ def kmeans_resources(name: str, d: int = 128, k: int = 14) -> dict:
 
 
 def check_kmeans_assign(dev, gen):
+    from repro_torch.analysis import costs
     from repro_torch.kernels.kmeans_assign import (
         kmeans_assign, kmeans_assign_reference,
     )
@@ -961,16 +947,16 @@ def check_kmeans_assign(dev, gen):
     x, c = _clustered(n, d, k, gen, dev)
     ms, wrapper_ms = kernel_ms(lambda: kmeans_assign(x, c), reps=100)
     plain_ms = cuda_ms(lambda: kmeans_assign_reference(x, c), reps=100)
-    nbytes = 4 * (n * d + k * d) + 8 * n
-    flops = n * (2 * k * d + 2 * d + 3 * k)
     return dict(err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                 library_ms=None,
-                bound=bound(nbytes, flops), shape=f"N={n} d={d} K={k}",
+                bound=costs.work_bound(costs.kmeans_assign(n, d, k)),
+                shape=f"N={n} d={d} K={k}",
                 extra=dict(registers=attrs["registers"],
                            local_bytes=attrs["local_bytes"]))
 
 
 def check_kmeans_update(dev, gen, n_valid_main: int):
+    from repro_torch.analysis import costs
     from repro_torch.kernels.kmeans_assign import (
         kmeans_update, kmeans_update_reference,
     )
@@ -1033,11 +1019,10 @@ def check_kmeans_update(dev, gen, n_valid_main: int):
     ms, wrapper_ms = kernel_ms(lambda: kmeans_update(x, c, valid), reps=100)
     plain_ms = cuda_ms(lambda: kmeans_update_reference(x, c, valid), reps=100)
     nv = n_valid_main       # only the live rows matter to the result
-    nbytes = 4 * (nv * d + n + k * d) + 4 * (k * d + k + 1)
-    flops = nv * (2 * k * d + 2 * d + 3 * k + d)
     return dict(err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                 library_ms=None,
-                bound=bound(nbytes, flops),
+                bound=costs.work_bound(
+                    costs.kmeans_update(n, d, k, n_valid=nv)),
                 shape=f"N={n} (valid {nv}) d={d} K={k}",
                 extra=dict(registers=attrs["registers"],
                            local_bytes=attrs["local_bytes"]))
@@ -1781,26 +1766,11 @@ def stage1_witness(run: dict) -> None:
 
 # ---------------------------------------------------------------- phase 6
 
-def _visible_pairs(S: int, T: int, causal: bool, window: int,
-                   prefix_len: int = 0) -> int:
-    """Unmasked (q, k) pairs of one head, positions from 0 for both; the
-    causal rule widened by the prefix (k < prefix_len visible to all)."""
-    q = np.arange(S)[:, None]
-    k = np.arange(T)[None, :]
-    vis = np.ones((S, T), bool)
-    if causal:
-        vis = (k <= q) | (k < prefix_len)
-    if window > 0:
-        vis = vis & (q - k < window)
-    return int(vis.sum())
-
-
 def _flash_bound(B, S, T, H, K, D, causal, prefix_len):
-    """(bound_ms, bound_by) of one bf16 flash call: q, k, v read and o
-    written once; 4 D operations a visible (q, k) pair at the bf16 peak."""
-    nbytes = 2 * (2 * B * S * H * D + 2 * B * T * K * D)
-    flops = 4 * D * B * H * _visible_pairs(S, T, causal, 0, prefix_len)
-    return bound(nbytes, flops, PEAK_BF16_FLOP_PER_S)
+    """(bound_ms, bound_by) of one bf16 flash call (`costs`)."""
+    from repro_torch.analysis import costs
+    return costs.work_bound(costs.flash_attention(
+        B, S, T, H, K, D, torch.bfloat16, causal, 0, prefix_len))
 
 
 def _flash_inputs(gen, dev, B, S, T, H, K, D, dtype):
@@ -2062,20 +2032,13 @@ def zoo_path(dev):
 
 # ---------------------------------------------------------------- phase 7
 
-def _wkv_bound(B, S, H, dh):
-    """(bound_ms, bound_by) of one wkv call: r k v w and beta read, y
-    written, the state read and the final state written once; 7 dh^2
-    operations a token and head."""
-    nbytes = 4 * (5 * B * S * H * dh + B * S * H + 2 * B * H * dh * dh)
-    return bound(nbytes, 7 * B * H * S * dh * dh)
-
-
 def check_wkv_zoo(dev, gen) -> dict:
     """(7a) The wkv kernel at the recurrent zoo's shapes against its plain
     version, a random state in: the encoder's decode step on 8 slots (S 1,
     the state a view of a stacked cache, which must stay as it was) and
     its prefill of 8 x 2048 tokens; y and the final state at the JAX
     suite's bound, the device time (CUDA graph) beside the bound."""
+    from repro_torch.analysis import costs
     from repro_torch.kernels.wkv import wkv, wkv_reference
     out = {}
     for what, (B, S, H, dh) in (("decode", WKV_DECODE_SHAPE),
@@ -2098,7 +2061,7 @@ def check_wkv_zoo(dev, gen) -> dict:
                                    reps=20)
         plain_ms = cuda_ms(lambda: wkv_reference(r, k, v, w, beta, state),
                            reps=1, warmup=0)
-        b_ms, b_by = _wkv_bound(B, S, H, dh)
+        b_ms, b_by = costs.work_bound(costs.wkv(B, S, H, dh, state_in=True))
         out[what] = dict(shape=f"B={B} S={S} H={H} dh={dh}", max_abs_err=err,
                          ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by)
@@ -2901,16 +2864,6 @@ def modal_phase(dev, gen, drive) -> list:
 
 # --------------------------------------------------------------- phase 10
 
-def _flash_bwd_bound(B, S, T, H, K, D, causal, prefix_len):
-    """(bound_ms, bound_by) of one bf16 flash backward: q, k, v, o and dO
-    read and dq, dk, dv written once, lse and delta (fp32, B H S each);
-    10 D operations a visible (q, k) pair (S = QK^T, dP = dO V^T, dV, dK,
-    dQ) at the bf16 peak."""
-    nbytes = 2 * (4 * B * S * H * D + 4 * B * T * K * D) + 2 * 4 * B * H * S
-    flops = 10 * D * B * H * _visible_pairs(S, T, causal, 0, prefix_len)
-    return bound(nbytes, flops, PEAK_BF16_FLOP_PER_S)
-
-
 def _grad_err(got, want, what: str, bf16: bool) -> float:
     """Max |got - want| of a gradient against its plain version: fp32 at
     the wkv backward's bound (atol 1e-4, rtol 1e-3); bf16 at atol 1e-2,
@@ -2930,6 +2883,7 @@ def check_flash_backward(dev, gen) -> dict:
     an odd offset bitwise contiguous copies; the whole autograd path
     against autograd of the plain version; the instances' resources; then
     timed at FLASH_BWD_SHAPES beside SDPA's backward and the bound."""
+    from repro_torch.analysis import costs
     import torch.nn.functional as F
     from repro_torch.kernels import _lib
     from repro_torch.kernels.flash_attention import (
@@ -3113,7 +3067,8 @@ def check_flash_backward(dev, gen) -> dict:
         with torch.no_grad():
             fwd_ms = cuda_ms(sdpa, reps=10)
         library_ms = cuda_ms(sdpa_both, reps=10) - fwd_ms
-        b_ms, b_by = _flash_bwd_bound(B, S, T, H, K, D, causal, P)
+        b_ms, b_by = costs.work_bound(costs.flash_attention_backward(
+            B, S, T, H, K, D, torch.bfloat16, causal, 0, P))
         shape = (f"B={B} S={S} T={T} H={H} K={K} D={D} bf16 "
                  + ("full" if not causal else
                     f"prefix {P}" if P else "causal"))
@@ -3454,6 +3409,7 @@ def check_bf16_wkv(dev, gen) -> dict:
     shapes, dh 40 (16-byte route), 44 and 37 (element route) and 128, S 1;
     against the plain versions at the JAX suite's bf16 bound; timed beside
     the fp32 instances."""
+    from repro_torch.analysis import costs
     from repro_torch.kernels.wkv import (
         wkv, wkv_backward, wkv_backward_reference, wkv_reference,
     )
@@ -3527,9 +3483,7 @@ def check_bf16_wkv(dev, gen) -> dict:
     ms32 = device_ms(lambda: wkv(*rkv32, w, beta))
     plain_ms = cuda_ms(lambda: wkv_reference(*rkv, w, beta), reps=3,
                        warmup=1)
-    n = B * S * H * dh
-    nbytes = 2 * 3 * n + 4 * (n + B * S * H) + 4 * (n + B * H * dh * dh)
-    b = bound(nbytes, 7 * B * H * S * dh * dh)
+    b = costs.work_bound(costs.wkv(B, S, H, dh, torch.bfloat16))
     out["wkv"] = dict(max_abs_err=err_f, ms=ms, fp32_ms=ms32,
                       plain_ms=plain_ms, library_ms=None, bound_ms=b[0],
                       bound_by=b[1], shape=f"B={B} S={S} H={H} dh={dh}",
@@ -3545,12 +3499,7 @@ def check_bf16_wkv(dev, gen) -> dict:
     plain_ms = cuda_ms(lambda: wkv_backward_reference(*rkv, w, beta, None,
                                                       dy, dsf), reps=3,
                        warmup=1)
-    n = B * S * H * dh
-    # reads r k v (bf16), w dy, beta, the states and dsf; writes dr dk dv
-    # (bf16), dw, dbeta and dS_0
-    nbytes = (2 * 3 * n + 4 * (2 * n + B * S * H + n * dh + B * H * dh * dh)
-              + 2 * 3 * n + 4 * (n + B * S * H + B * H * dh * dh))
-    b = bound(nbytes, 22 * n * dh)
+    b = costs.work_bound(costs.wkv_backward(B, S, H, dh, torch.bfloat16))
     out["wkv_backward"] = dict(max_abs_err=err_b, ms=ms, fp32_ms=ms32,
                                plain_ms=plain_ms, library_ms=None,
                                bound_ms=b[0], bound_by=b[1],
@@ -3573,6 +3522,7 @@ def check_bf16_set_attention(dev, gen) -> dict:
     and M past one tile (the backward's fp32 scratch), dh 37 (element
     route); against the plain versions at the JAX suite's bf16 bounds;
     timed beside the fp32 instances."""
+    from repro_torch.analysis import costs
     from repro_torch.kernels.set_attention import (
         masked_set_attention, set_attention_backward,
         set_attention_backward_reference, set_attention_reference,
@@ -3669,18 +3619,7 @@ def check_bf16_set_attention(dev, gen) -> dict:
             # products of two bf16 operands (Q K^T; the backward's Q K^T
             # and dO V^T) count at the bf16 peak, those with the fp32 P
             # or dS (P V; dV, dQ, dK) and the softmax at the fp32 peak
-            if name == "set_attention":     # q k v in, o out (bf16)
-                nbytes = 2 * (2 * B * H * N * dh + 2 * B * H * M * dh)
-                flops = B * H * (2 * N * M * dh + 5 * N * M)
-                flops16 = B * H * 2 * N * M * dh
-            else:                           # q dO k v in, dq dk dv out
-                nbytes = (2 * (2 * B * H * N * dh + 2 * B * H * M * dh)
-                          + 2 * (B * H * N * dh + 2 * B * H * M * dh)
-                          + 4 * B * H * M)
-                flops = B * H * (6 * N * M * dh + 12 * N * M)
-                flops16 = B * H * 4 * N * M * dh
-            b = bound(nbytes + 5 * B * M, flops,   # + the bias and mask
-                      flops_bf16=flops16)
+            b = costs.work_bound(getattr(costs, name)(B, H, N, M, dh, bf))
             a = attrs[what][0 if name == "set_attention" else 1]
             rec[what] = dict(ms=ms, fp32_ms=ms32, plain_ms=plain_ms,
                              library_ms=library_ms, bound_ms=b[0],
@@ -4151,6 +4090,7 @@ def check_bf16_kmeans(dev, gen, n_valid_build: int) -> dict:
     the plain versions at JAX's bf16 bounds, timed beside the fp32
     instances at the build's shape, their resources against the plan.
     Returns {kernel: its bf16 record}."""
+    from repro_torch.analysis import costs
     from repro_torch.kernels import _lib
     from repro_torch.kernels.kmeans_assign import (
         kmeans_assign, kmeans_assign_reference, kmeans_update,
@@ -4205,15 +4145,13 @@ def check_bf16_kmeans(dev, gen, n_valid_build: int) -> dict:
     valid = (torch.arange(n, device=dev) < n_valid_build).float()
     nv = n_valid_build
     out = {}
-    for name, fn, ref, err, nbytes, flops in (
+    for name, fn, ref, err, work in (
             ("kmeans_assign", lambda t: kmeans_assign(t, c),
              lambda: kmeans_assign_reference(x, c), err_a,
-             2 * n * d + 4 * k * d + 8 * n,
-             n * (2 * k * d + 2 * d + 3 * k)),
+             costs.kmeans_assign(n, d, k, bf)),
             ("kmeans_update", lambda t: kmeans_update(t, c, valid),
              lambda: kmeans_update_reference(x, c, valid), err_u,
-             2 * nv * d + 4 * n + 4 * k * d + 4 * (k * d + k + 1),
-             nv * (2 * k * d + 2 * d + 3 * k + d))):
+             costs.kmeans_update(n, d, k, bf, n_valid=nv))):
         entry = f"rt_{name}_attributes"
         a = _lib.kernel_attributes(entry, 1, d, k)
         plan = kmeans_plan(1, d, k, bf)["shared_bytes"]
@@ -4228,7 +4166,7 @@ def check_bf16_kmeans(dev, gen, n_valid_build: int) -> dict:
                 "bytes differ from kmeans_plan's")
         ms, ms32 = device_ms(lambda: fn(x)), device_ms(lambda: fn(up))
         plain_ms = cuda_ms(ref, reps=20)
-        b = bound(nbytes, flops)
+        b = costs.work_bound(work)
         out[name] = dict(max_abs_err=err, ms=ms, fp32_ms=ms32,
                          plain_ms=plain_ms, library_ms=None, bound_ms=b[0],
                          bound_by=b[1],
@@ -4435,6 +4373,246 @@ def mesh_phase(svc, programs, intervals, cpis, drive,
     finally:
         dist.destroy_process_group()
     return rec
+
+
+# --------------------------------------------------------------- phase 13
+
+ROOFLINE_TIMED = 3        # 13b: a step's wall is the least of this many
+# 13a: the meta count's peak of live bytes against the card's
+# max_memory_allocated above its baseline. The caching allocator rounds
+# every block up to a multiple of 512 bytes; the rest of the gap read
+# 0.30-0.43 MiB on an H100, so 1 MiB more bounds it and stays far below
+# any of the four steps' activations that the meta count could miss.
+PEAK_BLOCK = 512
+PEAK_SLACK = 2 ** 20
+STAGE2_BLOCKS = 515       # rows of phase 4's BBE matrix (19 programs)
+
+
+def _twin(trainer, module, batch):
+    """(the Trainer's own step on the card: `step`, its metrics read to the
+    host; the same Trainer (loss, config) on meta tensors: `advance`,
+    `module` the model built under torch.device("meta"), the batch's
+    shapes and dtypes). The host reads are `aten._local_scalar_dense`,
+    which moves no counted byte and does no counted operation, so both
+    count alike."""
+    from repro_torch.train import Trainer
+    from repro_torch.utils.tree import tree_map
+    twin = Trainer(trainer.loss_fn, module, trainer.cfg)
+    meta_batch = tree_map(lambda t: torch.empty_like(t, device="meta"), batch)
+    return (lambda: trainer.step(batch)), (lambda: twin.advance(meta_batch))
+
+
+def _lm_train(dev):
+    """Phase 10's smollm-135m training step on `dev`: `launch.train`'s
+    Trainer at full width and depth (bf16, AdamW, remat none) on its
+    batch of LM_TRAIN_BATCH x LM_TRAIN_SEQ tokens. Returns (card run, meta
+    run, model FLOPs a step)."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as tfm
+    run = launch_train.make_run(ZOO_ARCH, preset="full",
+                                steps=LM_TRAIN_STEPS, batch=LM_TRAIN_BATCH,
+                                seq=LM_TRAIN_SEQ, checkpoint_every=0,
+                                device=dev)
+    with torch.device("meta"):
+        module = tfm.LM(run.cfg)
+    n = sum(p.numel() for p in run.trainer.model.parameters())
+    return (*_twin(run.trainer, module, run.batch_fn(0)),
+            6 * n * LM_TRAIN_BATCH * LM_TRAIN_SEQ)
+
+
+def _lm_prefill(dev):
+    """Phase 6's smollm-135m prefill (8 x 2048, bf16) on `dev` and on meta
+    tensors. Returns (card run, meta run, model FLOPs)."""
+    from repro_torch.config import get_arch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.model_zoo import build_model
+    cfg = get_arch(ZOO_ARCH)
+    model = build_model(cfg)
+    B, S = PREFILL_BATCH, PREFILL_LEN
+    params = model.init(SEED, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=(
+        torch.Generator().manual_seed(SEED))).to(dev)
+    with torch.device("meta"):
+        meta_params = tfm.LM(cfg)
+    meta_tokens = torch.empty((B, S), dtype=torch.int64, device="meta")
+    n = sum(p.numel() for p in params.parameters())
+    return ((lambda: model.prefill(params, {"tokens": tokens})),
+            (lambda: model.prefill(meta_params, {"tokens": meta_tokens})),
+            2 * n * B * S)
+
+
+def _stage1_step(dev):
+    """Phase 5b's pre-training step: `launch.train`'s Trainer of the
+    default BBEConfig (AdamW) on STAGE1_BATCH x 128 tokens of its corpus.
+    Returns (card run, meta run, model FLOPs a step)."""
+    from repro_torch.core.bbe import BBEEncoder
+    from repro_torch.launch import train as launch_train
+    run = launch_train.make_run("semanticbbv_encoder", preset="full",
+                                stage="pretrain", steps=STAGE1_STEPS,
+                                batch=STAGE1_BATCH, lr=2e-3,
+                                checkpoint_every=0, device=dev)
+    with torch.device("meta"):
+        module = BBEEncoder(run.cfg, seed=SEED)
+    n = sum(p.numel() for p in run.trainer.model.parameters())
+    return (*_twin(run.trainer, module, run.batch_fn(0)),
+            6 * n * STAGE1_BATCH * run.cfg.max_len)
+
+
+def _stage2_step(dev):
+    """Phase 5's Stage-2 step: a `Stage2Engine` (default SignatureConfig,
+    AdamW) on 64 triplets of interval sets as row ids into a BBE matrix of
+    phase 4's 515 blocks, and its twin on meta tensors; model FLOPs count
+    every set slot. Returns (card run, meta run, model FLOPs a step)."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.core.signature import SignatureConfig, SignatureModel
+    from repro_torch.train.stage2 import Stage2Engine
+    from repro_torch.utils.tree import tree_map
+    cfg = SignatureConfig()
+    B, N, V = TRAIN_BATCH, cfg.max_set, STAGE2_BLOCKS
+    tc = TrainConfig(learning_rate=1e-3, total_steps=TRAIN_STEPS,
+                     warmup_steps=2, checkpoint_every=0)
+    g = torch.Generator().manual_seed(SEED)
+    matrix = torch.randn((V + 1, cfg.bbe_dim), generator=g)
+    matrix[-1] = 0.0
+    batch = {}
+    for role in ("anchor", "positive", "negative"):
+        mask = torch.rand((B, N), generator=g) < 0.7
+        mask[:, 0] = True
+        rows = torch.where(mask, torch.randint(0, V, (B, N), generator=g), V)
+        batch[role] = {"rows": rows, "mask": mask,
+                       "freqs": torch.rand((B, N), generator=g) * mask}
+    batch["cpi"] = 0.5 + torch.rand((B,), generator=g)
+    eng = Stage2Engine(cfg, SignatureModel(cfg, seed=SEED).to(dev), matrix,
+                       tc)
+    with torch.device("meta"):
+        twin = Stage2Engine(cfg, SignatureModel(cfg, seed=SEED),
+                            torch.empty(matrix.shape), tc)
+    card_batch = tree_map(lambda t: t.to(dev), batch)
+    meta_batch = tree_map(lambda t: torch.empty_like(t, device="meta"),
+                          batch)
+    n = sum(p.numel() for p in eng.model.parameters())
+    return ((lambda: eng.step(card_batch)),
+            (lambda: twin.trainer.advance(meta_batch)), 6 * n * 3 * B * N)
+
+
+ROOFLINE_STEPS = (
+    ("smollm_train", "8 x 2048 tokens, bf16, AdamW (phase 10)", _lm_train),
+    ("smollm_prefill", "8 x 2048 tokens, bf16 (phase 6)", _lm_prefill),
+    ("stage1_pretrain", "64 x 128 tokens, fp32, AdamW (phase 5b)",
+     _stage1_step),
+    ("stage2", "64 triplets, fp32, AdamW (phase 5)", _stage2_step),
+)
+
+
+def _op_bytes(run) -> dict:
+    """{aten op: bytes} of one counted run (to name what differs)."""
+    import collections
+    from repro_torch.analysis import counting
+    seen = collections.Counter()
+    real = counting._count_op
+
+    def spy(sink, func, args, kwargs, out):
+        before = sink.bytes
+        real(sink, func, args, kwargs, out)
+        seen[str(func)] += sink.bytes - before
+
+    counting._count_op = spy
+    try:
+        with counting.StepCount():
+            run()
+    finally:
+        counting._count_op = real
+    return seen
+
+
+def roofline_phase(dev) -> dict:
+    """(13a) Four steps counted on the card and on meta tensors at the same
+    shapes (`analysis.counting`): FLOPs by dtype, bytes and kernel records
+    exactly equal, the meta peak of live bytes against the card's
+    max_memory_allocated above its baseline (PEAK_BLOCK, PEAK_SLACK); (13b)
+    each step timed apart from its counted run (the least of
+    ROOFLINE_TIMED), its terms on the H100 record, roofline_fraction,
+    the bound's share of the wall and mfu = model FLOPs / (wall x the
+    bf16 peak), each in (0, 1.05]."""
+    from repro_torch.analysis import costs
+    from repro_torch.analysis.counting import StepCount
+    from repro_torch.analysis.roofline import roofline_terms
+    out = {}
+    t_phase = time.perf_counter()
+    for name, what, build in ROOFLINE_STEPS:
+        t0 = time.perf_counter()
+        run, run_meta, model_flops = build(dev)
+        run()                       # warm: cuBLAS's workspaces, allocator
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with StepCount() as card:
+            run()
+        torch.cuda.synchronize()
+        card_peak = torch.cuda.max_memory_allocated() - base
+        walls = []
+        for _ in range(ROOFLINE_TIMED):
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        wall = min(walls)
+        with StepCount() as on_meta:
+            run_meta()
+        same = (card.total.flops == on_meta.total.flops
+                and card.bytes == on_meta.bytes
+                and card.records == on_meta.records)
+        if not same:
+            a, b = _op_bytes(run), _op_bytes(run_meta)
+            diff = {op: (a[op], b[op]) for op in set(a) | set(b)
+                    if a[op] != b[op]}
+            log(f"  {name}: card {card.total.flops} {card.bytes} "
+                f"{len(card.records)} records; meta {on_meta.total.flops} "
+                f"{on_meta.bytes} {len(on_meta.records)}; ops whose bytes "
+                f"differ (card, meta): {diff}")
+        require(same, f"13a {name}: the card's count differs from meta's")
+        gap = abs(card_peak - on_meta.peak_bytes)
+        allowed = PEAK_BLOCK * on_meta.allocations + PEAK_SLACK
+        rep = roofline_terms(card, arch=ZOO_ARCH if "smollm" in name
+                             else name, shape=what, mesh="1 card", chips=1,
+                             model_flops=float(model_flops))
+        t = rep.terms()
+        mfu = model_flops / (wall * costs.PEAK_BF16_FLOP_PER_S)
+        share = t["bound_s"] / wall
+        kern = card.kernels()
+        log(f"  13a {name} [{what}]: counts equal on the card and meta: "
+            f"fp32 {card.flops_fp32:.6g} + bf16 {card.flops_bf16:.6g} "
+            f"FLOPs, {card.bytes:.6g} bytes, kernels "
+            + ", ".join(f"{k} {v['calls']}" for k, v in kern.items())
+            + f"; peak {card_peak / 2**20:.1f} MiB on the card, "
+            f"{on_meta.peak_bytes / 2**20:.1f} MiB counted on meta (gap "
+            f"{gap / 2**20:.2f} MiB, allowed {allowed / 2**20:.2f})")
+        require(gap <= allowed, f"13a {name}: peak {card_peak} on the card "
+                f"against {on_meta.peak_bytes} on meta")
+        log(f"  13b {name}: wall {1e3 * wall:.2f} ms (least of "
+            f"{ROOFLINE_TIMED}: " + ", ".join(f"{1e3 * w:.2f}" for w in walls)
+            + f"); compute {1e3 * t['compute_s']:.3f} ms, memory "
+            f"{1e3 * t['memory_s']:.3f} ms ({t['dominant']}); "
+            f"roofline_fraction {t['roofline_fraction']:.4f}, bound/wall "
+            f"{share:.4f}, model FLOPs {model_flops:.6g}, mfu {mfu:.4f}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        for key, v in (("mfu", mfu), ("roofline_fraction",
+                                      t["roofline_fraction"]),
+                       ("bound/wall", share)):
+            require(0 < v <= 1.05, f"13b {name}: {key} {v} outside (0, 1.05]")
+        out[name] = dict(
+            flops=dict(card.total.flops), bytes=card.bytes,
+            kernels=kern, peak_bytes=card_peak,
+            meta_peak_bytes=on_meta.peak_bytes, wall_ms=1e3 * wall,
+            compute_ms=1e3 * t["compute_s"], memory_ms=1e3 * t["memory_s"],
+            roofline_fraction=t["roofline_fraction"], bound_share=share,
+            model_flops=model_flops, mfu=mfu)
+        del run, run_meta, card, on_meta
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def time_kernels(root: str) -> dict:
@@ -4685,6 +4863,7 @@ def main() -> int:
     train_only = sys.argv[1:] == ["--lm-train"]
     bf16_only = sys.argv[1:] == ["--bf16"]
     mesh_only = sys.argv[1:] == ["--mesh"]
+    roofline_only = sys.argv[1:] == ["--roofline"]
     t_run = time.perf_counter()
     # cuBLAS takes its workspace layout when CUDA starts: the fixed one
     # that deterministic algorithms (phase 5) need
@@ -4736,6 +4915,15 @@ def main() -> int:
         else:
             check_flash_cases(dev, gen)
             modal_phase(dev, gen, count)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if roofline_only:
+        # phase 13 alone
+        rec = roofline_phase(dev)
+        log(card)
+        log(json.dumps({"roofline": rec}))
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -5001,6 +5189,10 @@ def main() -> int:
         require(by_path.get(name, {}).get("mesh", 0) > 0,
                 f"kernel {name} was not launched on the mesh path")
     log(f"phase 12: {time.perf_counter() - t12:.1f} s")
+
+    # 13. four steps counted on the card and on meta, then timed: their
+    # roofline terms and mfu (launches here count on no path)
+    log(json.dumps({"roofline": roofline_phase(dev)}))
 
     meta = {
         "wkv": ("src/repro_torch/csrc/wkv.cu",

@@ -239,6 +239,45 @@ class SemanticBBVPipeline:
         return out
 
     # ------------------------------------------------------------- stage 2
+    def interval_set(self, interval, bbe_table: Dict[int, np.ndarray]
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """One interval -> (bbes (N,D), freqs (N,), mask (N,)) padded to
+        max_set, keeping the most frequent blocks if over."""
+        N = self.sig_cfg.max_set
+        D = self.sig_cfg.bbe_dim
+        items = sorted(interval.counts.items(), key=lambda kv: -kv[1])[:N]
+        bbes = np.zeros((N, D), np.float32)
+        freqs = np.zeros((N,), np.float32)
+        mask = np.zeros((N,), bool)
+        for i, (bid, cnt) in enumerate(items):
+            bbes[i] = bbe_table[bid]
+            freqs[i] = cnt
+            mask[i] = True
+        return bbes, freqs, mask
+
+    def _batch_sets_looped(self, intervals, bbe_table):
+        """Per-interval loop kept as the parity oracle for `_batch_sets`
+        and `batch_set_ids` (bit-identical output)."""
+        sets = [self.interval_set(iv, bbe_table) for iv in intervals]
+        bbes = np.stack([s[0] for s in sets])
+        freqs = np.stack([s[1] for s in sets])
+        mask = np.stack([s[2] for s in sets])
+        return bbes, freqs, mask
+
+    def _batch_sets(self, intervals, index: BBEIndex):
+        """Dense (bbes (B,N,D), freqs, mask) batch: `batch_set_ids` plus
+        one sentinel gather on the host. Bit-identical to
+        `_batch_sets_looped`."""
+        row_ids, freqs, mask = batch_set_ids(intervals, index,
+                                             self.sig_cfg.max_set)
+        B, N = row_ids.shape
+        D = self.sig_cfg.bbe_dim
+        if index.num_rows == 0:
+            bbes = np.zeros((B, N, D), np.float32)
+        else:
+            bbes = index.ext.take(row_ids.ravel(), axis=0).reshape(B, N, D)
+        return bbes, freqs, mask
+
     def _table_index(self, bbe_table) -> Tuple[BBEIndex, torch.Tensor]:
         """(BBEIndex, device matrix with the zero sentinel row), cached on
         table identity and length (growing a table in place invalidates;

@@ -13,7 +13,10 @@ tensor.
 
 Dispatch rule shared by every wrapper: all tensors on the CPU -> the
 family's plain PyTorch version; all on CUDA -> the kernel (or an
-exception); anything else -> an exception. There is no fallback.
+exception); all on meta -> empty outputs of the kernel's shapes and
+dtypes, computed by nothing (the dry-run's shape propagation, as a fake
+kernel is in `torch.library`); anything else -> an exception. There is
+no fallback.
 """
 from __future__ import annotations
 
@@ -139,15 +142,16 @@ def load_library() -> ctypes.CDLL:
 
 
 def device_kind(*tensors: Optional[torch.Tensor]) -> str:
-    """"cpu" or "cuda" when every given tensor lies there; raises on a
-    mix or on any other device."""
+    """"cpu", "cuda" or "meta" when every given tensor lies there; raises
+    on a mix or on any other device."""
     devices = {t.device for t in tensors if t is not None}
     if len(devices) == 1:
         kind = devices.pop().type
-        if kind in ("cpu", "cuda"):
+        if kind in ("cpu", "cuda", "meta"):
             return kind
-    raise ValueError(f"kernel inputs must all be on the CPU or all on "
-                     f"one CUDA device, got {sorted(map(str, devices))}")
+    raise ValueError(f"kernel inputs must all be on the CPU, all on one "
+                     f"CUDA device or all on meta, got "
+                     f"{sorted(map(str, devices))}")
 
 
 def require(t: torch.Tensor, name: str, shape: Sequence[int],

@@ -19,18 +19,27 @@ read: bf16 on the tensor cores (`wgmma`, P and dS in two bf16 parts,
 the streamed tiles by TMA when the rows are 16-byte aligned), fp32 on
 plain fp32 FMAs.
 
-`flash_attention` is differentiable on both devices. CPU tensors take the
-plain version, through autograd. On CUDA, when grad mode is on and q, k
-or v requires a gradient, the call runs through `_FlashAttention`: the
-forward with the log-sum-exp, saving q, k, v, o and lse, and the
-backward kernel (`flash_attention_backward`) as its gradient. Without a
-gradient to take (serving, `torch.no_grad`) the forward runs alone, the
-instance it was before the backward existed."""
+On meta tensors the forward and the backward return empty outputs of
+the kernels' shapes and dtypes; under an active step count
+(`repro_torch.analysis.counting`) each call is one kernel record of its
+`analysis.costs` work.
+
+`flash_attention` is differentiable on both devices. When grad mode is on
+and q, k or v requires a gradient, the call runs through
+`_FlashAttention`: the forward with the log-sum-exp, saving q, k, v, o
+and lse, and the backward kernel (`flash_attention_backward`) as its
+gradient on CUDA; on the CPU the plain forward, and as its gradient
+autograd of the plain version, recomputed (contiguous gradients, as the
+kernel's). Without a gradient to take (serving, `torch.no_grad`) the
+forward runs alone, the instance it was before the backward existed."""
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch.autograd.function import once_differentiable
 
+from repro_torch.analysis import costs, counting
 from repro_torch.kernels import _lib
 from repro_torch.kernels.flash_attention.ref import (
     attention_backward_reference, attention_reference,
@@ -91,15 +100,33 @@ def _check(name, q, k, v, prefix_len, window, **rows):
             raise ValueError(f"{name}: {key} strides exceed int32")
 
 
+def _work(q, k, causal, window, prefix_len, lse=False, backward=False):
+    B, S, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+    if backward:
+        return costs.flash_attention_backward(B, S, T, H, K, D, q.dtype,
+                                              causal, window, prefix_len)
+    return costs.flash_attention(B, S, T, H, K, D, q.dtype, causal, window,
+                                 prefix_len, lse)
+
+
 def flash_forward(q, k, v, causal: bool = True, window: int = 0,
                   prefix_len: int = 0, return_lse: bool = False):
     """The forward alone, no autograd: o (B,S,H,D) in q's dtype, and with
     `return_lse` also the fp32 log-sum-exp (B,H,S) of each row's scaled,
     masked scores (the kernel's `LSE` instance on CUDA; its o is bitwise
-    the other instance's). CPU tensors take the plain version."""
+    the other instance's). CPU tensors take the plain version; under an
+    active step count, one kernel record."""
     if prefix_len < 0:
         raise ValueError(f"flash_attention: prefix_len {prefix_len} < 0")
-    if _lib.device_kind(q, k, v) == "cpu":
+    count = counting.ACTIVE
+    if count is not None and count.open:
+        with count.kernel("flash_attention", _work(
+                q, k, causal, window, prefix_len, lse=return_lse)):
+            return flash_forward(q, k, v, causal, window, prefix_len,
+                                 return_lse)
+    kind = _lib.device_kind(q, k, v)
+    if kind == "cpu":
         return attention_reference(q, k, v, causal=causal, window=window,
                                    prefix_len=prefix_len,
                                    return_lse=return_lse)
@@ -109,6 +136,8 @@ def flash_forward(q, k, v, causal: bool = True, window: int = 0,
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
            if return_lse else None)
+    if kind == "meta":
+        return (o, lse) if return_lse else o
     if o.numel():
         fn = getattr(_lib.load_library(), kernel_for(q.dtype))
         args = [_lib.ptr(q), _lib.ptr(k), _lib.ptr(v), _lib.ptr(o),
@@ -133,8 +162,15 @@ def flash_attention_backward(q, k, v, o, do, lse, causal: bool = True,
     CUDA tensors launch the backward kernels (a delta pre-pass, dK/dV,
     dQ; bf16 products on `wgmma` with fp32 sums, fp32 on FMAs; no
     atomics: the same bits every run), q, k, v, o and do read through
-    their strides."""
-    if _lib.device_kind(q, k, v, o, do, lse) == "cpu":
+    their strides. Under an active step count, one kernel record."""
+    count = counting.ACTIVE
+    if count is not None and count.open:
+        with count.kernel("flash_attention_backward", _work(
+                q, k, causal, window, prefix_len, backward=True)):
+            return flash_attention_backward(q, k, v, o, do, lse, causal,
+                                            window, prefix_len)
+    kind = _lib.device_kind(q, k, v, o, do, lse)
+    if kind == "cpu":
         return attention_backward_reference(q, k, v, o, do, lse, causal,
                                             window, prefix_len)
     _check("flash_attention_backward", q, k, v, prefix_len, window, o=o,
@@ -149,6 +185,8 @@ def flash_attention_backward(q, k, v, o, do, lse, causal: bool = True,
     if make is torch.zeros:
         return dq, dk, dv
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    if kind == "meta":
+        return dq, dk, dv
     fn = getattr(_lib.load_library(), _BACKWARD[q.dtype])
     rc = fn(_lib.ptr(q), _lib.ptr(k), _lib.ptr(v), _lib.ptr(o), _lib.ptr(do),
             _lib.ptr(lse), _lib.ptr(delta), _lib.ptr(dq), _lib.ptr(dk),
@@ -164,7 +202,8 @@ def flash_attention_backward(q, k, v, o, do, lse, causal: bool = True,
 class _FlashAttention(torch.autograd.Function):
     """The forward kernel's `LSE` instance with the backward kernels as
     its gradient. Saves q, k, v (as given: views of a fused projection
-    stay views), o and lse (B·H·S fp32)."""
+    stay views), o and lse (B·H·S fp32). On CPU tensors the backward is
+    autograd of the plain version, recomputed from q, k and v."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, prefix_len):
@@ -180,8 +219,30 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         if do.stride(-1) != 1:
             do = do.contiguous()
-        dq, dk, dv = flash_attention_backward(q, k, v, o, do, lse, *ctx.mask)
+        if q.device.type == "cpu":
+            dq, dk, dv = _plain_backward(q, k, v, do, *ctx.mask)
+        else:
+            dq, dk, dv = flash_attention_backward(q, k, v, o, do, lse,
+                                                  *ctx.mask)
         return dq, dk, dv, None, None, None
+
+
+def _plain_backward(q, k, v, do, causal, window, prefix_len):
+    """(dq, dk, dv) by autograd of the plain version on CPU tensors,
+    recomputed from q, k, v, and made contiguous, as the kernel writes
+    them, so that the ops after it see the card's layout (and a step
+    count sees the card's ops); one kernel record under an active
+    count."""
+    count = counting.ACTIVE
+    region = (count.kernel("flash_attention_backward", _work(
+        q, k, causal, window, prefix_len, backward=True))
+        if count is not None and count.open else contextlib.nullcontext())
+    with region, torch.enable_grad():
+        inputs = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        o = attention_reference(*inputs, causal=causal, window=window,
+                                prefix_len=prefix_len)
+        return tuple(g.contiguous()
+                     for g in torch.autograd.grad(o, inputs, do))
 
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0,
@@ -192,15 +253,15 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
     With `causal`, key j is visible to query i when j <= i or j <
     `prefix_len` (the prefix-LM rule; 0: plain causal; prefix_len >= T:
     every key); `window` > 0 also needs i - j < window.
-    Returns (B,S,H,D) in q's dtype. CPU tensors take the plain version
-    (differentiable by autograd); CUDA tensors launch the kernel, through
-    `_FlashAttention` when grad mode is on and an input requires a
-    gradient, so its backward launches the backward kernels."""
+    Returns (B,S,H,D) in q's dtype. CPU tensors take the plain version,
+    CUDA tensors launch the kernel; when grad mode is on and an input
+    requires a gradient, either goes through `_FlashAttention`, so its
+    backward launches the backward kernels on CUDA (and on the CPU is
+    autograd of the plain version, recomputed). So the forward and the
+    backward are one call each, and one kernel record each under a step
+    count, on every device."""
     if prefix_len < 0:
         raise ValueError(f"flash_attention: prefix_len {prefix_len} < 0")
-    if _lib.device_kind(q, k, v) == "cpu":
-        return attention_reference(q, k, v, causal=causal, window=window,
-                                   prefix_len=prefix_len)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, bool(causal), int(window),
                                      int(prefix_len))

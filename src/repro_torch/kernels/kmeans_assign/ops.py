@@ -6,13 +6,17 @@ Replace `repro.kernels.kmeans_assign.ops.kmeans_assign` and
 x is fp32 or bf16, as JAX's kernels take it: a bf16 x on CUDA launches
 the kernels' bf16 instances, which read it as it is (bitwise the fp32
 instances on the upcast rows); the centroids are fp32 or bf16, a bf16
-centroid matrix widened to fp32 first (exactly)."""
+centroid matrix widened to fp32 first (exactly). On meta tensors both
+return empty outputs of the kernels' shapes and dtypes; under an active
+step count (`repro_torch.analysis.counting`) each call is one kernel
+record of its `analysis.costs` work."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 
+from repro_torch.analysis import costs, counting
 from repro_torch.kernels import _lib
 from repro_torch.kernels.kmeans_assign.ref import (
     kmeans_assign_reference, kmeans_update_reference,
@@ -81,12 +85,21 @@ def _vec(x, centroids) -> int:
 
 def kmeans_assign(x, centroids):
     """x: (N,d); centroids: (K,d) -> (assign (N,) int32, dist2 (N,) f32),
-    in the x²−2xc+c² form, ties to the lowest index."""
-    if _lib.device_kind(x, centroids) == "cpu":
+    in the x²−2xc+c² form, ties to the lowest index. Under an active
+    step count, one kernel record."""
+    count = counting.ACTIVE
+    if count is not None and count.open:
+        with count.kernel("kmeans_assign", costs.kmeans_assign(
+                *x.shape, centroids.shape[0], x.dtype)):
+            return kmeans_assign(x, centroids)
+    kind = _lib.device_kind(x, centroids)
+    if kind == "cpu":
         return kmeans_assign_reference(x, centroids)
     N, d, K, bf16, centroids = _check_inputs(x, centroids)
     assign = torch.empty((N,), dtype=torch.int32, device=x.device)
     dist2 = torch.empty((N,), dtype=torch.float32, device=x.device)
+    if kind == "meta":
+        return assign, dist2
     lib = _lib.load_library()
     rc = lib.rt_kmeans_assign(_lib.ptr(x), _lib.ptr(centroids), N, d, K,
                               _vec(x, centroids), bf16, _lib.ptr(assign),
@@ -111,8 +124,16 @@ def kmeans_update(x, centroids, valid: Optional[torch.Tensor] = None):
     no float atomics; its results depend only on the live rows and their
     row indices. It makes one allocation a call (and one more for bf16
     centroids, widened first): the outputs are views of it, in front of
-    the partials' scratch."""
-    if _lib.device_kind(x, centroids, valid) == "cpu":
+    the partials' scratch. Under an active step count, one kernel record,
+    which counts every row live (a count does not read the weights)."""
+    count = counting.ACTIVE
+    if count is not None and count.open:
+        with count.kernel("kmeans_update", costs.kmeans_update(
+                *x.shape, centroids.shape[0], x.dtype,
+                valid=valid is not None)):
+            return kmeans_update(x, centroids, valid)
+    kind = _lib.device_kind(x, centroids, valid)
+    if kind == "cpu":
         if valid is None:
             valid = torch.ones((x.shape[0],), dtype=torch.float32)
         sums, counts, inertia = kmeans_update_reference(x, centroids, valid)
@@ -126,6 +147,8 @@ def kmeans_update(x, centroids, valid: Optional[torch.Tensor] = None):
     O, nb = plan["outputs"], plan["blocks"]
     buf = torch.empty((O + nb * O + nb,), dtype=torch.float32,
                       device=x.device)
+    if kind == "meta":
+        return buf[:K * d].view(K, d), buf[K * d:K * d + K], buf[K * d + K]
     lib = _lib.load_library()
     rc = lib.rt_kmeans_update(
         _lib.ptr(x), _lib.ptr(centroids), _lib.ptr(valid), N, d, K,

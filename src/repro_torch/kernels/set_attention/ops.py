@@ -14,6 +14,10 @@ CUDA tensors, the plain backward on CPU tensors. Without a gradient to
 take (inference, `torch.inference_mode`) the forward runs alone and
 nothing is saved.
 
+On meta tensors both return empty outputs of the kernels' shapes and
+dtypes; under an active step count (`repro_torch.analysis.counting`) each
+call is one kernel record of its `analysis.costs` work.
+
 dtypes, as JAX's kernel takes them: q, k, v (and the cotangent do) fp32
 or bf16, one dtype; the bias fp32. The output and dq, dk, dv come back in
 that dtype, db in fp32. A bf16 q on CUDA launches the kernels' bf16
@@ -23,6 +27,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
+from repro_torch.analysis import costs, counting
 from repro_torch.kernels import _lib
 from repro_torch.kernels.set_attention.ref import (
     set_attention_backward_reference, set_attention_reference,
@@ -87,8 +92,21 @@ def backward_plan(N: int, M: int, dh: int,
                 scratch_floats=scratch)
 
 
+def _work(q, k, key_bias, key_mask, backward: bool = False):
+    B, H, N, dh = q.shape
+    fn = costs.set_attention_backward if backward else costs.set_attention
+    return fn(B, H, N, k.shape[2], dh, q.dtype, key_bias is not None,
+              key_mask is not None)
+
+
 def _forward(q, k, v, key_bias, key_mask):
-    if _lib.device_kind(q, k, v, key_bias, key_mask) == "cpu":
+    count = counting.ACTIVE
+    if count is not None and count.open:
+        with count.kernel("set_attention",
+                          _work(q, k, key_bias, key_mask)):
+            return _forward(q, k, v, key_bias, key_mask)
+    kind = _lib.device_kind(q, k, v, key_bias, key_mask)
+    if kind == "cpu":
         return set_attention_reference(q, k, v, key_bias, key_mask)
     B, H, N, M, dh, key_mask, bf16 = _cuda_inputs(q, k, v, key_bias,
                                                   key_mask)
@@ -96,6 +114,8 @@ def _forward(q, k, v, key_bias, key_mask):
         raise ValueError(f"masked_set_attention: head dim {dh} > "
                          f"{MAX_HEAD_DIM}")
     o = torch.empty_like(q)
+    if kind == "meta":
+        return o
     lib = _lib.load_library()
     rc = lib.rt_set_attention_forward(
         _lib.ptr(q), _lib.ptr(k), _lib.ptr(v), _lib.ptr(key_bias),
@@ -115,8 +135,15 @@ def set_attention_backward(q, k, v, key_bias, key_mask, do):
     CPU tensors take the plain backward; CUDA tensors (q, k, v, do fp32 or
     bf16, contiguous, dh <= 256) launch the backward kernel that
     `backward_plan` names, in q's dtype, with vector loads and stores when
-    every row is aligned to 4 elements."""
-    if _lib.device_kind(q, k, v, key_bias, key_mask, do) == "cpu":
+    every row is aligned to 4 elements. Under an active step count, one
+    kernel record."""
+    count = counting.ACTIVE
+    if count is not None and count.open:
+        with count.kernel("set_attention_backward",
+                          _work(q, k, key_bias, key_mask, backward=True)):
+            return set_attention_backward(q, k, v, key_bias, key_mask, do)
+    kind = _lib.device_kind(q, k, v, key_bias, key_mask, do)
+    if kind == "cpu":
         return set_attention_backward_reference(q, k, v, key_bias, key_mask,
                                                 do)
     B, H, N, M, dh, key_mask, bf16 = _cuda_inputs(q, k, v, key_bias,
@@ -131,6 +158,8 @@ def set_attention_backward(q, k, v, key_bias, key_mask, do):
     scratch = (torch.empty(B * H * plan["scratch_floats"],
                            dtype=torch.float32, device=q.device)
                if plan["scratch_floats"] else None)
+    if kind == "meta":
+        return dq, dk, dv, db
     lib = _lib.load_library()
     rc = lib.rt_set_attention_backward(
         _lib.ptr(q), _lib.ptr(k), _lib.ptr(v), _lib.ptr(key_bias),

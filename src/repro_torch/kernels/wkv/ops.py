@@ -12,6 +12,10 @@ runs through `_WKV`, whose forward also keeps S_{t-1} of every token
 loop on CPU tensors. Without a gradient to take (serving,
 `torch.no_grad`) the forward runs alone and saves nothing.
 
+On meta tensors both return empty outputs of the kernels' shapes and
+dtypes; under an active step count (`repro_torch.analysis.counting`) each
+call is one kernel record of its `analysis.costs` work.
+
 dtypes, as JAX's kernel takes them: r, k, v fp32 or bf16 (one dtype);
 w, beta and the state fp32 (the RWKV model computes them in fp32); y and
 the states fp32 whatever r's dtype. A bf16 r, k, v on CUDA launches the
@@ -25,6 +29,7 @@ from typing import Optional
 import torch
 from torch.autograd.function import once_differentiable
 
+from repro_torch.analysis import costs, counting
 from repro_torch.kernels import _lib
 from repro_torch.kernels.wkv.ref import wkv_backward_reference, wkv_reference
 
@@ -92,9 +97,16 @@ def _vec(r, dh: int, *tensors) -> bool:
 def _forward(r, k, v, w, beta, state, save: bool):
     """(y, final state, S_{t-1} of every token (B,S,H,dh,dh) or None).
     The states are written only when `save` and only by the kernel; the
-    plain backward recomputes them."""
+    plain backward recomputes them. Under an active step count, one
+    kernel record."""
+    count = counting.ACTIVE
+    if count is not None and count.open:
+        with count.kernel("wkv", costs.wkv(*r.shape, r.dtype,
+                                           state is not None, save)):
+            return _forward(r, k, v, w, beta, state, save)
     inputs = (r, k, v, w, beta, state)
-    if _lib.device_kind(*inputs) == "cpu":
+    kind = _lib.device_kind(*inputs)
+    if kind == "cpu":
         return (*wkv_reference(*inputs), None)
     B, S, H, dh = r.shape
     bf16 = _lib.float_or_bf16(r, "r")
@@ -114,6 +126,8 @@ def _forward(r, k, v, w, beta, state, save: bool):
     sf = torch.empty((B, H, dh, dh), dtype=torch.float32, device=r.device)
     states = (torch.empty((B, S, H, dh, dh), dtype=torch.float32,
                           device=r.device) if save else None)
+    if kind == "meta":
+        return y, sf, states
     # contiguous inputs, fresh outputs: rows are 16-byte aligned when the
     # inputs' data is and a row is whole 16-byte vectors
     vec = _vec(r, dh, k, v, w, state)
@@ -140,9 +154,17 @@ def wkv_backward(r, k, v, w, beta, state, states, dy,
     or bf16, the rest fp32, contiguous, dh <= 128) launch the backward
     kernel's instance of r's dtype (`backward_plan`) on `states`, S_{t-1}
     of every token as the forward kernel wrote them, with 16-byte loads
-    and stores when every row is 16-byte aligned."""
-    if _lib.device_kind(r, k, v, w, beta, state, states, dy,
-                        dstate_final) == "cpu":
+    and stores when every row is 16-byte aligned. Under an active step
+    count, one kernel record."""
+    count = counting.ACTIVE
+    if count is not None and count.open:
+        with count.kernel("wkv_backward", costs.wkv_backward(
+                *r.shape, r.dtype, dstate_final is not None)):
+            return wkv_backward(r, k, v, w, beta, state, states, dy,
+                                dstate_final)
+    kind = _lib.device_kind(r, k, v, w, beta, state, states, dy,
+                            dstate_final)
+    if kind == "cpu":
         return wkv_backward_reference(r, k, v, w, beta, state, dy,
                                       dstate_final)
     B, S, H, dh = r.shape
@@ -165,6 +187,8 @@ def wkv_backward(r, k, v, w, beta, state, states, dy,
         else:
             ds0.copy_(dstate_final)
         return (*grads, ds0)
+    if kind == "meta":
+        return *grads, ds0
     vec = _vec(r, dh, k, v, w, states, dy, dstate_final)
     lib = _lib.load_library()
     rc = lib.rt_wkv_backward(

@@ -1,0 +1,389 @@
+"""Dry-run of the production mesh on meta tensors: how much work one
+device's share of each step is, and what it holds. Port of
+`repro.launch.dryrun`.
+
+For every (architecture x input shape x mesh) cell:
+  1. build the model on meta tensors (shapes and dtypes, no storage), as
+     `Model.param_count` does;
+  2. place parameters, optimizer state, inputs and decode caches by
+     `distributed.sharding.make_shardings(..., MeshConfig(...), rules,
+     shapes=...)`: a spec names mesh axes, a `MeshConfig` their sizes, so
+     no process group is set up; local shapes come from the pruned specs;
+  3. run the step (the `Trainer`'s own `advance` on this device's
+     blocks, `PlacedTrainer`; the prefill forward; the decode step) on
+     the per-device batch (the global batch over the "data" shards)
+     under a `analysis.counting.StepCount`: products by dtype,
+     bytes, kernel records, token loops probed (`token_loop`), and the
+     peak of live bytes;
+  4. write the roofline report (`analysis.roofline`, the H100) to
+     artifacts/dryrun_torch/<arch>_<shape>_<mesh>.json, which
+     `python -m repro_torch.analysis.report` renders.
+
+The port computes as its `Trainer` does (`train/trainer.py`): every rank
+runs the forward and backward on its rows with the FULL parameters,
+gathered after each update, and ranks along "model" compute the same
+rows (tensor-parallel compute is not ported). So a device holds its
+parameter and optimizer-state shards, the full parameters, its inputs
+and the step's activations; its collectives are the Trainer's: one
+all-reduce of each gradient leaf over the data axes and one gather of
+each sharded parameter leaf, reckoned from the placements (nothing runs
+across ranks here). Prefill and decode hold the full parameters and the
+full-sequence caches of their rows (no sequence-parallel attention);
+the cache's placement by the specs is reported beside it.
+
+Everything in a report is derived from the H100 data sheet's constants
+(`analysis.costs.H100_SXM`) and the counted work, not measured. JAX's
+`--keep-hlo` has no counterpart: torch compiles no program to keep.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-7b \\
+      --shape train_4k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all \\
+      [--multi-pod both]
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import os
+import time
+import traceback
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from repro_torch.analysis import counting
+from repro_torch.analysis.costs import H100_SXM
+from repro_torch.analysis.counting import StepCount
+from repro_torch.analysis.roofline import format_report, roofline_terms
+from repro_torch.config import (
+    SHAPES, MeshConfig, TrainConfig, canon, get_arch,
+)
+from repro_torch.distributed.sharding import (
+    LOGICAL_RULES, arch_rules, axis_sizes, make_shardings,
+)
+from repro_torch.models import transformer as tfm
+from repro_torch.models.model_zoo import build_model
+from repro_torch.train.optimizer import Shards, make_optimizer
+from repro_torch.train.trainer import Trainer
+from repro_torch.utils.tree import tree_leaves, tree_size_bytes
+
+ARTIFACT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
+                            "artifacts", "dryrun_torch")
+
+# Assigned architectures (the 40-cell matrix); semanticbbv_encoder is an
+# extra, not part of the assignment.
+ASSIGNED = [
+    "whisper_tiny", "grok_1_314b", "qwen3_moe_235b_a22b", "qwen3_4b",
+    "qwen2_7b", "granite_3_2b", "smollm_135m", "xlstm_1_3b",
+    "paligemma_3b", "jamba_1_5_large_398b",
+]
+
+MODEL_AXIS_NOTE = ("ranks along \"model\" compute the same rows with the "
+                   "full parameters: tensor-parallel compute is not ported")
+
+
+def policy_for(model) -> Dict[str, Any]:
+    """Per-size runtime policy, JAX's: optimizer, remat ("full" always:
+    each period of layers recomputed in the backward) and microbatch
+    (gradients accumulated over sequential slices: 8 for 50B+, 4 for
+    1B+). JAX's `impl` ("chunked") has no counterpart: the port's
+    attention is the flash kernel on every device."""
+    n = model.param_count()
+    if n >= 5e10:
+        return dict(optimizer="adafactor", remat="full", microbatch=8)
+    if n >= 1e9:
+        return dict(optimizer="adamw", remat="full", microbatch=4)
+    return dict(optimizer="adamw", remat="full", microbatch=1)
+
+
+def rules_for(shape_name: str, cfg=None) -> Dict[str, Any]:
+    rules = dict(LOGICAL_RULES)
+    if SHAPES[shape_name].kind == "decode":
+        # GQA head counts (1..8) never divide the 16-way model axis, so the
+        # decode cache shards its sequence dim instead
+        rules["kv_seq"] = "model"
+    if shape_name == "long_500k":
+        # batch=1: spend the idle data axis on the sequence dim too
+        rules["kv_seq"] = ("data", "model")
+    return arch_rules(cfg, rules)
+
+
+def batch_specs(model, shape) -> Dict[str, Any]:
+    """Logical axes for every input leaf."""
+    specs = {}
+    for k in model.input_specs(shape):
+        if k == "tokens":
+            specs[k] = ("batch", "seq") if shape.kind != "decode" \
+                else ("batch", None)
+        elif k in ("frames", "patches"):
+            specs[k] = ("batch", None, "embed_act")
+        elif k == "pos":
+            specs[k] = ()
+        elif k == "cache":
+            specs[k] = model.cache_specs(shape)
+    return specs
+
+
+# ---------------------------------------------------------------------------
+# placements
+# ---------------------------------------------------------------------------
+
+def local_shape(shape, place, sizes: Dict[str, int]) -> tuple:
+    """The shape of one device's block of a tensor of `shape` placed by
+    `place` (one placement a mesh axis, in the mesh's order)."""
+    out = list(shape)
+    for n, pl in zip(sizes.values(), place):
+        d = getattr(pl, "dim", None)
+        if d is not None:
+            out[d] //= n
+    return tuple(out)
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def _local(t: torch.Tensor, place, sizes: Dict[str, int]) -> torch.Tensor:
+    """This device's block of t: a view of its first slice along each
+    sharded dim (the block every device holds one of)."""
+    for n, pl in zip(sizes.values(), place):
+        d = getattr(pl, "dim", None)
+        if d is not None:
+            t = t.narrow(d, 0, t.shape[d] // n)
+    return t
+
+
+# ---------------------------------------------------------------------------
+# the step
+# ---------------------------------------------------------------------------
+
+class _CountedMeans(Shards):
+    """`Shards` over mesh axes with no process group: the sum a mean would
+    all-reduce is added to the active count as an all-reduce instead."""
+
+    def reduce(self, s: torch.Tensor, group) -> None:
+        if counting.ACTIVE is not None:
+            counting.ACTIVE.add_collective("all-reduce",
+                                           s.numel() * s.element_size())
+
+
+class PlacedTrainer(Trainer):
+    """The `Trainer` as one device of a mesh runs its step, with no process
+    group: the optimizer state and the parameter blocks (`blocks`) are
+    this device's, shaped by `place` ({name: placements}) on a mesh of
+    `sizes`. `_update` runs the optimizer on this device's blocks of the
+    gradients (Adafactor's means over split dims counted as all-reduces
+    of their sums, as the Trainer's `Shards` sums them) and gives back
+    the full parameters as empty tensors: the all-gather's output."""
+
+    def __init__(self, loss_fn: Callable, model: torch.nn.Module,
+                 cfg: TrainConfig, place: Dict, sizes: Dict[str, int]):
+        super().__init__(loss_fn, model, cfg)
+        self._place, self._sizes = place, sizes
+        params = self.state.params
+        with torch.no_grad():
+            self.blocks = {k: _local(p, place[k], sizes).clone()
+                           for k, p in params.items()}
+        opt_init, _, _ = make_optimizer(cfg.optimizer)
+        self.state.opt_state = opt_init(self.blocks)
+        self._means = {}
+        for k, p in params.items():
+            groups: Dict[int, list] = {}
+            for (axis, n), pl in zip(sizes.items(), place[k]):
+                d = getattr(pl, "dim", None)
+                if d is not None and n > 1:
+                    groups.setdefault(d, []).append(axis)
+            self._means[k] = _CountedMeans(p.shape, groups)
+
+    def _update(self, grads: Dict[str, torch.Tensor], lr: float
+                ) -> Dict[str, torch.Tensor]:
+        g_loc = {k: _local(g, self._place[k], self._sizes)
+                 for k, g in grads.items()}
+        kw = ({"shards": self._means} if self.cfg.optimizer == "adafactor"
+              else {})
+        self.blocks, self.state.opt_state = self._opt_update(
+            g_loc, self.state.opt_state, self.blocks, lr=lr,
+            weight_decay=self.cfg.weight_decay, **kw)
+        return {k: p.new_empty(p.shape) for k, p in self.state.params.items()}
+
+
+def make_train_step(model, params: torch.nn.Module, policy: Dict[str, Any],
+                    train_cfg: TrainConfig, place: Optional[Dict] = None,
+                    sizes: Optional[Dict[str, int]] = None) -> Trainer:
+    """The `Trainer` of a zoo LM (`params`, its module) under `policy`:
+    `Model.loss` under its remat, its optimizer and microbatch; with
+    `place`, a `PlacedTrainer`. Its `advance(batch)` is the step (JAX's
+    make_train_step returns a jitted function instead)."""
+    cfg = dataclasses.replace(train_cfg, optimizer=policy["optimizer"],
+                              microbatch=int(policy.get("microbatch", 1)),
+                              remat=policy["remat"])
+
+    def loss_fn(p, batch):
+        return model.loss(p, batch, remat=cfg.remat)
+
+    if place is None:
+        return Trainer(loss_fn, params, cfg)
+    return PlacedTrainer(loss_fn, params, cfg, place, sizes)
+
+
+# ---------------------------------------------------------------------------
+# cells
+# ---------------------------------------------------------------------------
+
+def _mesh_name(multi_pod: bool) -> str:
+    return "2x16x16" if multi_pod else "16x16"
+
+
+def count_cell(arch_id: str, shape_name: str, multi_pod: bool
+               ) -> Dict[str, Any]:
+    """Count one (arch, shape, mesh) cell: SKIP for a shape the model does
+    not take, else OK with the count, the bytes one device holds and the
+    roofline report (as JSON, and the `RooflineReport` under "report")."""
+    cfg = get_arch(arch_id)
+    model = build_model(cfg)
+    shape = SHAPES[shape_name]
+    mesh_cfg = MeshConfig(multi_pod=multi_pod)
+    base = {"arch": arch_id, "shape": shape_name,
+            "mesh": _mesh_name(multi_pod)}
+    if not model.supports_shape(shape):
+        return dict(base, status="SKIP(full-attn)")
+    sizes = axis_sizes(mesh_cfg)
+    rules = rules_for(shape_name, cfg)
+    t0 = time.monotonic()
+    with torch.device("meta"):
+        params = tfm.LM(cfg)
+    n_params = sum(p.numel() for p in params.parameters())
+    policy = policy_for(model)
+    named = {n.replace(".", "/"): p for n, p in params.named_parameters()}
+    param_specs = model.param_specs()
+    pplace = make_shardings({k: param_specs[k] for k in named}, mesh_cfg,
+                            rules, shapes=named)
+    full_params = tree_size_bytes(named)
+
+    # the inputs, placed; the step runs on this device's rows
+    inputs = model.input_specs(shape)
+    in_place = make_shardings(batch_specs(model, shape), mesh_cfg, rules,
+                              shapes=inputs)
+    rows = local_shape(inputs["tokens"].shape, in_place["tokens"], sizes)[0]
+    held: Dict[str, float] = {}
+    if shape.kind == "decode":
+        cache = tfm.init_cache(cfg, rows, shape.seq_len, torch.bfloat16,
+                               torch.device("meta"))
+        batch = {"tokens": _meta((rows, 1), torch.int32),
+                 "pos": _meta((), torch.int32)}
+        held["cache"] = tree_size_bytes(cache)
+        held["cache_placed"] = sum(
+            math.prod(local_shape(t.shape, pl, sizes)) * t.element_size()
+            for t, pl in zip(tree_leaves(inputs["cache"]),
+                             tree_leaves(in_place["cache"])))
+    else:
+        batch = {k: _meta(local_shape(v.shape, in_place[k], sizes), v.dtype)
+                 for k, v in inputs.items()}
+        held["inputs"] = tree_size_bytes(batch)
+    held["params_full"] = full_params
+    if shape.kind == "train":
+        trainer = make_train_step(model, params, policy, TrainConfig(),
+                                  pplace, sizes)
+        held["param_shards"] = tree_size_bytes(trainer.blocks)
+        held["opt_shards"] = tree_size_bytes(trainer.state.opt_state)
+
+    with StepCount() as count:
+        if shape.kind == "train":
+            trainer.advance(batch)
+            # the Trainer's collectives: every gradient leaf all-reduced
+            # over the data axes, every sharded parameter gathered whole
+            if any(sizes.get(a, 1) > 1 for a in ("pod", "data")):
+                count.add_collective("all-reduce", full_params, len(named))
+            sharded = [k for k, pl in pplace.items()
+                       if any(getattr(p, "dim", None) is not None
+                              for p in pl)]
+            count.add_collective(
+                "all-gather", sum(tree_size_bytes(named[k]) for k in sharded),
+                len(sharded))
+        elif shape.kind == "prefill":
+            model.prefill(params, batch)
+        else:
+            model.decode_step(params, cache, batch["tokens"], batch["pos"])
+    seconds = time.monotonic() - t0
+
+    tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode"
+                                   else 1)
+    n_active = model.active_param_count()
+    per_token = 6 * n_active if shape.kind == "train" else 2 * n_active
+    rep = roofline_terms(
+        count, arch=arch_id, shape=shape_name, mesh=base["mesh"],
+        chips=mesh_cfg.num_devices, model_flops=float(per_token) * tokens,
+        argument_bytes=float(sum(v for k, v in held.items()
+                                 if k != "cache_placed")),
+        temp_bytes=float(count.peak_bytes), axis_sizes=sizes)
+    return dict(base, status="OK", chips=mesh_cfg.num_devices,
+                policy=policy, params=n_params, active_params=n_active,
+                rows_per_device=rows, held_bytes=held,
+                count=count.summary(), roofline=rep.to_json(),
+                model_axis=MODEL_AXIS_NOTE, count_s=seconds, report=rep)
+
+
+def run_cell(arch_id: str, shape_name: str, multi_pod: bool,
+             save: bool = True) -> Dict[str, Any]:
+    """`count_cell`, printed and written to ARTIFACT_DIR; a cell that
+    raises is FAIL."""
+    name = f"{arch_id}_{shape_name}_{_mesh_name(multi_pod)}"
+    try:
+        art = count_cell(arch_id, shape_name, multi_pod)
+    except Exception as e:
+        traceback.print_exc()
+        return {"status": f"FAIL: {type(e).__name__}: {e}", "arch": arch_id,
+                "shape": shape_name, "mesh": _mesh_name(multi_pod),
+                "name": name}
+    art["name"] = name
+    rep = art.pop("report", None)
+    if rep is None:
+        print(f"{name}: {art['status']}")
+    else:
+        held = rep.argument_bytes + rep.temp_bytes
+        fits = held < H100_SXM.hbm_bytes
+        print(format_report(rep))
+        print(f"  counted in {art['count_s']:.1f}s  per-device bytes="
+              f"{held / 1e9:.2f}GB ({'FITS' if fits else 'OVER'} "
+              f"{H100_SXM.hbm_bytes / 1e9:.0f}GB); {MODEL_AXIS_NOTE}")
+    if save:
+        os.makedirs(ARTIFACT_DIR, exist_ok=True)
+        with open(os.path.join(ARTIFACT_DIR, name + ".json"), "w") as f:
+            json.dump(art, f, indent=1, default=str)
+    return art
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="all")
+    ap.add_argument("--shape", default="all")
+    ap.add_argument("--multi-pod", choices=["single", "multi", "both"],
+                    default="single")
+    ap.add_argument("--all", action="store_true",
+                    help="full 40-cell matrix (+ multi-pod per --multi-pod)")
+    args = ap.parse_args(argv)
+
+    archs = (ASSIGNED if args.all or args.arch == "all"
+             else [canon(args.arch)])
+    shapes = list(SHAPES) if args.all or args.shape == "all" \
+        else [args.shape]
+    pods = {"single": [False], "multi": [True], "both": [False, True]}[
+        args.multi_pod]
+    t0 = time.monotonic()
+    results = [run_cell(arch, shape, mp) for arch in archs
+               for shape in shapes for mp in pods]
+    ok = sum(1 for r in results if r["status"] == "OK")
+    skip = sum(1 for r in results if r["status"].startswith("SKIP"))
+    fail = [r for r in results if r["status"].startswith("FAIL")]
+    print(f"\n=== dry-run: {ok} OK, {skip} SKIP, {len(fail)} FAIL "
+          f"of {len(results)} cells in {time.monotonic() - t0:.1f} s ===")
+    for r in fail:
+        print("  FAIL:", r["name"], r["status"])
+    return 1 if fail else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

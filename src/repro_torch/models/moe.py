@@ -72,6 +72,14 @@ class Routing(NamedTuple):
     capacity: int
 
 
+def one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """`F.one_hot(idx, n)` (int64) as one comparison with arange(n): the
+    same values, by the same ops on every device. `F.one_hot` decomposes
+    by device (the CPU checks the range and scatters, CUDA scatters, meta
+    compares), so a step count (`analysis.counting`) would differ."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).long()
+
+
 def group_of(n_tokens: int, group_size: int = 256) -> int:
     """The routing group: the largest divisor of the batch's token count
     not above `group_size`. Inside a data-parallel step the count is the
@@ -106,7 +114,7 @@ def route(router: torch.Tensor, x, top_k: int,
     capacity = max(4, int(g * top_k * capacity_factor / E))
     # each pair's slot: the count of earlier pairs of its group, token-
     # major, that chose the same expert
-    flat = F.one_hot(idx, E).reshape(xt.shape[0], g * top_k, E)
+    flat = one_hot(idx, E).reshape(xt.shape[0], g * top_k, E)
     slot = (flat.cumsum(1) - 1).gather(
         -1, idx.reshape(xt.shape[0], g * top_k, 1)).reshape(idx.shape)
     return Routing(probs, gates, idx, slot, slot < capacity, capacity)
@@ -121,8 +129,8 @@ def moe_apply(params: MoE, x, *, top_k: int, capacity_factor: float = 1.25,
     E = params.router.shape[1]
     r = route(params.router, x, top_k, capacity_factor, group_size)
     xt = x.reshape(r.idx.shape[0], -1, d)                        # (G,g,d)
-    onehot = F.one_hot(r.idx, E)                                 # (G,g,k,E)
-    slot_oh = (F.one_hot(torch.where(r.kept, r.slot, 0), r.capacity)
+    onehot = one_hot(r.idx, E)                                   # (G,g,k,E)
+    slot_oh = (one_hot(torch.where(r.kept, r.slot, 0), r.capacity)
                * r.kept[..., None])                              # (G,g,k,C)
     disp = torch.einsum("sgke,sgkc->sgec", onehot.to(dt), slot_oh.to(dt))
     # the reference's three-operand einsum with the gates folded into the

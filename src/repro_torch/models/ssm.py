@@ -11,7 +11,10 @@ and four functions:
 The JAX package runs the sequence recurrences with `lax.scan` and
 `associative_scan`, never in a Pallas kernel; the plain PyTorch loops
 here are their port (no library call computes them). Recurrences run in
-fp32 whatever the model's dtype, as in JAX.
+fp32 whatever the model's dtype, as in JAX. The three token loops
+(`_selective_scan_fused`, `_mlstm_scan`, `_slstm_scan`) run through
+`analysis.counting.token_loop`: as they are, but for a step count on
+meta tensors, which probes them at a few tokens instead of running S.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.analysis.counting import token_loop
 from repro_torch.models.layers import init_array, param
 
 # ============================================================================
@@ -115,8 +119,9 @@ def _mamba_inputs(params: Mamba, x, d_state: int, conv_state=None):
 def mamba_apply(params: Mamba, x, d_state: int, chunk: int = 4096):
     """x: (B,S,d) -> (B,S,d)"""
     xi, z, dt, Bc, Cc, A, _ = _mamba_inputs(params, x, d_state)
-    y = _selective_scan_fused(dt, xi.float(), Bc.float(), Cc.float(), A,
-                              chunk)
+    y = token_loop("mamba_scan", _selective_scan_fused,
+                   (dt, xi.float(), Bc.float(), Cc.float(), A, chunk),
+                   seq_args=(0, 1, 2, 3))
     y = y + params.D * xi.float()
     y = y.to(x.dtype) * F.silu(z)
     return y @ params.out_proj.to(x.dtype)
@@ -300,7 +305,8 @@ def mlstm_apply(params: MLSTM, x, num_heads: int, chunk: int = 256):
     if S % min(chunk, S) == 0:
         h = _mlstm_chunkwise(q, k, v, i_pre, f_pre, chunk=chunk)
     else:
-        h = _mlstm_scan(q, k, v, i_pre, f_pre)
+        h = token_loop("mlstm_scan", _mlstm_scan, (q, k, v, i_pre, f_pre),
+                       seq_args=(0, 1, 2, 3, 4))
     return _mlstm_out(params, h, z, x)
 
 
@@ -387,18 +393,25 @@ def _slstm_out(params: SLSTM, h, x):
     return (F.gelu(a, approximate="tanh") * b) @ params.down.to(dt)
 
 
-def slstm_apply(params: SLSTM, x, num_heads: int):
-    """x: (B,S,d) -> (B,S,d), one token at a time."""
-    B, S, d = x.shape
-    pre, _ = _slstm_inputs(params, x)
-    r = params.r_zifo.float()
-    h, c, n, m = (torch.zeros((B, d), dtype=torch.float32, device=x.device)
-                  for _ in range(4))
+def _slstm_scan(pre, r, num_heads: int):
+    """The sLSTM recurrence over pre-activations pre (B,S,4d) fp32, one
+    token at a time from zero states: h (B,S,d) fp32."""
+    B, S, d4 = pre.shape
+    h, c, n, m = (torch.zeros((B, d4 // 4), dtype=torch.float32,
+                              device=pre.device) for _ in range(4))
     hs = []
     for t in range(S):
         h, c, n, m = _slstm_cell(r, pre[:, t], h, c, n, m, num_heads)
         hs.append(h)
-    return _slstm_out(params, torch.stack(hs, dim=1), x)
+    return torch.stack(hs, dim=1)
+
+
+def slstm_apply(params: SLSTM, x, num_heads: int):
+    """x: (B,S,d) -> (B,S,d), one token at a time."""
+    pre, _ = _slstm_inputs(params, x)
+    h = token_loop("slstm_scan", _slstm_scan,
+                   (pre, params.r_zifo.float(), num_heads), seq_args=(0,))
+    return _slstm_out(params, h, x)
 
 
 def slstm_init_state(batch: int, d_model: int, device=None) -> dict:

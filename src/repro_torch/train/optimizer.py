@@ -144,11 +144,15 @@ class Shards:
                     else x.mean(x_dim, keepdim=keepdim))
         s = x.sum() if x_dim is None else x.sum(x_dim, keepdim=keepdim)
         for g in groups:
-            dist.all_reduce(s, group=g)
+            self.reduce(s, g)
         n = 1
         for d in dims:
             n *= self.shape[d]
         return s / n
+
+    def reduce(self, s: torch.Tensor, group) -> None:
+        """Sums s over the ranks of `group`, in place."""
+        dist.all_reduce(s, group=group)
 
 
 @torch.no_grad()

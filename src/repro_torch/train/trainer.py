@@ -54,6 +54,7 @@ from repro_torch.train.optimizer import (
     Shards, global_norm_clip, lr_schedule, make_optimizer,
 )
 from repro_torch.utils.log import get_logger
+from repro_torch.utils.tree import tree_map
 
 log = get_logger("repro_torch.train")
 
@@ -82,13 +83,6 @@ def _share(batch: Any, shard: Optional[DataShard]) -> Any:
     if isinstance(batch, dict):
         return {k: _share(v, shard) for k, v in batch.items()}
     return batch[shard.rows(batch.shape[0])]
-
-
-def _tree_map(fn, tree, *others):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v, *(o[k] for o in others))
-                for k, v in tree.items()}
-    return fn(tree, *others)
 
 
 def _slot_placement(place: tuple, leaf: str, ndim: int) -> tuple:
@@ -196,14 +190,14 @@ class Trainer:
     def _wrap(self, local_state: dict) -> dict:
         """Local blocks of the optimizer state -> DTensors."""
         from torch.distributed.tensor import DTensor
-        return _tree_map(lambda t, pl: DTensor.from_local(
+        return tree_map(lambda t, pl: DTensor.from_local(
             t, self.mesh, pl, run_check=False), local_state, self._opt_place)
 
     def _full_opt_state(self) -> dict:
         """The optimizer state gathered whole (every rank enters)."""
         if self.mesh is None:
             return self.state.opt_state
-        return _tree_map(lambda t: t.full_tensor(), self.state.opt_state)
+        return tree_map(lambda t: t.full_tensor(), self.state.opt_state)
 
     # ------------------------------------------------------------------ step
     def _grads(self, batch: Any) -> Tuple[torch.Tensor, Dict, Dict]:
@@ -238,9 +232,9 @@ class Trainer:
             grads = [g * scale for g in grads]
         return loss, metrics, dict(zip(names, grads))
 
-    def step(self, batch: Any) -> Dict[str, float]:
-        """One step on the global batch."""
-        t0 = time.monotonic()
+    def advance(self, batch: Any) -> Dict[str, torch.Tensor]:
+        """One step on the global batch; its metrics stay tensors (no
+        host read, so it runs on meta tensors too)."""
         cfg = self.cfg
         loss, metrics, grads = self._grads(batch)
         if self._data is not None:
@@ -255,22 +249,33 @@ class Trainer:
         lr = lr_schedule(self.state.step, base_lr=cfg.learning_rate,
                          warmup_steps=cfg.warmup_steps,
                          total_steps=cfg.total_steps)
-        if self.mesh is None:
-            new_params, self.state.opt_state = self._opt_update(
-                grads, self.state.opt_state, self.state.params, lr=float(lr),
-                weight_decay=cfg.weight_decay)
-        else:
-            new_params = self._sharded_update(grads, float(lr))
+        new_params = self._update(grads, float(lr))
         with torch.no_grad():
             for name, p in self.state.params.items():
                 p.copy_(new_params[name])
         self.state.step += 1
-        metrics = dict(metrics, loss=loss, grad_norm=gnorm, lr=lr)
-        metrics = {k: float(v) for k, v in metrics.items()}
+        return dict(metrics, loss=loss, grad_norm=gnorm, lr=lr)
+
+    def step(self, batch: Any) -> Dict[str, float]:
+        """One step on the global batch (`advance`), its metrics read to
+        the host."""
+        t0 = time.monotonic()
+        metrics = {k: float(v) for k, v in self.advance(batch).items()}
         dt = time.monotonic() - t0
         self._step_times.append(dt)
         self._watchdog(dt)
         return metrics
+
+    def _update(self, grads: Dict[str, torch.Tensor], lr: float
+                ) -> Dict[str, torch.Tensor]:
+        """The optimizer on the clipped gradients; returns the full new
+        parameters."""
+        if self.mesh is not None:
+            return self._sharded_update(grads, lr)
+        new_params, self.state.opt_state = self._opt_update(
+            grads, self.state.opt_state, self.state.params, lr=lr,
+            weight_decay=self.cfg.weight_decay)
+        return new_params
 
     def _sharded_update(self, grads: Dict[str, torch.Tensor], lr: float
                         ) -> Dict[str, torch.Tensor]:
@@ -282,7 +287,7 @@ class Trainer:
         g_loc = {k: distribute(g, mesh, self._place[k]).to_local()
                  for k, g in grads.items()}
         p_loc = {k: v.to_local() for k, v in self.state.param_shards.items()}
-        o_loc = _tree_map(lambda t: t.to_local(), self.state.opt_state)
+        o_loc = tree_map(lambda t: t.to_local(), self.state.opt_state)
         kw = ({"shards": self._means} if self.cfg.optimizer == "adafactor"
               else {})
         new_p, new_o = self._opt_update(g_loc, o_loc, p_loc, lr=lr,
@@ -367,7 +372,7 @@ class Trainer:
                 self.state.param_shards = {
                     k: distribute(p.detach(), self.mesh, self._place[k])
                     for k, p in self.state.params.items()}
-            self.state.opt_state = _tree_map(
+            self.state.opt_state = tree_map(
                 lambda t, pl: distribute(t, self.mesh, pl), tree["opt"],
                 self._opt_place)
         self.state.step = step

@@ -1,6 +1,13 @@
-"""Helpers over trees of tensors (nested dicts), as `repro.utils.tree`."""
+"""Helpers over trees of tensors (nested dicts), as `repro.utils.tree`:
+its counts, maps and arithmetic (`tree_param_count`, `tree_size_bytes`,
+`tree_map_with_path_str`, `tree_cast`, `tree_zeros_like`, `tree_add`,
+`tree_scale`, `tree_norm`), and the port's own stack helpers for JAX's
+stacked-layer layout. A leaf is anything that is not a dict; the counts
+read any leaf with a `shape` (and `dtype`), as JAX's read arrays and
+shape structs."""
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
@@ -17,6 +24,68 @@ def tree_leaves(tree: Any) -> Iterator[torch.Tensor]:
             yield from tree_leaves(value)
     else:
         yield tree
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """fn over the leaves of `tree` (and the matching leaves of `rest`),
+    keeping the dicts' keys and order."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_param_count(tree: Any) -> int:
+    """Total number of scalar parameters in a tree (a leaf without a
+    shape counts 1)."""
+    return int(sum(math.prod(t.shape) if hasattr(t, "shape") else 1
+                   for t in tree_leaves(tree)))
+
+
+def _itemsize(dtype) -> int:
+    if isinstance(dtype, torch.dtype):
+        return torch.empty((), dtype=dtype).element_size()
+    return dtype.itemsize          # a numpy dtype
+
+
+def tree_size_bytes(tree: Any) -> int:
+    """Bytes of every leaf with a shape and a dtype (torch or numpy)."""
+    return int(sum(math.prod(t.shape) * _itemsize(t.dtype)
+                   for t in tree_leaves(tree)
+                   if hasattr(t, "shape") and hasattr(t, "dtype")))
+
+
+def tree_map_with_path_str(fn: Callable, tree: Any, *rest: Any,
+                           _path: str = "") -> Any:
+    """`tree_map` with fn(path, leaf, *rest_leaves), the path the
+    "/"-joined keys down to the leaf (JAX's `_path_str` of dict keys)."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path_str(
+            fn, v, *(r[k] for r in rest),
+            _path=f"{_path}/{k}" if _path else str(k))
+            for k, v in tree.items()}
+    return fn(_path, tree, *rest)
+
+
+def tree_cast(tree: Any, dtype: torch.dtype) -> Any:
+    """Floating leaves cast to `dtype`; others as they are."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x,
+                    tree)
+
+
+def tree_zeros_like(tree: Any, dtype: Optional[torch.dtype] = None) -> Any:
+    """Zeros of each leaf's shape, in `dtype` or the leaf's, on its
+    device."""
+    return tree_map(lambda x: torch.zeros(x.shape, dtype=dtype or x.dtype,
+                                          device=x.device), tree)
+
+
+def tree_add(a: Any, b: Any) -> Any:
+    return tree_map(torch.add, a, b)
+
+
+def tree_scale(tree: Any, s) -> Any:
+    return tree_map(lambda x: x * s, tree)
 
 
 def tree_norm(tree: Any) -> torch.Tensor:

@@ -1392,3 +1392,51 @@ def test_set_attention_bf16_attributes_match_the_plan(cuda, N, M, dh):
                                    bf16, N, M, dh)
         assert a["dynamic_smem"] == backward_plan(N, M, dh,
                                                   dtype)["shared_bytes"]
+
+
+def test_cuda_calls_never_take_the_meta_route(cuda):
+    """Every wrapper, forward and backward, on CUDA tensors launches its
+    kernel (its `launches` count rises by one a call), so it never takes
+    the meta route; under a step count each is one kernel record, as on
+    meta."""
+    from repro_torch.analysis.counting import StepCount
+    from repro_torch.kernels.wkv import wkv_backward
+    g = _gen(cuda, 7)
+
+    def t(*shape):
+        return torch.randn(shape, generator=g, device=cuda)
+
+    B, S, H, dh = 2, 5, 2, 8
+    r, k, v, w, dy = (t(B, S, H, dh) for _ in range(5))
+    beta = torch.rand((B, S, H), generator=g, device=cuda)
+    st, dsf, states = t(B, H, dh, dh), t(B, H, dh, dh), t(B, S, H, dh, dh)
+    q4, k4, v4, do4 = t(2, 2, 3, 8), t(2, 2, 4, 8), t(2, 2, 4, 8), \
+        t(2, 2, 3, 8)
+    bias = t(2, 4)
+    mask = torch.ones((2, 4), dtype=torch.bool, device=cuda)
+    fq, fk, fv = (x.bfloat16() for x in (t(2, 6, 4, 8), t(2, 6, 2, 8),
+                                         t(2, 6, 2, 8)))
+    fo, lse = flash_forward(fq, fk, fv, return_lse=True)
+    fdo = t(2, 6, 4, 8).bfloat16()
+    x, c = t(10, 8), t(3, 8)
+    calls = [(wkv, lambda: wkv(r, k, v, w, beta, st)),
+             (wkv_backward,
+              lambda: wkv_backward(r, k, v, w, beta, st, states, dy, dsf)),
+             (masked_set_attention,
+              lambda: masked_set_attention(q4, k4, v4, bias, mask)),
+             (set_attention_backward,
+              lambda: set_attention_backward(q4, k4, v4, bias, mask, do4)),
+             (flash_attention,
+              lambda: flash_forward(fq, fk, fv, return_lse=True)),
+             (flash_attention_backward,
+              lambda: flash_attention_backward(fq, fk, fv, fo, fdo, lse)),
+             (kmeans_assign, lambda: kmeans_assign(x, c)),
+             (kmeans_update, lambda: kmeans_update(x, c))]
+    for wrapper, fn in calls:
+        before = wrapper.launches
+        fn()
+        with StepCount() as count:
+            fn()
+        assert wrapper.launches == before + 2
+        assert len(count.records) == 1 and count.records[0].kind == "kernel"
+    torch.cuda.synchronize()
