@@ -4615,6 +4615,482 @@ def roofline_phase(dev) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 14
+# tensor-parallel compute of the attention LMs. (a) Each rank's share at
+# full width, computed alone on the card in turn (a "local" MeshComm, no
+# process group), the partials summed in rank order and held to the
+# unsharded layer at flash's bf16 bounds (`flash_err`); (b) qwen3-4b at
+# full width and TP_LAYERS layers on a one-rank NCCL mesh, bitwise the
+# unsharded model; (c) two gloo ranks on the one card over a (1, 2) mesh,
+# held to the unsharded card run, when gloo takes CUDA tensors for every
+# collective the path enters (GLOO_CUDA, found by `--probe-gloo`). Only
+# the shares of (a) and the mesh runs of (b) count, on the "tp" path.
+TP_MS = (2, 4)
+TP_BLOCK = (2, 2048)           # rows x tokens through a qwen3-4b block
+TP_MOE_TOKENS = (2, 512)       # through one MoE layer
+TP_LOSS_ROWS = 1024            # rows of the vocab-parallel loss
+TP_DECODE = (8, 32768)         # rows x cache positions of a decode step
+TP_LAYERS = 2
+TP_TRAIN = (2, 2048)
+TP_DECODE_STEPS = 4
+# gloo takes CUDA tensors for all-reduce (sum, max) and all-gather with
+# torch 2.11 on the H100 machine (as `--probe-gloo` reports)
+GLOO_CUDA = True
+
+
+def tp_launches() -> dict:
+    """Flash launches on the "tp" path: an attention share a rank of each
+    M in TP_MS (forward and backward), then 14b's training step (forward
+    and backward a layer) and prefill (a forward a layer)."""
+    shares = sum(TP_MS)
+    return {"flash_attention": shares + 2 * TP_LAYERS,
+            "flash_attention_backward": shares + TP_LAYERS}
+
+
+def _tp_block(dev):
+    """qwen3-4b's config and one of its blocks (seeded, bf16, on dev)."""
+    from repro_torch.config import get_arch
+    from repro_torch.models import transformer as tfm
+    cfg = get_arch("qwen3_4b")
+    blk = tfm.Block(torch.Generator().manual_seed(SEED), cfg, "attn",
+                    torch.bfloat16).to(dev)
+    return cfg, blk
+
+
+def _block_of(ref, p, M: int, r: int):
+    from repro_torch.distributed.sharding import local_block
+    return local_block(ref, p.tp_spec, {"model": M}, {"model": r})
+
+
+def _share_grads(what, fn, ref, x, dy, module, shares_of, leaves, M):
+    """Each rank's share of fn(module, x) in turn: its output and its
+    gradients (of x and of its blocks of `leaves`) for the cotangent dy;
+    the outputs and x's gradients summed in rank order and held to the
+    unsharded `ref` (out, dx, {leaf: grad}), each rank's leaf gradients
+    to its blocks of the unsharded ones."""
+    out_sum = dx_sum = None
+    for r in range(M):
+        share = shares_of(r)
+        out = fn(share, x)
+        params = [getattr(share, n) for n in leaves]
+        g = torch.autograd.grad(out, [x] + params, dy)
+        out_sum = out.float() if out_sum is None else out_sum + out.float()
+        dx_sum = g[0].float() if dx_sum is None else dx_sum + g[0].float()
+        for n, p, gp in zip(leaves, params, g[1:]):
+            flash_err(gp.float(), _block_of(ref[2][n], p, M, r).float(),
+                      False, f"14a {what} M {M} rank {r} d{n}")
+        del share, out, g
+    flash_err(out_sum, ref[0].float(), False, f"14a {what} M {M} output")
+    flash_err(dx_sum, ref[1].float(), False, f"14a {what} M {M} dx")
+
+
+def tp_block_shares(dev, gen, drive) -> dict:
+    """14a: a qwen3-4b attention layer (H 32, K 8, hd 128) and its MLP
+    (d_ff 9728) at TP_BLOCK, bf16, forward and backward, each rank's share
+    for M in TP_MS (the flash kernels at its local heads); returns the
+    local heads flash ran at and the flash times at them."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import attention as attn
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tfm
+    cfg, blk = _tp_block(dev)
+    B, S = TP_BLOCK
+    kws = tfm._attn_kwargs(cfg)
+    heads = []
+
+    def recorded(q, k, v, **kw):
+        heads.append((q.shape[2], k.shape[2]))
+        return flash_attention(q, k, v, **kw)
+
+    def attn_fn(m, x):
+        return attn.attn_apply(m, x, mask_mode="causal", **kws)
+
+    def mlp_fn(m, x):
+        return m(x)
+
+    cases = (("attention", attn_fn, blk.mixer, ("wq", "wk", "wv", "wo"),
+              attn.attn_specs(cfg.qkv_bias, cfg.qk_norm)),
+             ("MLP", mlp_fn, blk.mlp, ("wi", "wg", "wo"),
+              layers.mlp_specs(cfg.mlp_gated)))
+    for what, fn, module, leaves, specs in cases:
+        x = torch.randn((B, S, cfg.d_model), generator=gen, device=dev
+                        ).to(torch.bfloat16).requires_grad_()
+        out = fn(module, x)
+        # the cotangent of a unit readout of each token (N(0, 1/d)): the
+        # gradients then stay near the outputs' size, where the bf16
+        # bound's absolute part is a few ulps
+        dy = (torch.randn(out.shape, generator=gen, device=dev)
+              * cfg.d_model ** -0.5).to(torch.bfloat16)
+        g = torch.autograd.grad(out, [x] + [getattr(module, n)
+                                            for n in leaves], dy)
+        ref = (out.detach(), g[0], dict(zip(leaves, g[1:])))
+        del out, g
+        for M in TP_MS:
+            attn.flash_attention = recorded
+            try:
+                drive("tp", functools.partial(
+                    _share_grads, what, fn, ref, x, dy, module,
+                    lambda r: tfm.rank_shares(module, specs, cfg, M,
+                                              ranks=[r])[0], leaves, M))
+            finally:
+                attn.flash_attention = flash_attention
+        del ref, x, dy
+    want = [(cfg.num_heads // M, cfg.num_kv_heads // M)
+            for M in TP_MS for _ in range(M)]
+    require(heads == want, f"flash ran at heads {heads}, not {want}")
+    log(f"  14a flash at local (q, kv) heads {sorted(set(heads))}")
+    times = {}
+    for M in (1,) + TP_MS:
+        H, K, D = cfg.num_heads // M, cfg.num_kv_heads // M, 128
+        q, k, v = (torch.randn(s, generator=gen, device=dev).to(
+            torch.bfloat16).requires_grad_() for s in (
+            (B, S, H, D), (B, S, K, D), (B, S, K, D)))
+        fwd = cuda_ms(lambda: flash_attention(q, k, v, causal=True), 10)
+        o = flash_attention(q, k, v, causal=True)
+        do = torch.randn_like(o)
+        both = cuda_ms(lambda: torch.autograd.grad(
+            flash_attention(q, k, v, causal=True), (q, k, v), do), 10)
+        times[f"M{M}"] = {"heads": [H, K], "forward_ms": fwd,
+                          "forward_backward_ms": both}
+        log(f"  14a flash at {B} x {S}, {H} q / {K} kv heads (M {M}): "
+            f"forward {fwd:.4f} ms, forward + backward {both:.4f} ms")
+    del blk
+    return times
+
+
+def _tp_moe(arch: str, dev, gen):
+    """One MoE layer of `arch` at full width, bf16, its weights drawn on
+    the card, and its config. Each expert matrix is drawn at 1/sqrt(its
+    own fan-in) (d for wi and wg, d_ff for wo), so that a token's
+    activations stay near unit size as in a trained layer: the zoo's
+    init rule (`layers.init_array`, 1/sqrt(E)) puts grok-1's expert
+    outputs near 5e4, where one bf16 ulp (256) of a rank's partial sum
+    dwarfs the bound's absolute part. The router keeps its 0.02."""
+    from repro_torch.config import get_arch
+    from repro_torch.models import moe as moe_mod
+    cfg = get_arch(arch)
+    m = cfg.moe
+    with torch.device("meta"):
+        moe = moe_mod.MoE(torch.Generator(), cfg.d_model, m.d_ff,
+                          m.num_experts, torch.bfloat16, gated=cfg.mlp_gated)
+    moe = moe.to_empty(device=dev)
+    with torch.no_grad():
+        for name, p in moe.named_parameters():
+            scale = 0.02 if name == "router" else p.shape[1] ** -0.5
+            p.copy_(torch.randn(p.shape, generator=gen, device=dev) * scale)
+    return cfg, moe
+
+
+def tp_moe_shares(dev, gen, drive) -> dict:
+    """14a: a qwen3-moe MoE layer (128 experts, top 8; E/M experts a rank)
+    and a grok-1 one (8 experts, top 2; expert_ff on "model": every expert
+    on d_ff/M columns a rank, 9.7 GB of bf16 weights) at TP_MOE_TOKENS,
+    each rank's share in turn: the routing (so the aux) bitwise the
+    unsharded one, the outputs summed. Returns the units a rank took."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tfm
+    out = {}
+    for arch in ("qwen3_moe_235b_a22b", "grok_1_314b"):
+        cfg, moe = _tp_moe(arch, dev, gen)
+        kw = dict(top_k=cfg.moe.top_k, capacity_factor=cfg.moe.capacity_factor,
+                  gated=cfg.mlp_gated)
+        x = torch.randn(TP_MOE_TOKENS + (cfg.d_model,), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        with torch.no_grad():
+            ref, aux = moe_mod.moe_apply(moe, x, **kw)
+            for M in TP_MS:
+                def shares():
+                    total = None
+                    for r in range(M):
+                        share = tfm.rank_shares(
+                            moe, moe_mod.moe_specs(cfg.mlp_gated), cfg, M,
+                            ranks=[r])[0]
+                        _, aux_r = moe_mod.moe_apply(share, x, **kw)
+                        require(torch.equal(aux_r, aux),
+                                f"{arch} M {M} rank {r}: aux not bitwise")
+                        # the combine's fp32 partial sum, which ranks
+                        # reduce out before the cast to bf16
+                        part = share.tp.comm.parts[-1].reshape(ref.shape)
+                        total = part if total is None else total + part
+                        split, unit = share.tp.split, share.wi.shape
+                        del share, part
+                    return total, split, unit
+
+                total, split, unit = drive("tp", shares)
+                flash_err(total.to(torch.bfloat16).float(), ref.float(),
+                          False, f"14a {arch} MoE M {M} output")
+                out[f"{arch}_M{M}"] = {"experts": split.experts,
+                                       "expert_ff": split.expert_ff,
+                                       "wi_block": list(unit)}
+                log(f"  14a {arch} M {M}: a rank's wi block {list(unit)}")
+        del moe, x, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_loss_shares(dev, gen) -> None:
+    """14a: qwen3's vocab-parallel loss (V 151,936, d 2560, bf16) over
+    TP_LOSS_ROWS rows: each rank's partials (`transformer.vocab_partials`
+    of its vocab rows) combined in rank order, the loss and its gradients
+    (of the rows and of each rank's table rows) against `chunked_xent`."""
+    from repro_torch.config import get_arch
+    from repro_torch.models import transformer as tfm
+    cfg = get_arch("qwen3_4b")
+    V, d = cfg.vocab_size, cfg.d_model
+    table = (torch.randn((V, d), generator=gen, device=dev) * 0.02).to(
+        torch.bfloat16).requires_grad_()
+    h = torch.randn((1, TP_LOSS_ROWS, d), generator=gen, device=dev).to(
+        torch.bfloat16).requires_grad_()
+    tgt = torch.randint(0, V, (1, TP_LOSS_ROWS), generator=gen, device=dev)
+    valid = torch.ones((1, TP_LOSS_ROWS), device=dev)
+    ref = tfm.chunked_xent(h, table, tgt, valid)
+    dh, dt = torch.autograd.grad(ref, (h, table))
+    for M in TP_MS:
+        n = V // M
+        blocks = [table.detach()[r * n:(r + 1) * n].clone().requires_grad_()
+                  for r in range(M)]
+        parts = [tfm.vocab_partials(h, b, tgt, r * n)
+                 for r, b in enumerate(blocks)]
+        m, s, t, z = (torch.stack(p) for p in zip(*parts))
+        nll = tfm.combine_vocab(m, s, t, z, V, 0.0,
+                                max_fn=lambda a: a.amax(0),
+                                sum_fn=lambda a: a.sum(0))
+        loss = (nll * valid).sum() / valid.sum()
+        g = torch.autograd.grad(loss, [h] + blocks)
+        flash_err(loss.reshape(1), ref.detach().reshape(1), False,
+                  f"14a vocab loss M {M}")
+        flash_err(g[0].float(), dh.float(), False, f"14a vocab loss M {M} dh")
+        flash_err(torch.cat(g[1:]).float(), dt.float(), False,
+                  f"14a vocab loss M {M} dtable")
+    del table, h
+
+
+def tp_decode_shares(dev, gen) -> None:
+    """14a: a decode step's attention over a TP_DECODE cache split along
+    its positions (qwen3-4b's heads, bf16): each rank's partials
+    (`attention._partial_attention` of its slice) combined in rank order
+    against the unsharded step's attention (`_ref_attention`)."""
+    from repro_torch.models import attention as attn
+    B, T = TP_DECODE
+    H, K, D = 32, 8, 128
+    q = torch.randn((B, 1, H, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    ck, cv = (torch.randn((B, T, K, D), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    pos = torch.randint(0, T, (B,), generator=gen, device=dev)
+    pos[0] = T - 1
+    valid = torch.arange(T, device=dev)[None, :] <= pos[:, None]
+    ref = attn._ref_attention(q, ck, cv, torch.zeros((1, T), device=dev),
+                              kv_valid=valid)[:, 0]
+    for M in TP_MS:
+        n = T // M
+        parts = [attn._partial_attention(q, ck[:, r * n:(r + 1) * n],
+                                         cv[:, r * n:(r + 1) * n],
+                                         valid[:, r * n:(r + 1) * n])
+                 for r in range(M)]
+        m, l, o = (torch.stack(p) for p in zip(*parts))
+        got = attn.combine_partials(m, l, o, max_fn=lambda a: a.amax(0),
+                                    sum_fn=lambda a: a.sum(0))
+        flash_err(got.to(torch.bfloat16).float(), ref.float(), False,
+                  f"14a decode over {T} positions M {M}")
+
+
+def _tp_lm(dev, mesh=None):
+    """qwen3-4b at full width and TP_LAYERS layers (seed SEED), whole or on
+    `mesh`, with its Model, config and batches."""
+    from repro_torch.config import get_arch
+    from repro_torch.launch.train import lm_batch_fn
+    from repro_torch.models.model_zoo import build_model
+    cfg = dataclasses.replace(get_arch("qwen3_4b"), num_layers=TP_LAYERS)
+    model = build_model(cfg)
+    params = model.init(SEED, dev, mesh=mesh)
+    B, S = TP_TRAIN
+    return cfg, model, params, lm_batch_fn(cfg.vocab_size, B, S, cfg, dev)
+
+
+def _tp_runs(dev, mesh, ddir, tag):
+    """One AdamW step, a prefill and TP_DECODE_STEPS decode steps of
+    `_tp_lm` (on `mesh` or whole): (metrics, params after the step, as
+    checkpoints hold them, hidden, [logits], cache)."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.train import Trainer
+    cfg, model, params, batches = _tp_lm(dev, mesh)
+    tc = TrainConfig(learning_rate=1e-4, total_steps=10, warmup_steps=2,
+                     checkpoint_every=0, optimizer="adamw",
+                     checkpoint_dir=os.path.join(ddir, tag))
+    tr = Trainer(lambda p, b: model.loss(p, b), params, tc, mesh=mesh)
+    metrics = tr.step(batches(0))
+    after = {k: v.detach().clone()
+             for k, v in tr._live_tree()["params"].items()}
+    del tr
+    hidden, _ = model.prefill(params, {"tokens": batches(1)["tokens"]})
+    B = TP_TRAIN[0]
+    cache = model.init_cache(B, 64, torch.bfloat16, dev, params=params)
+    toks = batches(2)["tokens"]
+    logits = []
+    for t in range(TP_DECODE_STEPS):
+        lg, cache = model.decode_step(params, cache, toks[:, t:t + 1], t)
+        logits.append(lg)
+    return metrics, after, hidden, logits, cache
+
+
+def tp_mesh_world1(dev, drive) -> dict:
+    """14b: `_tp_runs` whole and on a one-rank NCCL mesh (FileStore under
+    the git-ignored build/chip_smoke_tp/), under deterministic
+    algorithms: bitwise equal. Returns the whole run's step metrics and
+    parameters, which 14c is held to."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    ddir = os.path.join(HERE, "build", "chip_smoke_tp")
+    shutil.rmtree(ddir, ignore_errors=True)
+    os.makedirs(ddir)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl" if dev.type == "cuda" else "gloo",
+        store=dist.FileStore(os.path.join(ddir, "store"), 1), rank=0,
+        world_size=1)
+    torch.use_deterministic_algorithms(True)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        plain = _tp_runs(dev, None, ddir, "plain")
+        sharded = drive("tp", lambda: _tp_runs(dev, mesh, ddir, "mesh"))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+    require(plain[0] == sharded[0], f"14b step metrics {sharded[0]} vs "
+            f"{plain[0]}")
+    for what, a, b in (("params", plain[1], sharded[1]),
+                       ("cache", plain[4], sharded[4])):
+        for k in a:
+            require(all(torch.equal(x, y) for x, y in zip(
+                a[k].values() if isinstance(a[k], dict) else [a[k]],
+                b[k].values() if isinstance(b[k], dict) else [b[k]])),
+                f"14b {what} {k} not bitwise the unsharded run")
+    require(torch.equal(plain[2], sharded[2]), "14b prefill not bitwise")
+    require(all(torch.equal(x, y) for x, y in zip(plain[3], sharded[3])),
+            "14b decode logits not bitwise")
+    log(f"  14b qwen3-4b ({TP_LAYERS} layers) on a one-rank NCCL mesh: step "
+        f"(loss {sharded[0]['loss']:.6f}), prefill {TP_TRAIN[0]} x "
+        f"{TP_TRAIN[1]} and {TP_DECODE_STEPS} decode steps bitwise the "
+        f"unsharded run")
+    return {"metrics": plain[0], "params": plain[1]}
+
+
+def _tp_gloo_rank(rank, store, out, kind):
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    import torch.distributed as dist
+    from repro_torch.distributed.collectives import MeshComm
+    if kind == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2)
+    try:
+        comm = MeshComm({"data": 1, "model": 2}, {"data": 0, "model": rank},
+                        "group", {"model": dist.group.WORLD})
+        dev = torch.device(kind)
+        from repro_torch.config import TrainConfig
+        from repro_torch.train import Trainer
+        cfg, model, params, batches = _tp_lm(dev, comm)
+        tc = TrainConfig(learning_rate=1e-4, total_steps=10, warmup_steps=2,
+                         checkpoint_every=0, optimizer="adamw",
+                         checkpoint_dir=os.path.join(os.path.dirname(out),
+                                                     "gloo"))
+        tr = Trainer(lambda p, b: model.loss(p, b), params, tc)
+        metrics = tr.step(batches(0))
+        full = tr._live_tree()["params"]
+        if rank == 0:
+            torch.save((metrics, {k: v.cpu() for k, v in full.items()}), out)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_gloo_two_ranks(plain: dict, dev) -> dict:
+    """14c: `_tp_runs`' step on two gloo ranks sharing the card over a
+    (1, 2) mesh, held to the unsharded card run at the bf16 bounds."""
+    import torch.multiprocessing as mp
+    ddir = os.path.join(HERE, "build", "chip_smoke_tp")
+    store, out = os.path.join(ddir, "gloo_store"), os.path.join(ddir,
+                                                                "gloo.pt")
+    t = time.perf_counter()
+    mp.start_processes(_tp_gloo_rank, args=(store, out, dev.type), nprocs=2,
+                       start_method="spawn")
+    metrics, full = torch.load(out, weights_only=False)
+    for k in ("loss", "grad_norm"):
+        flash_err(torch.tensor([metrics[k]]),
+                  torch.tensor([plain["metrics"][k]]), False, f"14c {k}")
+    for k, v in plain["params"].items():
+        flash_err(full[k].to(v.device).float(), v.float(), False,
+                  f"14c {k}")
+    return {"seconds": time.perf_counter() - t, "loss": metrics["loss"]}
+
+
+def tp_phase(dev, gen, drive) -> dict:
+    """Phase 14 (see the constants above); returns its record."""
+    t0 = time.perf_counter()
+    rec = {"flash_local_heads": tp_block_shares(dev, gen, drive)}
+    rec["moe"] = tp_moe_shares(dev, gen, drive)
+    tp_loss_shares(dev, gen)
+    tp_decode_shares(dev, gen)
+    rec["14a_s"] = time.perf_counter() - t0
+    t = time.perf_counter()
+    plain = tp_mesh_world1(dev, drive)
+    rec["14b_s"] = time.perf_counter() - t
+    rec["gloo_cuda"] = GLOO_CUDA
+    if GLOO_CUDA:
+        rec["14c"] = tp_gloo_two_ranks(plain, dev)
+    del plain
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"phase 14: {rec['seconds']:.1f} s (14a {rec['14a_s']:.1f}, 14b "
+        f"{rec['14b_s']:.1f})")
+    return rec
+
+
+def _probe_gloo_rank(rank, store, out):
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2)
+    seen = {}
+    x = torch.full((4,), float(rank + 1), device="cuda")
+    for name, fn in (
+            ("all_reduce_sum", lambda: dist.all_reduce(x.clone())),
+            ("all_reduce_max", lambda: dist.all_reduce(
+                x.clone(), op=dist.ReduceOp.MAX)),
+            ("all_gather", lambda: dist.all_gather(
+                [torch.empty_like(x) for _ in range(2)], x))):
+        try:
+            fn()
+            torch.cuda.synchronize()
+            seen[name] = "ok"
+        except Exception as e:      # the probe reports what gloo refuses
+            seen[name] = f"{type(e).__name__}: {str(e)[:160]}"
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(seen, f)
+    dist.destroy_process_group()
+
+
+def probe_gloo() -> int:
+    """`--probe-gloo`: which collectives of the tensor-parallel path gloo
+    takes on CUDA tensors, two ranks on the one card (sets GLOO_CUDA)."""
+    import torch.multiprocessing as mp
+    ddir = os.path.join(HERE, "build", "chip_smoke_tp")
+    shutil.rmtree(ddir, ignore_errors=True)
+    os.makedirs(ddir)
+    out = os.path.join(ddir, "probe.json")
+    mp.start_processes(_probe_gloo_rank, args=(os.path.join(ddir, "store"),
+                                               out), nprocs=2,
+                       start_method="spawn")
+    with open(out) as f:
+        seen = json.load(f)
+    log(json.dumps({"gloo_cuda": seen}))
+    return 0
+
+
 def time_kernels(root: str) -> dict:
     """Device and wrapper ms of wkv (the encoder's shape), of the
     set-attention backward (Stage-2 training's SAB and PMA shapes) and of
@@ -4858,6 +5334,13 @@ def main() -> int:
             return versus(sys.argv[2])
         print(json.dumps(time_kernels(sys.argv[2])), flush=True)
         return 0
+    if sys.argv[1:] == ["--probe-gloo"]:
+        if not torch.cuda.is_available():
+            print("chip_smoke: CUDA is not available", file=sys.stderr)
+            return 2
+        sys.path.insert(0, os.path.join(HERE, "src"))
+        return probe_gloo()
+    tp_only = sys.argv[1:] == ["--tp"]
     moe_only = sys.argv[1:] == ["--moe"]
     modal_only = sys.argv[1:] == ["--modal"]
     train_only = sys.argv[1:] == ["--lm-train"]
@@ -4915,6 +5398,31 @@ def main() -> int:
         else:
             check_flash_cases(dev, gen)
             modal_phase(dev, gen, count)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if tp_only:
+        # phase 14 alone, its path held to its flash launches
+        by_path = {}
+
+        def drive_tp(path, fn):
+            flash_attention.launches = flash_attention_backward.launches = 0
+            out = fn()
+            for name, w in (("flash_attention", flash_attention),
+                            ("flash_attention_backward",
+                             flash_attention_backward)):
+                by_path.setdefault(name, {}).setdefault(path, 0)
+                by_path[name][path] += w.launches
+            return out
+
+        rec = tp_phase(dev, gen, drive_tp)
+        got = {name: n["tp"] for name, n in by_path.items()}
+        log(f"tp launches: {got}")
+        require(got == tp_launches(), f"tp: launches {got}, not "
+                f"{tp_launches()}")
+        log(card)
+        log(json.dumps({"tp": dict(rec, launches_by_path=by_path)}))
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -5033,12 +5541,14 @@ def main() -> int:
     # 4. the serving path; `launches` is each kernel's count on its own
     # path, `by_path` its count on every path that launched it
     def drive(path, fn):
+        # a path driven more than once (phase 14's "tp") sums its calls
         for w in wrappers.values():
             w.launches = 0
         out = fn()
         for name, w in wrappers.items():
             if w.launches:
-                by_path.setdefault(name, {})[path] = w.launches
+                seen = by_path.setdefault(name, {})
+                seen[path] = seen.get(path, 0) + w.launches
         return out
 
     by_path = {}
@@ -5193,6 +5703,14 @@ def main() -> int:
     # 13. four steps counted on the card and on meta, then timed: their
     # roofline terms and mfu (launches here count on no path)
     log(json.dumps({"roofline": roofline_phase(dev)}))
+
+    # 14. tensor-parallel compute: each rank's share at full width, then a
+    # one-rank NCCL mesh bitwise the unsharded model (the "tp" path)
+    results["flash_attention"]["extra"]["tp"] = tp_phase(dev, gen, drive)
+    for name, want in tp_launches().items():
+        n = by_path.get(name, {}).get("tp", 0)
+        require(n == want, f"{name} launched {n} times on the tp path, "
+                f"not {want}")
 
     meta = {
         "wkv": ("src/repro_torch/csrc/wkv.cu",

@@ -14,7 +14,10 @@ three for the same shapes:
     allocations move none, as `hlo_parse` counts a fusion at its call
     site and skips bitcasts;
   * collective bytes by kind (all-reduce, all-gather, ...) of any c10d
-    op, and what a caller adds by `add_collective`;
+    op, and what a caller adds by `add_collective` (the tensor-parallel
+    compute's collectives with no process group, `distributed.
+    collectives.MeshComm` in mode "count": over the "model" axis under
+    "model all-reduce", "model all-gather", ...);
   * the peak of live tensor bytes: every storage an op makes is live
     from its making until it is freed (tensors made before the count are
     its baseline, not counted);

@@ -63,9 +63,9 @@ def main(argv=None) -> int:
     skip = sum(1 for r in rows if r["status"].startswith("SKIP"))
     fail = sum(1 for r in rows if r["status"].startswith("FAIL"))
     print(f"\n{ok} OK, {skip} SKIP, {fail} FAIL; derived from the "
-          f"{H100_SXM.name} data sheet's constants, not measured; ranks "
-          f"along \"model\" compute the same rows (no tensor-parallel "
-          f"compute yet)")
+          f"{H100_SXM.name} data sheet's constants, not measured; each "
+          f"cell's \"model_axis\" says whether its ranks along \"model\" "
+          f"compute their shares or the same rows")
     return 0
 
 

@@ -6,7 +6,9 @@
   collective term = collective bytes / the slowest link a mesh axis
                     crosses (an axis wider than a node's 8 cards, or the
                     "pod" axis, leaves the node: 50 GB/s, else NVLink's
-                    450 GB/s)
+                    450 GB/s); the records over "model" (the tensor-
+                    parallel compute's, "model all-reduce" etc.) on the
+                    model axis' own link, the others on the other axes'
 
 The quantities come from `repro_torch.analysis.counting` (a `StepCount`,
 or any object with `flops_fp32`, `flops_bf16`, `bytes` and
@@ -21,6 +23,11 @@ import dataclasses
 from typing import Dict, Mapping, Optional
 
 from repro_torch.analysis.costs import H100_SXM, Hardware
+
+
+# the kinds of the collectives over the "model" axis
+# (`distributed.collectives.MeshComm`)
+MODEL_PREFIX = "model "
 
 
 def link_for(axis_sizes: Optional[Mapping[str, int]],
@@ -54,15 +61,20 @@ class RooflineReport:
     # optimizer state, inputs) and the peak of what the step adds
     argument_bytes: float = 0.0
     temp_bytes: float = 0.0
-    # the link the collectives cross (bytes/s; 0: the hardware's NVLink)
+    # the link the collectives cross (bytes/s; 0: the hardware's NVLink),
+    # and the one those over "model" cross
     link_bw: float = 0.0
+    model_link_bw: float = 0.0
 
     def terms(self, hw: Hardware = H100_SXM) -> Dict[str, float]:
         t_compute = (self.flops_fp32_per_device / hw.peak_flops_fp32
                      + self.flops_bf16_per_device / hw.peak_flops)
         t_memory = self.bytes_per_device / hw.hbm_bw
-        t_collective = self.collective_bytes_per_device / (
-            self.link_bw or hw.link_bw)
+        on_model = sum(v for k, v in self.collective_breakdown.items()
+                       if k.startswith(MODEL_PREFIX))
+        t_collective = ((self.collective_bytes_per_device - on_model)
+                        / (self.link_bw or hw.link_bw)
+                        + on_model / (self.model_link_bw or hw.link_bw))
         dominant = max(("compute", t_compute), ("memory", t_memory),
                        ("collective", t_collective), key=lambda kv: kv[1])
         total_flops = self.flops_per_device * self.chips
@@ -98,6 +110,8 @@ def roofline_terms(count, *, arch: str, shape: str, mesh: str, chips: int,
     """The report of one device's `count` of a step on `chips` devices of
     a mesh with these axes."""
     coll = dict(count.collective_bytes)
+    sizes = dict(axis_sizes or {})
+    model = {"model": sizes.pop("model")} if "model" in sizes else None
     return RooflineReport(
         arch=arch, shape=shape, mesh=mesh, chips=chips,
         flops_per_device=count.flops_fp32 + count.flops_bf16,
@@ -107,7 +121,8 @@ def roofline_terms(count, *, arch: str, shape: str, mesh: str, chips: int,
         collective_bytes_per_device=sum(coll.values()),
         collective_breakdown=coll, model_flops=model_flops,
         argument_bytes=argument_bytes, temp_bytes=temp_bytes,
-        link_bw=link_for(axis_sizes, hw))
+        link_bw=link_for(sizes or axis_sizes, hw),
+        model_link_bw=link_for(model, hw))
 
 
 def format_report(rep: RooflineReport, hw: Hardware = H100_SXM) -> str:
@@ -123,7 +138,8 @@ def format_report(rep: RooflineReport, hw: Hardware = H100_SXM) -> str:
         f"({rep.bytes_per_device/1e9:.2f} GB/device)",
         f"  collective {t['collective_s']*1e3:12.3f} ms "
         f"({rep.collective_bytes_per_device/1e9:.3f} GB/device at "
-        f"{(rep.link_bw or hw.link_bw)/1e9:.0f} GB/s: "
+        f"{(rep.link_bw or hw.link_bw)/1e9:.0f} GB/s, \"model\" at "
+        f"{(rep.model_link_bw or hw.link_bw)/1e9:.0f} GB/s: "
         + ", ".join(f"{k}={v/1e9:.2f}GB"
                     for k, v in rep.collective_breakdown.items()) + ")",
         f"  dominant={t['dominant']}  roofline_fraction="

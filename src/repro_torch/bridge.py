@@ -62,8 +62,9 @@ from repro_torch.core.bbe import BBEConfig, BBEEncoder
 from repro_torch.config import ModelConfig, TrainConfig
 from repro_torch.core.signature import SignatureConfig, SignatureModel
 from repro_torch.device import Device, resolve_device
+from repro_torch.distributed.collectives import MeshComm
 from repro_torch.models.transformer import (
-    LM, period_of, stacked_key, unstack_lm_layers,
+    LM, period_of, shard_lm, stacked_key, unstack_lm_layers,
 )
 from repro_torch.train import checkpoint
 from repro_torch.train.stage2 import Stage2Engine
@@ -127,8 +128,11 @@ def _leaf_tensor(value: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(value))
 
 
-def lm_params_from_jax(tree: Dict[str, Any], cfg: ModelConfig) -> LM:
-    """An LM of the zoo (CPU) with the weights of a `lm_init` tree.
+def lm_params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, mesh=None,
+                       rules=None) -> LM:
+    """An LM of the zoo (CPU) with the weights of a `lm_init` tree; with
+    `mesh` (a DeviceMesh or a `MeshComm`), holding this rank's blocks of
+    them as `Model.init(mesh=, rules=)` places them.
 
     The stacked leaves are split by `transformer.stacked_key`, the rule
     the LM's checkpoint hooks stack by. Strict on names and shapes like
@@ -166,7 +170,10 @@ def lm_params_from_jax(tree: Dict[str, Any], cfg: ModelConfig) -> LM:
                             f"{cfg.param_dtype}; some leaves stay fp32)")
         loaded[key] = t
     model.load_state_dict(loaded, strict=True)
-    return model
+    if mesh is None:
+        return model
+    comm = mesh if isinstance(mesh, MeshComm) else MeshComm.of_mesh(mesh)
+    return shard_lm(model, comm, rules)
 
 
 def _named(model: nn.Module) -> Dict[str, torch.Tensor]:

@@ -20,7 +20,7 @@ the major axis first, as JAX splits `P(("pod", "data"))`.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -135,6 +135,100 @@ def prune_pspec(pspec: Spec, shape: Sequence[int], mesh) -> Spec:
     return tuple(parts)
 
 
+def pruned_spec(logical: Logical, shape: Sequence[int], mesh,
+                rules: Optional[Dict] = None) -> Spec:
+    """The spec a tensor of `shape` with logical axes `logical` is stored
+    by on `mesh`: `logical_to_pspec`, then `prune_pspec`."""
+    return prune_pspec(logical_to_pspec(logical, mesh, rules), shape, mesh)
+
+
+def axes_of(entry) -> Tuple[str, ...]:
+    """A spec entry (None, an axis name or a tuple of names) as a tuple."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def local_block(full: torch.Tensor, spec: Spec, mesh,
+                coords: Dict[str, int]) -> torch.Tensor:
+    """The block of `full` that the rank at `coords` ({axis: index})
+    holds when `full` is stored by `spec` on `mesh`: along each dim split
+    over axes (the first major, as DTensor and JAX split it), the
+    index-th of as many equal slices as those axes have ranks. A view."""
+    sizes = axis_sizes(mesh)
+    for d, entry in enumerate(spec):
+        axes = axes_of(entry)
+        if not axes:
+            continue
+        n, i = 1, 0
+        for a in axes:
+            n *= sizes[a]
+            i = i * sizes[a] + coords.get(a, 0)
+        if full.shape[d] % n:
+            raise ValueError(f"dim {d} ({full.shape[d]}) does not split "
+                             f"{n} ways over {axes}")
+        k = full.shape[d] // n
+        full = full.narrow(d, i * k, k)
+    return full
+
+
+class ComputeSplit(NamedTuple):
+    """Which units of an arch's attention LM a rank computes only its
+    share of, by whole units over the "model" axis of `M` ranks: query
+    heads (`heads`; `kv_heads` too when M divides the kv heads), MLP
+    columns (`ff`), experts (`experts`) or every expert's columns
+    (`expert_ff`), and the vocab rows of the head (`vocab`) and of the
+    input table (`in_vocab`). False where the rules keep the unit off
+    "model", where the stored spec does not split it (prune_pspec), or
+    where M does not divide the unit count: those are computed whole on
+    every rank of "model". All False at M = 1."""
+    M: int
+    heads: bool
+    kv_heads: bool
+    ff: bool
+    experts: bool
+    expert_ff: bool
+    vocab: bool
+    in_vocab: bool
+
+
+def compute_split(cfg, mesh, rules: Optional[Dict] = None) -> ComputeSplit:
+    """The `ComputeSplit` of `cfg` on `mesh` under `rules` (the arch's
+    overrides applied by the caller, `arch_rules`). The specs split the
+    flattened projection columns, not heads: wq's H*hd columns are stored
+    split whenever M divides them (smollm: 9 heads of 64 at M 2, 4.5 heads
+    a rank), but the compute splits heads only where M divides H;
+    otherwise a rank gathers the projection over "model" and computes
+    every head. The same holds for the kv heads (qwen3-moe's 4 and
+    paligemma's 1 at M 16)."""
+    M = axis_sizes(mesh).get("model", 1)
+    if M == 1:
+        return ComputeSplit(1, *(False,) * 7)
+
+    def on_model(logical, shape, dim):
+        spec = pruned_spec(logical, shape, mesh, rules)
+        return "model" in axes_of(spec[dim])
+
+    d, H, K = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.resolved_head_dim
+    heads = on_model(("embed", "heads"), (d, H * hd), 1) and H % M == 0
+    kv = heads and on_model(("embed", "kv_heads"), (d, K * hd), 1) \
+        and K % M == 0
+    ff = cfg.d_ff > 0 and on_model(("embed", "ff"), (d, cfg.d_ff), 1)
+    experts = expert_ff = False
+    if cfg.moe is not None:
+        shape = (cfg.moe.num_experts, d, cfg.moe.d_ff)
+        logical = ("expert", "embed", "expert_ff")
+        experts = on_model(logical, shape, 0)
+        expert_ff = on_model(logical, shape, 2)
+    V = cfg.vocab_size
+    vocab = on_model(("vocab", "embed"), (V, d), 0)
+    in_vocab = vocab if cfg.tie_embeddings else on_model(
+        ("in_vocab", "embed"), (V, d), 0)
+    return ComputeSplit(M, heads, kv, ff, experts, expert_ff, vocab,
+                        in_vocab)
+
+
 def is_logical(x) -> bool:
     """A leaf of a spec tree: a tuple of axis names / None."""
     return isinstance(x, tuple) and all(isinstance(e, (str, type(None)))
@@ -230,9 +324,12 @@ def get_logical_mesh():
 def with_sharding_constraint(x, logical: Logical,
                              rules: Optional[Dict] = None):
     """Activation sharding constraint by logical axis names. The identity
-    when no mesh is installed and on a rank-local tensor (the port's
-    compute is rank-local); a DTensor is redistributed to the spec's
-    placements."""
+    when no mesh is installed and on a rank-local tensor: the port's
+    compute is rank-local, and where GSPMD would move an activation to
+    meet a constraint, the tensor-parallel layers call their collectives
+    themselves (`collectives.ModelShard`: copy-in, reduce-out, gathers),
+    so there is nothing left for a constraint to do. A DTensor is
+    redistributed to the spec's placements."""
     from torch.distributed.tensor import DTensor
     mesh = _ACTIVE["mesh"]
     if mesh is None or not isinstance(x, DTensor):

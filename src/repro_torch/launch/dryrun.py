@@ -19,17 +19,27 @@ For every (architecture x input shape x mesh) cell:
      artifacts/dryrun_torch/<arch>_<shape>_<mesh>.json, which
      `python -m repro_torch.analysis.report` renders.
 
-The port computes as its `Trainer` does (`train/trainer.py`): every rank
-runs the forward and backward on its rows with the FULL parameters,
-gathered after each update, and ranks along "model" compute the same
-rows (tensor-parallel compute is not ported). So a device holds its
-parameter and optimizer-state shards, the full parameters, its inputs
-and the step's activations; its collectives are the Trainer's: one
-all-reduce of each gradient leaf over the data axes and one gather of
-each sharded parameter leaf, reckoned from the placements (nothing runs
-across ranks here). Prefill and decode hold the full parameters and the
-full-sequence caches of their rows (no sequence-parallel attention);
-the cache's placement by the specs is reported beside it.
+The attention LMs (`transformer.tensor_parallel_ok`: dense, MoE,
+encoder-decoder, prefix-LM) run as one rank of the mesh runs them: the
+model is built as this device's blocks (`transformer.shard_lm` over a
+`MeshComm` in "count" mode, rank 0 of every axis) and the step is the
+`Trainer`'s tensor-parallel route (its heads, ff columns, experts or
+expert columns and vocab rows on "model", FSDP's gathers on "data"),
+`Model.prefill` and `Model.decode_step` on the global batch, whose rows
+the model splits over the data axes. Every collective the step enters
+is a record of the count (`collectives.MeshComm`: over "model" under
+"model all-reduce" etc.), so a device holds its parameter blocks, its
+optimizer state, its rows and cache, and the step's counted peak.
+
+The other archs (a recurrent mixer: xlstm, jamba) keep the replicated
+route (`PlacedTrainer`): every rank runs forward and backward on its rows
+with the FULL parameters, gathered after each update, and ranks along
+"model" compute the same rows, so a device holds its parameter and
+optimizer-state shards and the full parameters; their collectives are
+reckoned from the placements (one all-reduce of each gradient leaf over
+the data axes, one gather of each sharded parameter leaf), and their
+prefill and decode hold the full parameters and the full-sequence
+caches of their rows.
 
 Everything in a report is derived from the H100 data sheet's constants
 (`analysis.costs.H100_SXM`) and the counted work, not measured. JAX's
@@ -61,6 +71,7 @@ from repro_torch.analysis.roofline import format_report, roofline_terms
 from repro_torch.config import (
     SHAPES, MeshConfig, TrainConfig, canon, get_arch,
 )
+from repro_torch.distributed.collectives import MeshComm
 from repro_torch.distributed.sharding import (
     LOGICAL_RULES, arch_rules, axis_sizes, make_shardings,
 )
@@ -82,7 +93,11 @@ ASSIGNED = [
 ]
 
 MODEL_AXIS_NOTE = ("ranks along \"model\" compute the same rows with the "
-                   "full parameters: tensor-parallel compute is not ported")
+                   "full parameters: tensor-parallel compute is not ported "
+                   "for recurrent mixers")
+TENSOR_PARALLEL_NOTE = ("tensor-parallel: each rank computes its heads, ff "
+                        "columns, experts and vocab rows on \"model\" from "
+                        "its blocks")
 
 
 def policy_for(model) -> Dict[str, Any]:
@@ -256,6 +271,9 @@ def count_cell(arch_id: str, shape_name: str, multi_pod: bool
     with torch.device("meta"):
         params = tfm.LM(cfg)
     n_params = sum(p.numel() for p in params.parameters())
+    if tfm.tensor_parallel_ok(cfg):
+        return _count_sharded(model, params, shape, mesh_cfg, rules, base,
+                              n_params, t0)
     policy = policy_for(model)
     named = {n.replace(".", "/"): p for n, p in params.named_parameters()}
     param_specs = model.param_specs()
@@ -326,6 +344,60 @@ def count_cell(arch_id: str, shape_name: str, multi_pod: bool
                 model_axis=MODEL_AXIS_NOTE, count_s=seconds, report=rep)
 
 
+def _count_sharded(model, params, shape, mesh_cfg, rules, base, n_params,
+                   t0) -> Dict[str, Any]:
+    """`count_cell` of an attention LM on its tensor-parallel route: the
+    step on this device's blocks, every collective counted as it is
+    entered."""
+    cfg = model.cfg
+    sizes = axis_sizes(mesh_cfg)
+    comm = MeshComm(sizes, {a: 0 for a in sizes}, "count")
+    tfm.shard_lm(params, comm, rules)
+    policy = policy_for(model)
+    inputs = model.input_specs(shape)
+    in_place = make_shardings(batch_specs(model, shape), mesh_cfg, rules,
+                              shapes=inputs)
+    rows = local_shape(inputs["tokens"].shape, in_place["tokens"], sizes)[0]
+    named = {n.replace(".", "/"): p for n, p in params.named_parameters()}
+    held: Dict[str, float] = {"params": tree_size_bytes(named)}
+    if shape.kind == "decode":
+        cache = tfm.init_cache(cfg, shape.global_batch, shape.seq_len,
+                               torch.bfloat16, torch.device("meta"),
+                               tp=params.tp)
+        held["cache"] = tree_size_bytes(cache)
+    else:
+        held["inputs"] = tree_size_bytes({
+            k: _meta(local_shape(v.shape, in_place[k], sizes), v.dtype)
+            for k, v in inputs.items()})
+    if shape.kind == "train":
+        trainer = make_train_step(model, params, policy, TrainConfig())
+        held["opt"] = tree_size_bytes(trainer.state.opt_state)
+    with StepCount() as count:
+        if shape.kind == "train":
+            trainer.advance(inputs)
+        elif shape.kind == "prefill":
+            model.prefill(params, inputs)
+        else:
+            model.decode_step(params, cache, inputs["tokens"],
+                              _meta((), torch.int32))
+    seconds = time.monotonic() - t0
+    tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode"
+                                   else 1)
+    n_active = model.active_param_count()
+    per_token = 6 * n_active if shape.kind == "train" else 2 * n_active
+    rep = roofline_terms(
+        count, arch=base["arch"], shape=base["shape"], mesh=base["mesh"],
+        chips=mesh_cfg.num_devices, model_flops=float(per_token) * tokens,
+        argument_bytes=float(sum(held.values())),
+        temp_bytes=float(count.peak_bytes), axis_sizes=sizes)
+    return dict(base, status="OK", chips=mesh_cfg.num_devices,
+                policy=policy, params=n_params, active_params=n_active,
+                rows_per_device=rows, held_bytes=held,
+                count=count.summary(), roofline=rep.to_json(),
+                model_axis=TENSOR_PARALLEL_NOTE, count_s=seconds,
+                report=rep)
+
+
 def run_cell(arch_id: str, shape_name: str, multi_pod: bool,
              save: bool = True) -> Dict[str, Any]:
     """`count_cell`, printed and written to ARTIFACT_DIR; a cell that
@@ -348,7 +420,7 @@ def run_cell(arch_id: str, shape_name: str, multi_pod: bool,
         print(format_report(rep))
         print(f"  counted in {art['count_s']:.1f}s  per-device bytes="
               f"{held / 1e9:.2f}GB ({'FITS' if fits else 'OVER'} "
-              f"{H100_SXM.hbm_bytes / 1e9:.0f}GB); {MODEL_AXIS_NOTE}")
+              f"{H100_SXM.hbm_bytes / 1e9:.0f}GB); {art['model_axis']}")
     if save:
         os.makedirs(ARTIFACT_DIR, exist_ok=True)
         with open(os.path.join(ARTIFACT_DIR, name + ".json"), "w") as f:

@@ -33,6 +33,7 @@ import torch
 from repro_torch.config import TrainConfig, get_arch, scaled_down
 from repro_torch.data.isa import stable_hash
 from repro_torch.device import Device, resolve_device
+from repro_torch.distributed.sharding import arch_rules
 from repro_torch.models.model_zoo import build_model
 from repro_torch.train.trainer import Trainer
 from repro_torch.utils.log import get_logger
@@ -79,14 +80,17 @@ def make_run(arch: str, preset: str = "smoke", stage: str = "lm",
              steps: int = 50, batch: int = 8, seq: int = 64,
              lr: float = 3e-4, checkpoint_dir: str = DEFAULT_CHECKPOINT_DIR,
              checkpoint_every: int = 25, device: Device = "cuda",
-             remat: str = "none") -> Run:
+             remat: str = "none", mesh=None, rules=None) -> Run:
     """The Trainer and batches of `main`'s flags: `stage` "lm" trains the
     zoo arch `arch` (its `scaled_down` config under preset "smoke")
     through `Model.loss` under the remat policy `remat` ("none", "dots" or
     "full"), with weights drawn from seed 0 as in JAX; "pretrain" and
     "triplet" train the paper's Stage-1 encoder (the default BBEConfig
     under "full", a tiny one under "smoke") on a SyntheticBinaryCorp of
-    500 functions."""
+    500 functions. With `mesh` (a DeviceMesh; `rules` default
+    `sharding.LOGICAL_RULES`) the LM is built as this rank's blocks where
+    its blocks are all attention (`Model.init(mesh=)`: the Trainer's
+    tensor-parallel route), else whole (its replicated route)."""
     dev = resolve_device(device)
     tc = TrainConfig(learning_rate=lr, total_steps=steps,
                      warmup_steps=max(2, steps // 20),
@@ -97,12 +101,13 @@ def make_run(arch: str, preset: str = "smoke", stage: str = "lm",
         if preset == "smoke":
             cfg = scaled_down(cfg)
         model = build_model(cfg)
-        params = model.init(device=dev)
+        params = model.init(device=dev, mesh=mesh, rules=rules)
 
         def loss_fn(p, b):
             return model.loss(p, b, remat=tc.remat)
 
-        return Run(Trainer(loss_fn, params, tc),
+        return Run(Trainer(loss_fn, params, tc, mesh=mesh,
+                           rules=arch_rules(cfg, rules)),
                    lm_batch_fn(cfg.vocab_size, batch, seq, cfg, dev), cfg)
     if stage not in ("pretrain", "triplet"):
         raise ValueError(f"stage {stage!r}: lm, pretrain or triplet")
@@ -119,9 +124,11 @@ def make_run(arch: str, preset: str = "smoke", stage: str = "lm",
     if stage == "pretrain":
         loader = BatchLoader(lambda s: {"tokens": corp.pretrain_batch(
             s, batch)["tokens"]}, device=dev)
-        return Run(Trainer(pretrain_loss, encoder, tc), loader, bcfg)
+        return Run(Trainer(pretrain_loss, encoder, tc, mesh=mesh,
+                           rules=rules), loader, bcfg)
     loader = BatchLoader(lambda s: corp.triplet_batch(s, batch), device=dev)
-    return Run(Trainer(finetune_triplet_loss, encoder, tc), loader, bcfg)
+    return Run(Trainer(finetune_triplet_loss, encoder, tc, mesh=mesh,
+                       rules=rules), loader, bcfg)
 
 
 def train(run: Run, steps: int) -> Dict[str, float]:

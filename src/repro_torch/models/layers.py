@@ -8,6 +8,16 @@ JAX code's dtype casts and promotions (`matmul`). Weights keep the JAX package's
 of the JAX parameter trees, so `repro_torch.bridge` maps a tree onto a
 module by name alone. Initial values are drawn from a CPU
 `torch.Generator`, so one seed gives the same weights on every device.
+
+A zoo LM sharded for tensor-parallel compute (`transformer.shard_lm`)
+holds a rank's blocks of its parameters, and each module carries the
+rank's `collectives.ModelShard` as `tp`: `fetch` then gathers what a
+weight's data axes split (FSDP) just before the weight is used, the MLP
+computes its share of the ff columns (`wi`/`wg` by columns, `wo` by
+rows, then reduce-out), `vocab_embed` looks up the rank's vocab rows
+(other rows give 0, then reduce-out) and `vocab_logits` projects onto
+them and gathers the logits whole. Without `tp` every function is the
+unsharded one.
 """
 from __future__ import annotations
 
@@ -31,6 +41,17 @@ def init_array(gen: torch.Generator, shape: Sequence[int],
 def torch_dtype(name: str) -> torch.dtype:
     """"bfloat16" / "float32" (a config's dtype field) -> torch dtype."""
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+
+
+def fetch(module: nn.Module, name: str, local: bool = False,
+          whole: Optional[bool] = None):
+    """module's parameter `name` as the compute uses it: the parameter
+    itself unsharded; under a ModelShard (`module.tp`) as
+    `ModelShard.weight(p, local, whole)` gives it (FSDP's gather, and
+    for a rank's share of the compute, `local`, its block)."""
+    p = getattr(module, name)
+    tp = getattr(module, "tp", None)
+    return p if tp is None else tp.weight(p, local=local, whole=whole)
 
 
 def param(value: torch.Tensor,
@@ -129,7 +150,7 @@ class RMSNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x):
-        return rmsnorm(x, self.scale, self.eps)
+        return rmsnorm(x, fetch(self, "scale"), self.eps)
 
 
 class LayerNorm(nn.Module):
@@ -139,7 +160,7 @@ class LayerNorm(nn.Module):
         self.bias = param(torch.zeros(d), dtype)
 
     def forward(self, x):
-        return layernorm(x, self.scale, self.bias)
+        return layernorm(x, fetch(self, "scale"), fetch(self, "bias"))
 
 
 # ----------------------------------------------------------------------------
@@ -165,6 +186,34 @@ def embed(table, ids):
 def unembed(table, x):
     """Logits projection x @ table^T, in x's dtype."""
     return x @ table.to(x.dtype).T
+
+
+def vocab_embed(module: Embed, ids, vocab: int, split: bool):
+    """`embed` of module's table; under its ModelShard with `split`, a
+    vocab-parallel lookup: ids clamped into [0, vocab) as `embed` clamps
+    them, the rank's rows looked up, the others 0, then reduce-out."""
+    tp = getattr(module, "tp", None)
+    table = fetch(module, "table", local=split)
+    if tp is None or not split:
+        return embed(table, ids)
+    n = table.shape[0]
+    local = ids.clamp(0, vocab - 1) - tp.rank * n
+    inside = ((local >= 0) & (local < n))[..., None]
+    rows = torch.where(inside, table[local.clamp(0, n - 1)],
+                       torch.zeros((), dtype=table.dtype, device=table.device))
+    return tp.reduce_out(rows)
+
+
+def vocab_logits(module: Embed, x, split: bool):
+    """`unembed(module.table, x)`; under its ModelShard with `split`, the
+    logits of the rank's vocab rows (x entering by copy-in), gathered
+    over "model" whole ("split" backward: every rank goes on with the
+    same logits)."""
+    tp = getattr(module, "tp", None)
+    table = fetch(module, "table", local=split)
+    if tp is None or not split:
+        return unembed(table, x)
+    return tp.gather_model(unembed(table, tp.copy_in(x)), -1, "split")
 
 
 def rope(x, positions, theta: float = 10000.0):
@@ -200,14 +249,26 @@ class MLP(nn.Module):
             self.bo = param(torch.zeros(d_model), dtype)
 
     def forward(self, x):
+        tp = getattr(self, "tp", None)
+        split = tp is not None and tp.split.ff
+        if split:               # this rank's ff columns
+            x = tp.copy_in(x)
         dt = x.dtype
+
+        def w(name):
+            return fetch(self, name, local=split).to(dt)
+
         if self.gated:
-            g = x @ self.wg.to(dt)
-            h = (g * torch.sigmoid(g)) * (x @ self.wi.to(dt))  # silu(g) * up
-            return h @ self.wo.to(dt)
-        h = torch.nn.functional.gelu(x @ self.wi.to(dt) + self.bi.to(dt),
+            g = x @ w("wg")
+            h = (g * torch.sigmoid(g)) * (x @ w("wi"))  # silu(g) * up
+            out = h @ w("wo")
+            return tp.reduce_out(out) if split else out
+        h = torch.nn.functional.gelu(x @ w("wi") + w("bi"),
                                      approximate="tanh")
-        return h @ self.wo.to(dt) + self.bo.to(dt)
+        out = h @ w("wo")
+        if split:
+            out = tp.reduce_out(out)
+        return out + fetch(self, "bo").to(dt)
 
 
 # ---------------------------------------------------------------------------

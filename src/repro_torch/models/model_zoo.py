@@ -18,6 +18,13 @@ expert products are plain PyTorch, as they are plain JAX in the
 reference. `loss` is the training objective (`transformer.lm_loss`),
 run with autograd on: on CUDA each attention layer's flash call saves
 its log-sum-exp and its backward launches the flash backward kernel.
+On a mesh (`init(mesh=, rules=)`) an attention LM is built as one
+rank's blocks (`transformer.shard_lm`): `loss`, `prefill` and
+`decode_step` compute that rank's share and take and return whole
+batches (rows split over the data axes where they divide, results
+gathered; logits whole, as JAX's out_shardings=None replicates them),
+and `init_cache(params=)` gives the rank's cache. An arch with a
+recurrent mixer is built whole there (the Trainer's replicated route).
 `param_specs` and `cache_specs` are the logical-axis specs the Trainer
 and `repro_torch.distributed.sharding` read; `input_specs` describes a
 workload's inputs by meta tensors (shapes and dtypes, no storage).
@@ -31,6 +38,7 @@ import torch
 
 from repro_torch.config import ModelConfig, ShapeConfig
 from repro_torch.device import Device, resolve_device
+from repro_torch.distributed.collectives import MeshComm, active_shard
 from repro_torch.models import transformer as tfm
 
 
@@ -39,12 +47,20 @@ class Model:
     cfg: ModelConfig
 
     # -------------------------------------------------------------- params
-    def init(self, seed: int = 0, device: Device = "cuda") -> tfm.LM:
+    def init(self, seed: int = 0, device: Device = "cuda", mesh=None,
+             rules: Optional[Dict] = None) -> tfm.LM:
         """The model's parameters, drawn on the CPU from
         `torch.Generator(seed)` (so one seed gives the same weights on
         every device), each block moved to `device` as soon as it is
-        drawn."""
-        return tfm.LM(self.cfg, seed, device=resolve_device(device))
+        drawn. With `mesh` (a DeviceMesh, or a `MeshComm`) and an arch
+        `transformer.tensor_parallel_ok` takes, the module holds this
+        rank's blocks of them, placed by `rules` (default
+        `sharding.LOGICAL_RULES`, the arch's overrides on top)."""
+        lm = tfm.LM(self.cfg, seed, device=resolve_device(device))
+        if mesh is None or not tfm.tensor_parallel_ok(self.cfg):
+            return lm
+        comm = mesh if isinstance(mesh, MeshComm) else MeshComm.of_mesh(mesh)
+        return tfm.shard_lm(lm, comm, rules)
 
     def param_specs(self) -> Dict[str, tuple]:
         """{"/"-joined parameter name: logical axes}, read from the config
@@ -69,12 +85,15 @@ class Model:
     def init_cache(self, batch: int, max_seq: int,
                    dtype: torch.dtype = torch.bfloat16,
                    device: Device = "cuda",
-                   enc_len: Optional[int] = None) -> Dict[str, Any]:
+                   enc_len: Optional[int] = None,
+                   params: Optional[tfm.LM] = None) -> Dict[str, Any]:
         """Zeroed decode cache: KV (and an encoder-decoder's cross KV of
         `enc_len` positions) in `dtype`, recurrent states in fp32; its
-        specs are `cache_specs`."""
+        specs are `cache_specs`. For a sharded `params`, the rank's block
+        of it."""
         return tfm.init_cache(self.cfg, batch, max_seq, dtype,
-                              resolve_device(device), enc_len=enc_len)
+                              resolve_device(device), enc_len=enc_len,
+                              tp=getattr(params, "tp", None))
 
     def decode_step(self, params: tfm.LM, cache, tokens, pos,
                     write: Optional[torch.Tensor] = None):
@@ -82,8 +101,20 @@ class Model:
         updated in place (see `transformer.lm_decode_step`)."""
         with torch.inference_mode():
             tokens = torch.as_tensor(tokens, device=_device(params))
-            return tfm.lm_decode_step(params, self.cfg, cache, tokens, pos,
-                                      write)
+            shard = _rows(params, tokens.shape[0])
+            if shard is None:
+                return tfm.lm_decode_step(params, self.cfg, cache, tokens,
+                                          pos, write)
+            rows = shard.rows(tokens.shape[0])
+            pos = torch.as_tensor(pos, device=tokens.device)
+            if pos.dim():
+                pos = pos[rows]
+            if write is not None:
+                write = write[rows]
+            with active_shard(shard):
+                logits, cache = tfm.lm_decode_step(
+                    params, self.cfg, cache, tokens[rows], pos, write)
+            return shard.all_gather(logits), cache
 
     def prefill(self, params: tfm.LM, batch: Dict[str, Any]):
         """Full-sequence forward returning (hidden (B,S,d), aux): aux is
@@ -94,18 +125,24 @@ class Model:
         + S, d))."""
         with torch.inference_mode():
             dev = _device(params)
-            tokens = torch.as_tensor(batch["tokens"], device=dev)
-            enc_memory = None
-            if self.cfg.encoder_layers:
-                enc_memory = tfm.encoder_apply(
-                    params, self.cfg,
-                    torch.as_tensor(batch["frames"], device=dev))
-            patches = batch.get("patches")
-            if patches is not None:
-                patches = torch.as_tensor(patches, device=dev)
-            return tfm.lm_apply(params, self.cfg, tokens,
-                                prefix_embeds=patches, enc_memory=enc_memory,
-                                return_hidden=True)
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in batch.items()}
+            shard = _rows(params, batch["tokens"].shape[0])
+            if shard is not None:
+                batch = {k: v[shard.rows(v.shape[0])]
+                         for k, v in batch.items()}
+            with active_shard(shard):
+                enc_memory = None
+                if self.cfg.encoder_layers:
+                    enc_memory = tfm.encoder_apply(params, self.cfg,
+                                                   batch["frames"])
+                hidden, aux = tfm.lm_apply(
+                    params, self.cfg, batch["tokens"],
+                    prefix_embeds=batch.get("patches"),
+                    enc_memory=enc_memory, return_hidden=True)
+            if shard is not None:
+                hidden = shard.all_gather(hidden)
+            return hidden, aux
 
     # --------------------------------------------------------------- shapes
     def supports_shape(self, shape: ShapeConfig) -> bool:
@@ -177,6 +214,13 @@ class Model:
                                                     else 2)
         return total - n_moe_layers * (moe.num_experts - moe.top_k) * \
             per_expert
+
+
+def _rows(params: tfm.LM, n: int):
+    """The data shard of a sharded LM's batch of n rows (None: unsharded,
+    or every rank all rows)."""
+    tp = getattr(params, "tp", None)
+    return None if tp is None else tp.data_shard(n)
 
 
 def _device(params: tfm.LM) -> torch.device:

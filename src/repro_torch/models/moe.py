@@ -16,7 +16,18 @@ of each expert times the share of (token, choice) pairs routed to it,
 counted before drops, times E. Inside a data-parallel step both means
 span the global batch (summed over the ranks, the probabilities'
 differentiably), so every rank holds the global aux; the groups are the
-global batch's, which each rank's rows must hold whole (`group_of`).
+global batch's, which each rank's rows must hold whole (`group_of`),
+but for a sharded LM whose group spans the data ranks (a decode step):
+there the rows are gathered and every rank routes them all.
+
+Under a ModelShard (`module.tp`, `transformer.shard_lm`) the routing is
+computed whole on every rank of "model" (the router is ("embed", None),
+the tokens are split over the data axes only), so it is bitwise the
+same there; each rank then dispatches, computes and combines only its
+experts (`experts`: E/M of them) or every expert on its columns
+(`expert_ff`, grok-1's override), the tokens and the gates entering by
+copy-in, and the partial sums of the combine are reduced out over
+"model". The aux loss is read from the whole routing, once.
 
 Top-k ties go to the lower expert index, as `jax.lax.top_k` does: the
 port takes the first k of a stable descending sort (`torch.topk` makes no
@@ -31,8 +42,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.distributed.collectives import active, all_sum, share, total
-from repro_torch.models.layers import init_array, param
+from repro_torch.distributed.collectives import (
+    active, active_shard, all_sum, gather_rows, share, total,
+)
+from repro_torch.models.layers import fetch, init_array, param
 
 
 class MoE(nn.Module):
@@ -88,14 +101,20 @@ def group_of(n_tokens: int, group_size: int = 256) -> int:
     ValueError, never a different routing."""
     shard = active()
     n = n_tokens * (1 if shard is None else shard.size)
-    g = min(group_size, n)
-    while n % g:
-        g -= 1
+    g = _group(n, group_size)
     if n_tokens % g:
         raise ValueError(f"MoE routing groups of {g} tokens (of the global "
                          f"batch's {n}) do not fit this rank's "
                          f"{n_tokens}: shard the batch so that each rank "
                          f"holds whole groups")
+    return g
+
+
+def _group(n: int, group_size: int) -> int:
+    """The largest divisor of n not above group_size."""
+    g = min(group_size, n)
+    while n % g:
+        g -= 1
     return g
 
 
@@ -126,32 +145,59 @@ def moe_apply(params: MoE, x, *, top_k: int, capacity_factor: float = 1.25,
     """x: (B, S, d) -> (out (B, S, d) in x's dtype, aux loss (fp32))."""
     B, S, d = x.shape
     dt = x.dtype
-    E = params.router.shape[1]
-    r = route(params.router, x, top_k, capacity_factor, group_size)
+    tp = getattr(params, "tp", None)
+    shard = active()
+    if (tp is not None and shard is not None and shard.size > 1
+            and (B * S) % _group(B * S * shard.size, group_size)):
+        # a routing group spans the data ranks (a decode step's few
+        # tokens): every rank routes and computes the global batch's
+        # rows, then keeps its own
+        x_all, lo = gather_rows(x)
+        with active_shard(None):
+            out, aux = moe_apply(params, x_all, top_k=top_k,
+                                 capacity_factor=capacity_factor,
+                                 group_size=group_size, gated=gated)
+        return out[lo:lo + B], aux
+    split = tp is not None and (tp.split.experts or tp.split.expert_ff)
+    router = fetch(params, "router")
+    E = router.shape[1]
+    r = route(router, x, top_k, capacity_factor, group_size)
     xt = x.reshape(r.idx.shape[0], -1, d)                        # (G,g,d)
     onehot = one_hot(r.idx, E)                                   # (G,g,k,E)
+    mine, gates = onehot, r.gates
+    if split:                   # this rank's experts or columns
+        xt, gates = tp.copy_in(xt), tp.copy_in(gates)
+        if tp.split.experts:
+            n = E // tp.M
+            mine = onehot[..., tp.rank * n:(tp.rank + 1) * n]
     slot_oh = (one_hot(torch.where(r.kept, r.slot, 0), r.capacity)
                * r.kept[..., None])                              # (G,g,k,C)
-    disp = torch.einsum("sgke,sgkc->sgec", onehot.to(dt), slot_oh.to(dt))
+    disp = torch.einsum("sgke,sgkc->sgec", mine.to(dt), slot_oh.to(dt))
     # the reference's three-operand einsum with the gates folded into the
     # one-hot first: each (e, c) term is the one gate, exactly
     combine = torch.einsum("sgke,sgkc->sgec",
-                           onehot.float() * r.gates[..., None],
+                           mine.float() * gates[..., None],
                            slot_oh.float())
     del slot_oh
     expert_in = torch.einsum("sgec,sgd->escd", disp, xt)         # (E,G,C,d)
     del disp
-    h = torch.einsum("escd,edf->escf", expert_in, params.wi.to(dt))
+
+    def w(name):
+        return fetch(params, name, local=split).to(dt)
+
+    h = torch.einsum("escd,edf->escf", expert_in, w("wi"))
     if gated:
-        gv = torch.einsum("escd,edf->escf", expert_in, params.wg.to(dt))
+        gv = torch.einsum("escd,edf->escf", expert_in, w("wg"))
         h = (gv * torch.sigmoid(gv)) * h                         # silu(g) * up
         del gv
     else:
         h = F.gelu(h, approximate="tanh")
     del expert_in
-    y = torch.einsum("escf,efd->escd", h, params.wo.to(h.dtype))
+    y = torch.einsum("escf,efd->escd", h, w("wo").to(h.dtype))
     del h
     out = torch.einsum("escd,sgec->sgd", y.float(), combine)
+    if split:
+        out = tp.reduce_out(out)
     # Switch-style load balance: mean router prob x routed fraction, both
     # over the global batch's groups inside a data-parallel step
     me = all_sum(share(r.probs.mean(dim=(0, 1))))                # (E,)
@@ -198,7 +244,7 @@ def record_routing(model: nn.Module) -> Iterator[List[Routing]]:
     seen: List[Routing] = []
 
     def hook(module, args, kwargs):
-        seen.append(route(module.router, args[0], kwargs["top_k"],
+        seen.append(route(fetch(module, "router"), args[0], kwargs["top_k"],
                           kwargs.get("capacity_factor", 1.25)))
 
     handles = [m.register_forward_pre_hook(hook, with_kwargs=True)

@@ -34,6 +34,22 @@ its scan body. `LM.pack_checkpoint` / `unpack_checkpoint` let the
 Trainer write and read checkpoints in JAX's stacked layout; the
 stacking rule (`stacked_key`) is the one `bridge.lm_params_from_jax`
 unstacks by.
+
+Tensor-parallel compute (`shard_lm`, the attention LMs: dense, MoE,
+encoder-decoder, prefix-LM): a sharded LM holds one rank's blocks of
+its parameters, placed by the rules as JAX's in_shardings place them,
+and every module carries the rank's `collectives.ModelShard` as `tp`.
+The forward then computes only the rank's share, as GSPMD partitions
+JAX's: its query heads (and the kv heads they read), ff columns,
+experts or expert columns and vocab rows on "model" (`sharding.
+compute_split`), weights split over the data axes gathered just before
+use; the activations between blocks are whole on every rank of
+"model". The loss is vocab-parallel (`vocab_partials`,
+`combine_vocab`): no rank holds the (B, chunk, V) logits. A decode
+cache is a rank's (`init_cache(tp=)`). Models with a recurrent mixer
+(RWKV, Mamba, mLSTM, sLSTM) are not sharded this way
+(`tensor_parallel_ok`): under a mesh they keep the Trainer's replicated
+route.
 """
 from __future__ import annotations
 
@@ -50,14 +66,17 @@ from repro_torch.config import (
     BLOCK_ATTN, BLOCK_MAMBA, BLOCK_MLSTM, BLOCK_RWKV, BLOCK_SLSTM,
     ModelConfig,
 )
-from repro_torch.distributed.collectives import share, total
+from repro_torch.distributed import sharding
+from repro_torch.distributed.collectives import (
+    MeshComm, ModelShard, share, total,
+)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm
 from repro_torch.models.layers import (
-    MLP, Embed, RMSNorm, embed, embed_specs, mlp_specs, rmsnorm_specs,
-    torch_dtype, unembed,
+    MLP, Embed, RMSNorm, embed_specs, fetch, mlp_specs, rmsnorm_specs,
+    torch_dtype, vocab_embed, vocab_logits,
 )
 from repro_torch.utils.tree import prefixed, stack_leaves, unstack_leaves
 
@@ -321,8 +340,12 @@ class LM(nn.Module):
                         if cfg.encoder_layers else None)
 
     @property
+    def head(self) -> Embed:
+        return self.embed if self.lm_head is None else self.lm_head
+
+    @property
     def head_table(self):
-        return (self.embed if self.lm_head is None else self.lm_head).table
+        return self.head.table
 
     def param_specs(self) -> dict:
         """{name: logical axes} of every parameter (`lm_param_specs`)."""
@@ -338,9 +361,74 @@ class LM(nn.Module):
         return unstack_lm_layers(self.cfg, flat, like)
 
 
+def tensor_parallel_ok(cfg: ModelConfig) -> bool:
+    """Whether `shard_lm` takes the arch: every block (and the encoder's)
+    is attention, with an MLP, an MoE or nothing after it."""
+    return all(kind == BLOCK_ATTN for kind in cfg.blocks())
+
+
+def shard_lm(lm: LM, comm: MeshComm, rules=None) -> LM:
+    """Makes `lm` (whole, any device) hold the blocks of its parameters
+    that the rank of `comm` holds when each is stored by its pruned spec
+    (`lm_param_specs` under `rules`, the arch's overrides applied), in
+    place, and returns it (`shard_module`). Raises for an arch outside
+    `tensor_parallel_ok`."""
+    cfg = lm.cfg
+    if not tensor_parallel_ok(cfg):
+        raise ValueError(f"{cfg.name}: tensor-parallel compute covers the "
+                         f"attention LMs; blocks {sorted(set(cfg.blocks()))}"
+                         f" keep the replicated route")
+    return shard_module(lm, lm_param_specs(cfg), cfg, comm, rules)
+
+
+def shard_module(module: nn.Module, specs: Dict[str, tuple],
+                 cfg: ModelConfig, comm: MeshComm, rules=None) -> nn.Module:
+    """`shard_lm` for any module of an attention LM of `cfg` (the LM, a
+    Block, an MoE layer, ...) whose parameters' "/"-joined names are keys
+    of `specs`: each parameter replaced by its block, keeping its pruned
+    spec as `tp_spec`, and every submodule given the rank's ModelShard as
+    `tp`."""
+    rules = sharding.arch_rules(cfg, rules)
+    sizes = comm.sizes
+    tp = ModelShard(comm, sharding.compute_split(cfg, sizes, rules), rules)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            spec = sharding.pruned_spec(specs[name.replace(".", "/")],
+                                        p.shape, sizes, rules)
+            block = sharding.local_block(p.data, spec, sizes, comm.coords)
+            if block.shape != p.shape:
+                p.data = block.clone(memory_format=torch.contiguous_format)
+            p.tp_spec = spec
+    for m in module.modules():
+        m.tp = tp
+    return module
+
+
+def rank_shares(module: nn.Module, specs: Dict[str, tuple],
+                cfg: ModelConfig, M: int, rules=None, ranks=None) -> list:
+    """Copies of `module` as ranks `ranks` (default 0..M-1) of a "model"
+    axis of M hold it, each over a `MeshComm` in mode "local": one rank
+    computed alone, its reductions returning its own part for the caller
+    to combine in rank order. With every rank made, a gather of a
+    parameter's block over "model" finds the blocks of all of them
+    (`peers`)."""
+    import copy
+    peers: Dict[int, list] = {}
+    copies = [shard_module(copy.deepcopy(module), specs, cfg, MeshComm(
+        {"model": M}, {"model": r}, "local", peers=peers), rules)
+        for r in (range(M) if ranks is None else ranks)]
+    if ranks is None:
+        for blocks in zip(*(list(c.parameters()) for c in copies)):
+            for b in blocks:
+                peers[b.data_ptr()] = [x.data for x in blocks]
+    return copies
+
+
 def _embed_tokens(params: LM, cfg: ModelConfig, tokens):
     dtype = torch_dtype(cfg.dtype)
-    x = embed(params.embed.table, tokens).to(dtype)
+    tp = getattr(params, "tp", None)
+    x = vocab_embed(params.embed, tokens, cfg.vocab_size,
+                    tp is not None and tp.split.in_vocab).to(dtype)
     # the scalar is rounded to the model dtype first, as jnp.asarray does
     return x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype)
 
@@ -427,7 +515,14 @@ def lm_apply(params: LM, cfg: ModelConfig, tokens, *,
     x = params.final_norm(x)
     if return_hidden:
         return x, aux
-    return unembed(params.head_table, x), aux
+    return _logits(params, x), aux
+
+
+def _logits(params: LM, x):
+    """x @ the head's table^T (vocab-parallel under a ModelShard, then
+    gathered whole)."""
+    tp = getattr(params, "tp", None)
+    return vocab_logits(params.head, x, tp is not None and tp.split.vocab)
 
 
 # ---------------------------------------------------------------------------
@@ -449,8 +544,55 @@ def _chunk_loss(h, table, targets, valid, label_smoothing: float):
     return (nll * valid).sum(), valid.sum()
 
 
+def vocab_partials(h, table, targets, lo: int):
+    """One rank's share of the cross-entropy of rows h against its vocab
+    rows `table` (rows lo.. of the whole table): the fp32 logits' maximum
+    m (no gradient), s = sum exp(logit - m), the target's logit t where
+    the rank owns the target (else 0) and the logits' sum z."""
+    logits = (h @ table.to(h.dtype).T).float()
+    n = logits.shape[-1]
+    m = logits.detach().amax(-1)
+    s = torch.exp(logits - m[..., None]).sum(-1)
+    local = targets - lo
+    inside = (local >= 0) & (local < n)
+    t = torch.where(inside, torch.gather(
+        logits, -1, local.clamp(0, n - 1)[..., None])[..., 0], 0.0)
+    return m, s, t, logits.sum(-1)
+
+
+def combine_vocab(m, s, t, z, vocab: int, label_smoothing: float,
+                  max_fn=None, sum_fn=None):
+    """The NLL of each row from the ranks' `vocab_partials`: the global
+    maximum (`max_fn` over the ranks), s rescaled to it and summed with t
+    (and z, for label smoothing's mean logit over all V) by `sum_fn`; the
+    identity for either when None."""
+    mx = m if max_fn is None else max_fn(m)
+    s = s * torch.exp(m - mx)
+    if sum_fn is not None:
+        s, t = sum_fn(s), sum_fn(t)
+    lse = torch.log(s) + mx
+    nll = lse - t
+    if label_smoothing > 0.0:
+        if sum_fn is not None:
+            z = sum_fn(z)
+        nll = (1 - label_smoothing) * nll + label_smoothing * (
+            lse - z / vocab)
+    return nll
+
+
+def _chunk_loss_shard(h, table, targets, valid, label_smoothing: float,
+                      tp, vocab: int):
+    """`_chunk_loss` over this rank's vocab rows: max over "model", the
+    sums and the target's logit reduced out."""
+    h = tp.copy_in(h)
+    m, s, t, z = vocab_partials(h, table, targets, tp.rank * table.shape[0])
+    nll = combine_vocab(m, s, t, z, vocab, label_smoothing, tp.max_model,
+                        tp.reduce_out)
+    return (nll * valid).sum(), valid.sum()
+
+
 def chunked_xent(hidden, table, targets, valid, chunk: int = 512,
-                 label_smoothing: float = 0.0):
+                 label_smoothing: float = 0.0, tp=None, vocab: int = 0):
     """hidden: (B,S,d); table: (V,d); targets, valid: (B,S). The mean NLL
     over valid positions, sum(nll valid) / max(sum(valid), 1), in chunks
     of `chunk` rows (the last one ragged), each under
@@ -464,9 +606,14 @@ def chunked_xent(hidden, table, targets, valid, chunk: int = 512,
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c0 in range(0, S, chunk):
         rows = slice(c0, c0 + chunk)
-        part, n = ckpt.checkpoint(
-            _chunk_loss, hidden[:, rows], table, targets[:, rows].long(),
-            valid[:, rows].float(), label_smoothing, use_reentrant=False)
+        args = (hidden[:, rows], table, targets[:, rows].long(),
+                valid[:, rows].float(), label_smoothing)
+        if tp is None:
+            part, n = ckpt.checkpoint(_chunk_loss, *args,
+                                      use_reentrant=False)
+        else:
+            part, n = ckpt.checkpoint(_chunk_loss_shard, *args, tp, vocab,
+                                      use_reentrant=False)
         tot = tot + part
         cnt = cnt + n
     return tot / torch.clamp(total(cnt), min=1.0)
@@ -495,8 +642,11 @@ def lm_loss(params: LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     targets = F.pad(tokens[:, 1:], (0, 1))
     valid = F.pad(torch.ones_like(tokens[:, 1:], dtype=torch.float32),
                   (0, 1))
-    nll = chunked_xent(hidden, params.head_table, targets, valid,
-                       label_smoothing=label_smoothing)
+    tp = getattr(params, "tp", None)
+    split = tp is not None and tp.split.vocab
+    nll = chunked_xent(hidden, fetch(params.head, "table", local=split),
+                       targets, valid, label_smoothing=label_smoothing,
+                       tp=tp if split else None, vocab=cfg.vocab_size)
     aux = share(aux)        # the MoE aux is global: a rank's share of it
     loss = nll + aux_weight * aux
     return loss, {"nll": nll, "aux": aux}
@@ -537,26 +687,40 @@ def _layer_state(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype: torch.dtype = torch.bfloat16,
                device: Optional[torch.device] = None,
-               enc_len: Optional[int] = None
+               enc_len: Optional[int] = None, tp: Optional[ModelShard] = None
                ) -> Dict[str, Dict[str, torch.Tensor]]:
     """Zeroed decode cache {"p<pos>": {leaf: (n_periods, batch, ...)}}, as
     JAX's `init_cache` lays it out: k/v (n_periods, batch, max_seq, K,
     hd) in `dtype` for attention positions (with cross-attention also
     ck/cv (n_periods, batch, enc_len, K, hd), enc_len by default
     `num_prefix_embeddings` or 1500), the fp32 state leaves of the
-    recurrent kinds."""
+    recurrent kinds. With `tp`, a rank's block of it: each leaf split by
+    its pruned `cache_specs` spec (rows over the data axes, a sequence
+    split over "model" requiring M | max_seq)."""
     if enc_len is None:
         enc_len = cfg.num_prefix_embeddings or 1500
+    if tp is not None and attn.decode_layout(tp) == "seq" and max_seq % tp.M:
+        raise ValueError(f"a decode cache of {max_seq} positions does not "
+                         f"split over the {tp.M} ranks of \"model\"")
     period = period_of(cfg)
     n_periods = cfg.num_layers // period
+    specs = cache_specs(cfg)
     cache = {}
     for pos in range(period):
         kind, _ = layer_signature(cfg, pos)
         one = _layer_state(cfg, kind, batch, max_seq, dtype, "meta",
                            enc_len)
-        cache[f"p{pos}"] = {key: torch.zeros((n_periods, *t.shape),
-                                             dtype=t.dtype, device=device)
-                            for key, t in one.items()}
+        cache[f"p{pos}"] = {}
+        for key, t in one.items():
+            shape = (n_periods, *t.shape)
+            if tp is not None:
+                spec = sharding.pruned_spec(specs[f"p{pos}"][key], shape,
+                                            tp.comm.sizes, tp.rules)
+                shape = sharding.local_block(
+                    torch.empty(shape, device="meta"), spec, tp.comm.sizes,
+                    tp.comm.coords).shape
+            cache[f"p{pos}"][key] = torch.zeros(shape, dtype=t.dtype,
+                                                device=device)
     return cache
 
 
@@ -611,12 +775,27 @@ def _cross_decode(params: Block, cfg: ModelConfig, x, ck, cv):
     B = x.shape[0]
     H, hd = cfg.num_heads, cfg.resolved_head_dim
     h = params.cross_norm(x)
-    q = (h @ params.cross.wq.to(h.dtype)).reshape(B, 1, H, hd)
+    cross = params.cross
+    tp = getattr(cross, "tp", None)
+    if tp is not None:      # its query heads over the kv heads they read
+        split = tp.split.heads
+        if split:
+            h = tp.copy_in(h)
+            H = H // tp.M
+        if not tp.split.kv_heads:       # the cache holds every kv head
+            sel = torch.tensor(attn.kv_heads_for(tp, cfg.num_heads,
+                                                 cfg.num_kv_heads),
+                               device=x.device)
+            ck, cv = ck[:, :, sel], cv[:, :, sel]
+        q = h @ fetch(cross, "wq", local=split).to(h.dtype)
+    else:
+        q = h @ cross.wq.to(h.dtype)
+    q = q.reshape(B, 1, H, hd)
     bias = torch.zeros((1, ck.shape[1]), dtype=torch.float32,
                        device=x.device)
     out = attn._ref_attention(q, ck.to(q.dtype), cv.to(q.dtype), bias)
     out = out.reshape(B, 1, H * hd)
-    return out @ params.cross.wo.to(out.dtype)
+    return attn._out_proj(cross, out)
 
 
 def _block_decode(params: Block, cfg: ModelConfig, x, state, pos,
@@ -674,4 +853,4 @@ def lm_decode_step(params: LM, cfg: ModelConfig, cache, tokens, pos,
         state = {key: leaf[n] for key, leaf in cache[f"p{i % period}"].items()}
         x = _block_decode(block, cfg, x, state, pos, write)
     x = params.final_norm(x)
-    return unembed(params.head_table, x).float(), cache
+    return _logits(params, x).float(), cache

@@ -31,7 +31,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.utils.tree import tree_norm
+from repro_torch.utils.tree import tree_leaves, tree_norm
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -52,12 +52,23 @@ def lr_schedule(step, *, base_lr: float, warmup_steps: int, total_steps: int,
     return base_lr * warm * cos
 
 
-def global_norm_clip(grads: Tensors, max_norm: float
+def global_norm_clip(grads: Tensors, max_norm: float,
+                     reduce_squares: Optional[Callable] = None
                      ) -> Tuple[Tensors, torch.Tensor]:
     """Scales every gradient by min(1, max_norm / global norm). Returns
     (clipped grads, global norm before clipping). The scale is fp32, so a
-    bf16 gradient comes back fp32, as JAX promotes it."""
-    g = tree_norm(grads)
+    bf16 gradient comes back fp32, as JAX promotes it.
+
+    The gradients may be a rank's blocks: then `reduce_squares` takes
+    {name: the block's fp32 sum of squares} and returns each summed over
+    the ranks that split the leaf, each exactly once (a leaf they do not
+    split is counted once, not once a rank), and the norm is taken over
+    those sums in the leaves' order, as `tree_norm` sums them."""
+    if reduce_squares is None:
+        g = tree_norm(grads)
+    else:
+        sq = {k: torch.sum(torch.square(t.float())) for k, t in grads.items()}
+        g = torch.sqrt(sum(tree_leaves(reduce_squares(sq))))
     scale = torch.clamp(max_norm / torch.clamp(g, min=1e-9), max=1.0)
     return {k: x.to(torch.promote_types(x.dtype, scale.dtype)) * scale
             for k, x in grads.items()}, g

@@ -7,31 +7,47 @@ The model's parameters are updated in place (`copy_` of the optimizer's
 new values into the `nn.Parameter`s), so the module stays the one
 source of the weights; the optimizer functions themselves are pure.
 
-With `mesh` (a `torch.distributed` DeviceMesh on the parameters' device
-type), `rules` and the parameters' logical specs (`param_specs`, by
-default the model's own `param_specs()`), every rank holds its shard of
-each parameter and of its optimizer state as DTensors placed by the
-rules (`state.param_shards`, `state.opt_state`), as JAX's `device_put`
-places them. A step on the GLOBAL batch:
+Under a mesh there are two routes, chosen by the module:
 
-  * splits it in `microbatch` slices, then gives this rank its share of
-    each slice along the data axes (the rules' "batch" axes): rank r's
-    microbatch i is the r-th share of global microbatch i, as in JAX;
-  * runs forward and backward on the share with the full parameters (the
-    kernels read raw pointers and take no DTensor), the losses reading
-    global counts and gathered rows through
-    `repro_torch.distributed.collectives` (a mean over this rank's rows
-    is its share of the global mean);
-  * sums the gradients, the loss and the metrics over the data axes, clips
-    by the global norm of the whole gradient, updates this rank's shards
-    (Adafactor's row, column and RMS means summed over the groups that
-    split each dim) and gathers the full parameters into the model.
+Tensor-parallel (a zoo LM whose blocks are all attention, built as one
+rank's blocks by `Model.init(mesh=, rules=)` or `transformer.shard_lm`,
+so the module carries its `ModelShard` as `tp`): the module holds only
+this rank's blocks of the parameters, placed by the rules' pruned specs,
+and so does the optimizer state. A step on the GLOBAL batch:
 
-Ranks along "model" compute the same rows (tensor-parallel compute is not
-ported). Every rank must call `step`, `maybe_checkpoint` and `restore`
-alike: each enters collectives. Checkpoints hold full tensors in the
-unsharded layout: every rank gathers, global rank 0 writes, and a restore
-re-shards onto the current mesh, whatever mesh wrote it.
+  * gives this rank its share of each microbatch along the rules'
+    "batch" axes (its rows; the ranks of one "model" group hold the same
+    rows);
+  * runs forward and backward on it computing only this rank's share of
+    the work (its heads, ff columns, experts or expert columns and vocab
+    rows on "model", see `models/`), each weight split over the data
+    axes (FSDP) gathered just before its use, so that its gradient
+    arrives reduce-scattered over them;
+  * all-reduces the other gradients over the "batch" axes that do not
+    split them (a leaf replicated over "model" already has the same
+    gradient on every model rank: its uses in a rank's share entered by
+    copy-in), sums the loss and the metrics over the "batch" axes, takes
+    the global norm from the blocks (each leaf's sum of squares summed
+    over the axes that split it, once) and updates the blocks in place
+    (Adafactor's means summed over the axes that split each dim).
+
+Replicated (any other module, e.g. a whole LM, the Stage-1 encoder or
+Stage 2's model, with `mesh` (a DeviceMesh on the parameters' device
+type), `rules` and the parameters' logical specs, `param_specs`, by
+default the model's own): every rank holds its shard of each parameter
+and of its optimizer state as DTensors placed by the rules
+(`state.param_shards`, `state.opt_state`), as JAX's `device_put` places
+them; a step splits the batch as above, runs forward and backward on
+the share with the FULL parameters (the losses reading global counts
+and gathered rows through `repro_torch.distributed.collectives`), sums
+the gradients, the loss and the metrics over the data axes, clips by the
+global norm, updates this rank's shards and gathers the full parameters
+into the model; ranks along "model" compute the same rows.
+
+Every rank must call `step`, `maybe_checkpoint` and `restore` alike:
+each enters collectives. Checkpoints hold full tensors in the unsharded
+layout on either route: every rank gathers, global rank 0 writes, and a
+restore re-shards onto the current mesh, whatever mesh wrote it.
 """
 from __future__ import annotations
 
@@ -45,9 +61,11 @@ import torch
 from torch import nn
 
 from repro_torch.config import TrainConfig
-from repro_torch.distributed.collectives import DataShard, active_shard
+from repro_torch.distributed.collectives import (
+    CommShard, DataShard, active_shard,
+)
 from repro_torch.distributed.sharding import (
-    distribute, logical_to_pspec, make_shardings, set_logical_mesh,
+    axes_of, distribute, logical_to_pspec, make_shardings, set_logical_mesh,
 )
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.optimizer import (
@@ -105,6 +123,28 @@ def _slot_placement(place: tuple, leaf: str, ndim: int) -> tuple:
     return tuple(out)
 
 
+def _split_dims(spec, comm) -> dict:
+    """{dim: the live mesh axes that split it} of a pruned spec."""
+    dims = {d: comm.live(axes_of(entry)) for d, entry in enumerate(spec)}
+    return {d: axes for d, axes in dims.items() if axes}
+
+
+def _full_shape(shape, dims: dict, comm) -> tuple:
+    return tuple(n * comm.size(dims.get(d, ())) for d, n in enumerate(shape))
+
+
+class _CommMeans(Shards):
+    """`Shards` whose sums go through a `MeshComm` over the named axes
+    that split each dim (`groups` {dim: axes})."""
+
+    def __init__(self, shape, groups: dict, comm):
+        super().__init__(shape, {d: list(ax) for d, ax in groups.items()})
+        self.comm = comm
+
+    def reduce(self, s: torch.Tensor, group) -> None:
+        self.comm.all_reduce(s, (group,))
+
+
 class Trainer:
     """loss_fn(model, batch) -> (loss, {name: scalar tensor}). With `mesh`
     (and `rules`, `param_specs`), data-parallel with sharded state: see
@@ -130,6 +170,10 @@ class Trainer:
         self._preempted = False
         self._step_times: list = []
         self._data: Optional[DataShard] = None
+        self._tp = getattr(model, "tp", None)
+        if self._tp is not None:
+            self._init_tensor_parallel(params, opt_init)
+            return
         if mesh is None:
             self.state = TrainState(params=params,
                                     opt_state=opt_init(params), step=0)
@@ -172,6 +216,72 @@ class Trainer:
                                 opt_state=self._wrap(opt_local), step=0,
                                 param_shards=shards)
 
+    def _init_tensor_parallel(self, params, opt_init) -> None:
+        """The tensor-parallel route: `params` are this rank's blocks,
+        each with its pruned spec (`tp_spec`)."""
+        tp = self._tp
+        comm = tp.comm
+        kinds = {p.device.type for p in params.values()}
+        if self.mesh is not None and kinds != {self.mesh.device_type}:
+            raise ValueError(f"the mesh is on {self.mesh.device_type!r}, the "
+                             f"parameters on {sorted(kinds)}")
+        batch = axes_of(logical_to_pspec(("batch",), comm.sizes,
+                                         tp.rules)[0])
+        self._data = CommShard(comm, batch)
+        # {name: {dim: the live mesh axes that split it}}
+        self._split = {k: _split_dims(p.tp_spec, comm)
+                       for k, p in params.items()}
+        self._grad_axes = {
+            k: tuple(a for a in comm.live(batch)
+                     if all(a not in ax for ax in dims.values()))
+            for k, dims in self._split.items()}
+        self._means = {k: _CommMeans(_full_shape(p.shape, self._split[k],
+                                                 comm),
+                                     self._split[k], comm)
+                       for k, p in params.items()}
+        self.state = TrainState(params=params, opt_state=opt_init(params),
+                                step=0)
+
+    def _reduce_squares(self, sq: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+        """Each leaf's sum of squares summed over the axes that split it
+        (one all-reduce a set of axes)."""
+        by_axes: Dict[tuple, list] = {}
+        for k in sq:
+            axes = tuple(a for ax in self._split[k].values() for a in ax)
+            if axes:
+                by_axes.setdefault(axes, []).append(k)
+        out = dict(sq)
+        for axes, names in by_axes.items():
+            stacked = self._tp.comm.all_reduce(
+                torch.stack([sq[k] for k in names]), axes)
+            out.update(zip(names, stacked.unbind()))
+        return out
+
+    def _slot_dims(self, name: str, leaf: str, ndim: int) -> dict:
+        """The split dims of an optimizer-state leaf of parameter `name`
+        (Adafactor's vr drops the last dim, vc the one before it)."""
+        dims = self._split[name]
+        if leaf not in ("vr", "vc"):
+            return dims
+        gone = ndim - 1 if leaf == "vr" else ndim - 2
+        return {(d if d < gone else d - 1): ax for d, ax in dims.items()
+                if d != gone}
+
+    def _opt_dims(self) -> dict:
+        """A tree like the optimizer state of each leaf's split dims."""
+        out = {}
+        for key, sub in self.state.opt_state.items():
+            if key == "count":
+                out[key] = {}
+            elif key == "slots":
+                out[key] = {n: {leaf: self._slot_dims(
+                    n, leaf, self.state.params[n].ndim) for leaf in slot}
+                    for n, slot in sub.items()}
+            else:
+                out[key] = {n: self._split[n] for n in sub}
+        return out
+
     def _state_placements(self, state: dict, params) -> dict:
         from torch.distributed.tensor import Replicate
         rep = (Replicate(),) * self.mesh.ndim
@@ -195,6 +305,9 @@ class Trainer:
 
     def _full_opt_state(self) -> dict:
         """The optimizer state gathered whole (every rank enters)."""
+        if self._tp is not None:
+            return tree_map(self._gather, self.state.opt_state,
+                            self._opt_dims())
         if self.mesh is None:
             return self.state.opt_state
         return tree_map(lambda t: t.full_tensor(), self.state.opt_state)
@@ -237,15 +350,23 @@ class Trainer:
         host read, so it runs on meta tensors too)."""
         cfg = self.cfg
         loss, metrics, grads = self._grads(batch)
-        if self._data is not None:
+        if self._tp is not None:
+            # over the "batch" axes that do not split the leaf (FSDP's
+            # gather reduce-scattered the others in the backward)
+            for k, g in grads.items():
+                self._tp.comm.all_reduce(g, self._grad_axes[k])
+        elif self._data is not None:
             # sums over the data axes of the ranks' shares
             for g in grads.values():
                 self._data.all_reduce(g)
+        if self._data is not None:
             keys = list(metrics)
             tot = self._data.all_reduce(torch.stack(
                 [loss] + [metrics[k] for k in keys]).float())
             loss, metrics = tot[0], dict(zip(keys, tot[1:]))
-        grads, gnorm = global_norm_clip(grads, cfg.grad_clip)
+        grads, gnorm = global_norm_clip(
+            grads, cfg.grad_clip,
+            None if self._tp is None else self._reduce_squares)
         lr = lr_schedule(self.state.step, base_lr=cfg.learning_rate,
                          warmup_steps=cfg.warmup_steps,
                          total_steps=cfg.total_steps)
@@ -268,10 +389,16 @@ class Trainer:
 
     def _update(self, grads: Dict[str, torch.Tensor], lr: float
                 ) -> Dict[str, torch.Tensor]:
-        """The optimizer on the clipped gradients; returns the full new
-        parameters."""
-        if self.mesh is not None:
+        """The optimizer on the clipped gradients; returns the new
+        parameters (this rank's blocks on the tensor-parallel route, else
+        full)."""
+        if self.mesh is not None and self._tp is None:
             return self._sharded_update(grads, lr)
+        if self._tp is not None and self.cfg.optimizer == "adafactor":
+            new_params, self.state.opt_state = self._opt_update(
+                grads, self.state.opt_state, self.state.params, lr=lr,
+                weight_decay=self.cfg.weight_decay, shards=self._means)
+            return new_params
         new_params, self.state.opt_state = self._opt_update(
             grads, self.state.opt_state, self.state.params, lr=lr,
             weight_decay=self.cfg.weight_decay)
@@ -320,8 +447,30 @@ class Trainer:
 
         signal.signal(signal.SIGTERM, handler)
 
+    def _gather(self, t: torch.Tensor, dims: dict) -> torch.Tensor:
+        """A block gathered whole along its split dims."""
+        with torch.no_grad():
+            for d, axes in dims.items():
+                t = self._tp.comm.all_gather(t, axes, d)
+        return t
+
+    def _block(self, t: torch.Tensor, dims: dict) -> torch.Tensor:
+        """This rank's block of a whole tensor."""
+        for d, axes in dims.items():
+            t = self._tp.comm.block(t, axes, d)
+        return t.contiguous()
+
+    @property
+    def _distributed(self) -> bool:
+        return self.mesh is not None or (
+            self._tp is not None and self._tp.comm.mode == "group")
+
     def _live_tree(self) -> Dict[str, Any]:
-        return {"params": self.state.params, "opt": self._full_opt_state()}
+        params = self.state.params
+        if self._tp is not None:
+            params = {k: self._gather(p.detach(), self._split[k])
+                      for k, p in params.items()}
+        return {"params": params, "opt": self._full_opt_state()}
 
     def checkpoint_tree(self) -> Dict[str, Any]:
         """{"params": ..., "opt": ...}: what a checkpoint holds, keyed as
@@ -340,13 +489,13 @@ class Trainer:
         if not (due or force or self._preempted):
             return None
         tree = self.checkpoint_tree()
-        if self.mesh is None or torch.distributed.get_rank() == 0:
+        if not self._distributed or torch.distributed.get_rank() == 0:
             path = ckpt.save_checkpoint(
                 cfg.checkpoint_dir, self.state.step, tree,
                 meta={"step": self.state.step}, keep=cfg.keep_checkpoints)
         else:
             path = ckpt.checkpoint_path(cfg.checkpoint_dir, self.state.step)
-        if self.mesh is not None:
+        if self._distributed:
             torch.distributed.barrier()
         if self._preempted:
             log.warning("preemption checkpoint done; exiting 42")
@@ -364,8 +513,13 @@ class Trainer:
                                        live)
         with torch.no_grad():
             for name, p in self.state.params.items():
-                p.copy_(tree["params"][name])
-        if self.mesh is None:
+                full = tree["params"][name]
+                p.copy_(full if self._tp is None
+                        else self._block(full, self._split[name]))
+        if self._tp is not None:    # this rank's blocks
+            self.state.opt_state = tree_map(self._block, tree["opt"],
+                                            self._opt_dims())
+        elif self.mesh is None:
             self.state.opt_state = tree["opt"]
         else:       # re-shard onto this mesh
             with torch.no_grad():

@@ -1440,3 +1440,55 @@ def test_cuda_calls_never_take_the_meta_route(cuda):
         assert wrapper.launches == before + 2
         assert len(count.records) == 1 and count.records[0].kind == "kernel"
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("M", [2, 4])
+def test_tensor_parallel_attention_shares_launch_flash_at_local_heads(
+        cuda, M):
+    """A bf16 attention layer split over a "model" axis of M ranks, each
+    rank's share computed alone on the card (`transformer.rank_shares`):
+    flash forward and backward launch once a rank at H / M query and
+    K / M kv heads, and the outputs and input gradients summed in rank
+    order meet flash's bf16 bounds against the unsharded layer."""
+    from repro_torch.config import get_arch, scaled_down
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as tfm
+    cfg = scaled_down(get_arch("qwen3_4b"), num_heads=8, num_kv_heads=4,
+                      d_model=256)
+    mod = attn.Attention(torch.Generator().manual_seed(0), cfg.d_model,
+                         cfg.num_heads, cfg.num_kv_heads,
+                         cfg.resolved_head_dim, torch.bfloat16,
+                         qk_norm=True).to(cuda)
+    ak = tfm._attn_kwargs(cfg)
+    g = _gen(cuda, M)
+    x = torch.randn((2, 256, cfg.d_model), generator=g, device=cuda
+                    ).bfloat16().requires_grad_()
+    dy = (torch.randn((2, 256, cfg.d_model), generator=g, device=cuda)
+          / 16).bfloat16()
+    ref = attn.attn_apply(mod, x, mask_mode="causal", **ak)
+    dx_ref, = torch.autograd.grad(ref, [x], dy)
+    heads = []
+
+    def recorded(q, k, v, **kw):
+        heads.append((q.shape[2], k.shape[2]))
+        return flash_attention(q, k, v, **kw)
+
+    fwd, bwd = flash_attention.launches, flash_attention_backward.launches
+    out = dx = 0
+    attn.flash_attention = recorded
+    try:
+        for share in tfm.rank_shares(mod, attn.attn_specs(False, True),
+                                     cfg, M):
+            o = attn.attn_apply(share, x, mask_mode="causal", **ak)
+            out = out + o.float()
+            dx = dx + torch.autograd.grad(o, [x], dy)[0].float()
+    finally:
+        attn.flash_attention = flash_attention
+    torch.cuda.synchronize()
+    assert heads == [(8 // M, 4 // M)] * M
+    assert flash_attention.launches - fwd == M
+    assert flash_attention_backward.launches - bwd == M
+    for got, want in ((out, ref.float()), (dx, dx_ref.float())):
+        diff = (got - want).abs()
+        assert bool((diff <= 1e-2 + 1e-2 * want.abs()).all())
+        assert float((got - want).norm() / want.norm()) <= 1e-2
