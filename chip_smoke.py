@@ -98,8 +98,10 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
      equal but for flips where the CPU's probabilities lie within
      ROUTING_ULPS, and the slots they move), then the rest on the groups
      without a flip; (c) qwen3-moe at full width and 8 of its 94 layers
-     (bf16, 21,146,703,872 parameters): `Model.prefill` of 8 x 2048 tokens
-     (exactly 8 flash launches a call, a finite positive aux), then a
+     (bf16, 21,146,703,872 parameters, drawn on the host by a thread of
+     the script while phases 6 and 7 run, and served before (a) and (b)
+     so that the host lets go of them first): `Model.prefill` of 8 x 2048
+     tokens (exactly 8 flash launches a call, a finite positive aux), then a
      ServeEngine (8 slots, max_seq 512) answering 16 requests of 16-128
      prompt tokens, 32 new each, twice with the same tokens;
   9. the zoo's encoder-decoder and prefix-LM (seeded untrained weights):
@@ -200,12 +202,27 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
      roofline_fraction, the bound's share of the wall and mfu (model FLOPs
      over the wall at the bf16 peak), each gated in (0, 1.05]. Printed as
      a JSON line {"roofline": ...}; its launches count on no path.
+ 14. tensor-parallel compute of the attention LMs (the constants and
+     functions under "phase 14" say what each part holds).
+ 15. tensor-parallel compute of the recurrent and hybrid LMs and of
+     Stage 1 and Stage 2: (a) each rank's share at full width, the ranks
+     of a "model" axis of 2 and 4 run as threads of the script (xlstm's
+     mLSTM and sLSTM blocks and a jamba Mamba layer in bf16, the
+     encoder's RWKV block with wkv on each rank's heads, Stage 1's pool
+     and heads, Stage 2's SAB and PMA with set attention on each rank's
+     heads, and a decode step of each mixer from a rank's cache), held
+     to the unsharded module on the card; (b) Stage 1, Stage 2 and xlstm
+     at 2 layers on a one-rank NCCL mesh, bitwise the unsharded runs;
+     (c) a Stage-1 and a Stage-2 step on two gloo ranks sharing the card.
+     The wkv and set-attention launches of (a) and (b) count, exactly,
+     on the "tp" path.
 The line before the last is the JSON kernel summary: `launches` counts
 each kernel on its own path (serving; training for the set-attention
 backward; Stage-1 training for the wkv backward; the zoo for flash; the
 zoo's training for the flash backward), `launches_by_path` on each path
 that launched it (serve, lifecycle, simpoint, train, stage1_training,
-zoo, zoo_recurrent, zoo_moe, zoo_encdec, zoo_vlm, zoo_train, mesh); the
+zoo, zoo_recurrent, zoo_moe, zoo_encdec, zoo_vlm, zoo_train, mesh, tp);
+the
 launches of comparisons and witness runs count on none. The records of
 the two k-means kernels carry `bf16`, phase 12a's numbers of their bf16
 instances (no path feeds them bf16 rows: the store is fp32). The records
@@ -223,13 +240,16 @@ the decode and prefill shapes, and flash's `moe_shape`, phase 8a's, and
     python3 chip_smoke.py --bf16
     python3 chip_smoke.py --mesh
     python3 chip_smoke.py --roofline
+    python3 chip_smoke.py --tp
+    python3 chip_smoke.py --tp-recurrent
 
 run the setup and phase 8 alone, 6a's flash cases and phase 9, phase
 10, phase 11 (after the world's generation; it then prints its own
 JSON line, {"bf16": ...}, and takes fp32 steps itself for 11d's
 comparison), phase 12 (after the world and phase 4's serving path;
-it prints its own JSON line, {"mesh": ...}), or phase 13 (its JSON line,
-{"roofline": ...}), and
+it prints its own JSON line, {"mesh": ...}), phase 13 (its JSON line,
+{"roofline": ...}), phase 14 ({"tp": ...}) or phase 15
+({"tp_recurrent": ...}), and
 
     python3 chip_smoke.py --profile-moe
 
@@ -1964,7 +1984,8 @@ def cross_check_zoo(dev):
 
 def zoo_path(dev):
     """(6c) smollm-135m in bf16 on the card: Model.prefill of 8 x 2048
-    tokens, then the ServeEngine answering 24 requests twice."""
+    tokens, then the ServeEngine answering SERVE_REQUESTS requests
+    twice."""
     from repro_torch.config import get_arch
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models.model_zoo import build_model
@@ -2533,29 +2554,59 @@ def cross_check_moe(dev) -> None:
         f"{err:.3g} of max |out| (atol 1e-4 x max |out|, rtol 1e-3)")
 
 
-def moe_zoo_path(dev) -> None:
-    """(8c) qwen3-moe-235b-a22b at full width, MOE_LAYERS of its 94 layers,
-    bf16, seeded: `Model.prefill` of MOE_PREFILL tokens (3 calls, exactly
-    one flash launch an attention layer each, a finite positive aux), then
-    a ServeEngine answering MOE_SERVE's requests twice with the same
-    tokens."""
+def _moe_zoo_model():
     from repro_torch.config import get_arch
-    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models.model_zoo import build_model
     full = get_arch(MOE_ARCH)
-    cfg = dataclasses.replace(full, num_layers=MOE_LAYERS)
-    model = build_model(cfg)
+    return full, build_model(dataclasses.replace(full,
+                                                 num_layers=MOE_LAYERS))
+
+
+def start_moe_draw():
+    """8c's weights (`Model.init` on the CPU, the draws `init` makes for any
+    device) drawn by a thread of their own, so that the host's one-core
+    draw of MOE_PARAMS values runs while the card works on the phases
+    before 8; a Future of {"params": the module on the host, "seconds"}
+    (its taker pops "params", so that the Future keeps no weights)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def draw():
+        t = time.perf_counter()
+        params = _moe_zoo_model()[1].init(SEED, device="cpu")
+        return {"params": params, "seconds": time.perf_counter() - t}
+
+    pool = ThreadPoolExecutor(1)
+    drawn = pool.submit(draw)
+    pool.shutdown(wait=False)
+    return drawn
+
+
+def moe_zoo_path(dev, drawn=None) -> None:
+    """(8c) qwen3-moe-235b-a22b at full width, MOE_LAYERS of its 94 layers,
+    bf16, seeded (the weights of `drawn`, `start_moe_draw`'s, moved to the
+    card): `Model.prefill` of MOE_PREFILL tokens (3 calls, exactly one
+    flash launch an attention layer each, a finite positive aux), then a
+    ServeEngine answering MOE_SERVE's requests twice with the same
+    tokens."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    full, model = _moe_zoo_model()
+    cfg = model.cfg
     log(f"  reduced: {json.dumps({'num_layers': [full.num_layers, MOE_LAYERS]})}")
     gc.collect()
     t = time.perf_counter()
-    params = model.init(SEED, device=dev)
+    got = (drawn or start_moe_draw()).result()
+    params, draw_s = got.pop("params"), got["seconds"]
+    wait_s = time.perf_counter() - t
+    t = time.perf_counter()
+    params = params.to(dev)
     sync(dev)
-    init_s = time.perf_counter() - t
+    move_s = time.perf_counter() - t
     n_params, n_active = model.param_count(), model.active_param_count()
     require(n_params == MOE_PARAMS, f"{n_params} parameters")
     log(f"  {cfg.name}: {n_params} parameters ({n_active} active a token, "
-        f"{cfg.param_dtype}), {cfg.num_layers} layers, drawn and moved in "
-        f"{init_s:.1f} s; weights on the card "
+        f"{cfg.param_dtype}), {cfg.num_layers} layers, drawn on the host in "
+        f"{draw_s:.1f} s (waited for {wait_s:.1f} s), moved in {move_s:.1f} "
+        f"s; weights on the card "
         f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
     rng = np.random.RandomState(SEED)
     B, S = MOE_PREFILL
@@ -2612,17 +2663,20 @@ def moe_zoo_path(dev) -> None:
     del params
 
 
-def moe_phase(dev, gen, drive) -> dict:
-    """Phase 8: (a) flash at qwen3-moe's prefill shape, (b) CPU against
-    the card at full width cut in depth, (c) qwen3-moe's serving path
-    (`drive`n as "zoo_moe"; only its launches count). Returns 8a's
-    numbers."""
+def moe_phase(dev, gen, drive, drawn=None) -> dict:
+    """Phase 8: (c) qwen3-moe's serving path on the weights of `drawn`
+    (`drive`n as "zoo_moe"; only its launches count), first, so that the
+    host holds its weights no longer than it must; then (a) flash at
+    qwen3-moe's prefill shape and (b) CPU against the card at full width
+    cut in depth. Returns 8a's numbers."""
     gc.collect()
     torch.cuda.empty_cache()
     t = time.perf_counter()
+    drive("zoo_moe", lambda: moe_zoo_path(dev, drawn))
+    gc.collect()
+    torch.cuda.empty_cache()
     flash_moe = check_flash_moe(dev, gen)
     cross_check_moe(dev)
-    drive("zoo_moe", lambda: moe_zoo_path(dev))
     log(f"MoE zoo phase: {time.perf_counter() - t:.3f} s")
     return flash_moe
 
@@ -5048,6 +5102,687 @@ def tp_phase(dev, gen, drive) -> dict:
     return rec
 
 
+# --------------------------------------------------------------- phase 15
+# tensor-parallel compute of the recurrent and hybrid LMs and of Stage 1
+# and Stage 2. (a) Each rank's share at full width, the M ranks of a
+# "model" axis (M in TP_MS) run as threads of this process (a "thread"
+# MeshComm, no process group: every collective of the forward and of the
+# backward meets the other ranks' on the card, the sums in rank order),
+# held to the unsharded module on the card: bf16 modules (xlstm's blocks,
+# jamba's Mamba) as near the module's fp32 run as its bf16 run is
+# (`_bf16_near`), fp32 ones (the encoder's RWKV block, Stage 1's pool and
+# heads, Stage 2's MABs) at the fp32 bounds (`_fp32_near`); (b) Stage 1,
+# Stage 2 and xlstm at 2 layers on a one-rank NCCL mesh, bitwise the
+# unsharded runs; (c) a Stage-1 and a Stage-2 step on two gloo ranks
+# sharing the card over a (1, 2) mesh, held to the unsharded card run at
+# the fp32 bounds. The shares of (a) and the mesh runs of (b) count on
+# the "tp" path.
+TPR_MLSTM = (2, 2048)          # rows x tokens through xlstm's mLSTM block
+TPR_SLSTM = (2, 512)           # through its sLSTM block
+TPR_MAMBA = (1, 1024)          # through one of jamba's Mamba layers
+TPR_RWKV = (64, 128)           # through the encoder's RWKV block
+TPR_SET = (512, 64)            # sets x elements through Stage 2's MABs
+TPR_DECODE_ROWS = 8
+TPR_STAGE1_STEPS = 3
+TPR_STAGE2_STEPS = 3
+TPR_STAGE2_ROWS = 64           # triplets a 15b Stage-2 step
+TPR_XLSTM = (2, 512)           # 15b xlstm prefill
+# 15b's xlstm step: 500 tokens, not a whole number of the mLSTM's chunks,
+# take its token scan; the chunkwise form's CUDA float cumsum has no
+# deterministic implementation (use_deterministic_algorithms refuses it)
+TPR_XLSTM_STEP = (2, 500)
+TPR_DECODE_STEPS = 4
+TPR_GLOO = (8, 16)             # 15c Stage-1 rows, Stage-2 triplets
+# 15c's leaves held by their gradient's relative L2 (1e-4) and not by the
+# parameters after the step: gradients down to 2e-8, at AdamW's eps,
+# where its step lr g / (|g| + 1e-8) turns the gradient's summation order
+# into differences of the step (relative L2 2.1e-4 on the card)
+TPR_GLOO_BY_GRADS = ("stage2/set_transformer/pma/norm1/bias",)
+
+
+def tp_recurrent_launches() -> dict:
+    """wkv and set-attention launches on the "tp" path in phase 15: (a) the
+    RWKV block's share, forward and backward, and a decode step, a rank
+    of each M (at M 2 on its 3 heads, at M 4 on all 6), Stage 2's SAB and
+    PMA, forward and backward, a rank of each M; (b) the sharded Stage-1
+    steps (12 layers, forward and backward) and Stage-2 steps (3 MABs x 3
+    sets, forward and backward)."""
+    shares = sum(TP_MS)
+    return {"wkv": 2 * shares + 12 * TPR_STAGE1_STEPS,
+            "wkv_backward": shares + 12 * TPR_STAGE1_STEPS,
+            "set_attention": 2 * shares + 9 * TPR_STAGE2_STEPS,
+            "set_attention_backward": 2 * shares + 9 * TPR_STAGE2_STEPS}
+
+
+def _rel_err(got, want) -> float:
+    return ((got.float() - want.float()).norm()
+            / want.float().norm().clamp_min(1e-30)).item()
+
+
+def _fp32_near(got, want, what, grad=False) -> float:
+    """fp32: an output within relative L2 1e-5 of the unsharded one, a
+    gradient within 1e-4 x max(1, max|g|) elementwise."""
+    if grad:
+        tol = 1e-4 * max(1.0, want.abs().max().item())
+        max_err(got, want, tol, 0.0, what)
+    rel = _rel_err(got, want)
+    require(grad or rel <= 1e-5, f"{what}: relative L2 error {rel:.3g}")
+    log(f"  {what}: relative L2 error {rel:.3g}")
+    return rel
+
+
+def _bf16_near(got, want16, want32, what) -> float:
+    """bf16: within relative L2 1.5 x (the unsharded bf16 run's error
+    against its fp32 run of the same weights) + 1e-3 of that fp32 run,
+    and within 2e-2 of the unsharded bf16 run (each rank's bf16 partial
+    sum rounds once)."""
+    base = _rel_err(want16, want32)
+    err32, err16 = _rel_err(got, want32), _rel_err(got, want16)
+    require(err32 <= 1.5 * base + 1e-3 and err16 <= 2e-2,
+            f"{what}: relative L2 {err32:.3g} from fp32 (the unsharded "
+            f"bf16 run's {base:.3g}), {err16:.3g} from the bf16 run")
+    log(f"  {what}: relative L2 {err32:.3g} from fp32 (unsharded bf16 "
+        f"{base:.3g}), {err16:.3g} from the unsharded bf16 run")
+    return err16
+
+
+def _thread_shares(module, specs, cfg, M, fn, inputs, cot):
+    """Every rank of a "model" axis of M (`rank_shares` in mode "thread")
+    in a thread: out = fn(share, *xs) and the gradients of fresh leaves
+    xs of `inputs` for `cot` (none when cot is None). Every rank's output
+    and input gradients must be bitwise the same; returns rank 0's."""
+    from repro_torch.distributed.collectives import rank_shares, run_threads
+    shares = rank_shares(module, specs, cfg, M, mode="thread")
+
+    def one(r):
+        xs = [t.detach().clone().requires_grad_(cot is not None)
+              for t in inputs]
+        if cot is None:
+            with torch.no_grad():
+                return fn(shares[r], *xs), []
+        out = fn(shares[r], *xs)
+        return out.detach(), list(torch.autograd.grad(out, xs, cot))
+
+    res = run_threads(one, M, shares[0].tp.comm.room)
+    for out, g in res[1:]:
+        require(torch.equal(out, res[0][0]) and all(
+            torch.equal(a, b) for a, b in zip(g, res[0][1])),
+            "the ranks' outputs or input gradients differ")
+    del shares
+    return res[0]
+
+
+def _plain_run(module, fn, inputs, cot):
+    xs = [t.detach().clone().requires_grad_(cot is not None)
+          for t in inputs]
+    if cot is None:
+        with torch.no_grad():
+            return fn(module, *xs), []
+    out = fn(module, *xs)
+    return out.detach(), list(torch.autograd.grad(out, xs, cot))
+
+
+def tpr_bf16_case(what, module, specs, cfg, fn, inputs, drive, gen):
+    """15a for a bf16 mixer: its unsharded bf16 and fp32 runs (forward and
+    backward, a unit cotangent N(0, 1/d)), then each M's shares."""
+    import copy
+    x = inputs[-1]      # every mixer's output has its input's shape
+    cot = (torch.randn(x.shape, generator=gen, device=x.device)
+           * x.shape[-1] ** -0.5).to(x.dtype)
+    want16 = _plain_run(module, fn, inputs, cot)
+    m32 = copy.deepcopy(module).float()
+    want32 = _plain_run(m32, fn, [t.float() for t in inputs], cot.float())
+    del m32
+    for M in TP_MS:
+        got = drive("tp", lambda: _thread_shares(module, specs, cfg, M, fn,
+                                                 inputs, cot))
+        _bf16_near(got[0], want16[0], want32[0], f"15a {what} M {M} output")
+        for i, g in enumerate(got[1]):
+            _bf16_near(g, want16[1][i], want32[1][i],
+                       f"15a {what} M {M} input {i} grad")
+        del got
+    torch.cuda.empty_cache()
+
+
+def tpr_fp32_case(what, module, specs, cfg, fn, inputs, drive, gen,
+                  backward=True):
+    """15a for an fp32 module: the unsharded run, then each M's shares."""
+    want = _plain_run(module, fn, inputs, None)[0]
+    cot = None
+    if backward:
+        cot = torch.randn(want.shape, generator=gen, device=want.device)
+        want = _plain_run(module, fn, inputs, cot)
+    else:
+        want = (want, [])
+    for M in TP_MS:
+        got = drive("tp", lambda: _thread_shares(module, specs, cfg, M, fn,
+                                                 inputs, cot))
+        _fp32_near(got[0], want[0], f"15a {what} M {M} output")
+        for i, g in enumerate(got[1]):
+            _fp32_near(g, want[1][i], f"15a {what} M {M} input {i} grad",
+                       grad=True)
+
+
+def _tpr_decode_state(kind, B, d, H, dev, gen):
+    """A nonzero decode state of one layer of `kind` (fp32)."""
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+    if kind == "rwkv":
+        return {"tm_shift": rnd(B, d), "S": rnd(B, H, d // H, d // H,
+                                                scale=0.1)}
+    if kind == "mamba":
+        return {"conv": rnd(B, 3, 2 * d), "ssm": rnd(B, 2 * d, 16, scale=0.1)}
+    if kind == "mlstm":
+        dh = 2 * d // H
+        return {"conv": rnd(B, 3, 2 * d), "C": rnd(B, H, dh, dh, scale=0.1),
+                "n": rnd(B, H, dh), "m": rnd(B, H)}
+    st = {k: rnd(B, d) for k in "hcm"}
+    st["n"] = rnd(B, d).abs() + 1.0
+    st["conv"] = rnd(B, 3, d)
+    return st
+
+
+def tpr_decode(kind, module, specs, cfg, H, dev, gen, drive) -> None:
+    """15a: one decode step of a mixer from each rank's blocks of a
+    nonzero state: the output and the rank's new blocks against the
+    unsharded step; the states the specs keep whole bitwise the same on
+    every rank."""
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.collectives import rank_shares, run_threads
+    from repro_torch.models import rwkv as rwkv_mod
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as tfm
+    d = module.conv_w.shape[1] // 2 if kind in ("mamba", "mlstm") else (
+        module.wr.shape[0] if kind == "rwkv" else module.conv_w.shape[1])
+    B = TPR_DECODE_ROWS
+    state = _tpr_decode_state(kind, B, d, H, dev, gen)
+    dtype = next(module.parameters()).dtype
+    x = torch.randn((B, 1, d), generator=gen, device=dev).to(dtype)
+
+    def step(m, st):
+        with torch.no_grad():
+            if kind == "rwkv":
+                out, shift, S_ = rwkv_mod.timemix_decode(m, x, st["tm_shift"],
+                                                         st["S"])
+                return out, {"tm_shift": shift, "S": S_}
+            if kind == "mamba":
+                return ssm.mamba_decode(m, x, st, 16)
+            if kind == "mlstm":
+                return ssm.mlstm_decode(m, x, st, H)
+            return ssm.slstm_decode(m, x, st, H)
+
+    want, new = step(module, {k: v.clone() for k, v in state.items()})
+    specs_kind = tfm._STATE_SPECS[kind]
+    for M in TP_MS:
+        def blocks(st, r):
+            out = {}
+            for k, t in st.items():
+                spec = sharding.pruned_spec(specs_kind[k], t.shape,
+                                            {"model": M})
+                out[k] = sharding.local_block(t, spec, {"model": M},
+                                              {"model": r}).clone()
+            return out
+
+        shares = rank_shares(module, specs, cfg, M, mode="thread")
+        got = drive("tp", lambda: run_threads(
+            lambda r: step(shares[r], blocks(state, r)), M,
+            shares[0].tp.comm.room))
+        del shares
+        # fp32: the fp32 bound; bf16: each rank's bf16 partial sums round
+        # once, relative L2 2e-2 (`_bf16_near`'s bound against the bf16
+        # run)
+        bound = 1e-5 if dtype == torch.float32 else 2e-2
+        err = _rel_err(got[0][0], want)
+        require(err <= bound, f"15a {kind} decode M {M} output: relative "
+                f"L2 {err:.3g}")
+        for r, (_, st) in enumerate(got):
+            mine = blocks(new, r)
+            for k, v in st.items():
+                e = _rel_err(v, mine[k])
+                require(e <= bound, f"15a {kind} decode M {M} rank {r} "
+                        f"state {k}: relative L2 {e:.3g}")
+                if k in ("tm_shift", "cm_shift", "h", "c", "n", "m") and \
+                        kind in ("rwkv", "slstm"):
+                    require(torch.equal(v, got[0][1][k]),
+                            f"15a {kind} decode state {k} differs by rank")
+        log(f"  15a {kind} decode M {M}: output relative L2 {err:.3g}; the "
+            f"ranks' new state blocks are the unsharded step's")
+
+
+def tp_recurrent_shares(dev, gen, drive) -> dict:
+    """15a at full width (see the constants above). Returns the seconds
+    of each part."""
+    from repro_torch.config import get_arch
+    from repro_torch.core.bbe import BBEConfig, BBEEncoder
+    from repro_torch.core.signature import SignatureConfig, SignatureModel
+    from repro_torch.models import rwkv as rwkv_mod
+    from repro_torch.models import ssm
+    from repro_torch.models.set_transformer import mab_specs
+    rec = {}
+    xcfg = get_arch("xlstm_1_3b")
+    g = torch.Generator().manual_seed(SEED)
+    d, H = xcfg.d_model, xcfg.num_heads
+    for kind, cls, (B, S), fn in (
+            ("mlstm", ssm.MLSTM, TPR_MLSTM,
+             lambda m, z: ssm.mlstm_apply(m, z, H)),
+            ("slstm", ssm.SLSTM, TPR_SLSTM,
+             lambda m, z: ssm.slstm_apply(m, z, H))):
+        t = time.perf_counter()
+        mod = cls(g, d, H, xcfg.ssm_conv_dim, torch.bfloat16).to(dev)
+        specs = {"mlstm": ssm.mlstm_specs, "slstm": ssm.slstm_specs}[kind]()
+        x = torch.randn((B, S, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        tpr_bf16_case(f"xlstm {kind} {B} x {S}", mod, specs, xcfg, fn, [x],
+                      drive, gen)
+        tpr_decode(kind, mod, specs, xcfg, H, dev, gen, drive)
+        rec[f"{kind}_s"] = time.perf_counter() - t
+        log(f"  15a xlstm {kind}: {rec[f'{kind}_s']:.1f} s")
+        del mod, x
+    jcfg = get_arch("jamba_1_5_large_398b")
+    t = time.perf_counter()
+    mod = ssm.Mamba(g, jcfg.d_model, jcfg.ssm_state_dim, jcfg.ssm_conv_dim,
+                    torch.bfloat16).to(dev)
+    B, S = TPR_MAMBA
+    x = torch.randn((B, S, jcfg.d_model), generator=gen, device=dev).to(
+        torch.bfloat16)
+    tpr_bf16_case(f"jamba mamba {B} x {S}", mod, ssm.mamba_specs(), jcfg,
+                  lambda m, z: ssm.mamba_apply(m, z, jcfg.ssm_state_dim),
+                  [x], drive, gen)
+    tpr_decode("mamba", mod, ssm.mamba_specs(), jcfg, 0, dev, gen, drive)
+    rec["mamba_s"] = time.perf_counter() - t
+    log(f"  15a jamba mamba: {rec['mamba_s']:.1f} s")
+    del mod, x
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    bcfg = BBEConfig()
+    enc = BBEEncoder(bcfg, seed=SEED).to(dev)
+    specs = enc.param_specs()
+    B, S = TPR_RWKV
+    h = torch.randn((B, S, bcfg.d_model), generator=gen, device=dev)
+    tpr_fp32_case(f"RWKV block {B} x {S}", enc.blocks[0],
+                  rwkv_mod.rwkv_block_specs(), None,
+                  lambda m, z: m(z), [h], drive, gen)
+    tpr_decode("rwkv", enc.blocks[0].time_mix, rwkv_mod.timemix_specs(), None,
+               bcfg.num_heads, dev, gen, drive)
+    valid = torch.rand((B, S), generator=gen, device=dev) > 0.1
+    for name, fn in (("pool", lambda m, z: m.pool(z, valid)),
+                     ("ntp_head", lambda m, z: m.ntp_head(z)),
+                     ("nip_head", lambda m, z: m.nip_head(z))):
+        tpr_fp32_case(f"stage-1 {name}", enc, specs, None, fn, [h], drive,
+                      gen)
+    rec["stage1_s"] = time.perf_counter() - t
+    log(f"  15a stage 1: {rec['stage1_s']:.1f} s")
+    del enc
+
+    t = time.perf_counter()
+    scfg = SignatureConfig()
+    sig = SignatureModel(scfg, seed=SEED).to(dev)
+    st = sig.set_transformer
+    B, N = TPR_SET
+    hs = torch.randn((B, N, scfg.d_model), generator=gen, device=dev)
+    seeds = torch.randn((B, 1, scfg.d_model), generator=gen, device=dev)
+    bias = torch.rand((B, N), generator=gen, device=dev)
+    mask = torch.rand((B, N), generator=gen, device=dev) > 0.2
+    mab = mab_specs()
+    tpr_fp32_case(f"stage-2 SAB {B} x {N}", st.sabs[0], mab, None,
+                  lambda m, z: m(z, z, bias, mask), [hs], drive, gen)
+    tpr_fp32_case(f"stage-2 PMA {B} x {N}", st.pma, mab, None,
+                  lambda m, q, z: m(q, z, bias, mask), [seeds, hs], drive,
+                  gen)
+    cpi = {k[len("cpi_head/"):]: v for k, v in sig.param_specs().items()
+           if k.startswith("cpi_head/")}
+    tpr_fp32_case("stage-2 CPI head", sig.cpi_head, cpi, None,
+                  lambda m, z: m(z), [torch.randn(
+                      (B, scfg.sig_dim), generator=gen, device=dev)], drive,
+                  gen)
+    rec["stage2_s"] = time.perf_counter() - t
+    log(f"  15a stage 2: {rec['stage2_s']:.1f} s")
+    del sig
+
+    return rec
+
+
+def tpr_kernel_times(dev, gen) -> dict:
+    """wkv (forward, no states) at the encoder's TPR_RWKV with the 6 heads
+    of M 1 and M 4 (the whole route) and the 3 of M 2, and set attention
+    at Stage 2's TPR_SET with the 4, 2 and 1 heads of M 1, 2 and 4; host
+    clock (`cuda_ms`)."""
+    from repro_torch.core.bbe import BBEConfig
+    from repro_torch.core.signature import SignatureConfig
+    from repro_torch.kernels.set_attention import masked_set_attention
+    from repro_torch.kernels.wkv import wkv
+    bcfg, scfg = BBEConfig(), SignatureConfig()
+    times = {}
+    B, S = TPR_RWKV
+    dh = bcfg.d_model // bcfg.num_heads
+    for heads in (bcfg.num_heads, bcfg.num_heads // 2):
+        r, k, v = (torch.randn((B, S, heads, dh), generator=gen,
+                               device=dev) for _ in range(3))
+        k = k / k.norm(dim=-1, keepdim=True)
+        w = torch.rand((B, S, heads, dh), generator=gen, device=dev) * 0.3 \
+            + 0.7
+        beta = torch.rand((B, S, heads), generator=gen, device=dev)
+        times[f"wkv_heads{heads}_ms"] = cuda_ms(
+            lambda: wkv(r, k, v, w, beta), 10)
+    B, N = TPR_SET
+    bias = torch.rand((B, N), generator=gen, device=dev)
+    mask = torch.rand((B, N), generator=gen, device=dev) > 0.2
+    for heads in (4, 2, 1):
+        q, k, v = (torch.randn((B, heads, N, scfg.d_model // 4),
+                               generator=gen, device=dev) for _ in range(3))
+        times[f"set_attention_heads{heads}_ms"] = cuda_ms(
+            lambda: masked_set_attention(q, k, v, bias, mask), 10)
+    log("  15a kernels at local heads: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in times.items()))
+    return times
+
+
+def _tpr_runs(dev, mesh, ddir, tag, xlstm):
+    """15b's runs whole or on `mesh`: TPR_STAGE1_STEPS Stage-1 pre-training
+    steps (default BBEConfig, STAGE1_BATCH rows), TPR_STAGE2_STEPS
+    `Stage2Engine` steps (default SignatureConfig, synthetic row
+    batches), and a copy of `xlstm` (full width, 2 layers, whole; sharded
+    on `mesh`): an AdamW step of TPR_XLSTM_STEP, a prefill of TPR_XLSTM
+    and TPR_DECODE_STEPS decode steps. Returns everything compared."""
+    import copy
+    from repro_torch.config import TrainConfig
+    from repro_torch.distributed.collectives import MeshComm, shard_module
+    from repro_torch.models.transformer import shard_lm
+    from repro_torch.core.bbe import BBEConfig, BBEEncoder, pretrain_loss
+    from repro_torch.core.signature import SignatureConfig, SignatureModel
+    from repro_torch.launch.train import lm_batch_fn
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train import Stage2Engine, Trainer
+    out = {}
+
+    def tc(name, lr):
+        return TrainConfig(learning_rate=lr, total_steps=10, warmup_steps=2,
+                           checkpoint_every=0,
+                           checkpoint_dir=os.path.join(ddir, f"{name}_{tag}"))
+
+    bcfg = BBEConfig()
+    pre, _ = _stage1_loaders(bcfg, dev)
+    enc = BBEEncoder(bcfg, seed=SEED).to(dev)
+    if mesh is not None:
+        enc = shard_module(enc, mesh)
+    tr = Trainer(pretrain_loss, enc, tc("stage1", 2e-3), mesh=mesh)
+    out["stage1"] = [tr.step(pre(s)) for s in range(TPR_STAGE1_STEPS)]
+    out["stage1_params"] = {k: v.detach().clone()
+                            for k, v in tr._live_tree()["params"].items()}
+    del tr, enc
+    scfg = SignatureConfig()
+    sig = SignatureModel(scfg, seed=SEED).to(dev)
+    if mesh is not None:
+        sig = shard_module(sig, mesh)
+    matrix, batches = _tpr_stage2_data(dev, TPR_STAGE2_ROWS)
+    eng = Stage2Engine(scfg, sig, matrix, tc("stage2", 1e-3), mesh=mesh)
+    out["stage2"] = [eng.step(batches(s)) for s in range(TPR_STAGE2_STEPS)]
+    out["stage2_params"] = {k: v.detach().clone() for k, v in
+                            eng.trainer._live_tree()["params"].items()}
+    del eng, sig
+    params = copy.deepcopy(xlstm)
+    xcfg = params.cfg
+    model = build_model(xcfg)
+    if mesh is not None:
+        params = shard_lm(params, MeshComm.of_mesh(mesh))
+    B, S = TPR_XLSTM_STEP
+    tr = Trainer(lambda p, b: model.loss(p, b), params, tc("xlstm", 1e-4),
+                 mesh=mesh)
+    out["xlstm"] = tr.step(lm_batch_fn(xcfg.vocab_size, B, S, xcfg, dev)(0))
+    out["xlstm_params"] = {k: v.detach().clone()
+                           for k, v in tr._live_tree()["params"].items()}
+    del tr
+    B, S = TPR_XLSTM
+    lm_batches = lm_batch_fn(xcfg.vocab_size, B, S, xcfg, dev)
+    # the prefill's chunkwise mLSTM (its cumsum) runs with the default
+    # algorithms: a forward pass, no atomics
+    torch.use_deterministic_algorithms(False)
+    try:
+        out["xlstm_hidden"], _ = model.prefill(
+            params, {"tokens": lm_batches(1)["tokens"]})
+        cache = model.init_cache(B, 64, torch.bfloat16, dev, params=params)
+        toks = lm_batches(2)["tokens"]
+        out["xlstm_logits"] = []
+        for t in range(TPR_DECODE_STEPS):
+            lg, cache = model.decode_step(params, cache, toks[:, t:t + 1],
+                                          t)
+            out["xlstm_logits"].append(lg)
+    finally:
+        torch.use_deterministic_algorithms(True)
+    out["xlstm_cache"] = cache
+    return out
+
+
+def _tpr_stage2_data(dev, rows, V=4000, n=64):
+    """A synthetic fp32 BBE matrix (V blocks and the zero sentinel) and
+    row-id triplet batches of `rows` (a pure function of the step)."""
+    from repro_torch.core.signature import SignatureConfig
+    d = SignatureConfig().bbe_dim
+    r = np.random.RandomState(SEED)
+    matrix = np.concatenate([r.randn(V, d).astype(np.float32),
+                             np.zeros((1, d), np.float32)])
+
+    def batches(step):
+        rs = np.random.RandomState(SEED + 1 + step)
+        out = {}
+        for role in ("anchor", "positive", "negative"):
+            mask = rs.rand(rows, n) > 0.3
+            mask[:, 0] = True
+            ids = np.where(mask, rs.randint(0, V, (rows, n)), V)
+            out[role] = {
+                "rows": torch.from_numpy(ids).to(dev),
+                "freqs": torch.from_numpy((rs.rand(rows, n) * 50).astype(
+                    np.float32) * mask).to(dev),
+                "mask": torch.from_numpy(mask).to(dev)}
+        out["cpi"] = torch.from_numpy((0.5 + 3 * rs.rand(rows)).astype(
+            np.float32)).to(dev)
+        return out
+
+    return torch.from_numpy(matrix).to(dev), batches
+
+
+def tp_recurrent_world1(dev, drive) -> None:
+    """15b: `_tpr_runs` whole and on a one-rank NCCL mesh (FileStore under
+    the git-ignored build/chip_smoke_tpr/), under deterministic
+    algorithms: bitwise equal."""
+    import torch.distributed as dist
+    from repro_torch.config import get_arch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model_zoo import build_model
+    ddir = os.path.join(HERE, "build", "chip_smoke_tpr")
+    shutil.rmtree(ddir, ignore_errors=True)
+    os.makedirs(ddir)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl" if dev.type == "cuda" else "gloo",
+        store=dist.FileStore(os.path.join(ddir, "store"), 1), rank=0,
+        world_size=1)
+    torch.use_deterministic_algorithms(True)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        xcfg = dataclasses.replace(get_arch("xlstm_1_3b"), num_layers=2,
+                                   block_pattern=("mlstm", "slstm"))
+        xlstm = build_model(xcfg).init(SEED, dev)
+        plain = _tpr_runs(dev, None, ddir, "plain", xlstm)
+        sharded = drive("tp", lambda: _tpr_runs(dev, mesh, ddir, "mesh",
+                                                xlstm))
+        del xlstm
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+    differ = [k for k in plain if not _bitwise(plain[k], sharded[k])]
+    require(not differ, f"15b not bitwise the unsharded runs at {differ}")
+    log(f"  15b on a one-rank NCCL mesh: {TPR_STAGE1_STEPS} Stage-1 steps "
+        f"(loss {sharded['stage1'][-1]['loss']:.6f}), {TPR_STAGE2_STEPS} "
+        f"Stage-2 steps (loss {sharded['stage2'][-1]['loss']:.6f}), xlstm "
+        f"(2 layers) a step of {TPR_XLSTM_STEP[0]} x {TPR_XLSTM_STEP[1]} "
+        f"(loss {sharded['xlstm']['loss']:.6f}), prefill "
+        f"{TPR_XLSTM[0]} x {TPR_XLSTM[1]} and {TPR_DECODE_STEPS} decode "
+        f"steps: bitwise the unsharded runs")
+
+
+def _bitwise(a, b) -> bool:
+    """Whether two results (tensors, numbers, nested dicts and lists of
+    them) are equal, tensors bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    if isinstance(a, dict):
+        return sorted(a) == sorted(b) and all(_bitwise(a[k], b[k])
+                                              for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_bitwise, a, b))
+    return a == b
+
+
+def _tpr_gloo_steps(dev, comm):
+    """15c's step of each stage (TPR_GLOO rows), sharded over `comm` or
+    whole: ({"stage1": metrics, "stage2": metrics}, params after, the
+    step's clipped gradients), the tensors whole, on the host."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.core.bbe import BBEConfig, BBEEncoder, pretrain_loss
+    from repro_torch.core.signature import SignatureConfig, SignatureModel
+    from repro_torch.data import SyntheticBinaryCorp
+    from repro_torch.distributed.collectives import shard_module
+    from repro_torch.train import Stage2Engine, Trainer
+
+    class Capture(Trainer):
+        def _update(self, grads, lr):
+            self.grads = {k: (g if self._tp is None else self._gather(
+                g, self._split[k])).detach().cpu() for k, g in grads.items()}
+            return super()._update(grads, lr)
+
+    tc = TrainConfig(learning_rate=1e-4, total_steps=10, warmup_steps=2,
+                     checkpoint_every=0, checkpoint_dir="/nonexistent")
+    bcfg = BBEConfig()
+    enc = BBEEncoder(bcfg, seed=SEED).to(dev)
+    if comm is not None:
+        enc = shard_module(enc, comm)
+    corp = SyntheticBinaryCorp(n_functions=500, max_len=bcfg.max_len)
+    toks = torch.as_tensor(corp.pretrain_batch(0, TPR_GLOO[0])["tokens"],
+                           device=dev)
+    tr = Capture(pretrain_loss, enc, tc)
+    metrics = {"stage1": tr.step({"tokens": toks})}
+    params = {f"stage1/{k}": v.detach().cpu() for k, v in
+              tr._live_tree()["params"].items()}
+    grads = {f"stage1/{k}": v for k, v in tr.grads.items()}
+    scfg = SignatureConfig()
+    sig = SignatureModel(scfg, seed=SEED).to(dev)
+    if comm is not None:
+        sig = shard_module(sig, comm)
+    matrix, batches = _tpr_stage2_data(dev, TPR_GLOO[1])
+    eng = Stage2Engine(scfg, sig, matrix, tc)
+    eng.trainer.__class__ = Capture
+    metrics["stage2"] = eng.step(batches(0))
+    params.update({f"stage2/{k}": v.detach().cpu() for k, v in
+                   eng.trainer._live_tree()["params"].items()})
+    grads.update({f"stage2/{k}": v for k, v in eng.trainer.grads.items()})
+    return metrics, params, grads
+
+
+def _tpr_gloo_rank(rank, store, out, kind):
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    import torch.distributed as dist
+    from repro_torch.distributed.collectives import MeshComm
+    # two host threads each: the ranks run beside 15a and 15b, which
+    # keep the host's cores busy
+    torch.set_num_threads(2)
+    if kind == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2)
+    try:
+        comm = MeshComm({"data": 1, "model": 2}, {"data": 0, "model": rank},
+                        "group", {"model": dist.group.WORLD})
+        got = _tpr_gloo_steps(torch.device(kind), comm)
+        if rank == 0:
+            torch.save(got, out)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_recurrent_gloo_start(dev):
+    """15c's two gloo ranks, started at once (they run beside 15a and 15b
+    on the one card; `tp_recurrent_gloo` joins them)."""
+    import torch.multiprocessing as mp
+    ddir = os.path.join(HERE, "build", "chip_smoke_tpr_gloo")
+    shutil.rmtree(ddir, ignore_errors=True)
+    os.makedirs(ddir)
+    out = os.path.join(ddir, "gloo.pt")
+    ctx = mp.start_processes(_tpr_gloo_rank, args=(
+        os.path.join(ddir, "store"), out, dev.type), nprocs=2, join=False,
+        start_method="spawn")
+    return ctx, out, time.perf_counter()
+
+
+def tp_recurrent_gloo(dev, started) -> dict:
+    """15c: `_tpr_gloo_steps` on two gloo ranks sharing the card over a (1,
+    2) mesh (the encoder's 6 heads split 3 a rank, Stage 2's 4 heads 2 a
+    rank), held to the unsharded card run at the fp32 bounds."""
+    ctx, out, t = started
+    want, plain, plain_g = _tpr_gloo_steps(dev, None)
+    while not ctx.join():
+        pass
+    metrics, params, grads = torch.load(out, weights_only=False)
+    for stage in ("stage1", "stage2"):
+        for k in ("loss", "grad_norm"):
+            _fp32_near(torch.tensor([metrics[stage][k]]),
+                       torch.tensor([want[stage][k]]), f"15c {stage} {k}")
+    worst, by_grads = 0.0, []
+    for k, v in plain.items():
+        g, w = grads[k], plain_g[k]
+        max_err(g, w, 1e-4 * max(1.0, w.abs().max().item()), 0.0,
+                f"15c {k} gradient")
+        rel = _rel_err(params[k], v)
+        if k in TPR_GLOO_BY_GRADS:
+            grel = _rel_err(g, w)
+            require(grel <= 1e-4, f"15c {k} gradient: relative L2 "
+                    f"{grel:.3g}")
+            by_grads.append(f"{k} (gradient {grel:.3g}, after the step "
+                            f"{rel:.3g}, |g| {w.abs().min().item():.2g}-"
+                            f"{w.abs().max().item():.2g})")
+            continue
+        require(rel <= 1e-4, f"15c {k} after the step: relative L2 "
+                f"{rel:.3g}")
+        worst = max(worst, rel)
+    log(f"  15c two gloo ranks: Stage-1 loss {metrics['stage1']['loss']:.6f}"
+        f", Stage-2 loss {metrics['stage2']['loss']:.6f}; every gradient "
+        f"within 1e-4 x max(1, max|g|), the parameters after the steps "
+        f"within relative L2 {worst:.3g} of the unsharded run, but "
+        f"{', '.join(by_grads)}: held by the gradient's relative L2")
+    return {"seconds": time.perf_counter() - t,
+            "stage1_loss": metrics["stage1"]["loss"],
+            "stage2_loss": metrics["stage2"]["loss"], "params_rel": worst,
+            "held_by_gradients": by_grads}
+
+
+def tp_recurrent_phase(dev, gen, drive) -> dict:
+    """Phase 15 (see the constants above): the kernels timed at the local
+    heads first, then 15c's ranks started, 15a and 15b beside them, 15c
+    joined; returns its record."""
+    t0 = time.perf_counter()
+    rec = {"kernel_ms": tpr_kernel_times(dev, gen)}
+    gloo = tp_recurrent_gloo_start(dev)
+    rec.update(tp_recurrent_shares(dev, gen, drive))
+    rec["15a_s"] = time.perf_counter() - t0
+    t = time.perf_counter()
+    tp_recurrent_world1(dev, drive)
+    rec["15b_s"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    rec["15c"] = tp_recurrent_gloo(dev, gloo)
+    rec["15c_join_s"] = time.perf_counter() - t
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"phase 15: {rec['seconds']:.1f} s (15a {rec['15a_s']:.1f}, 15b "
+        f"{rec['15b_s']:.1f}, 15c {rec['15c']['seconds']:.1f} from its "
+        f"start, {rec['15c_join_s']:.1f} after 15b)")
+    return rec
+
+
 def _probe_gloo_rank(rank, store, out):
     sys.path.insert(0, os.path.join(HERE, "src"))
     import torch.distributed as dist
@@ -5341,6 +6076,7 @@ def main() -> int:
         sys.path.insert(0, os.path.join(HERE, "src"))
         return probe_gloo()
     tp_only = sys.argv[1:] == ["--tp"]
+    tpr_only = sys.argv[1:] == ["--tp-recurrent"]
     moe_only = sys.argv[1:] == ["--moe"]
     modal_only = sys.argv[1:] == ["--modal"]
     train_only = sys.argv[1:] == ["--lm-train"]
@@ -5423,6 +6159,35 @@ def main() -> int:
                 f"{tp_launches()}")
         log(card)
         log(json.dumps({"tp": dict(rec, launches_by_path=by_path)}))
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if tpr_only:
+        # phase 15 alone, its path held to its wkv and set-attention
+        # launches
+        tpr = {"wkv": wkv, "wkv_backward": wkv_backward,
+               "set_attention": masked_set_attention,
+               "set_attention_backward": set_attention_backward}
+        by_path = {}
+
+        def drive_tpr(path, fn):
+            for w in tpr.values():
+                w.launches = 0
+            out = fn()
+            for name, w in tpr.items():
+                seen = by_path.setdefault(name, {})
+                seen[path] = seen.get(path, 0) + w.launches
+            return out
+
+        rec = tp_recurrent_phase(dev, gen, drive_tpr)
+        got = {name: n["tp"] for name, n in by_path.items()}
+        log(f"tp launches: {got}")
+        require(got == tp_recurrent_launches(), f"tp: launches {got}, not "
+                f"{tp_recurrent_launches()}")
+        log(card)
+        log(json.dumps({"tp_recurrent": dict(rec,
+                                             launches_by_path=by_path)}))
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -5619,6 +6384,9 @@ def main() -> int:
         torch.use_deterministic_algorithms(False)
     del run
 
+    # 8c's weights are drawn on the host while phases 6 and 7 run
+    moe_drawn = start_moe_draw()
+
     # 6. the LM zoo: (a) the flash kernel, (b) CPU vs card at full width,
     # (c) the dense serving path; only (c)'s launches count
     t = time.perf_counter()
@@ -5649,10 +6417,11 @@ def main() -> int:
     log(f"recurrent zoo phase: {time.perf_counter() - t:.3f} s")
     results["wkv"]["extra"]["zoo_shapes"] = wkv_zoo
 
-    # 8. the zoo's MoE archs: (a) flash at qwen3-moe's prefill shape, (b)
-    # CPU vs card (qwen3-moe cut to 1 layer, grok-1's mixer), (c) qwen3-moe
-    # at 8 layers served; only (c)'s launches count
-    flash_moe = moe_phase(dev, gen, drive)
+    # 8. the zoo's MoE archs: (c) qwen3-moe at MOE_LAYERS layers served,
+    # (a) flash at qwen3-moe's prefill shape, (b) CPU vs card (qwen3-moe
+    # cut to 1 layer, grok-1's mixer); only (c)'s launches count
+    flash_moe = moe_phase(dev, gen, drive, moe_drawn)
+    del moe_drawn
     n_moe = by_path.get("flash_attention", {}).get("zoo_moe", 0)
     require(n_moe == 3 * MOE_LAYERS,
             f"flash_attention launched {n_moe} times on the MoE zoo path, "
@@ -5708,6 +6477,16 @@ def main() -> int:
     # one-rank NCCL mesh bitwise the unsharded model (the "tp" path)
     results["flash_attention"]["extra"]["tp"] = tp_phase(dev, gen, drive)
     for name, want in tp_launches().items():
+        n = by_path.get(name, {}).get("tp", 0)
+        require(n == want, f"{name} launched {n} times on the tp path, "
+                f"not {want}")
+
+    # 15. tensor-parallel compute of the recurrent and hybrid LMs and of
+    # Stage 1 and Stage 2: each rank's share at full width (the ranks as
+    # threads), a one-rank NCCL mesh bitwise the unsharded runs, two gloo
+    # ranks on the card; wkv and set attention on the "tp" path
+    results["wkv"]["extra"]["tp"] = tp_recurrent_phase(dev, gen, drive)
+    for name, want in tp_recurrent_launches().items():
         n = by_path.get(name, {}).get("tp", 0)
         require(n == want, f"{name} launched {n} times on the tp path, "
                 f"not {want}")

@@ -17,7 +17,10 @@ three for the same shapes:
     op, and what a caller adds by `add_collective` (the tensor-parallel
     compute's collectives with no process group, `distributed.
     collectives.MeshComm` in mode "count": over the "model" axis under
-    "model all-reduce", "model all-gather", ...);
+    "model all-reduce", "model all-gather", "model all-to-all" (the
+    exchange of a projection's halves, `ModelShard.exchange_halves`),
+    ...; the sums both ways of `ModelShard.all_sum` are a "model
+    all-reduce" in each direction);
   * the peak of live tensor bytes: every storage an op makes is live
     from its making until it is freed (tensors made before the count are
     its baseline, not counted);

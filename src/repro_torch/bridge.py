@@ -62,7 +62,7 @@ from repro_torch.core.bbe import BBEConfig, BBEEncoder
 from repro_torch.config import ModelConfig, TrainConfig
 from repro_torch.core.signature import SignatureConfig, SignatureModel
 from repro_torch.device import Device, resolve_device
-from repro_torch.distributed.collectives import MeshComm
+from repro_torch.distributed.collectives import MeshComm, shard_module
 from repro_torch.models.transformer import (
     LM, period_of, shard_lm, stacked_key, unstack_lm_layers,
 )
@@ -102,8 +102,11 @@ def _load(module: nn.Module, flat: Dict[str, np.ndarray]) -> nn.Module:
     return module
 
 
-def bbe_params_from_jax(tree: Dict[str, Any], cfg: BBEConfig) -> BBEEncoder:
-    """Stage-1 encoder with the weights of a `bbe_init` tree (CPU)."""
+def bbe_params_from_jax(tree: Dict[str, Any], cfg: BBEConfig, mesh=None,
+                        rules=None) -> BBEEncoder:
+    """Stage-1 encoder with the weights of a `bbe_init` tree (CPU); with
+    `mesh` (a DeviceMesh or a `MeshComm`), holding this rank's blocks of
+    them as `collectives.shard_module` places them."""
     flat = dict(_flatten({k: v for k, v in tree.items() if k != "blocks"}))
     for key, stacked in _flatten(tree["blocks"]):
         if stacked.shape[0] != cfg.num_layers:
@@ -111,13 +114,17 @@ def bbe_params_from_jax(tree: Dict[str, Any], cfg: BBEConfig) -> BBEEncoder:
                              f" != num_layers {cfg.num_layers}")
         for layer in range(cfg.num_layers):
             flat[f"blocks.{layer}.{key}"] = stacked[layer]
-    return _load(BBEEncoder(cfg), flat)
+    encoder = _load(BBEEncoder(cfg), flat)
+    return encoder if mesh is None else shard_module(encoder, mesh, rules)
 
 
-def signature_params_from_jax(tree: Dict[str, Any], cfg: SignatureConfig
-                              ) -> SignatureModel:
-    """Stage-2 model with the weights of a `signature_init` tree (CPU)."""
-    return _load(SignatureModel(cfg), dict(_flatten(tree)))
+def signature_params_from_jax(tree: Dict[str, Any], cfg: SignatureConfig,
+                              mesh=None, rules=None) -> SignatureModel:
+    """Stage-2 model with the weights of a `signature_init` tree (CPU);
+    with `mesh` (a DeviceMesh or a `MeshComm`), holding this rank's blocks
+    of them as `collectives.shard_module` places them."""
+    model = _load(SignatureModel(cfg), dict(_flatten(tree)))
+    return model if mesh is None else shard_module(model, mesh, rules)
 
 
 def _leaf_tensor(value: np.ndarray) -> torch.Tensor:

@@ -14,6 +14,14 @@ compiled at different optimization levels (§III-A-4/5).
 
 Both losses take `(encoder, batch)`, as the port's `Trainer` calls a
 loss; their gradients are held to `jax.grad` of the JAX package's.
+
+Tensor-parallel (`collectives.shard_module(encoder, mesh)`: the encoder
+holds one rank's blocks, each module carries its `collectives.ModelShard`
+as `tp`): the RWKV blocks compute the rank's heads and ff columns
+(`models.rwkv`), the pool its columns of the logit, the NTP/NIP heads
+their hidden columns, and the tables that the specs split over "model"
+are looked up vocab-parallel; the activations between them are whole on
+every rank.
 Checkpoints keep the JAX layout, in which `blocks` is stacked along a
 leading `num_layers` axis (`bbe_init` builds it with `jax.vmap`): the
 encoder's `pack_checkpoint` / `unpack_checkpoint` convert its per-layer
@@ -30,9 +38,12 @@ from torch import nn
 
 from repro_torch.core.losses import l2_normalize, triplet_loss
 from repro_torch.core.tokenizer import MultiDimTokenizer, default_tokenizer
-from repro_torch.distributed.collectives import share, total
+from repro_torch.distributed.collectives import (
+    share, total,
+)
 from repro_torch.models.layers import (
-    RMSNorm, gelu, init_array, param, rmsnorm_specs, torch_dtype,
+    RMSNorm, fetch, gelu, init_array, param, rank_rows, rmsnorm_specs,
+    torch_dtype,
 )
 from repro_torch.models.rwkv import RWKVBlock, rwkv_block_specs
 from repro_torch.utils.tree import prefixed, stack_leaves, unstack_leaves
@@ -57,7 +68,10 @@ class BBEConfig:
 class AttentionPool(nn.Module):
     """Self-attention pooling (paper eq. 1-2): weights cast to h's dtype,
     the softmax in fp32, alpha cast back to h's dtype, as
-    `repro.core.bbe.attention_pool`."""
+    `repro.core.bbe.attention_pool`. Under a ModelShard that splits Wa's
+    columns ("heads"), the rank's columns of tanh(h Wa + ba) give its
+    part of the logit e, reduced out: the softmax and the weighted sum run
+    whole on every rank."""
 
     def __init__(self, gen: torch.Generator, d: int,
                  dtype: torch.dtype = torch.float32):
@@ -69,14 +83,27 @@ class AttentionPool(nn.Module):
     def forward(self, h, valid):
         """h: (B,L,d); valid: (B,L) -> (B,d)."""
         dt = h.dtype
-        e = torch.tanh(h @ self.Wa.to(dt) + self.ba.to(dt)) @ self.ua.to(dt)
+        tp = getattr(self, "tp", None)
+        split = tp is not None and tp.splits(self.Wa, 1)
+
+        def w(name):
+            return fetch(self, name, local=split).to(dt)
+
+        e = torch.tanh((tp.copy_in(h) if split else h) @ w("Wa")
+                       + w("ba")) @ w("ua")
+        if split:
+            e = tp.reduce_out(e)
         e = torch.where(valid, e.float(), -2.0 ** 30)              # (B, L)
         alpha = torch.softmax(e, dim=-1)
         return torch.einsum("bl,bld->bd", alpha.to(h.dtype), h)
 
 
 class MLPHead(nn.Module):
-    """Pre-training head (NTP / NIP)."""
+    """Pre-training head (NTP / NIP). Under a ModelShard that splits the
+    hidden columns (w1's "ff", w2's rows: the spec ("ff", "vocab") prunes
+    to ("model", None), so the logits are not vocab-parallel), the
+    rank's hidden columns and rows of w2, its partial logits reduced
+    out."""
 
     def __init__(self, gen: torch.Generator, d: int, d_out: int,
                  dtype: torch.dtype = torch.float32):
@@ -87,7 +114,14 @@ class MLPHead(nn.Module):
     def forward(self, h):
         # jax.nn.gelu defaults to the tanh approximation; torch's does not
         dt = h.dtype
-        return gelu(h @ self.w1.to(dt)) @ self.w2.to(dt)
+        tp = getattr(self, "tp", None)
+        split = tp is not None and tp.splits(self.w1, 1) \
+            and tp.splits(self.w2, 0)
+        if split:
+            h = tp.copy_in(h)
+        out = gelu(h @ fetch(self, "w1", local=split).to(dt)) \
+            @ fetch(self, "w2", local=split).to(dt)
+        return tp.reduce_out(out) if split else out
 
 
 # checkpoint key of a per-layer leaf: "<prefix>blocks/<layer>/<leaf>"
@@ -152,9 +186,27 @@ class BBEEncoder(nn.Module):
     def embed(self, tokens):
         """tokens: (B, L, 6) integer -> the scaled, concatenated embeddings
         (B, L, d_model) in `cfg.dtype`. Token ids are clamped into each
-        table, as `jnp.take(mode="clip")`."""
-        feats = [tbl[tokens[..., i].clamp(0, tbl.shape[0] - 1)]
-                 for i, tbl in enumerate(self.embeds)]
+        table, as `jnp.take(mode="clip")`. Under a ModelShard each table
+        whose stored spec splits its rows over "model" is looked up
+        vocab-parallel (the rank's rows, the others 0), the partial
+        lookups reduced out together."""
+        tp = getattr(self.embeds, "tp", None)
+        feats, split = [], []
+        for i, tbl in enumerate(self.embeds):
+            ids = tokens[..., i]
+            if tp is not None and tp.splits(tbl, 0):
+                table = fetch(self.embeds, str(i), local=True)
+                feats.append(rank_rows(table, ids, tbl.shape[0] * tp.M,
+                                       tp.rank))
+                split.append(i)
+            else:
+                table = fetch(self.embeds, str(i))
+                feats.append(table[ids.clamp(0, table.shape[0] - 1)])
+        if split:
+            summed = tp.reduce_out(torch.cat([feats[i] for i in split], -1))
+            widths = [feats[i].shape[-1] for i in split]
+            for i, part in zip(split, summed.split(widths, dim=-1)):
+                feats[i] = part
         x = torch.cat(feats, dim=-1)
         # JAX rounds the weakly typed scale to x's dtype before the product
         return x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype)
@@ -172,7 +224,7 @@ class BBEEncoder(nn.Module):
         `cfg.dtype`."""
         valid = tokens[..., 0] != pad_id
         pooled = self.pool(self.backbone(tokens), valid)
-        return l2_normalize(pooled @ self.out_proj.to(pooled.dtype))
+        return l2_normalize(pooled @ fetch(self, "out_proj").to(pooled.dtype))
 
     def param_specs(self) -> dict:
         return bbe_specs(self.cfg, len(self.embeds))

@@ -5,6 +5,9 @@ executed in an interval into one signature; a regression head predicts
 log1p(CPI). Port of `repro.core.signature`: inference, and the Stage-2
 training loss (`stage2_loss`, `stage2_loss_from_rows`), which autograd
 differentiates through the set-attention kernels in both directions.
+`collectives.shard_module(model, mesh)` makes a model one rank's blocks
+for tensor-parallel compute (the set attention on the rank's heads, its
+ff columns).
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.losses import combined_stage2_loss, l2_normalize
-from repro_torch.models.layers import init_array, param, torch_dtype
+from repro_torch.models.layers import fetch, init_array, param, torch_dtype
 from repro_torch.models.set_transformer import (
     SetTransformer, set_transformer_specs,
 )
@@ -49,9 +52,23 @@ class CPIHead(nn.Module):
         self.b2 = param(torch.zeros(1), dtype)
 
     def forward(self, sig):
+        """Under a ModelShard that splits w1's columns (and w2's rows),
+        the rank's hidden columns, its part of the output reduced out, b2
+        added once after it."""
         dt = sig.dtype
-        z = torch.tanh(sig @ self.w1.to(dt) + self.b1.to(dt))
-        return (z @ self.w2.to(dt) + self.b2.to(dt))[..., 0]
+        tp = getattr(self, "tp", None)
+        split = tp is not None and tp.splits(self.w1, 1) \
+            and tp.splits(self.w2, 0)
+
+        def w(name):
+            return fetch(self, name, local=split).to(dt)
+
+        z = torch.tanh((tp.copy_in(sig) if split else sig) @ w("w1")
+                       + w("b1"))
+        y = z @ w("w2")
+        if split:
+            y = tp.reduce_out(y)
+        return (y + fetch(self, "b2").to(dt))[..., 0]
 
 
 class SignatureModel(nn.Module):

@@ -22,14 +22,19 @@ is active, so the unsharded code runs exactly as before:
 Every rank must enter every collective, in the same order. At one rank
 each is a copy, so a sharded run on one rank is bitwise an unsharded one.
 
-Tensor-parallel compute (the attention LMs of the zoo, `models/`) runs
-its collectives through a `MeshComm`: collectives over named mesh axes
-in one of three modes, "group" (a DeviceMesh's process groups),
-"count" (no process group, the dry-run: each collective is a record of
-the active `analysis.counting.StepCount` and returns an empty tensor of
-its output's shape) and "local" (one rank's share computed alone, the
-per-rank checks: sums and maxima return this rank's part, for the
-caller to combine; each part it summed is kept, in order, in `parts`). A
+Tensor-parallel compute (every LM of the zoo, the Stage-1 encoder and
+the Stage-2 model, `models/`, `core/`) runs its collectives through a
+`MeshComm`: collectives over named mesh axes in one of four modes,
+"group" (a DeviceMesh's process groups), "count" (no process group, the
+dry-run: each collective is a record of the active
+`analysis.counting.StepCount` and returns an empty tensor of its
+output's shape), "local" (one rank's share computed alone, the per-rank
+checks of compute whose sums all feed replicated compute: sums and
+maxima return this rank's part, for the caller to combine; each part it
+summed is kept, in order, in `parts`) and "thread" (the ranks of a mesh
+run as threads of one process, `run_threads`, each collective meeting
+every rank's tensor in a `Room`: the per-rank checks of compute that
+consumes a sum itself, forward and backward, with no process group). A
 `ModelShard` is a rank's place for that compute:
 its comm, the arch's `sharding.ComputeSplit`, and the autograd
 functions the layers call:
@@ -46,16 +51,32 @@ functions the layers call:
   weight(p)         a parameter block with its dims split over the data
                     axes (FSDP) gathered just before use ("sum" backward:
                     the gradient arrives reduce-scattered)
+  all_sum(x)        all-reduce over "model" both ways: a sum of partials
+                    that rank-local compute consumes (its gradient is
+                    partial on each rank too)
+  exchange_halves(p)
+                    a rank's block of a projection stored split over its
+                    whole output but used as two halves -> this rank's
+                    channels of each half (one all-to-all; backward the
+                    inverse all-to-all)
+  splits(p, dim, units)
+                    whether the rank computes its share along dim of p:
+                    the stored spec splits dim over "model" and M divides
+                    the units (heads) it holds
 """
 from __future__ import annotations
 
 import contextlib
+import copy
 import math
+import threading
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+from torch import nn
 
+from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import (
     ComputeSplit, axes_of, axis_sizes, pruned_spec,
 )
@@ -173,23 +194,80 @@ def gather_rows(x: torch.Tensor):
 MODEL = ("model",)
 
 
+class Room:
+    """Where the `n` ranks of a mesh, run as threads of one process (a
+    MeshComm in mode "thread"), meet: `exchange` hands every rank the
+    values all of them brought. A rank that waits longer than `timeout`
+    seconds for the others fails (threading.BrokenBarrierError) instead of
+    hanging."""
+
+    def __init__(self, n: int, timeout: float = 300.0):
+        self.n = n
+        self.slots: List = [None] * n
+        self.barrier = threading.Barrier(n, timeout=timeout)
+
+    def exchange(self, rank: int, value) -> list:
+        self.slots[rank] = value
+        self.barrier.wait()
+        out = list(self.slots)
+        self.barrier.wait()
+        return out
+
+
+def run_threads(fn, n: int, room: Optional[Room] = None) -> list:
+    """[fn(0), ..., fn(n - 1)], each call in a thread of its own (the ranks
+    of a MeshComm in mode "thread"); the first exception of a rank is
+    raised here, after it broke `room` (the ranks' Room), so that the
+    others stop waiting for it. Each thread runs its backward passes
+    itself (`set_multithreading_enabled(False)`), so that a collective in
+    a backward on the card meets the other ranks' instead of waiting on
+    the autograd engine's one device thread."""
+    out: List = [None] * n
+    errors: List = []
+
+    def main(r):
+        try:
+            with torch.autograd.set_multithreading_enabled(False):
+                out[r] = fn(r)
+        except BaseException as e:      # noqa: BLE001 (re-raised below)
+            errors.append(e)
+            if room is not None:
+                room.barrier.abort()
+
+    threads = [threading.Thread(target=main, args=(r,)) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        real = [e for e in errors
+                if not isinstance(e, threading.BrokenBarrierError)]
+        raise (real or errors)[0]
+    return out
+
+
 class MeshComm:
     """Collectives over named axes of a mesh of `sizes` ({axis: size}, in
     mesh order) for the rank at `coords` ({axis: index}), in `mode`
-    "group" (`groups`: {axis: process group}), "count" or "local" (see
+    "group" (`groups`: {axis: process group}), "count", "local" or
+    "thread" (`room`: the `Room` every rank of the mesh meets in; see
     the module doc; `peers` {data_ptr: [each rank's block]} serves a
     local rank's gathers). Axes of size 1 are skipped: a collective over
     them is the identity and moves nothing."""
 
     def __init__(self, sizes: Dict[str, int], coords: Dict[str, int],
                  mode: str = "group", groups: Optional[Dict] = None,
-                 peers: Optional[Dict[int, list]] = None):
-        if mode not in ("group", "count", "local"):
-            raise ValueError(f"MeshComm mode {mode!r}: group, count or "
-                             f"local")
+                 peers: Optional[Dict[int, list]] = None,
+                 room: Optional[Room] = None):
+        if mode not in ("group", "count", "local", "thread"):
+            raise ValueError(f"MeshComm mode {mode!r}: group, count, local "
+                             f"or thread")
+        if (mode == "thread") != (room is not None):
+            raise ValueError("a Room serves the ranks of mode thread only")
         self.sizes, self.coords = dict(sizes), dict(coords)
         self.mode, self.groups = mode, groups or {}
         self.peers = peers if peers is not None else {}
+        self.room = room
         self.parts: List[torch.Tensor] = []
 
     @classmethod
@@ -205,11 +283,14 @@ class MeshComm:
     def size(self, axes: Sequence[str]) -> int:
         return math.prod(self.sizes.get(a, 1) for a in axes)
 
-    def index(self, axes: Sequence[str]) -> int:
-        """This rank's index along `axes`, row-major (the first major)."""
+    def index(self, axes: Sequence[str], coords: Optional[Dict] = None
+              ) -> int:
+        """This rank's (or the rank at `coords`) index along `axes`,
+        row-major (the first major)."""
+        coords = self.coords if coords is None else coords
         i = 0
         for a in axes:
-            i = i * self.sizes.get(a, 1) + self.coords.get(a, 0)
+            i = i * self.sizes.get(a, 1) + coords.get(a, 0)
         return i
 
     def _record(self, kind: str, axes, t: torch.Tensor) -> None:
@@ -217,6 +298,20 @@ class MeshComm:
         if counting.ACTIVE is not None:
             name = f"model {kind}" if tuple(axes) == MODEL else kind
             counting.ACTIVE.add_collective(name, t.numel() * t.element_size())
+
+    def _met(self, axes: Sequence[str], value) -> list:
+        """Mode "thread": the values the ranks of this rank's group along
+        axes (the ranks that share its coordinates on the other axes)
+        brought to the same collective, in their index order along
+        axes."""
+        everyone = self.room.exchange(self.index(tuple(self.sizes)),
+                                      (dict(self.coords), value))
+        others = [a for a in self.sizes if a not in axes]
+        group = [(c, v) for c, v in everyone
+                 if all(c.get(a, 0) == self.coords.get(a, 0)
+                        for a in others)]
+        group.sort(key=lambda cv: self.index(axes, cv[0]))
+        return [v for _, v in group]
 
     def all_reduce(self, t: torch.Tensor, axes: Sequence[str],
                    op: str = "sum") -> torch.Tensor:
@@ -231,6 +326,14 @@ class MeshComm:
             return t
         if self.mode == "count":
             self._record("all-reduce", axes, t)
+            return t
+        if self.mode == "thread":
+            parts = self._met(axes, t.detach().clone())
+            out = parts[0]
+            for p in parts[1:]:     # in rank order, the same on every rank
+                out = out + p if op == "sum" else torch.maximum(out, p)
+            with torch.no_grad():
+                t.copy_(out)
             return t
         rop = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
         for a in axes:
@@ -257,6 +360,8 @@ class MeshComm:
                 raise ValueError("a rank computed alone gathers only the "
                                  "blocks its caller put in `peers`")
             return torch.cat(blocks, dim)
+        if self.mode == "thread":
+            return torch.cat(self._met(axes, t.detach().clone()), dim)
         for a in reversed(axes):
             g = self.groups[a]
             parts = [torch.empty_like(t)
@@ -264,6 +369,45 @@ class MeshComm:
             dist.all_gather(parts, t.contiguous(), group=g)
             t = torch.cat(parts, dim)
         return t
+
+    def all_to_all(self, pieces: Sequence[torch.Tensor], dests: Sequence[int],
+                   srcs: Sequence[int], axes: Sequence[str] = MODEL
+                   ) -> List[torch.Tensor]:
+        """pieces[i] sent to the rank at index dests[i] along axes (one
+        axis); returns the pieces from the ranks at srcs, in that order.
+        Every piece has one shape, and a pair of ranks carries at most
+        one of them."""
+        axes = self.live(axes)
+        if not axes:
+            return [pieces[dests.index(s)] for s in srcs]
+        if len(axes) != 1 or len(set(dests)) != len(dests) or \
+                len(set(srcs)) != len(srcs):
+            raise ValueError("an all-to-all over one axis, at most one "
+                             "piece a pair of ranks")
+        shape, like = pieces[0].shape, pieces[0]
+        if self.mode == "count":
+            for p in pieces:
+                self._record("all-to-all", axes, p)
+            return [like.new_empty(shape) for _ in srcs]
+        if self.mode == "local":
+            raise ValueError("a rank computed alone cannot receive another "
+                             "rank's piece: run the ranks as threads")
+        me = self.index(axes)
+        if self.mode == "thread":
+            sent = self._met(axes, [(d, p.detach().clone())
+                                    for d, p in zip(dests, pieces)])
+            return [next(p for d, p in sent[s] if d == me) for s in srcs]
+        n = self.size(axes)
+        order = sorted(range(len(dests)), key=lambda i: dests[i])
+        send = torch.cat([pieces[i].reshape(-1) for i in order])
+        numel = pieces[0].numel()
+        recv = send.new_empty(len(srcs) * numel)
+        dist.all_to_all_single(
+            recv, send, [numel * (s in srcs) for s in range(n)],
+            [numel * (d in dests) for d in range(n)],
+            group=self.groups[axes[0]])
+        got = dict(zip(sorted(srcs), recv.split(numel)))
+        return [got[s].reshape(shape) for s in srcs]
 
     def block(self, t: torch.Tensor, axes: Sequence[str], dim: int
               ) -> torch.Tensor:
@@ -312,6 +456,46 @@ class _ReduceOut(torch.autograd.Function):
         return g, None, None
 
 
+class _ModelAllSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, axes):
+        ctx.comm, ctx.axes = comm, axes
+        return comm.all_reduce(x.contiguous().clone(), axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_reduce(g.contiguous().clone(), ctx.axes), None, \
+            None
+
+
+def _halves_routes(M: int, r: int):
+    """The all-to-all of `exchange_halves` on rank r of M: where this
+    rank's two chunks go (chunk 2r + j of the 2M along the whole output is
+    channel block (2r + j) mod M of half (2r + j) // M) and where its two
+    blocks come from (block r of the first half from rank r // 2, of the
+    second from rank (M + r) // 2)."""
+    return [(2 * r) % M, (2 * r + 1) % M], [r // 2, (M + r) // 2]
+
+
+class _ExchangeHalves(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, p, comm, axes):
+        ctx.comm, ctx.axes = comm, axes
+        n = p.shape[-1] // 2
+        dests, srcs = _halves_routes(comm.size(axes), comm.index(axes))
+        ctx.routes = dests, srcs
+        a, b = comm.all_to_all([p[..., :n].contiguous(),
+                                p[..., n:].contiguous()], dests, srcs, axes)
+        return a, b
+
+    @staticmethod
+    def backward(ctx, ga, gb):
+        dests, srcs = ctx.routes
+        back = ctx.comm.all_to_all([ga.contiguous(), gb.contiguous()], srcs,
+                                   dests, ctx.axes)
+        return torch.cat(back, -1), None, None
+
+
 class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, comm, axes, dim, grad):
@@ -349,6 +533,11 @@ class ModelShard:
         self.M = comm.size(MODEL)
         self.rank = comm.index(MODEL)
 
+    def __deepcopy__(self, memo):
+        # a handle on the rank's place (process groups, a Room), shared by
+        # copies of a module
+        return self
+
     def data_shard(self, n_rows: int) -> Optional["CommShard"]:
         """The rows' shard of a batch of n_rows over the rules' "batch"
         axes, as the pruned spec splits it (None: every rank all rows)."""
@@ -368,6 +557,37 @@ class ModelShard:
 
     def gather_model(self, x, dim: int, grad: str = "sum"):
         return gather(x, self.comm, MODEL, dim, grad)
+
+    def all_sum(self, x):
+        if not self.comm.live(MODEL):
+            return x
+        return _ModelAllSum.apply(x, self.comm, MODEL)
+
+    def exchange_halves(self, p):
+        """p (..., 2n): this rank's block of the output of a projection
+        whose whole output (..., 2 M n) the code cuts into two halves (a
+        gate and its input, Mamba's xi and z) -> (a, b), each (..., n):
+        this rank's block of channels of each half, as the halves'
+        consumers are stored (their "ff" split). One all-to-all (B S 2n
+        elements out and in), against gathering the projection's weight."""
+        if not self.comm.live(MODEL):
+            return p.chunk(2, dim=-1)
+        return _ExchangeHalves.apply(p, self.comm, MODEL)
+
+    def splits(self, p: torch.Tensor, dim: int, units: int = 0) -> bool:
+        """Whether the rank computes only its share along dim of the
+        parameter block p: its stored spec (`tp_spec`) splits dim over
+        "model", and M divides `units`, the whole units (heads) along it
+        (0: any column is a unit)."""
+        spec = getattr(p, "tp_spec", ())
+        return (bool(self.comm.live(MODEL)) and dim < len(spec)
+                and "model" in axes_of(spec[dim])
+                and (units == 0 or units % self.M == 0))
+
+    def head_block(self, x, dim: int):
+        """This rank's block along dim of a tensor every rank holds whole
+        (a replicated leaf's columns, the gates of every head)."""
+        return self.comm.block(x, MODEL, dim)
 
     def max_model(self, x: torch.Tensor) -> torch.Tensor:
         """x maximised over "model" (no gradient)."""
@@ -418,3 +638,59 @@ class CommShard(DataShard):
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         return self.comm.all_gather(t, self.axes, 0)
+
+
+def shard_module(module: nn.Module, comm, rules=None,
+                 specs: Optional[Dict[str, tuple]] = None, cfg=None
+                 ) -> nn.Module:
+    """Makes `module` (whole, any device) hold, in place, the blocks of its
+    parameters that the rank of `comm` (a `MeshComm`, or a DeviceMesh)
+    holds when each is stored by its pruned spec (`specs`, keyed by the
+    "/"-joined parameter names, default `module.param_specs()`, under
+    `rules` (default `sharding.LOGICAL_RULES`) and the overrides of
+    `cfg`, the zoo arch's `ModelConfig`; None for a model that is no LM
+    of the zoo, such as the Stage-1 encoder or the Stage-2 model),
+    keeping each spec as the parameter's `tp_spec`, and gives every
+    submodule the rank's ModelShard as `tp`: the tensor-parallel route
+    of the `Trainer` and `Stage2Engine`. Returns it."""
+    if not isinstance(comm, MeshComm):
+        comm = MeshComm.of_mesh(comm)
+    specs = module.param_specs() if specs is None else specs
+    rules = (sharding.arch_rules(cfg, rules) if cfg is not None
+             else dict(rules or sharding.LOGICAL_RULES))
+    sizes = comm.sizes
+    tp = ModelShard(comm, sharding.compute_split(cfg, sizes, rules), rules)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            spec = sharding.pruned_spec(specs[name.replace(".", "/")],
+                                        p.shape, sizes, rules)
+            block = sharding.local_block(p.data, spec, sizes, comm.coords)
+            if block.shape != p.shape:
+                p.data = block.clone(memory_format=torch.contiguous_format)
+            p.tp_spec = spec
+    for m in module.modules():
+        m.tp = tp
+    return module
+
+
+def rank_shares(module: nn.Module, specs: Dict[str, tuple], cfg, M: int,
+                rules=None, ranks=None, mode: str = "local") -> list:
+    """Copies of `module` as ranks `ranks` (default 0..M-1) of a "model"
+    axis of M hold it. In mode "local" each is over its own `MeshComm`:
+    one rank computed alone, its reductions returning its own part for
+    the caller to combine in rank order; with every rank made, a gather
+    of a parameter's block over "model" finds the blocks of all of them
+    (`peers`). In mode "thread" the copies' comms meet in one `Room`: run
+    them with `collectives.run_threads`, every rank's collectives (both
+    ways) meeting the others'."""
+    peers: Dict[int, list] = {}
+    room = Room(M) if mode == "thread" else None
+    copies = [shard_module(copy.deepcopy(module), MeshComm(
+        {"model": M}, {"model": r}, mode, peers=peers, room=room), rules,
+        specs, cfg)
+        for r in (range(M) if ranks is None else ranks)]
+    if ranks is None and mode == "local":
+        for blocks in zip(*(list(c.parameters()) for c in copies)):
+            for b in blocks:
+                peers[b.data_ptr()] = [x.data for x in blocks]
+    return copies

@@ -181,7 +181,17 @@ class ComputeSplit(NamedTuple):
     input table (`in_vocab`). False where the rules keep the unit off
     "model", where the stored spec does not split it (prune_pspec), or
     where M does not divide the unit count: those are computed whole on
-    every rank of "model". All False at M = 1."""
+    every rank of "model". All False at M = 1, and for a model that is no
+    LM of the zoo (`cfg` None: the Stage-1 encoder, the Stage-2 model).
+
+    The recurrent mixers (RWKV, Mamba, mLSTM, sLSTM), the Stage-1 pool
+    and heads and the Stage-2 attention, MLPs and CPI head decide their
+    units from their parameters' stored specs instead
+    (`collectives.ModelShard.splits`), with the same rule: a rank
+    computes its share of a unit where the pruned spec splits it over
+    "model" and M divides the whole units along it (an RWKV, mLSTM or
+    sLSTM layer's heads, a set attention's heads; any count of ff
+    channels); elsewhere it computes the unit whole."""
     M: int
     heads: bool
     kv_heads: bool
@@ -202,8 +212,8 @@ def compute_split(cfg, mesh, rules: Optional[Dict] = None) -> ComputeSplit:
     every head. The same holds for the kv heads (qwen3-moe's 4 and
     paligemma's 1 at M 16)."""
     M = axis_sizes(mesh).get("model", 1)
-    if M == 1:
-        return ComputeSplit(1, *(False,) * 7)
+    if M == 1 or cfg is None:
+        return ComputeSplit(M, *(False,) * 7)
 
     def on_model(logical, shape, dim):
         spec = pruned_spec(logical, shape, mesh, rules)

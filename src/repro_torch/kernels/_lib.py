@@ -27,6 +27,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 from typing import Optional, Sequence
 
@@ -193,6 +194,20 @@ def rows_aligned(nbytes: int, *tensors: torch.Tensor) -> bool:
 def rows_aligned_16(*tensors: torch.Tensor) -> bool:
     """`rows_aligned` at 16 bytes."""
     return rows_aligned(16, *tensors)
+
+
+_COUNTS = threading.Lock()
+
+
+def counted(wrapper, bf16: int = 0) -> None:
+    """One launch more on a wrapper's count (`launches`, and `bf16` more
+    of its bf16 instances, `launches_bf16`), under a lock: the ranks of a
+    mesh run as threads of one process (`collectives.run_threads`) launch
+    kernels at once."""
+    with _COUNTS:
+        wrapper.launches += 1
+        if bf16:
+            wrapper.launches_bf16 += bf16
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

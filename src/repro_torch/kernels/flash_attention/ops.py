@@ -148,7 +148,7 @@ def flash_forward(q, k, v, causal: bool = True, window: int = 0,
             args.append(int(_lib.rows_aligned_16(q, k, v)))
         rc = fn(*args, D ** -0.5, _lib.stream())
         _lib.check(rc, "flash_attention")
-        flash_attention.launches += 1
+        _lib.counted(flash_attention)
     return (o, lse) if return_lse else o
 
 
@@ -195,7 +195,7 @@ def flash_attention_backward(q, k, v, o, do, lse, causal: bool = True,
             *do.stride()[:3], int(causal), int(window),
             min(int(prefix_len), T), D ** -0.5, _lib.stream())
     _lib.check(rc, "flash_attention_backward")
-    flash_attention_backward.launches += 1
+    _lib.counted(flash_attention_backward)
     return dq, dk, dv
 
 

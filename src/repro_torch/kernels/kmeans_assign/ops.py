@@ -105,8 +105,7 @@ def kmeans_assign(x, centroids):
                               _vec(x, centroids), bf16, _lib.ptr(assign),
                               _lib.ptr(dist2), _lib.stream())
     _lib.check(rc, "kmeans_assign")
-    kmeans_assign.launches += 1
-    kmeans_assign.launches_bf16 += bf16
+    _lib.counted(kmeans_assign, bf16)
     return assign, dist2
 
 
@@ -155,8 +154,7 @@ def kmeans_update(x, centroids, valid: Optional[torch.Tensor] = None):
         _vec(x, centroids), bf16, buf.data_ptr() + 4 * O,
         buf.data_ptr() + 4 * (O + nb * O), buf.data_ptr(), _lib.stream())
     _lib.check(rc, "kmeans_update")
-    kmeans_update.launches += 1
-    kmeans_update.launches_bf16 += bf16
+    _lib.counted(kmeans_update, bf16)
     return buf[:K * d].view(K, d), buf[K * d:K * d + K], buf[K * d + K]
 
 

@@ -122,8 +122,7 @@ def _forward(q, k, v, key_bias, key_mask):
         _lib.ptr(key_mask), _lib.ptr(o), B, H, N, M, dh,
         int(_vec(q, k, v, o)), bf16, dh ** -0.5, _lib.stream())
     _lib.check(rc, "set_attention")
-    masked_set_attention.launches += 1
-    masked_set_attention.launches_bf16 += bf16
+    _lib.counted(masked_set_attention, bf16)
     return o
 
 
@@ -167,8 +166,7 @@ def set_attention_backward(q, k, v, key_bias, key_mask, do):
         _lib.ptr(dv), _lib.ptr(db), _lib.ptr(scratch), B, H, N, M, dh,
         int(_vec(q, k, v, do)), bf16, dh ** -0.5, _lib.stream())
     _lib.check(rc, "set_attention_backward")
-    set_attention_backward.launches += 1
-    set_attention_backward.launches_bf16 += bf16
+    _lib.counted(set_attention_backward, bf16)
     return dq, dk, dv, db
 
 

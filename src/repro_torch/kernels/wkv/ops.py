@@ -137,8 +137,7 @@ def _forward(r, k, v, w, beta, state, save: bool):
                             _lib.ptr(sf), _lib.ptr(states), B, S, H, dh,
                             int(vec), bf16, _lib.stream())
     _lib.check(rc, "wkv")
-    wkv.launches += 1
-    wkv.launches_bf16 += bf16
+    _lib.counted(wkv, bf16)
     return y, sf, states
 
 
@@ -197,8 +196,7 @@ def wkv_backward(r, k, v, w, beta, state, states, dy,
         *map(_lib.ptr, grads), _lib.ptr(ds0), B, S, H, dh, int(vec), bf16,
         _lib.stream())
     _lib.check(rc, "wkv_backward")
-    wkv_backward.launches += 1
-    wkv_backward.launches_bf16 += bf16
+    _lib.counted(wkv_backward, bf16)
     return (*grads, ds0)
 
 

@@ -4,42 +4,25 @@ device's share of each step is, and what it holds. Port of
 
 For every (architecture x input shape x mesh) cell:
   1. build the model on meta tensors (shapes and dtypes, no storage), as
-     `Model.param_count` does;
-  2. place parameters, optimizer state, inputs and decode caches by
-     `distributed.sharding.make_shardings(..., MeshConfig(...), rules,
-     shapes=...)`: a spec names mesh axes, a `MeshConfig` their sizes, so
-     no process group is set up; local shapes come from the pruned specs;
-  3. run the step (the `Trainer`'s own `advance` on this device's
-     blocks, `PlacedTrainer`; the prefill forward; the decode step) on
-     the per-device batch (the global batch over the "data" shards)
-     under a `analysis.counting.StepCount`: products by dtype,
-     bytes, kernel records, token loops probed (`token_loop`), and the
-     peak of live bytes;
-  4. write the roofline report (`analysis.roofline`, the H100) to
+     `Model.param_count` does, as the blocks device 0 of the mesh holds
+     (`transformer.shard_lm` over a `MeshComm` in "count" mode, rank 0
+     of every axis): each parameter by its pruned spec, so no process
+     group is set up;
+  2. run the step as one rank of the mesh runs it, under a
+     `analysis.counting.StepCount`: the `Trainer`'s own `advance` on its
+     tensor-parallel route (the rank's heads, ff columns, recurrent
+     channels, experts or expert columns and vocab rows on "model",
+     FSDP's gathers on "data"), `Model.prefill` and `Model.decode_step`
+     on the global batch, whose rows the model splits over the data
+     axes: products by dtype, bytes, kernel records, token loops probed
+     (`token_loop`), and the peak of live bytes. Every collective the
+     step enters is a record of the count (`collectives.MeshComm`: over
+     "model" under "model all-reduce", "model all-to-all" etc.), so a
+     device holds its parameter blocks, its optimizer state, its rows
+     and cache, and the step's counted peak;
+  3. write the roofline report (`analysis.roofline`, the H100) to
      artifacts/dryrun_torch/<arch>_<shape>_<mesh>.json, which
      `python -m repro_torch.analysis.report` renders.
-
-The attention LMs (`transformer.tensor_parallel_ok`: dense, MoE,
-encoder-decoder, prefix-LM) run as one rank of the mesh runs them: the
-model is built as this device's blocks (`transformer.shard_lm` over a
-`MeshComm` in "count" mode, rank 0 of every axis) and the step is the
-`Trainer`'s tensor-parallel route (its heads, ff columns, experts or
-expert columns and vocab rows on "model", FSDP's gathers on "data"),
-`Model.prefill` and `Model.decode_step` on the global batch, whose rows
-the model splits over the data axes. Every collective the step enters
-is a record of the count (`collectives.MeshComm`: over "model" under
-"model all-reduce" etc.), so a device holds its parameter blocks, its
-optimizer state, its rows and cache, and the step's counted peak.
-
-The other archs (a recurrent mixer: xlstm, jamba) keep the replicated
-route (`PlacedTrainer`): every rank runs forward and backward on its rows
-with the FULL parameters, gathered after each update, and ranks along
-"model" compute the same rows, so a device holds its parameter and
-optimizer-state shards and the full parameters; their collectives are
-reckoned from the placements (one all-reduce of each gradient leaf over
-the data axes, one gather of each sharded parameter leaf), and their
-prefill and decode hold the full parameters and the full-sequence
-caches of their rows.
 
 Everything in a report is derived from the H100 data sheet's constants
 (`analysis.costs.H100_SXM`) and the counted work, not measured. JAX's
@@ -56,15 +39,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import math
 import os
 import time
 import traceback
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Dict
 
 import torch
 
-from repro_torch.analysis import counting
 from repro_torch.analysis.costs import H100_SXM
 from repro_torch.analysis.counting import StepCount
 from repro_torch.analysis.roofline import format_report, roofline_terms
@@ -77,9 +58,8 @@ from repro_torch.distributed.sharding import (
 )
 from repro_torch.models import transformer as tfm
 from repro_torch.models.model_zoo import build_model
-from repro_torch.train.optimizer import Shards, make_optimizer
 from repro_torch.train.trainer import Trainer
-from repro_torch.utils.tree import tree_leaves, tree_size_bytes
+from repro_torch.utils.tree import tree_size_bytes
 
 ARTIFACT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                             "artifacts", "dryrun_torch")
@@ -92,12 +72,9 @@ ASSIGNED = [
     "paligemma_3b", "jamba_1_5_large_398b",
 ]
 
-MODEL_AXIS_NOTE = ("ranks along \"model\" compute the same rows with the "
-                   "full parameters: tensor-parallel compute is not ported "
-                   "for recurrent mixers")
 TENSOR_PARALLEL_NOTE = ("tensor-parallel: each rank computes its heads, ff "
-                        "columns, experts and vocab rows on \"model\" from "
-                        "its blocks")
+                        "columns, recurrent channels, experts and vocab rows "
+                        "on \"model\" from its blocks")
 
 
 def policy_for(model) -> Dict[str, Any]:
@@ -161,76 +138,15 @@ def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(tuple(shape), dtype=dtype, device="meta")
 
 
-def _local(t: torch.Tensor, place, sizes: Dict[str, int]) -> torch.Tensor:
-    """This device's block of t: a view of its first slice along each
-    sharded dim (the block every device holds one of)."""
-    for n, pl in zip(sizes.values(), place):
-        d = getattr(pl, "dim", None)
-        if d is not None:
-            t = t.narrow(d, 0, t.shape[d] // n)
-    return t
-
-
 # ---------------------------------------------------------------------------
 # the step
 # ---------------------------------------------------------------------------
 
-class _CountedMeans(Shards):
-    """`Shards` over mesh axes with no process group: the sum a mean would
-    all-reduce is added to the active count as an all-reduce instead."""
-
-    def reduce(self, s: torch.Tensor, group) -> None:
-        if counting.ACTIVE is not None:
-            counting.ACTIVE.add_collective("all-reduce",
-                                           s.numel() * s.element_size())
-
-
-class PlacedTrainer(Trainer):
-    """The `Trainer` as one device of a mesh runs its step, with no process
-    group: the optimizer state and the parameter blocks (`blocks`) are
-    this device's, shaped by `place` ({name: placements}) on a mesh of
-    `sizes`. `_update` runs the optimizer on this device's blocks of the
-    gradients (Adafactor's means over split dims counted as all-reduces
-    of their sums, as the Trainer's `Shards` sums them) and gives back
-    the full parameters as empty tensors: the all-gather's output."""
-
-    def __init__(self, loss_fn: Callable, model: torch.nn.Module,
-                 cfg: TrainConfig, place: Dict, sizes: Dict[str, int]):
-        super().__init__(loss_fn, model, cfg)
-        self._place, self._sizes = place, sizes
-        params = self.state.params
-        with torch.no_grad():
-            self.blocks = {k: _local(p, place[k], sizes).clone()
-                           for k, p in params.items()}
-        opt_init, _, _ = make_optimizer(cfg.optimizer)
-        self.state.opt_state = opt_init(self.blocks)
-        self._means = {}
-        for k, p in params.items():
-            groups: Dict[int, list] = {}
-            for (axis, n), pl in zip(sizes.items(), place[k]):
-                d = getattr(pl, "dim", None)
-                if d is not None and n > 1:
-                    groups.setdefault(d, []).append(axis)
-            self._means[k] = _CountedMeans(p.shape, groups)
-
-    def _update(self, grads: Dict[str, torch.Tensor], lr: float
-                ) -> Dict[str, torch.Tensor]:
-        g_loc = {k: _local(g, self._place[k], self._sizes)
-                 for k, g in grads.items()}
-        kw = ({"shards": self._means} if self.cfg.optimizer == "adafactor"
-              else {})
-        self.blocks, self.state.opt_state = self._opt_update(
-            g_loc, self.state.opt_state, self.blocks, lr=lr,
-            weight_decay=self.cfg.weight_decay, **kw)
-        return {k: p.new_empty(p.shape) for k, p in self.state.params.items()}
-
-
 def make_train_step(model, params: torch.nn.Module, policy: Dict[str, Any],
-                    train_cfg: TrainConfig, place: Optional[Dict] = None,
-                    sizes: Optional[Dict[str, int]] = None) -> Trainer:
-    """The `Trainer` of a zoo LM (`params`, its module) under `policy`:
-    `Model.loss` under its remat, its optimizer and microbatch; with
-    `place`, a `PlacedTrainer`. Its `advance(batch)` is the step (JAX's
+                    train_cfg: TrainConfig) -> Trainer:
+    """The `Trainer` of a zoo LM (`params`, its module, whole or one
+    rank's blocks) under `policy`: `Model.loss` under its remat, its
+    optimizer and microbatch. Its `advance(batch)` is the step (JAX's
     make_train_step returns a jitted function instead)."""
     cfg = dataclasses.replace(train_cfg, optimizer=policy["optimizer"],
                               microbatch=int(policy.get("microbatch", 1)),
@@ -239,9 +155,7 @@ def make_train_step(model, params: torch.nn.Module, policy: Dict[str, Any],
     def loss_fn(p, batch):
         return model.loss(p, batch, remat=cfg.remat)
 
-    if place is None:
-        return Trainer(loss_fn, params, cfg)
-    return PlacedTrainer(loss_fn, params, cfg, place, sizes)
+    return Trainer(loss_fn, params, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -265,90 +179,19 @@ def count_cell(arch_id: str, shape_name: str, multi_pod: bool
             "mesh": _mesh_name(multi_pod)}
     if not model.supports_shape(shape):
         return dict(base, status="SKIP(full-attn)")
-    sizes = axis_sizes(mesh_cfg)
     rules = rules_for(shape_name, cfg)
     t0 = time.monotonic()
     with torch.device("meta"):
         params = tfm.LM(cfg)
     n_params = sum(p.numel() for p in params.parameters())
-    if tfm.tensor_parallel_ok(cfg):
-        return _count_sharded(model, params, shape, mesh_cfg, rules, base,
-                              n_params, t0)
-    policy = policy_for(model)
-    named = {n.replace(".", "/"): p for n, p in params.named_parameters()}
-    param_specs = model.param_specs()
-    pplace = make_shardings({k: param_specs[k] for k in named}, mesh_cfg,
-                            rules, shapes=named)
-    full_params = tree_size_bytes(named)
-
-    # the inputs, placed; the step runs on this device's rows
-    inputs = model.input_specs(shape)
-    in_place = make_shardings(batch_specs(model, shape), mesh_cfg, rules,
-                              shapes=inputs)
-    rows = local_shape(inputs["tokens"].shape, in_place["tokens"], sizes)[0]
-    held: Dict[str, float] = {}
-    if shape.kind == "decode":
-        cache = tfm.init_cache(cfg, rows, shape.seq_len, torch.bfloat16,
-                               torch.device("meta"))
-        batch = {"tokens": _meta((rows, 1), torch.int32),
-                 "pos": _meta((), torch.int32)}
-        held["cache"] = tree_size_bytes(cache)
-        held["cache_placed"] = sum(
-            math.prod(local_shape(t.shape, pl, sizes)) * t.element_size()
-            for t, pl in zip(tree_leaves(inputs["cache"]),
-                             tree_leaves(in_place["cache"])))
-    else:
-        batch = {k: _meta(local_shape(v.shape, in_place[k], sizes), v.dtype)
-                 for k, v in inputs.items()}
-        held["inputs"] = tree_size_bytes(batch)
-    held["params_full"] = full_params
-    if shape.kind == "train":
-        trainer = make_train_step(model, params, policy, TrainConfig(),
-                                  pplace, sizes)
-        held["param_shards"] = tree_size_bytes(trainer.blocks)
-        held["opt_shards"] = tree_size_bytes(trainer.state.opt_state)
-
-    with StepCount() as count:
-        if shape.kind == "train":
-            trainer.advance(batch)
-            # the Trainer's collectives: every gradient leaf all-reduced
-            # over the data axes, every sharded parameter gathered whole
-            if any(sizes.get(a, 1) > 1 for a in ("pod", "data")):
-                count.add_collective("all-reduce", full_params, len(named))
-            sharded = [k for k, pl in pplace.items()
-                       if any(getattr(p, "dim", None) is not None
-                              for p in pl)]
-            count.add_collective(
-                "all-gather", sum(tree_size_bytes(named[k]) for k in sharded),
-                len(sharded))
-        elif shape.kind == "prefill":
-            model.prefill(params, batch)
-        else:
-            model.decode_step(params, cache, batch["tokens"], batch["pos"])
-    seconds = time.monotonic() - t0
-
-    tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode"
-                                   else 1)
-    n_active = model.active_param_count()
-    per_token = 6 * n_active if shape.kind == "train" else 2 * n_active
-    rep = roofline_terms(
-        count, arch=arch_id, shape=shape_name, mesh=base["mesh"],
-        chips=mesh_cfg.num_devices, model_flops=float(per_token) * tokens,
-        argument_bytes=float(sum(v for k, v in held.items()
-                                 if k != "cache_placed")),
-        temp_bytes=float(count.peak_bytes), axis_sizes=sizes)
-    return dict(base, status="OK", chips=mesh_cfg.num_devices,
-                policy=policy, params=n_params, active_params=n_active,
-                rows_per_device=rows, held_bytes=held,
-                count=count.summary(), roofline=rep.to_json(),
-                model_axis=MODEL_AXIS_NOTE, count_s=seconds, report=rep)
+    return _count_sharded(model, params, shape, mesh_cfg, rules, base,
+                          n_params, t0)
 
 
 def _count_sharded(model, params, shape, mesh_cfg, rules, base, n_params,
                    t0) -> Dict[str, Any]:
-    """`count_cell` of an attention LM on its tensor-parallel route: the
-    step on this device's blocks, every collective counted as it is
-    entered."""
+    """`count_cell` on the tensor-parallel route: the step on this
+    device's blocks, every collective counted as it is entered."""
     cfg = model.cfg
     sizes = axis_sizes(mesh_cfg)
     comm = MeshComm(sizes, {a: 0 for a in sizes}, "count")

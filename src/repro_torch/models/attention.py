@@ -305,12 +305,10 @@ def decode_layout(tp) -> str:
     them) or "whole" (every rank every kv head and position)."""
     if tp.M == 1:
         return "whole"
-    axes = axes_of(tp.rules.get("kv_seq"))
-    if "model" in axes:
-        if axes != ("model",):
-            raise ValueError(f"a decode cache's sequence over {axes}: the "
-                             f"tensor-parallel decode splits it over "
-                             f"\"model\" alone")
+    # over ("data", "model") (long_500k's rules) the cache's sequence is
+    # stored split over "model" alone: its batch dim, first in the spec,
+    # has taken "data" (`logical_to_pspec` uses a mesh axis once)
+    if "model" in axes_of(tp.rules.get("kv_seq")):
         return "seq"
     return "heads" if tp.split.kv_heads else "whole"
 

@@ -121,9 +121,18 @@ class Dense(nn.Module):
         self.w = param(init_array(gen, (d_in, d_out), scale), dtype)
         self.b = param(torch.zeros(d_out), dtype) if bias else None
 
-    def forward(self, x):
-        y = matmul(x, self.w)
-        return y if self.b is None else y + self.b.to(y.dtype)
+    def forward(self, x, local: bool = False):
+        """x @ w (+ b); with `local` (a rank's share under its
+        ModelShard) its columns of w and of b, or its rows of w without
+        the bias (`product`)."""
+        y = matmul(x, fetch(self, "w", local=local))
+        return y if self.b is None else \
+            y + fetch(self, "b", local=local).to(y.dtype)
+
+    def product(self, x, local: bool = False):
+        """x @ w without the bias (a row-split product, whose bias is
+        added once, after the reduce)."""
+        return matmul(x, fetch(self, "w", local=local))
 
 
 def rmsnorm(x, scale, eps: float = 1e-6):
@@ -196,12 +205,18 @@ def vocab_embed(module: Embed, ids, vocab: int, split: bool):
     table = fetch(module, "table", local=split)
     if tp is None or not split:
         return embed(table, ids)
+    return tp.reduce_out(rank_rows(table, ids, vocab, tp.rank))
+
+
+def rank_rows(table, ids, vocab: int, rank: int):
+    """The rows of ids (clamped into [0, vocab) as `embed` clamps them)
+    that `table`, rank `rank`'s block of a vocab-split table, holds; 0
+    for the others (summed over the ranks: the lookup)."""
     n = table.shape[0]
-    local = ids.clamp(0, vocab - 1) - tp.rank * n
+    local = ids.clamp(0, vocab - 1) - rank * n
     inside = ((local >= 0) & (local < n))[..., None]
-    rows = torch.where(inside, table[local.clamp(0, n - 1)],
+    return torch.where(inside, table[local.clamp(0, n - 1)],
                        torch.zeros((), dtype=table.dtype, device=table.device))
-    return tp.reduce_out(rows)
 
 
 def vocab_logits(module: Embed, x, split: bool):

@@ -18,13 +18,12 @@ expert products are plain PyTorch, as they are plain JAX in the
 reference. `loss` is the training objective (`transformer.lm_loss`),
 run with autograd on: on CUDA each attention layer's flash call saves
 its log-sum-exp and its backward launches the flash backward kernel.
-On a mesh (`init(mesh=, rules=)`) an attention LM is built as one
-rank's blocks (`transformer.shard_lm`): `loss`, `prefill` and
-`decode_step` compute that rank's share and take and return whole
-batches (rows split over the data axes where they divide, results
-gathered; logits whole, as JAX's out_shardings=None replicates them),
-and `init_cache(params=)` gives the rank's cache. An arch with a
-recurrent mixer is built whole there (the Trainer's replicated route).
+On a mesh (`init(mesh=, rules=)`) every arch is built as one rank's
+blocks (`transformer.shard_lm`): `loss`, `prefill` and `decode_step`
+compute that rank's share and take and return whole batches (rows split
+over the data axes where they divide, results gathered; logits whole,
+as JAX's out_shardings=None replicates them), and `init_cache(params=)`
+gives the rank's cache.
 `param_specs` and `cache_specs` are the logical-axis specs the Trainer
 and `repro_torch.distributed.sharding` read; `input_specs` describes a
 workload's inputs by meta tensors (shapes and dtypes, no storage).
@@ -52,12 +51,11 @@ class Model:
         """The model's parameters, drawn on the CPU from
         `torch.Generator(seed)` (so one seed gives the same weights on
         every device), each block moved to `device` as soon as it is
-        drawn. With `mesh` (a DeviceMesh, or a `MeshComm`) and an arch
-        `transformer.tensor_parallel_ok` takes, the module holds this
-        rank's blocks of them, placed by `rules` (default
+        drawn. With `mesh` (a DeviceMesh, or a `MeshComm`) the module
+        holds this rank's blocks of them, placed by `rules` (default
         `sharding.LOGICAL_RULES`, the arch's overrides on top)."""
         lm = tfm.LM(self.cfg, seed, device=resolve_device(device))
-        if mesh is None or not tfm.tensor_parallel_ok(self.cfg):
+        if mesh is None:
             return lm
         comm = mesh if isinstance(mesh, MeshComm) else MeshComm.of_mesh(mesh)
         return tfm.shard_lm(lm, comm, rules)

@@ -20,6 +20,13 @@ config's dtype, but for `w_bias`, which JAX keeps in fp32 in every model.
 r, k and v go to wkv in that dtype (the kernel's bf16 instance reads
 them as they are), w and β in fp32; y comes back fp32 and is cast to
 the activations' dtype.
+
+Tensor-parallel (a module carrying a `collectives.ModelShard` as `tp`):
+the time-mix computes its heads where M divides H and the stored spec
+splits them (wkv on the H/M local heads, as fresh contiguous tensors;
+ln_x's sum of squares summed over "model"), else every head from the
+weights gathered whole; the channel-mix its ff columns. The token
+shifts stay whole on every rank.
 """
 from __future__ import annotations
 
@@ -29,7 +36,7 @@ from torch import nn
 
 from repro_torch.kernels.wkv.ops import wkv
 from repro_torch.models.layers import (
-    RMSNorm, init_array, param, rmsnorm, rmsnorm_specs,
+    RMSNorm, fetch, init_array, param, rmsnorm, rmsnorm_specs,
 )
 from repro_torch.utils.tree import prefixed
 
@@ -61,19 +68,35 @@ class TimeMix(nn.Module):
         self.wo = param(init_array(gen, (d_model, d_model)), dtype)
         self.ln_x = param(torch.ones(d_model), dtype)
 
-    def project(self, x, x_prev):
-        """r, k (unit-normalised per head), v, w (decay), β."""
+    def heads_split(self) -> bool:
+        """Whether a rank of its ModelShard computes only its heads: the
+        stored spec splits wr's columns over "model" and M divides H."""
+        tp = getattr(self, "tp", None)
+        return tp is not None and tp.splits(self.wr, 1, self.num_heads)
+
+    def project(self, x, x_prev, split: bool = False):
+        """r, k (unit-normalised per head), v, w (decay), β; with `split`,
+        of this rank's heads (x and x_prev entered by copy-in): its
+        columns of wr, wk, wv, ww, its slices of w_bias and of wbeta's
+        columns (both replicated, entering by copy-in)."""
         B, S, d = x.shape
         H = self.num_heads
         dh = d // H
-        mu = self.mu
+        mu = fetch(self, "mu", local=split)
+        w_bias = fetch(self, "w_bias", local=split)
+        wbeta = fetch(self, "wbeta", local=split)
+        if split:
+            tp = self.tp
+            H //= tp.M
+            w_bias = tp.head_block(w_bias, 0)
+            wbeta = tp.head_block(wbeta, 1)
         lerp = [x * mu[i] + x_prev * (1 - mu[i]) for i in range(5)]
-        r = (lerp[0] @ self.wr).reshape(B, S, H, dh)
-        k = (lerp[1] @ self.wk).reshape(B, S, H, dh)
-        v = (lerp[2] @ self.wv).reshape(B, S, H, dh)
-        w = torch.sigmoid((lerp[3] @ self.ww).float()
-                          + self.w_bias).reshape(B, S, H, dh)
-        beta = torch.sigmoid((lerp[4] @ self.wbeta).float())     # (B,S,H)
+        r = (lerp[0] @ fetch(self, "wr", local=split)).reshape(B, S, H, dh)
+        k = (lerp[1] @ fetch(self, "wk", local=split)).reshape(B, S, H, dh)
+        v = (lerp[2] @ fetch(self, "wv", local=split)).reshape(B, S, H, dh)
+        w = torch.sigmoid((lerp[3] @ fetch(self, "ww", local=split)).float()
+                          + w_bias).reshape(B, S, H, dh)
+        beta = torch.sigmoid((lerp[4] @ wbeta).float())          # (B,S,H)
         norm = torch.linalg.vector_norm(k.float(), dim=-1, keepdim=True)
         k = k / torch.clamp(norm, min=1e-6).to(k.dtype)
         return r, k, v, w, beta
@@ -81,15 +104,39 @@ class TimeMix(nn.Module):
     def mix(self, x, shift=None, state=None):
         """(out (B,S,d), wkv state after x (B,H,dh,dh) fp32) for x
         (B,S,d) following the token `shift` and the wkv `state` (both
-        zeros when None)."""
+        zeros when None). Under a ModelShard that splits the heads, wkv
+        runs on the rank's H/M heads (`state` and the state returned
+        are its heads'), ln_x normalises over the whole d_model with the
+        sum of squares summed over "model", and the rank's rows of wo
+        give its part of out, then reduce-out."""
         B, S, d = x.shape
-        r, k, v, w, beta = self.project(x, token_shift(x, shift))
+        split = self.heads_split()
+        if split:
+            x = self.tp.copy_in(x)
+        r, k, v, w, beta = self.project(x, token_shift(x, shift), split)
         y, sf = wkv(r, k, v, w, beta, state)
-        y = rmsnorm(y.to(x.dtype).reshape(B, S, d), self.ln_x)
-        return y @ self.wo, sf
+        y = y.to(x.dtype).reshape(B, S, -1)
+        if not split:
+            y = rmsnorm(y, fetch(self, "ln_x"))
+            return y @ fetch(self, "wo"), sf
+        tp = self.tp
+        y = _rmsnorm_heads(y, tp.head_block(fetch(self, "ln_x", local=True),
+                                            0), d, tp)
+        return tp.reduce_out(y @ fetch(self, "wo", local=True)), sf
 
     def forward(self, x):
         return self.mix(x)[0]
+
+
+def _rmsnorm_heads(y, scale, d: int, tp, eps: float = 1e-6):
+    """`rmsnorm` over d columns of which y (..., d/M) holds this rank's:
+    the sum of squares (..., 1) summed over "model" both ways (the
+    normalised columns feed the rank's own rows of wo, so the gradient
+    of the sum is partial on every rank too), fp32 math."""
+    y32 = y.float()
+    ss = tp.all_sum(torch.sum(y32 * y32, dim=-1, keepdim=True))
+    var = ss / torch.tensor(float(d), device=y.device)
+    return (y32 * torch.rsqrt(var + eps) * scale.float()).to(y.dtype)
 
 
 class ChannelMix(nn.Module):
@@ -101,8 +148,18 @@ class ChannelMix(nn.Module):
         self.wv = param(init_array(gen, (expand * d_model, d_model)), dtype)
 
     def forward(self, x, shift=None):
-        xk = x * self.mu + token_shift(x, shift) * (1 - self.mu)
-        return torch.square(torch.relu(xk @ self.wk)) @ self.wv
+        """Under a ModelShard that splits wk's columns, the rank's ff
+        columns (the shifted input entering by copy-in), its rows of wv,
+        then reduce-out."""
+        tp = getattr(self, "tp", None)
+        split = tp is not None and tp.splits(self.wk, 1)
+        mu = fetch(self, "mu")
+        xk = x * mu + token_shift(x, shift) * (1 - mu)
+        if split:
+            xk = tp.copy_in(xk)
+        out = torch.square(torch.relu(xk @ fetch(self, "wk", local=split))) \
+            @ fetch(self, "wv", local=split)
+        return tp.reduce_out(out) if split else out
 
 
 class RWKVBlock(nn.Module):

@@ -11,6 +11,11 @@ Parameters are in the dtype given (`SignatureConfig.dtype`); the dtypes of
 the activations follow JAX's: the attention's weights are cast to the
 queries' dtype, a `Dense` promotes (so fp32 inputs on bf16 weights run
 in fp32, and bf16 inputs in bf16).
+
+Tensor-parallel (modules carrying a `collectives.ModelShard` as `tp`,
+`collectives.shard_module`): each attention runs the rank's heads
+where M divides H, each MAB's MLP its ff columns; the set elements stay
+whole on every rank.
 """
 from __future__ import annotations
 
@@ -21,7 +26,8 @@ from torch import nn
 
 from repro_torch.kernels.set_attention.ops import masked_set_attention
 from repro_torch.models.layers import (
-    Dense, LayerNorm, dense_specs, gelu, init_array, layernorm_specs, param,
+    Dense, LayerNorm, dense_specs, fetch, gelu, init_array, layernorm_specs,
+    param,
 )
 from repro_torch.utils.tree import prefixed
 
@@ -39,18 +45,33 @@ class MHA(nn.Module):
     def forward(self, xq, xk, key_bias=None, key_mask=None):
         """xq: (B,N,d), xk: (B,M,d); key_bias: (B,M) additive logit bias;
         key_mask: (B,M) valid flags. The weights take xq's dtype, as
-        `_mha_apply` casts them."""
+        `_mha_apply` casts them. Under a ModelShard that splits the heads
+        (the stored spec and M | H), the rank's heads (xq, xk by
+        copy-in) through the set-attention wrapper as fresh contiguous
+        (B, H/M, N, dh) tensors, its rows of wo, then reduce-out."""
         B, N, d = xq.shape
         M = xk.shape[1]
         H = self.num_heads
         dh = d // H
+        tp = getattr(self, "tp", None)
+        split = tp is not None and tp.splits(self.wq, 1, H)
+        if split:
+            H //= tp.M
+            self_attn = xk is xq
+            xq = tp.copy_in(xq)
+            xk = xq if self_attn else tp.copy_in(xk)
         dt = xq.dtype
+
+        def w(name):
+            return fetch(self, name, local=split).to(dt)
+
         heads = lambda t, n: t.reshape(B, n, H, dh).transpose(1, 2).contiguous()  # noqa: E731
-        q = heads(xq @ self.wq.to(dt), N)
-        k = heads(xk @ self.wk.to(dt), M)
-        v = heads(xk @ self.wv.to(dt), M)
+        q = heads(xq @ w("wq"), N)
+        k = heads(xk @ w("wk"), M)
+        v = heads(xk @ w("wv"), M)
         o = masked_set_attention(q, k, v, key_bias, key_mask)
-        return o.transpose(1, 2).reshape(B, N, d) @ self.wo.to(dt)
+        out = o.transpose(1, 2).reshape(B, N, H * dh) @ w("wo")
+        return tp.reduce_out(out) if split else out
 
 
 class MAB(nn.Module):
@@ -66,7 +87,17 @@ class MAB(nn.Module):
     def forward(self, xq, xk, key_bias=None, key_mask=None):
         h = self.norm1(xq + self.mha(xq, xk, key_bias, key_mask))
         # jax.nn.gelu defaults to the tanh approximation
-        ff = self.ff2(gelu(self.ff1(h)))
+        tp = getattr(self, "tp", None)
+        if tp is not None and tp.splits(self.ff1.w, 1) \
+                and tp.splits(self.ff2.w, 0):
+            # the rank's ff1 columns and ff2 rows; ff2's bias added once,
+            # after the reduce
+            part = self.ff2.product(gelu(self.ff1(tp.copy_in(h), local=True)),
+                                    local=True)
+            ff = tp.reduce_out(part)
+            ff = ff + fetch(self.ff2, "b").to(ff.dtype)
+        else:
+            ff = self.ff2(gelu(self.ff1(h)))
         return self.norm2(h + ff)
 
 
@@ -101,7 +132,7 @@ class SetTransformer(nn.Module):
         h = self.in_proj(x)
         for sab in self.sabs:
             h = sab(h, h, key_bias, mask)
-        seeds = self.seeds[None].expand(B, -1, -1).to(h.dtype)
+        seeds = fetch(self, "seeds")[None].expand(B, -1, -1).to(h.dtype)
         pooled = self.pma(seeds, h, key_bias, mask)
         return self.out_proj(pooled.reshape(B, -1))
 

@@ -15,6 +15,18 @@ fp32 whatever the model's dtype, as in JAX. The three token loops
 (`_selective_scan_fused`, `_mlstm_scan`, `_slstm_scan`) run through
 `analysis.counting.token_loop`: as they are, but for a step count on
 meta tensors, which probes them at a few tokens instead of running S.
+
+Tensor-parallel (a mixer carrying a `collectives.ModelShard` as `tp`),
+as GSPMD partitions JAX's by the specs: Mamba computes its DI/M inner
+channels, the mLSTM its channels and, where M divides H, its heads, the
+sLSTM its heads' recurrence. Three projections are stored split over
+their whole output but cut into halves (Mamba's in_proj into xi | z,
+the mLSTM's up_proj into xm | z, the sLSTM's up into a | b): a rank's
+block of the product is exchanged into its channels of each half
+(`ModelShard.exchange_halves`). A sum that rank-local compute consumes
+(Mamba's x_proj, the mLSTM's w_if) is summed over "model" both ways
+(`ModelShard.all_sum`). Where the mesh does not divide a unit, the rank
+computes it whole.
 """
 from __future__ import annotations
 
@@ -25,7 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.analysis.counting import token_loop
-from repro_torch.models.layers import init_array, param
+from repro_torch.models.layers import fetch, init_array, param
 
 # ============================================================================
 # shared
@@ -99,32 +111,61 @@ def _selective_scan_fused(dt, xi, Bc, Cc, A, chunk: int = 256):
     return torch.stack(ys, dim=1)
 
 
-def _mamba_inputs(params: Mamba, x, d_state: int, conv_state=None):
+def _mamba_split(params: Mamba) -> bool:
+    """Whether a rank of the mixer's ModelShard computes only its inner
+    channels: the stored spec splits them ("ff") over "model"."""
+    tp = getattr(params, "tp", None)
+    return tp is not None and tp.splits(params.conv_w, 1) \
+        and tp.splits(params.in_proj, 1)
+
+
+def _mamba_inputs(params: Mamba, x, d_state: int, conv_state=None,
+                  split: bool = False):
     """The projections before the scan: (xi, z, dt fp32, Bc, Cc, A, new
-    conv context)."""
+    conv context). With `split`, of this rank's DI/M inner channels: x
+    entering by copy-in, its block of in_proj's output exchanged into its
+    channels of xi and of z (`exchange_halves`), x_proj's rows giving a
+    partial dt_low | B | C summed over "model" both ways (it feeds this
+    rank's columns of dt_proj and its channels of the scan)."""
     dt_ = x.dtype
     d_inner, dt_rank = mamba_dims(x.shape[-1], d_state)
-    xi, z = (x @ params.in_proj.to(dt_)).chunk(2, dim=-1)
-    xi, conv = _causal_conv(xi, params.conv_w.to(dt_),
-                            params.conv_b.to(dt_), conv_state)
+
+    def w(name):
+        return fetch(params, name, local=split).to(dt_)
+
+    if split:
+        tp = params.tp
+        xi, z = tp.exchange_halves(tp.copy_in(x) @ w("in_proj"))
+    else:
+        xi, z = (x @ w("in_proj")).chunk(2, dim=-1)
+    xi, conv = _causal_conv(xi, w("conv_w"), w("conv_b"), conv_state)
     xi = F.silu(xi)
-    dt, Bc, Cc = (xi @ params.x_proj.to(dt_)).split(
-        [dt_rank, d_state, d_state], dim=-1)
-    dt = F.softplus(dt @ params.dt_proj.to(dt_)
-                    + params.dt_bias.to(dt_)).float()
-    A = -torch.exp(params.A_log)                      # (DI, DS)
+    proj = xi @ w("x_proj")
+    if split:
+        proj = tp.all_sum(proj)
+    dt, Bc, Cc = proj.split([dt_rank, d_state, d_state], dim=-1)
+    dt = F.softplus(dt @ w("dt_proj") + w("dt_bias")).float()
+    A = -torch.exp(fetch(params, "A_log", local=split))      # (DI, DS)
     return xi, z, dt, Bc, Cc, A, conv
+
+
+def _mamba_out(params: Mamba, y, z, x, split: bool):
+    """(y (.., DI) fp32) gated by silu(z), through out_proj: the rank's
+    rows of it, then reduce-out, with `split`."""
+    y = y.to(x.dtype) * F.silu(z)
+    out = y @ fetch(params, "out_proj", local=split).to(x.dtype)
+    return params.tp.reduce_out(out) if split else out
 
 
 def mamba_apply(params: Mamba, x, d_state: int, chunk: int = 4096):
     """x: (B,S,d) -> (B,S,d)"""
-    xi, z, dt, Bc, Cc, A, _ = _mamba_inputs(params, x, d_state)
+    split = _mamba_split(params)
+    xi, z, dt, Bc, Cc, A, _ = _mamba_inputs(params, x, d_state, split=split)
     y = token_loop("mamba_scan", _selective_scan_fused,
                    (dt, xi.float(), Bc.float(), Cc.float(), A, chunk),
                    seq_args=(0, 1, 2, 3))
-    y = y + params.D * xi.float()
-    y = y.to(x.dtype) * F.silu(z)
-    return y @ params.out_proj.to(x.dtype)
+    y = y + fetch(params, "D", local=split) * xi.float()
+    return _mamba_out(params, y, z, x, split)
 
 
 def mamba_init_state(batch: int, d_model: int, d_state: int, conv_dim: int,
@@ -136,17 +177,19 @@ def mamba_init_state(batch: int, d_model: int, d_state: int, conv_dim: int,
 
 
 def mamba_decode(params: Mamba, x, state: dict, d_state: int):
-    """x: (B,1,d) single step."""
+    """x: (B,1,d) single step (a rank's channels of the state, and of the
+    output's partial, under a ModelShard that splits them)."""
+    split = _mamba_split(params)
     xi, z, dt, Bc, Cc, A, conv = _mamba_inputs(params, x, d_state,
-                                               state["conv"])
+                                               state["conv"], split)
     xi0 = xi[:, 0].float()
     dA = torch.exp(dt[:, 0, :, None] * A)                        # (B,DI,DS)
     dBx = (dt[:, 0] * xi0)[..., None] * Bc[:, 0].float()[:, None, :]
     h = dA * state["ssm"] + dBx
     y = torch.einsum("bds,bs->bd", h, Cc[:, 0].float())
-    y = y + params.D * xi0
-    y = (y.to(x.dtype) * F.silu(z[:, 0]))[:, None]
-    return y @ params.out_proj.to(x.dtype), {"conv": conv.float(), "ssm": h}
+    y = y + fetch(params, "D", local=split) * xi0
+    return _mamba_out(params, y[:, None], z, x, split), \
+        {"conv": conv.float(), "ssm": h}
 
 
 # ============================================================================
@@ -270,44 +313,94 @@ def _mlstm_chunkwise(q, k, v, i_pre, f_pre, chunk: int = 256):
     return torch.cat(hs, dim=1)
 
 
-def _mlstm_inputs(params: MLSTM, x, num_heads: int, conv_state=None):
+def _mlstm_split(params: MLSTM, num_heads: int):
+    """(ff, heads): whether a rank of the mixer's ModelShard computes only
+    its inner channels (the stored spec splits them over "model"), and
+    among them only its heads (M divides H too). A rank's channels need
+    whole blocks of the block-diagonal qkv."""
+    tp = getattr(params, "tp", None)
+    if tp is None or not tp.splits(params.conv_w, 1):
+        return False, False
+    if not (tp.splits(params.wq, 0) and tp.splits(params.up_proj, 1)):
+        raise ValueError(f"{tp.M} ranks split the mLSTM's channels but not "
+                         f"its {params.wq.shape[0]} qkv blocks")
+    return True, num_heads % tp.M == 0
+
+
+def _mlstm_inputs(params: MLSTM, x, num_heads: int, conv_state=None,
+                  ff: bool = False, split: bool = False):
     """(q, k, v (B,S,H,dh) fp32, i_pre, f_pre (B,S,H) fp32, z, new conv
-    context) of x (B,S,d)."""
+    context) of x (B,S,d). With `ff` (`_mlstm_split`): x by copy-in,
+    up_proj's block exchanged into this rank's channels of xm and of z,
+    its conv, qkv blocks and w_if rows (the gates' partials summed over
+    "model" both ways: each rank goes on with its heads of them); then
+    with `split` q, k, v and the gates of its heads, else q, k, v
+    gathered over "model" and every head's."""
     B, S, d = x.shape
     dt = x.dtype
     _, dh = mlstm_dims(d, num_heads)
-    xm, z = (x @ params.up_proj.to(dt)).chunk(2, dim=-1)
-    xc, conv = _causal_conv(xm, params.conv_w.to(dt), params.conv_b.to(dt),
-                            conv_state)
+
+    def w(name):
+        return fetch(params, name, local=ff).to(dt)
+
+    if ff:
+        tp = params.tp
+        xm, z = tp.exchange_halves(tp.copy_in(x) @ w("up_proj"))
+    else:
+        xm, z = (x @ w("up_proj")).chunk(2, dim=-1)
+    xc, conv = _causal_conv(xm, w("conv_w"), w("conv_b"), conv_state)
     xc = F.silu(xc)
-    heads = (B, S, num_heads, dh)
-    q = _blockdiag(xc, params.wq.to(dt)).reshape(heads)
-    k = (_blockdiag(xc, params.wk.to(dt)) * (dh ** -0.5)).reshape(heads)
-    v = _blockdiag(xm, params.wv.to(dt)).reshape(heads)
-    gates = xc @ params.w_if.to(dt)
-    i_pre = gates[..., :num_heads].float() + params.b_i
-    f_pre = F.logsigmoid(gates[..., num_heads:].float() + params.b_f)
-    return q.float(), k.float(), v.float(), i_pre, f_pre, z, conv
+    q = _blockdiag(xc, w("wq"))
+    k = _blockdiag(xc, w("wk")) * (dh ** -0.5)
+    v = _blockdiag(xm, w("wv"))
+    gates = xc @ w("w_if")
+    b_i = fetch(params, "b_i", local=ff)
+    b_f = fetch(params, "b_f", local=ff)
+    H = num_heads
+    if ff:
+        gates = tp.all_sum(gates)
+        gates = gates.reshape(B, S, 2, H)
+        if split:       # this rank's heads of the gates
+            H //= tp.M
+            gates = tp.head_block(gates, 3)
+            b_i, b_f = tp.head_block(b_i, 0), tp.head_block(b_f, 0)
+        else:           # every head, from every rank's channels
+            q, k, v = (tp.gather_model(t, -1) for t in (q, k, v))
+        gates = gates.reshape(B, S, 2 * H)
+    i_pre = gates[..., :H].float() + b_i
+    f_pre = F.logsigmoid(gates[..., H:].float() + b_f)
+    heads = (B, S, H, dh)
+    return q.reshape(heads).float(), k.reshape(heads).float(), \
+        v.reshape(heads).float(), i_pre, f_pre, z, conv
 
 
-def _mlstm_out(params: MLSTM, h, z, x):
-    """Output gate and down projection of h (B,S,H,dh) fp32."""
-    h = h.reshape(z.shape).to(x.dtype) * params.out_norm.to(x.dtype)
-    return (h * F.silu(z)) @ params.down_proj.to(x.dtype)
+def _mlstm_out(params: MLSTM, h, z, x, ff: bool = False):
+    """Output gate and down projection of h (B,S,H,dh) fp32. With `ff`,
+    the rank's channels of h (all of it where it holds its heads, its
+    block of every head's otherwise), out_norm and down_proj, then
+    reduce-out."""
+    h = h.reshape(*h.shape[:2], -1)
+    if ff and h.shape[-1] != z.shape[-1]:
+        h = params.tp.head_block(h, -1)
+    h = h.to(x.dtype) * fetch(params, "out_norm", local=ff).to(x.dtype)
+    out = (h * F.silu(z)) @ fetch(params, "down_proj", local=ff).to(x.dtype)
+    return params.tp.reduce_out(out) if ff else out
 
 
 def mlstm_apply(params: MLSTM, x, num_heads: int, chunk: int = 256):
     """x: (B,S,d) -> (B,S,d). The chunkwise form when S is a whole number
     of chunks (min(chunk, S) tokens), else the token scan (JAX's rule for
     its default impl, "chunked")."""
-    q, k, v, i_pre, f_pre, z, _ = _mlstm_inputs(params, x, num_heads)
+    ff, split = _mlstm_split(params, num_heads)
+    q, k, v, i_pre, f_pre, z, _ = _mlstm_inputs(params, x, num_heads,
+                                                ff=ff, split=split)
     S = x.shape[1]
     if S % min(chunk, S) == 0:
         h = _mlstm_chunkwise(q, k, v, i_pre, f_pre, chunk=chunk)
     else:
         h = token_loop("mlstm_scan", _mlstm_scan, (q, k, v, i_pre, f_pre),
                        seq_args=(0, 1, 2, 3, 4))
-    return _mlstm_out(params, h, z, x)
+    return _mlstm_out(params, h, z, x, ff)
 
 
 def mlstm_init_state(batch: int, d_model: int, num_heads: int,
@@ -322,12 +415,14 @@ def mlstm_init_state(batch: int, d_model: int, num_heads: int,
 
 
 def mlstm_decode(params: MLSTM, x, state: dict, num_heads: int):
-    """x: (B,1,d) single step."""
+    """x: (B,1,d) single step (a rank's channels of the conv context and
+    its heads of C, n, m, under a ModelShard that splits them)."""
+    ff, split = _mlstm_split(params, num_heads)
     q, k, v, it, ft, z, conv = _mlstm_inputs(params, x, num_heads,
-                                             state["conv"])
+                                             state["conv"], ff, split)
     h, C, n, m = _mlstm_step(q[:, 0], k[:, 0], v[:, 0], it[:, 0], ft[:, 0],
                              state["C"], state["n"], state["m"])
-    return _mlstm_out(params, h[:, None], z, x), \
+    return _mlstm_out(params, h[:, None], z, x, ff), \
         {"conv": conv.float(), "C": C, "n": n, "m": m}
 
 
@@ -354,13 +449,25 @@ class SLSTM(nn.Module):
         self.down = param(init_array(gen, (4 * d_model // 3, d_model)), dtype)
 
 
-def _slstm_cell(r, pre, h_prev, c_prev, n_prev, m_prev, num_heads: int):
-    """One sLSTM step. r: the recurrent weights (4,H,dh,dh) fp32; pre:
-    (B, 4 d_model) input pre-activations z|i|f|o; the states (B, d_model)
-    fp32."""
+def _slstm_weights(r):
+    """The recurrent weights r (4,H,dh,dh) laid out once as one (H, dh,
+    4 dh) matrix a head, gate-major columns, so that a step's product
+    reads them in place: an einsum over r's own layout copied r at every
+    token, and autograd kept each copy (69 GB over xlstm-1.3b's 4096
+    tokens of 4 rows)."""
+    G, H, dh, _ = r.shape
+    return r.permute(1, 2, 0, 3).reshape(H, dh, G * dh)
+
+
+def _slstm_cell(rw, pre, h_prev, c_prev, n_prev, m_prev, num_heads: int):
+    """One sLSTM step. rw: the recurrent weights as `_slstm_weights` lays
+    them out, fp32; pre: (B, 4 d_model) input pre-activations z|i|f|o;
+    the states (B, d_model) fp32."""
     B, d = h_prev.shape
-    hp = h_prev.reshape(B, num_heads, d // num_heads)
-    rec = torch.einsum("bhd,ghde->gbhe", hp, r).reshape(4, B, d)
+    H = num_heads
+    hp = h_prev.reshape(B, H, d // H).transpose(0, 1)          # (H,B,dh)
+    rec = torch.bmm(hp, rw).reshape(H, B, 4, d // H)
+    rec = rec.permute(2, 1, 0, 3).reshape(4, B, d)
     wz, wi, wf, wo = pre.chunk(4, dim=-1)
     z = torch.tanh(wz + rec[0])
     i_pre = wi + rec[1]
@@ -375,42 +482,82 @@ def _slstm_cell(r, pre, h_prev, c_prev, n_prev, m_prev, num_heads: int):
     return h, c, n, m_new
 
 
-def _slstm_inputs(params: SLSTM, x, conv_state=None):
-    """(pre-activations (B,S,4d) fp32, new conv context)."""
+def _slstm_split(params: SLSTM, num_heads: int) -> bool:
+    """Whether a rank of the mixer's ModelShard runs only its heads'
+    recurrence: the stored spec splits r_zifo's heads over "model" (M
+    divides H)."""
+    tp = getattr(params, "tp", None)
+    return tp is not None and tp.splits(params.r_zifo, 1, num_heads)
+
+
+def _slstm_inputs(params: SLSTM, x, conv_state=None, split: bool = False):
+    """(pre-activations (B,S,4d) fp32, new conv context). With `split`,
+    the rank's heads' columns of each of z, i, f, o (B,S,4 d/M): the
+    conv's output by copy-in, w_zifo's and b_zifo's columns of its heads
+    (a strided slice of the replicated leaves, by copy-in)."""
     dt = x.dtype
-    xc, conv = _causal_conv(x, params.conv_w.to(dt), params.conv_b.to(dt),
-                            conv_state)
-    pre = (F.silu(xc) @ params.w_zifo.to(dt)).float() + params.b_zifo
+    xc, conv = _causal_conv(x, fetch(params, "conv_w").to(dt),
+                            fetch(params, "conv_b").to(dt), conv_state)
+    u = F.silu(xc)
+    w = fetch(params, "w_zifo", local=split).to(dt)
+    b = fetch(params, "b_zifo", local=split)
+    if split:
+        tp = params.tp
+        d = x.shape[-1]
+        u = tp.copy_in(u)
+        w = tp.head_block(w.reshape(d, 4, d), 2).reshape(d, -1)
+        b = tp.head_block(b.reshape(4, d), 1).reshape(-1)
+    pre = (u @ w).float() + b
     return pre, conv
 
 
 def _slstm_out(params: SLSTM, h, x):
     """Norm, gated GELU (tanh form, jax.nn.gelu's default) and down
-    projection of h (B,S,d) fp32."""
+    projection of h (B,S,d) fp32. Under a ModelShard that splits `up`'s
+    halves into whole channel blocks (M divides d_ff and `down` is
+    stored split), the rank's channels of a and b (`exchange_halves`)
+    and its rows of down, then reduce-out; else the whole FFN."""
     dt = x.dtype
-    h = h.to(dt) * params.norm.to(dt)
-    a, b = (h @ params.up.to(dt)).chunk(2, dim=-1)
-    return (F.gelu(a, approximate="tanh") * b) @ params.down.to(dt)
+    tp = getattr(params, "tp", None)
+    split = tp is not None and tp.splits(params.up, 1) \
+        and tp.splits(params.down, 0)
+    h = h.to(dt) * fetch(params, "norm").to(dt)
+    up = fetch(params, "up", local=split).to(dt)
+    if split:
+        a, b = tp.exchange_halves(tp.copy_in(h) @ up)
+    else:
+        a, b = (h @ up).chunk(2, dim=-1)
+    out = (F.gelu(a, approximate="tanh") * b) \
+        @ fetch(params, "down", local=split).to(dt)
+    return tp.reduce_out(out) if split else out
 
 
-def _slstm_scan(pre, r, num_heads: int):
-    """The sLSTM recurrence over pre-activations pre (B,S,4d) fp32, one
-    token at a time from zero states: h (B,S,d) fp32."""
+def _slstm_scan(pre, rw, num_heads: int):
+    """The sLSTM recurrence over pre-activations pre (B,S,4d) fp32 with the
+    recurrent weights rw (`_slstm_weights`), one token at a time from
+    zero states: h (B,S,d) fp32."""
     B, S, d4 = pre.shape
     h, c, n, m = (torch.zeros((B, d4 // 4), dtype=torch.float32,
                               device=pre.device) for _ in range(4))
     hs = []
     for t in range(S):
-        h, c, n, m = _slstm_cell(r, pre[:, t], h, c, n, m, num_heads)
+        h, c, n, m = _slstm_cell(rw, pre[:, t], h, c, n, m, num_heads)
         hs.append(h)
     return torch.stack(hs, dim=1)
 
 
 def slstm_apply(params: SLSTM, x, num_heads: int):
-    """x: (B,S,d) -> (B,S,d), one token at a time."""
-    pre, _ = _slstm_inputs(params, x)
-    h = token_loop("slstm_scan", _slstm_scan,
-                   (pre, params.r_zifo.float(), num_heads), seq_args=(0,))
+    """x: (B,S,d) -> (B,S,d), one token at a time. Under a ModelShard
+    that splits the heads, the rank's heads' recurrence over the whole
+    sequence, then h gathered over "model" once (no collective in the
+    token loop)."""
+    split = _slstm_split(params, num_heads)
+    pre, _ = _slstm_inputs(params, x, split=split)
+    rw = _slstm_weights(fetch(params, "r_zifo", local=split).float())
+    nh = num_heads // params.tp.M if split else num_heads
+    h = token_loop("slstm_scan", _slstm_scan, (pre, rw, nh), seq_args=(0,))
+    if split:       # the norm and FFN after it run whole on every rank
+        h = params.tp.gather_model(h, -1, "split")
     return _slstm_out(params, h, x)
 
 
@@ -422,10 +569,24 @@ def slstm_init_state(batch: int, d_model: int, device=None) -> dict:
 
 
 def slstm_decode(params: SLSTM, x, state: dict, num_heads: int):
-    """x: (B,1,d) single step."""
-    pre, conv = _slstm_inputs(params, x, state["conv"])
-    h, c, n, m = _slstm_cell(params.r_zifo.float(), pre[:, 0], state["h"],
-                             state["c"], state["n"], state["m"], num_heads)
+    """x: (B,1,d) single step. Under a ModelShard that splits the heads,
+    the rank's heads' step from its slices of the whole states, whose new
+    values are gathered over "model": h, c, n, m stay whole, and the
+    same on every rank."""
+    split = _slstm_split(params, num_heads)
+    pre, conv = _slstm_inputs(params, x, state["conv"], split)
+    prev = [state[k] for k in "hcnm"]
+    nh = num_heads
+    if split:
+        tp = params.tp
+        nh //= tp.M
+        prev = [tp.head_block(t, -1) for t in prev]
+    h, c, n, m = _slstm_cell(
+        _slstm_weights(fetch(params, "r_zifo", local=split).float()),
+        pre[:, 0], *prev, nh)
+    if split:
+        h, c, n, m = tp.gather_model(torch.stack([h, c, n, m]), -1,
+                                     "split").unbind(0)
     return _slstm_out(params, h[:, None], x), \
         {"h": h, "c": c, "n": n, "m": m, "conv": conv.float()}
 

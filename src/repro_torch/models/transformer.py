@@ -35,21 +35,22 @@ Trainer write and read checkpoints in JAX's stacked layout; the
 stacking rule (`stacked_key`) is the one `bridge.lm_params_from_jax`
 unstacks by.
 
-Tensor-parallel compute (`shard_lm`, the attention LMs: dense, MoE,
-encoder-decoder, prefix-LM): a sharded LM holds one rank's blocks of
-its parameters, placed by the rules as JAX's in_shardings place them,
-and every module carries the rank's `collectives.ModelShard` as `tp`.
-The forward then computes only the rank's share, as GSPMD partitions
-JAX's: its query heads (and the kv heads they read), ff columns,
-experts or expert columns and vocab rows on "model" (`sharding.
-compute_split`), weights split over the data axes gathered just before
-use; the activations between blocks are whole on every rank of
-"model". The loss is vocab-parallel (`vocab_partials`,
-`combine_vocab`): no rank holds the (B, chunk, V) logits. A decode
-cache is a rank's (`init_cache(tp=)`). Models with a recurrent mixer
-(RWKV, Mamba, mLSTM, sLSTM) are not sharded this way
-(`tensor_parallel_ok`): under a mesh they keep the Trainer's replicated
-route.
+Tensor-parallel compute (`shard_lm`, every arch: dense, MoE,
+encoder-decoder, prefix-LM, recurrent and hybrid): a sharded LM holds
+one rank's blocks of its parameters, placed by the rules as JAX's
+in_shardings place them, and every module carries the rank's
+`collectives.ModelShard` as `tp`. The forward then computes only the
+rank's share, as GSPMD partitions JAX's: its query heads (and the kv
+heads they read), ff columns, experts or expert columns and vocab rows
+on "model" (`sharding.compute_split`), and in the recurrent mixers its
+heads and inner channels (`rwkv`, `ssm`); weights split over the data
+axes gathered just before use; the activations between blocks are
+whole on every rank of "model". The loss is vocab-parallel
+(`vocab_partials`, `combine_vocab`): no rank holds the (B, chunk, V)
+logits. A decode cache is a rank's (`init_cache(tp=)`: its heads of the
+RWKV and mLSTM states, its channels of Mamba's and of the mLSTM's conv
+context; the states the specs keep whole, the token shifts and the
+sLSTM's, whole and the same on every rank).
 """
 from __future__ import annotations
 
@@ -67,8 +68,8 @@ from repro_torch.config import (
     ModelConfig,
 )
 from repro_torch.distributed import sharding
-from repro_torch.distributed.collectives import (
-    MeshComm, ModelShard, share, total,
+from repro_torch.distributed.collectives import (  # noqa: F401
+    MeshComm, ModelShard, rank_shares, shard_module, share, total,
 )
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -361,67 +362,12 @@ class LM(nn.Module):
         return unstack_lm_layers(self.cfg, flat, like)
 
 
-def tensor_parallel_ok(cfg: ModelConfig) -> bool:
-    """Whether `shard_lm` takes the arch: every block (and the encoder's)
-    is attention, with an MLP, an MoE or nothing after it."""
-    return all(kind == BLOCK_ATTN for kind in cfg.blocks())
-
-
 def shard_lm(lm: LM, comm: MeshComm, rules=None) -> LM:
     """Makes `lm` (whole, any device) hold the blocks of its parameters
     that the rank of `comm` holds when each is stored by its pruned spec
     (`lm_param_specs` under `rules`, the arch's overrides applied), in
-    place, and returns it (`shard_module`). Raises for an arch outside
-    `tensor_parallel_ok`."""
-    cfg = lm.cfg
-    if not tensor_parallel_ok(cfg):
-        raise ValueError(f"{cfg.name}: tensor-parallel compute covers the "
-                         f"attention LMs; blocks {sorted(set(cfg.blocks()))}"
-                         f" keep the replicated route")
-    return shard_module(lm, lm_param_specs(cfg), cfg, comm, rules)
-
-
-def shard_module(module: nn.Module, specs: Dict[str, tuple],
-                 cfg: ModelConfig, comm: MeshComm, rules=None) -> nn.Module:
-    """`shard_lm` for any module of an attention LM of `cfg` (the LM, a
-    Block, an MoE layer, ...) whose parameters' "/"-joined names are keys
-    of `specs`: each parameter replaced by its block, keeping its pruned
-    spec as `tp_spec`, and every submodule given the rank's ModelShard as
-    `tp`."""
-    rules = sharding.arch_rules(cfg, rules)
-    sizes = comm.sizes
-    tp = ModelShard(comm, sharding.compute_split(cfg, sizes, rules), rules)
-    with torch.no_grad():
-        for name, p in module.named_parameters():
-            spec = sharding.pruned_spec(specs[name.replace(".", "/")],
-                                        p.shape, sizes, rules)
-            block = sharding.local_block(p.data, spec, sizes, comm.coords)
-            if block.shape != p.shape:
-                p.data = block.clone(memory_format=torch.contiguous_format)
-            p.tp_spec = spec
-    for m in module.modules():
-        m.tp = tp
-    return module
-
-
-def rank_shares(module: nn.Module, specs: Dict[str, tuple],
-                cfg: ModelConfig, M: int, rules=None, ranks=None) -> list:
-    """Copies of `module` as ranks `ranks` (default 0..M-1) of a "model"
-    axis of M hold it, each over a `MeshComm` in mode "local": one rank
-    computed alone, its reductions returning its own part for the caller
-    to combine in rank order. With every rank made, a gather of a
-    parameter's block over "model" finds the blocks of all of them
-    (`peers`)."""
-    import copy
-    peers: Dict[int, list] = {}
-    copies = [shard_module(copy.deepcopy(module), specs, cfg, MeshComm(
-        {"model": M}, {"model": r}, "local", peers=peers), rules)
-        for r in (range(M) if ranks is None else ranks)]
-    if ranks is None:
-        for blocks in zip(*(list(c.parameters()) for c in copies)):
-            for b in blocks:
-                peers[b.data_ptr()] = [x.data for x in blocks]
-    return copies
+    place, and returns it (`shard_module`)."""
+    return shard_module(lm, comm, rules, lm_param_specs(lm.cfg), lm.cfg)
 
 
 def _embed_tokens(params: LM, cfg: ModelConfig, tokens):

@@ -57,14 +57,21 @@ class Stage2Engine:
     moved to the model's device once. batch_fn(step) must return `triplet_row_batch`
     output and be deterministic in `step`, so checkpoint restarts replay
     the exact stream (the Trainer contract). `mesh` and `rules` go to the
-    Trainer (data-parallel steps with sharded state, the specs
-    `signature_specs`); every rank then steps on the same global batch."""
+    Trainer; every rank then steps on the same global batch. A model
+    built as one rank's blocks (`collectives.shard_module`) takes the
+    Trainer's tensor-parallel route (the rank's heads and ff columns,
+    its blocks of the state); a whole model under `mesh` its replicated
+    route (data-parallel steps with sharded state, the specs
+    `signature_specs`)."""
 
     def __init__(self, sig_cfg: SignatureConfig, model: SignatureModel,
                  matrix, cfg: TrainConfig, mesh=None,
                  rules: Optional[Dict] = None):
         self.sig_cfg = sig_cfg
         self.model = copy.deepcopy(model).train()
+        for p, q in zip(model.parameters(), self.model.parameters()):
+            if hasattr(p, "tp_spec"):   # a deep copy drops the attribute
+                q.tp_spec = p.tp_spec
         device = next(self.model.parameters()).device
         # the matrix keeps bf16 (Stage 2 on bf16 BBEs), as JAX's engine
         # keeps its dtype; anything else is held in fp32

@@ -9,30 +9,34 @@ source of the weights; the optimizer functions themselves are pure.
 
 Under a mesh there are two routes, chosen by the module:
 
-Tensor-parallel (a zoo LM whose blocks are all attention, built as one
-rank's blocks by `Model.init(mesh=, rules=)` or `transformer.shard_lm`,
-so the module carries its `ModelShard` as `tp`): the module holds only
-this rank's blocks of the parameters, placed by the rules' pruned specs,
-and so does the optimizer state. A step on the GLOBAL batch:
+Tensor-parallel (a module built as one rank's blocks, so that it
+carries its `ModelShard` as `tp`: a zoo LM by `Model.init(mesh=,
+rules=)` or `transformer.shard_lm`, the Stage-1 encoder and the
+Stage-2 model by `collectives.shard_module(module, mesh)`): the module
+holds only this rank's blocks of the parameters, placed by the rules'
+pruned specs, and so does the optimizer state. A step on the
+GLOBAL batch:
 
   * gives this rank its share of each microbatch along the rules'
     "batch" axes (its rows; the ranks of one "model" group hold the same
     rows);
   * runs forward and backward on it computing only this rank's share of
-    the work (its heads, ff columns, experts or expert columns and vocab
-    rows on "model", see `models/`), each weight split over the data
+    the work (its heads, ff columns, recurrent channels, experts or
+    expert columns and vocab rows on "model", see `models/` and
+    `core/`), each weight split over the data
     axes (FSDP) gathered just before its use, so that its gradient
     arrives reduce-scattered over them;
   * all-reduces the other gradients over the "batch" axes that do not
     split them (a leaf replicated over "model" already has the same
-    gradient on every model rank: its uses in a rank's share entered by
+    gradient on every model rank: its uses in a rank's share, whole or
+    by a slice as RWKV's w_bias and the sLSTM's b_zifo, entered by
     copy-in), sums the loss and the metrics over the "batch" axes, takes
     the global norm from the blocks (each leaf's sum of squares summed
     over the axes that split it, once) and updates the blocks in place
     (Adafactor's means summed over the axes that split each dim).
 
-Replicated (any other module, e.g. a whole LM, the Stage-1 encoder or
-Stage 2's model, with `mesh` (a DeviceMesh on the parameters' device
+Replicated (any other module, e.g. a whole LM, Stage-1 encoder or
+Stage-2 model, with `mesh` (a DeviceMesh on the parameters' device
 type), `rules` and the parameters' logical specs, `param_specs`, by
 default the model's own): every rank holds its shard of each parameter
 and of its optimizer state as DTensors placed by the rules

@@ -98,54 +98,38 @@ def test_local_shapes_follow_the_rules():
                               sizes) == (49155, 36)
 
 
-def test_placed_trainer_updates_this_devices_blocks():
-    """`PlacedTrainer` on the 16 x 16 mesh's placements: one AdamW step on
-    the CPU gives the Trainer's loss and, in every parameter block, bitwise
-    the block of the Trainer's full update (AdamW is elementwise); with
-    Adafactor on meta its means over split dims are counted as
-    all-reduces."""
-    from repro_torch.analysis.counting import StepCount
-    from repro_torch.config import MeshConfig, TrainConfig, get_arch, \
-        scaled_down
-    from repro_torch.distributed.sharding import axis_sizes, make_shardings
-    from repro_torch.models import transformer as tfm
-    from repro_torch.models.model_zoo import build_model
-    cfg = scaled_down(get_arch("smollm_135m"), num_layers=2, d_model=64,
-                      vocab_size=300)
-    model = build_model(cfg)
-    mesh = MeshConfig()
-    sizes = axis_sizes(mesh)
-    policy = dict(optimizer="adamw", remat="none", microbatch=1)
-    tokens = torch.randint(0, 300, (2, 16),
-                           generator=torch.Generator().manual_seed(1))
+def test_sharded_step_counts_adafactor_means(monkeypatch):
+    """A scaled-down smollm x train_4k on the 16 x 16 mesh, on its blocks:
+    with Adafactor each mean that sums over dims split on "data" or
+    "model" is one all-reduce over that axis in the count (the records
+    beyond AdamW's step are exactly the means' sums), and both axes have
+    such means."""
+    from repro_torch import config as tconfig
+    from repro_torch.train import trainer as ttrainer
+    small = tconfig.scaled_down(tconfig.get_arch("smollm_135m"),
+                                num_layers=2, d_model=256, num_heads=16,
+                                num_kv_heads=16, d_ff=512, vocab_size=1024)
+    monkeypatch.setattr(dryrun, "get_arch", lambda name: small)
+    base = dryrun.policy_for
+    sums = {}
+    reduce = ttrainer._CommMeans.reduce
 
-    def placed(params):
-        named = {n.replace(".", "/"): p for n, p in params.named_parameters()}
-        specs = model.param_specs()
-        return make_shardings({k: specs[k] for k in named}, mesh,
-                              dryrun.rules_for("train_4k", cfg),
-                              shapes=named)
+    def counted(self, s, group):
+        name = "model all-reduce" if group == "model" else "all-reduce"
+        sums[name] = sums.get(name, 0) + 1
+        return reduce(self, s, group)
 
-    full = dryrun.make_train_step(model, model.init(0, device="cpu"),
-                                  policy, TrainConfig())
-    params = model.init(0, device="cpu")
-    place = placed(params)
-    part = dryrun.make_train_step(model, params, policy, TrainConfig(),
-                                  place, sizes)
-    a = full.advance({"tokens": tokens})
-    b = part.advance({"tokens": tokens})
-    assert torch.equal(a["loss"], b["loss"])
-    for k, block in part.blocks.items():
-        want = dryrun._local(full.state.params[k], place[k], sizes)
-        assert torch.equal(block, want), k
-
-    with torch.device("meta"):
-        meta_params = tfm.LM(cfg)
-    policy = dict(policy, optimizer="adafactor")
-    meta = dryrun.make_train_step(model, meta_params, policy, TrainConfig(),
-                                  placed(meta_params), sizes)
-    with StepCount() as count:
-        meta.advance({"tokens": torch.empty((2, 16), dtype=torch.int64,
-                                            device="meta")})
-    assert count.collective_bytes.get("all-reduce", 0) > 0
-    assert all(v.device.type == "meta" for v in meta.blocks.values())
+    monkeypatch.setattr(ttrainer._CommMeans, "reduce", counted)
+    counts = {}
+    for opt in ("adamw", "adafactor"):
+        monkeypatch.setattr(dryrun, "policy_for",
+                            lambda m, o=opt: dict(base(m), optimizer=o))
+        d = dryrun.count_cell("smollm_135m", "train_4k", False)
+        assert d["status"] == "OK" and d["policy"]["optimizer"] == opt
+        counts[opt] = d["count"]["collective_counts"]
+        if opt == "adamw":
+            assert sums == {}
+    assert set(sums) == {"all-reduce", "model all-reduce"}
+    for name, n in sums.items():
+        assert n > 0
+        assert counts["adafactor"][name] - counts["adamw"][name] == n, name

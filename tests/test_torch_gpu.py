@@ -1492,3 +1492,91 @@ def test_tensor_parallel_attention_shares_launch_flash_at_local_heads(
         diff = (got - want).abs()
         assert bool((diff <= 1e-2 + 1e-2 * want.abs()).all())
         assert float((got - want).norm() / want.norm()) <= 1e-2
+
+
+@pytest.mark.parametrize("M", [2, 4])
+def test_tensor_parallel_rwkv_shares_launch_wkv_at_local_heads(cuda, M):
+    """The Stage-1 RWKV block (6 heads) over a "model" axis of M ranks run
+    as threads on the card (`rank_shares(mode="thread")`): at M 2 the wkv
+    forward and backward launch once a rank at 3 heads, at M 4 (which 6
+    does not divide) at all 6; the output and the input gradient, the
+    same on every rank, meet the fp32 bounds against the unsharded
+    block."""
+    from repro_torch.distributed.collectives import rank_shares, run_threads
+    from repro_torch.kernels import wkv as wkv_mod
+    from repro_torch.models import rwkv as rwkv_mod
+    d, H = 384, 6
+    block = rwkv_mod.RWKVBlock(torch.Generator().manual_seed(0), d, H
+                               ).to(cuda)
+    g = _gen(cuda, M)
+    x = torch.randn((8, 64, d), generator=g, device=cuda)
+    dy = torch.randn((8, 64, d), generator=g, device=cuda)
+    xr = x.clone().requires_grad_()
+    ref = block(xr)
+    dx_ref, = torch.autograd.grad(ref, [xr], dy)
+    heads = []
+    real = rwkv_mod.wkv
+
+    def recorded(r, *args):
+        heads.append(r.shape[2])
+        return real(r, *args)
+
+    shares = rank_shares(block, rwkv_mod.rwkv_block_specs(), None, M,
+                         mode="thread")
+
+    def one(rank):
+        xs = x.clone().requires_grad_()
+        out = shares[rank](xs)
+        return out.detach(), torch.autograd.grad(out, [xs], dy)[0]
+
+    fwd = wkv_mod.wkv.launches
+    bwd = wkv_mod.wkv_backward.launches
+    rwkv_mod.wkv = recorded
+    try:
+        res = run_threads(one, M, shares[0].tp.comm.room)
+    finally:
+        rwkv_mod.wkv = real
+    torch.cuda.synchronize()
+    local = H // M if H % M == 0 else H
+    assert heads == [local] * M
+    assert wkv_mod.wkv.launches - fwd == M
+    assert wkv_mod.wkv_backward.launches - bwd == M
+    for out, dx in res:
+        assert torch.equal(out, res[0][0]) and torch.equal(dx, res[0][1])
+    for got, want in ((res[0][0], ref.detach()), (res[0][1], dx_ref)):
+        assert float((got - want).norm() / want.norm()) <= 1e-5
+
+
+@pytest.mark.parametrize("M", [2, 4])
+def test_tensor_parallel_set_attention_shares_at_local_heads(cuda, M):
+    """A Stage-2 SAB (d 256, 4 heads) over M ranks run as threads on the
+    card: the set-attention forward and backward launch once a rank at
+    4 / M heads, and the output and input gradient meet the fp32 bounds
+    against the unsharded MAB."""
+    from repro_torch.distributed.collectives import rank_shares, run_threads
+    from repro_torch.models import set_transformer as st
+    mab = st.MAB(torch.Generator().manual_seed(0), 256, 4, 512).to(cuda)
+    g = _gen(cuda, M)
+    x = torch.randn((64, 48, 256), generator=g, device=cuda)
+    dy = torch.randn((64, 48, 256), generator=g, device=cuda)
+    bias = torch.rand((64, 48), generator=g, device=cuda)
+    mask = torch.rand((64, 48), generator=g, device=cuda) > 0.2
+    xr = x.clone().requires_grad_()
+    ref = mab(xr, xr, bias, mask)
+    dx_ref, = torch.autograd.grad(ref, [xr], dy)
+    shares = rank_shares(mab, st.mab_specs(), None, M, mode="thread")
+
+    def one(rank):
+        xs = x.clone().requires_grad_()
+        out = shares[rank](xs, xs, bias, mask)
+        return out.detach(), torch.autograd.grad(out, [xs], dy)[0]
+
+    fwd = masked_set_attention.launches
+    bwd = set_attention_backward.launches
+    res = run_threads(one, M, shares[0].tp.comm.room)
+    torch.cuda.synchronize()
+    assert shares[0].mha.wq.shape == (256, 256 // M)
+    assert masked_set_attention.launches - fwd == M
+    assert set_attention_backward.launches - bwd == M
+    for got, want in ((res[0][0], ref.detach()), (res[0][1], dx_ref)):
+        assert float((got - want).norm() / want.norm()) <= 1e-5
