@@ -268,13 +268,6 @@ redesigns), of the port
 under OTHER_CHECKOUT/src and of this one, in turns
 (other, this, this, other), each in a process of its own, on one card:
 a before/after comparison of two commits on the same card.
-
-    python3 chip_smoke.py --profile-stage1
-
-runs none of that either: it profiles 3 Stage-1 pre-training steps of
-phase 5b's configuration (torch.profiler) and prints where a step's time
-goes: host wall, kernels a step, the device's busy share, device time
-by kind and the top kernels.
 """
 from __future__ import annotations
 
@@ -5911,39 +5904,6 @@ def time_kernels(root: str) -> dict:
     return out
 
 
-def profile_stage1() -> int:
-    """Where a Stage-1 pre-training step of phases 5b (fp32) and 11d
-    (bf16) goes: for each dtype, 3 steps under torch.profiler after 3
-    warm-up steps (batches made beforehand). Prints the host wall a step,
-    the kernels a step, the device's busy time a step (the union of
-    kernel intervals) and its share of the wall, the device time by kind
-    (matmul, wkv, other) and the top kernels."""
-    from repro_torch.config import TrainConfig
-    from repro_torch.core.bbe import BBEConfig, BBEEncoder, pretrain_loss
-    from repro_torch.kernels import _lib
-    from repro_torch.train import Trainer
-    _lib.load_library()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    log(_card_name())
-    for dtype in ("float32", "bfloat16"):
-        cfg = BBEConfig(dtype=dtype)
-        pre, _ = _stage1_loaders(cfg, "cuda")
-        batches = [pre(s) for s in range(6)]
-        trainer = Trainer(pretrain_loss,
-                          BBEEncoder(cfg, seed=SEED).to("cuda"),
-                          TrainConfig(learning_rate=2e-3, total_steps=20,
-                                      warmup_steps=2, checkpoint_every=0))
-        for b in batches[:3]:
-            trainer.step(b)
-        torch.cuda.synchronize()
-        _profile(lambda: [trainer.step(b) for b in batches[3:]],
-                 len(batches) - 3, f"stage-1 pre-training step, {dtype} "
-                 f"({STAGE1_BATCH} x {cfg.max_len} tokens", "wkv_")
-        del trainer
-    return 0
-
-
 def _card_name() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6054,13 +6014,12 @@ def versus(other: str) -> int:
 
 
 def main() -> int:
-    if sys.argv[1:] in (["--profile-stage1"], ["--profile-moe"]):
+    if sys.argv[1:] == ["--profile-moe"]:
         if not torch.cuda.is_available():
             print("chip_smoke: CUDA is not available", file=sys.stderr)
             return 2
         sys.path.insert(0, os.path.join(HERE, "src"))
-        return (profile_stage1() if sys.argv[1] == "--profile-stage1"
-                else profile_moe())
+        return profile_moe()
     if len(sys.argv) == 3 and sys.argv[1] in ("--versus", "--time-kernels"):
         if not torch.cuda.is_available():
             print("chip_smoke: CUDA is not available", file=sys.stderr)

@@ -38,6 +38,7 @@ from repro_torch.core.pipeline import SemanticBBVPipeline
 from repro_torch.core.signature import SignatureConfig
 from repro_torch.data.isa import BasicBlock
 from repro_torch.device import Device
+from repro_torch.utils import spans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,9 +95,10 @@ class SemanticBBVService:
     def ingest_blocks(self, blocks: Sequence[BasicBlock]) -> int:
         """Stage-1 encode basic blocks into the service's BBE table;
         returns the table size."""
-        self.bbe_table.update(
-            self.pipe.encode_blocks(list(blocks), self.cfg.encode_batch))
-        return len(self.bbe_table)
+        with spans.span("service.ingest_blocks"):
+            self.bbe_table.update(
+                self.pipe.encode_blocks(list(blocks), self.cfg.encode_batch))
+            return len(self.bbe_table)
 
     def ingest_intervals(self, program: str, intervals: Sequence,
                          cpis: Optional[Sequence[float]] = None
@@ -104,10 +106,12 @@ class SemanticBBVService:
         """Signature every interval and append to the store; returns the
         new store rows. Interval instruction counts become the weights.
         Blocks referenced by the intervals must have been ingested."""
-        sigs = self.pipe.interval_signatures(
-            list(intervals), self.bbe_table, self.cfg.signature_batch)
-        weights = [iv.num_instrs for iv in intervals]
-        return self.store.add(program, sigs, weights, cpis)
+        with spans.span("service.ingest_intervals"):
+            sigs = self.pipe.interval_signatures(
+                list(intervals), self.bbe_table, self.cfg.signature_batch)
+            weights = [iv.num_instrs for iv in intervals]
+            with spans.span("stage2.store"):
+                return self.store.add(program, sigs, weights, cpis)
 
     # ------------------------------------------------------------ queries
     def build(self, k: Optional[int] = None, seed: Optional[int] = None,
@@ -157,10 +161,11 @@ class SemanticBBVService:
                               weights=[iv.num_instrs for iv in intervals])
 
     def estimate(self, program: str) -> CPIEstimate:
-        est = self.kb.estimate(program)
-        # recency stamp after the query (touch never bumps `version`)
-        self.store.touch(self.store.rows_for(program))
-        return est
+        with spans.span("service.estimate"):
+            est = self.kb.estimate(program)
+            # recency stamp after the query (touch never bumps `version`)
+            self.store.touch(self.store.rows_for(program))
+            return est
 
     # ---------------------------------------------------- store lifecycle
     def evict(self, program: str) -> int:

@@ -31,6 +31,7 @@ from repro_torch.core.signature import SignatureConfig, SignatureModel
 from repro_torch.core.tokenizer import MultiDimTokenizer, default_tokenizer
 from repro_torch.data.isa import BasicBlock
 from repro_torch.device import Device, resolve_device
+from repro_torch.utils import spans
 
 _BBE_CACHE_SIZE = 1 << 16
 
@@ -195,47 +196,57 @@ class SemanticBBVPipeline:
 
         Every chunk, including the last partial one, is padded to the
         static (batch, L, 6) shape, as the JAX pipeline does."""
-        n = tokens.shape[0]
+        n, length = tokens.shape[:2]
         outs = []
         for i in range(0, n, batch):
-            chunk = tokens[i:i + batch]
-            got = chunk.shape[0]
-            if got < batch:
-                chunk = np.pad(chunk, ((0, batch - got), (0, 0), (0, 0)))
-            tok = torch.from_numpy(np.ascontiguousarray(chunk)).to(
-                self.device, torch.long)
-            outs.append(self.encoder(tok)[:got])
+            with spans.span("stage1.upload"):
+                chunk = tokens[i:i + batch]
+                got = chunk.shape[0]
+                if got < batch:
+                    chunk = np.pad(chunk, ((0, batch - got), (0, 0), (0, 0)))
+                tok = torch.from_numpy(np.ascontiguousarray(chunk)).to(
+                    self.device, torch.long)
+            with spans.span("stage1.model", slots=batch * length):
+                if spans.recording():
+                    spans.add(tokens=int(self.tok.lengths(chunk).sum()))
+                outs.append(self.encoder(tok)[:got])
         if not outs:
             return np.zeros((0, self.bbe_cfg.bbe_dim), np.float32)
         # bf16 BBEs (dtype "bfloat16") come back widened to fp32, exactly:
         # the BBE index holds fp32, as JAX's does
-        return torch.cat(outs).float().cpu().numpy()
+        with spans.span("stage1.read"):
+            return torch.cat(outs).float().cpu().numpy()
 
     def encode_blocks(self, blocks: Sequence[BasicBlock], batch: int = 256
                       ) -> Dict[int, np.ndarray]:
         """Stage 1 over blocks, with an LRU cache keyed by block content
         so repeated calls only encode blocks they have not seen."""
         lru = self._bbe_lru
-        keys = [b.render() for b in blocks]
-        fresh, fresh_keys, seen = [], [], set()
-        for b, key in zip(blocks, keys):
-            if key not in lru and key not in seen:
-                fresh.append(b)
-                fresh_keys.append(key)
-                seen.add(key)
+        with spans.span("stage1.keys"):
+            keys = [b.render() for b in blocks]
+            fresh, fresh_keys, seen = [], [], set()
+            for b, key in zip(blocks, keys):
+                if key not in lru and key not in seen:
+                    fresh.append(b)
+                    fresh_keys.append(key)
+                    seen.add(key)
+        vecs = ()
         if fresh:
-            toks = self.tok.encode_blocks(fresh, self.bbe_cfg.max_len)
-            for key, vec in zip(fresh_keys, self.encode_tokens(toks, batch)):
+            with spans.span("stage1.tokenize", blocks=len(fresh)):
+                toks = self.tok.encode_blocks(fresh, self.bbe_cfg.max_len)
+            vecs = self.encode_tokens(toks, batch)
+        with spans.span("stage1.table"):
+            for key, vec in zip(fresh_keys, vecs):
                 lru[key] = vec.copy()   # detach from the batch array
-        out = {}
-        for b, key in zip(blocks, keys):
-            lru.move_to_end(key)
-            # copies: callers may mutate the returned table
-            out[b.bid] = lru[key].copy()
-        # evict only after serving: every key of this call was just
-        # move_to_end'd, so eviction can't touch entries still in use
-        while len(lru) > _BBE_CACHE_SIZE:
-            lru.popitem(last=False)
+            out = {}
+            for b, key in zip(blocks, keys):
+                lru.move_to_end(key)
+                # copies: callers may mutate the returned table
+                out[b.bid] = lru[key].copy()
+            # evict only after serving: every key of this call was just
+            # move_to_end'd, so eviction can't touch entries still in use
+            while len(lru) > _BBE_CACHE_SIZE:
+                lru.popitem(last=False)
         return out
 
     # ------------------------------------------------------------- stage 2
@@ -285,12 +296,13 @@ class SemanticBBVPipeline:
         state = self._index_cache
         if state.get("table") is not bbe_table or \
                 state.get("n") != len(bbe_table):
-            index = BBEIndex(bbe_table)
-            if index.num_rows:
-                matrix = torch.from_numpy(index.ext).to(self.device)
-            else:
-                matrix = torch.zeros((1, self.sig_cfg.bbe_dim),
-                                     device=self.device)
+            with spans.span("stage2.index"):
+                index = BBEIndex(bbe_table)
+                if index.num_rows:
+                    matrix = torch.from_numpy(index.ext).to(self.device)
+                else:
+                    matrix = torch.zeros((1, self.sig_cfg.bbe_dim),
+                                         device=self.device)
             state.update(table=bbe_table, n=len(bbe_table), index=index,
                          matrix=matrix)
         return state["index"], state["matrix"]
@@ -306,26 +318,31 @@ class SemanticBBVPipeline:
         index, matrix = self._table_index(bbe_table)
         sigs, cpis = [], []
         for i in range(0, len(intervals), batch):
-            row_ids, freqs, mask = batch_set_ids(
-                intervals[i:i + batch], index, self.sig_cfg.max_set)
+            with spans.span("stage2.assemble"):
+                row_ids, freqs, mask = batch_set_ids(
+                    intervals[i:i + batch], index, self.sig_cfg.max_set)
             got = row_ids.shape[0]
-            if got < batch:
-                pad = batch - got
-                row_ids = np.pad(row_ids, ((0, pad), (0, 0)),
-                                 constant_values=index.sentinel)
-                freqs = np.pad(freqs, ((0, pad), (0, 0)))
-                mask = np.pad(mask, ((0, pad), (0, 0)))
-            rows = torch.from_numpy(row_ids).to(self.device, torch.long)
-            bbes = matrix[rows]                       # device-side gather
-            sig, logcpi = self.sig_model(
-                bbes, torch.from_numpy(freqs).to(self.device),
-                torch.from_numpy(mask).to(self.device))
-            sigs.append(sig[:got])
-            cpis.append(logcpi[:got])
+            pad = batch - got
+            with spans.span("stage2.upload"):
+                if pad:
+                    row_ids = np.pad(row_ids, ((0, pad), (0, 0)),
+                                     constant_values=index.sentinel)
+                    freqs = np.pad(freqs, ((0, pad), (0, 0)))
+                    mask = np.pad(mask, ((0, pad), (0, 0)))
+                rows = torch.from_numpy(row_ids).to(self.device, torch.long)
+                freqs = torch.from_numpy(freqs).to(self.device)
+                mask = torch.from_numpy(mask).to(self.device)
+            with spans.span("stage2.model"):
+                bbes = matrix[rows]                   # device-side gather
+                sig, logcpi = self.sig_model(bbes, freqs, mask)
+                sigs.append(sig[:got])
+                cpis.append(logcpi[:got])
         if not sigs:
             return (np.zeros((0, self.sig_cfg.sig_dim), np.float32),
                     np.zeros((0,), np.float32))
-        return torch.cat(sigs).cpu().numpy(), torch.cat(cpis).cpu().numpy()
+        with spans.span("stage2.read"):
+            return (torch.cat(sigs).cpu().numpy(),
+                    torch.cat(cpis).cpu().numpy())
 
     def interval_signatures(self, intervals, bbe_table, batch: int = 512
                             ) -> np.ndarray:

@@ -55,6 +55,7 @@ restore re-shards onto the current mesh, whatever mesh wrote it.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import signal
 import time
@@ -75,10 +76,14 @@ from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.optimizer import (
     Shards, global_norm_clip, lr_schedule, make_optimizer,
 )
+from repro_torch.utils import spans
 from repro_torch.utils.log import get_logger
 from repro_torch.utils.tree import tree_map
 
 log = get_logger("repro_torch.train")
+
+# steps whose median the straggler watchdog compares each step with
+_STRAGGLER_WINDOW = 20
 
 
 @dataclasses.dataclass
@@ -172,7 +177,8 @@ class Trainer:
         self.opt_specs = (None if param_specs is None
                           else opt_specs_fn(param_specs))
         self._preempted = False
-        self._step_times: list = []
+        self._step_times: collections.deque = collections.deque(
+            maxlen=_STRAGGLER_WINDOW)
         self._data: Optional[DataShard] = None
         self._tp = getattr(model, "tp", None)
         if self._tp is not None:
@@ -353,43 +359,49 @@ class Trainer:
         """One step on the global batch; its metrics stay tensors (no
         host read, so it runs on meta tensors too)."""
         cfg = self.cfg
-        loss, metrics, grads = self._grads(batch)
-        if self._tp is not None:
-            # over the "batch" axes that do not split the leaf (FSDP's
-            # gather reduce-scattered the others in the backward)
-            for k, g in grads.items():
-                self._tp.comm.all_reduce(g, self._grad_axes[k])
-        elif self._data is not None:
-            # sums over the data axes of the ranks' shares
-            for g in grads.values():
-                self._data.all_reduce(g)
-        if self._data is not None:
-            keys = list(metrics)
-            tot = self._data.all_reduce(torch.stack(
-                [loss] + [metrics[k] for k in keys]).float())
-            loss, metrics = tot[0], dict(zip(keys, tot[1:]))
-        grads, gnorm = global_norm_clip(
-            grads, cfg.grad_clip,
-            None if self._tp is None else self._reduce_squares)
-        lr = lr_schedule(self.state.step, base_lr=cfg.learning_rate,
-                         warmup_steps=cfg.warmup_steps,
-                         total_steps=cfg.total_steps)
-        new_params = self._update(grads, float(lr))
-        with torch.no_grad():
-            for name, p in self.state.params.items():
-                p.copy_(new_params[name])
+        with spans.span("train.grads"):
+            loss, metrics, grads = self._grads(batch)
+            if self._tp is not None:
+                # over the "batch" axes that do not split the leaf (FSDP's
+                # gather reduce-scattered the others in the backward)
+                for k, g in grads.items():
+                    self._tp.comm.all_reduce(g, self._grad_axes[k])
+            elif self._data is not None:
+                # sums over the data axes of the ranks' shares
+                for g in grads.values():
+                    self._data.all_reduce(g)
+            if self._data is not None:
+                keys = list(metrics)
+                tot = self._data.all_reduce(torch.stack(
+                    [loss] + [metrics[k] for k in keys]).float())
+                loss, metrics = tot[0], dict(zip(keys, tot[1:]))
+        with spans.span("train.clip"):
+            grads, gnorm = global_norm_clip(
+                grads, cfg.grad_clip,
+                None if self._tp is None else self._reduce_squares)
+        with spans.span("train.optimizer"):
+            lr = lr_schedule(self.state.step, base_lr=cfg.learning_rate,
+                             warmup_steps=cfg.warmup_steps,
+                             total_steps=cfg.total_steps)
+            new_params = self._update(grads, float(lr))
+            with torch.no_grad():
+                for name, p in self.state.params.items():
+                    p.copy_(new_params[name])
         self.state.step += 1
         return dict(metrics, loss=loss, grad_norm=gnorm, lr=lr)
 
     def step(self, batch: Any) -> Dict[str, float]:
         """One step on the global batch (`advance`), its metrics read to
         the host."""
-        t0 = time.monotonic()
-        metrics = {k: float(v) for k, v in self.advance(batch).items()}
-        dt = time.monotonic() - t0
-        self._step_times.append(dt)
-        self._watchdog(dt)
-        return metrics
+        with spans.span("train.step"):
+            t0 = time.monotonic()
+            out = self.advance(batch)
+            with spans.span("train.read"):
+                metrics = {k: float(v) for k, v in out.items()}
+            dt = time.monotonic() - t0
+            self._step_times.append(dt)
+            self._watchdog(dt)
+            return metrics
 
     def _update(self, grads: Dict[str, torch.Tensor], lr: float
                 ) -> Dict[str, torch.Tensor]:
@@ -430,10 +442,10 @@ class Trainer:
         self.state.opt_state = self._wrap(new_o)
         return {k: v.full_tensor() for k, v in self.state.param_shards.items()}
 
-    def _watchdog(self, dt: float, factor: float = 3.0, window: int = 20):
+    def _watchdog(self, dt: float, factor: float = 3.0):
         """Straggler detection: flags steps more than factor x the rolling
-        median (logged)."""
-        times = self._step_times[-window:]
+        median of the last `_STRAGGLER_WINDOW` steps (logged)."""
+        times = self._step_times
         if len(times) >= 5:
             med = float(np.median(times))
             if dt > factor * med:
